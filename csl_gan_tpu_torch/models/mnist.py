@@ -1,0 +1,69 @@
+"""MNIST vanilla MLP GAN (reference MNIST_models.py:9-52) as nn.Modules.
+
+Same widths and layer names as the JAX package's models/mnist.py: G
+z (+one-hot y) -> 128 -> 784 -> sigmoid; D flatten(x) (+one-hot y) ->
+128 -> {1, aux n_classes}. Images stay NHWC (B, 28, 28, 1) at the public
+functions, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from csl_gan_tpu_torch.models.common import one_hot
+
+# Leaf order of the JAX package's flattened param trees (sorted keys: bias
+# before kernel in each module), in torch state-dict names. The epoch kernel,
+# the ghost clip stats and the DP noise all use this order.
+D_LEAVES = ("lin1.bias", "lin1.weight", "lin2.bias", "lin2.weight",
+            "linOutAux.bias", "linOutAux.weight")
+G_LEAVES = ("lin1.bias", "lin1.weight", "lin2.bias", "lin2.weight")
+
+
+class MNISTVanillaG(nn.Module):
+    family = "vanilla"
+
+    def __init__(self, z_dim: int = 100, n_classes: int = 0, out_ch: int = 1):
+        super().__init__()
+        self.n_classes = n_classes
+        self.out_ch = out_ch
+        self.lin1 = nn.Linear(z_dim + n_classes, 128)
+        self.lin2 = nn.Linear(128, 784 * out_ch)
+
+    def forward(self, z: torch.Tensor, y: Optional[torch.Tensor] = None):
+        x = z
+        if y is not None:
+            x = torch.cat([x, one_hot(y, self.n_classes)], dim=1)
+        x = torch.relu(self.lin1(x))
+        x = torch.sigmoid(self.lin2(x))
+        return x.reshape(z.shape[0], 28, 28, self.out_ch)
+
+
+class MNISTVanillaD(nn.Module):
+    """The vanilla D concatenates the label one-hot for any conditional arch,
+    ACGAN included (reference MNIST_models.py:41-46)."""
+    family = "vanilla"
+
+    def __init__(self, n_classes: int = 0, conditional_arch: str = "ACGAN"):
+        super().__init__()
+        self.n_classes = n_classes
+        self.conditional_arch = conditional_arch
+        self.lin1 = nn.Linear(784 + n_classes, 128)
+        self.lin2 = nn.Linear(128, 1)
+        if n_classes > 1 and conditional_arch == "ACGAN":
+            self.linOutAux = nn.Linear(128, n_classes)
+
+    def forward(self, x: torch.Tensor, y: Optional[torch.Tensor] = None,
+                aux: bool = True):
+        o = x.reshape(x.shape[0], -1)
+        if y is not None:
+            o = torch.cat([o, one_hot(y, self.n_classes)], dim=1)
+        o = torch.relu(self.lin1(o))
+        out = self.lin2(o)
+        aux_out = None
+        if aux and hasattr(self, "linOutAux"):
+            aux_out = self.linOutAux(o)
+        return out, aux_out
