@@ -6,21 +6,35 @@
 From the root of a checkout, on a machine with one NVIDIA H100 and the CUDA
 toolkit, it:
   1. prints the card's name and power limit (nvidia-smi);
-  2. builds every kernel of the ported path from the sources (one nvcc per
+  2. builds every kernel of the ported paths from the sources (one nvcc per
      source, in parallel) and prints the build time and ptxas report;
-  3. holds each kernel against its plain PyTorch version on the card, at the
-     main path's full width (bs 600, F 784, nc 10, latent 100, H 128), with
-     seeded inputs: 5 steps with DP from the initial state, 5 without DP
-     from a mid-training Adam state, and 5 with DP on an fp32 table; it
-     also prints, without holding it to the bound, the gap of 5 steps
-     without DP from zero Adam moments;
-  4. drives the main path through its entry point: the port's Trainer on
-     ``MNIST --conditional -dpm gc --sigma 10 -bs 600 -tss 60000`` (synthetic
-     MNIST) for 3 epochs in one group, checks the kernel launch counts,
-     finite losses and epsilon, and prints ms/epoch and samples/s;
-  5. times each kernel and its plain version at the main path's shapes (one
-     100-step epoch), prints the device time by CUDA kernel from
-     torch.profiler, and prints one JSON ``kernels`` line;
+  3. MNIST path (K1). Holds K1 against its plain PyTorch version on the
+     card, at the path's full width (bs 600, F 784, nc 10, latent 100,
+     H 128), with seeded inputs: 5 steps with DP from the initial state, 5
+     without DP from a mid-training Adam state, and 5 with DP on an fp32
+     table; it also prints, without holding it to the bound, the gap of 5
+     steps without DP from zero Adam moments. Then drives the path through
+     its entry point, the port's Trainer on ``MNIST --conditional -dpm gc
+     --sigma 10 -bs 600 -tss 60000`` (synthetic MNIST) for 2 epochs in one
+     group, checks the K1 launch count, finite losses and epsilon, prints
+     ms/epoch and samples/s, and times K1 and its plain version on one
+     100-step epoch with the device time by CUDA kernel (torch.profiler);
+  4. CelebA path (K2-K5). Holds K2/K3 against their plain versions at the
+     flagship's ghost-order layers conv2-conv4 and K4/K5 at the generator's
+     five norm shapes (B 128, bf16), timing each beside its plain version
+     and one PyTorch library call where one computes the same function;
+     holds one port D step and one G step at full width (bs 8, fp32) through
+     K2-K5 against the same steps through the plain versions, both on the
+     card, and prints two witnesses beside the gap (the plain steps
+     repeated, and the plain steps with z moved by 1e-7 relative); drives
+     the path through its entry point, the port's Trainer on ``CelebA
+     --conditional -dpm gc -bs 128 -tss 12800 -nms 1 --mean_sample_size 8
+     --bf16 true --train_d_until_threshold 1e18`` (synthetic CelebA, full
+     celeba_g64 / celeba_d64 width) for 2 epochs, checks that K2-K5 each
+     launched, finite losses and epsilon, prints ms per D step and samples/s,
+     and the device time by CUDA kernel of one more epoch;
+  5. prints one JSON ``kernels`` line (K1-K5: launches on their main path,
+     max abs gap to the plain version, ms, plain ms, bound, library ms);
   6. ends with ``{"ok": true, "device": {...}}`` as the last line.
 Any failure raises or exits non-zero, and no result line is printed. It
 needs no network and imports nothing of JAX or of the JAX package.
@@ -28,6 +42,7 @@ needs no network and imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import json
 import math
@@ -39,20 +54,19 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 
 # Published peaks by the name nvidia-smi gives (NVIDIA data sheets, dense):
-# fp32 outside the tensor cores, and device memory bandwidth, at the full
-# power limit. The first match wins.
-PEAKS = (("H100 PCIe", 51.2e12, 2.0e12), ("H100 NVL", 60.0e12, 3.9e12),
-         ("H200", 67.0e12, 4.8e12), ("H100", 67.0e12, 3.35e12))
+# fp32 outside the tensor cores, bf16 on the tensor cores, and device memory
+# bandwidth, at the full power limit. The first match wins.
+PEAKS = (("H100 PCIe", 51.2e12, 756e12, 2.0e12), ("H100 NVL", 60.0e12, 835e12, 3.9e12),
+         ("H200", 67.0e12, 989e12, 4.8e12), ("H100", 67.0e12, 989e12, 3.35e12))
 
 BS, F, NC, LATENT, H = 600, 784, 10, 100, 128
-EPOCHS, CHECK_STEPS, TIME_STEPS = 3, 5, 100
+EPOCHS, CHECK_STEPS, TIME_STEPS = 2, 5, 100
 # Kernel vs plain: both run the same fp32 arithmetic in another reduction
 # order (tiled FFMA sums against PyTorch's kernels with TF32 off), so single
 # results agree to ~1e-7 relative and, after 5 Adam steps, params and
 # moments to a few 1e-6 with DP and ~1e-5 without (H100). 1e-4 leaves room
-# for that drift and
-# still fails on any wrong term, which moves a step's update by ~lr / |param|
-# ~ 1e-2 relative.
+# for that drift and still fails on any wrong term, which moves a step's
+# update by ~lr / |param| ~ 1e-2 relative.
 REL_BOUND = 1e-4
 
 
@@ -89,6 +103,425 @@ def k1_bytes(n: int, p_d: int, p_g: int, use_dp: bool) -> float:
     return float(rows + rand + noise + state + 40 * 4)
 
 
+# ---------------- the CelebA path (K2-K5) ----------------
+
+CB = 128                                   # the flagship's batch
+# The D's ghost-order layers (conv2-conv4): (H of the input, Cin, Cout); 5x5,
+# stride 2, pad 2 (models/dcresnet.py celeba_d64).
+CONV_LAYERS = ((32, 64, 128), (16, 128, 256), (8, 256, 512))
+# The G's norms: (HW, C) and how many of the nine layers have that shape.
+GN_SHAPES = ((16, 512, 1), (64, 512, 2), (256, 256, 2), (1024, 128, 2), (4096, 64, 2))
+FLAGSHIP = ["CelebA", "--conditional", "-dpm", "gc", "-bs", str(CB), "-tss", "12800",
+            "-nms", "1", "--mean_sample_size", "8", "--bf16", "true",
+            "--train_d_until_threshold", "1e18"]
+CELEBA_EPOCHS = 2
+# K2/K3 vs plain: the same bf16 inputs, exact fp32 products, fp32 sums in
+# another order (and K3 rounds w * c to bf16 exactly as the plain version
+# does), so the gap is reduction order: ~1e-7 to 1e-5 relative (H100). A
+# wrong term or a dropped tile moves it to >= 1e-3.
+CONV_BOUND = 1e-4
+# K4/K5 vs plain: fp32 statistics in another summation order; the bf16
+# outputs (y, dx) then round to the other side of a bf16 step on rare
+# elements (one ulp, 2^-8 relative), ~2e-5 in relative l2 (H100). dgamma /
+# dbeta are fp32 sums: reduction order only.
+GN_BOUND, GN_PARAM_BOUND = 1e-3, 1e-4
+# One full-width D step and G step on the card (fp32, TF32 off, deterministic
+# cuDNN) through K2-K5 against the same steps through the plain versions; the
+# plain steps repeat exactly, so only K2-K5 differ. On an H100 the D step's
+# params and moments differ by ~1e-5 (reduction order) and the metrics by
+# ~1e-6. G's gradient is far more sensitive: its ReLU masks and D's
+# leaky-ReLU masks flip on the few elements within rounding of 0, and moving
+# z by 1e-7 relative moves G's moments by ~7e-3, twice the ~4e-3 that K2-K5
+# move them by. So G is held to 2e-2, under 3x that witness, which the check
+# prints on every run. A fault in the wiring (a layer, a factor, a scale)
+# moves them by O(1).
+STEP_BOUND_D, STEP_BOUND_G, STEP_BOUND_MET = 1e-4, 2e-2, 1e-4
+
+
+# CUDA kernel names by group, for the CelebA profile; the first match wins.
+PROFILE_GROUPS = (
+    ("K2 ghost_sq_norms", ("ghost_norm_tiles", "sum_rows")),
+    ("K3 weighted_kernel_grad", ("wsum_tiles", "sum_splits")),
+    ("K4/K5 gn_relu", ("gn_channel_sums", "gn_relu_apply", "gn_bwd_", "gn_param_grads")),
+    ("cuDNN convolutions", ("implicit_gemm", "cudnn", "fprop", "dgrad", "wgrad")),
+    ("cuBLAS GEMMs", ("gemm", "gemv")),
+    ("im2col (conv1's direct order)", ("im2col",)),
+    ("copies and casts", ("copy",)),
+    ("reductions", ("reduce_kernel",)),
+    ("other element-wise", ("elementwise",)),
+)
+
+
+def device_ms_by_kernel(prof):
+    """[(device ms, launches, name)] of each CUDA kernel in a torch.profiler
+    run, largest first (operator rows, which repeat their kernels' time, are
+    left out)."""
+    rows = []
+    for ev in prof.key_averages():
+        if "CUDA" not in str(ev.device_type):
+            continue
+        t_dev = getattr(ev, "self_device_time_total", None)
+        if t_dev is None:
+            t_dev = getattr(ev, "self_cuda_time_total", 0)
+        if t_dev > 0:
+            rows.append((t_dev / 1e3, ev.count, ev.key[:110]))
+    return sorted(rows, reverse=True)
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device time of fn over reps launches, after one warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    s0, s1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s0.record()
+    for _ in range(reps):
+        fn()
+    s1.record()
+    torch.cuda.synchronize()
+    return s0.elapsed_time(s1) / reps
+
+
+def bound(ops: float, nbytes: float, peak_ops: float, peak_bytes: float):
+    t_ops, t_bytes = ops / peak_ops * 1e3, nbytes / peak_bytes * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def k2_ops(b: int, s: int, k: int, o: int) -> float:
+    """Operations that B per-sample norms ||U_i^T C_i||^2 need at least: the
+    cheaper of the symmetric half of both [S, S] Grams with their Frobenius
+    product, and the direct order (each [K, O] product, then its squares)."""
+    grams = float(b) * s * (s + 1) * (k + o + 1)
+    direct = 2.0 * b * k * o * (s + 1)
+    return min(grams, direct)
+
+
+def conv_ghost_phase(dev, peak_bf16, peak_bytes):
+    """K2 / K3 against their plain versions and timed, at conv2-conv4."""
+    import torch
+    from csl_gan_tpu_torch.ops import pallas_conv_ghost as pcg
+
+    g = torch.Generator(dev).manual_seed(21)
+    tot = {k: 0.0 for k in ("k2", "k2_plain", "k3", "k3_plain", "k3_lib",
+                            "k2_ops", "k2_bytes", "k3_ops", "k3_bytes")}
+    err = {"k2": 0.0, "k3": 0.0}
+    for h, cin, cout in CONV_LAYERS:
+        ho = h // 2
+        a = torch.randn(CB, h, h, cin, generator=g, device=dev).to(torch.bfloat16)
+        c = torch.randn(CB, ho, ho, cout, generator=g, device=dev).to(torch.bfloat16)
+        w = torch.rand(CB, generator=g, device=dev) * 0.9 + 0.1
+        ks = (5, 5, cin, cout)
+        nk, npl = pcg.ghost_sq_norms(a, c, 5, 5, 2, 2), pcg.ghost_sq_norms_plain(a, c, 5, 5, 2, 2)
+        wk = pcg.weighted_kernel_grad(a, c, w, ks, 2, 2)
+        wp = pcg.weighted_kernel_grad_plain(a, c, w, ks, 2, 2)
+        torch.cuda.synchronize()
+        r2, r3 = rel_l2(nk, npl), rel_l2(wk, wp)
+        err["k2"] = max(err["k2"], float((nk - npl).abs().max()))
+        err["k3"] = max(err["k3"], float((wk - wp).abs().max()))
+        # Library yardstick of K3: cuDNN's weight gradient of the conv on the
+        # w-scaled bf16 cotangent (the scaling is not timed).
+        a_nchw = a.permute(0, 3, 1, 2)
+        cw = (c.float() * w[:, None, None, None]).to(torch.bfloat16).permute(0, 3, 1, 2)
+        wshape = (cout, cin, 5, 5)
+        t = {"k2": cuda_ms(lambda: pcg.ghost_sq_norms(a, c, 5, 5, 2, 2), 10),
+             "k2_plain": cuda_ms(lambda: pcg.ghost_sq_norms_plain(a, c, 5, 5, 2, 2), 5),
+             "k3": cuda_ms(lambda: pcg.weighted_kernel_grad(a, c, w, ks, 2, 2), 10),
+             "k3_plain": cuda_ms(lambda: pcg.weighted_kernel_grad_plain(a, c, w, ks, 2, 2), 5),
+             "k3_lib": cuda_ms(lambda: torch.nn.grad.conv2d_weight(a_nchw, wshape, cw, 2, 2), 10)}
+        s, k = ho * ho, 25 * cin
+        in_bytes = (a.numel() + c.numel()) * 2
+        t.update(k2_ops=k2_ops(CB, s, k, cout), k2_bytes=in_bytes + CB * 4,
+                 k3_ops=2.0 * CB * s * k * cout, k3_bytes=in_bytes + CB * 4 + k * cout * 4)
+        for key, v in t.items():
+            tot[key] += v
+        print(f"conv {h}x{h}x{cin}->{cout}: K2 rel l2 {r2:.3e}, K3 rel l2 {r3:.3e} "
+              f"(bound {CONV_BOUND:g}); K2 {t['k2']:.3f} ms (plain {t['k2_plain']:.3f}), "
+              f"K3 {t['k3']:.3f} ms (plain {t['k3_plain']:.3f}, conv2d_weight {t['k3_lib']:.3f})")
+        if not (r2 < CONV_BOUND and r3 < CONV_BOUND):
+            fail(f"K2/K3 disagree with their plain versions at conv {h}x{h}x{cin}->{cout}")
+        del a, c, a_nchw, cw, npl, wp
+    b2, by2 = bound(tot["k2_ops"], tot["k2_bytes"], peak_bf16, peak_bytes)
+    b3, by3 = bound(tot["k3_ops"], tot["k3_bytes"], peak_bf16, peak_bytes)
+    per = "D step (conv2 + conv3 + conv4)"
+    return [
+        {"name": "ghost_sq_norms", "route": "cuda",
+         "source": "csl_gan_tpu_torch/ops/csrc/conv_ghost.cu",
+         "replaces": "csl_gan_tpu/ops/pallas_conv_ghost.py:170",
+         "max_abs_err": err["k2"], "ms": tot["k2"], "plain_ms": tot["k2_plain"],
+         "bound_ms": b2, "bound_by": by2, "library_ms": None, "per": per},
+        {"name": "weighted_kernel_grad", "route": "cuda",
+         "source": "csl_gan_tpu_torch/ops/csrc/conv_ghost.cu",
+         "replaces": "csl_gan_tpu/ops/pallas_conv_ghost.py:234",
+         "max_abs_err": err["k3"], "ms": tot["k3"], "plain_ms": tot["k3_plain"],
+         "bound_ms": b3, "bound_by": by3, "library_ms": tot["k3_lib"], "per": per}]
+
+
+def groupnorm_phase(dev, peak_bytes):
+    """K4 / K5 against their plain versions and timed, at the G's norms."""
+    import torch
+    import torch.nn.functional as fn
+    from csl_gan_tpu_torch.ops import pallas_groupnorm as gn
+
+    g = torch.Generator(dev).manual_seed(22)
+    tot = {k: 0.0 for k in ("k4", "k4_plain", "k4_lib", "k5", "k5_plain",
+                            "k4_bytes", "k5_bytes")}
+    err = {"k4": 0.0, "k5": 0.0}
+    for hw, c, mult in GN_SHAPES:
+        x = (torch.randn(CB, hw, c, generator=g, device=dev) * 2 + 0.3).to(torch.bfloat16)
+        dy = torch.randn(CB, hw, c, generator=g, device=dev).to(torch.bfloat16)
+        sc = torch.randn(c, generator=g, device=dev) * 0.2 + 1.0
+        bi = torch.randn(c, generator=g, device=dev) * 0.1
+        yk, yp = gn.gn_relu_forward(x, sc, bi, 32, 1e-5), gn.gn_relu_plain(x, sc, bi, 32, 1e-5)
+        bk = gn.gn_relu_backward(x, dy, sc, bi, 32, 1e-5)
+        bp = gn.gn_relu_bwd_plain(x, dy, sc, bi, 32, 1e-5)
+        torch.cuda.synchronize()
+        r4 = rel_l2(yk.float(), yp.float())
+        r5 = rel_l2(bk[0].float(), bp[0].float())
+        rp = max(rel_l2(bk[1], bp[1]), rel_l2(bk[2], bp[2]))
+        err["k4"] = max(err["k4"], float((yk.float() - yp.float()).abs().max()))
+        err["k5"] = max(err["k5"], max(float((u.float() - v.float()).abs().max())
+                                       for u, v in zip(bk, bp)))
+        # Library yardstick of K4: F.group_norm then relu on an NCHW copy
+        # (bf16 affine; the copy is not timed).
+        xc = x.transpose(1, 2).contiguous()
+        scb, bib = sc.to(torch.bfloat16), bi.to(torch.bfloat16)
+        t = {"k4": cuda_ms(lambda: gn.gn_relu_forward(x, sc, bi, 32, 1e-5), 20),
+             "k4_plain": cuda_ms(lambda: gn.gn_relu_plain(x, sc, bi, 32, 1e-5), 5),
+             "k4_lib": cuda_ms(lambda: fn.relu(fn.group_norm(xc, 32, scb, bib, 1e-5)), 20),
+             "k5": cuda_ms(lambda: gn.gn_relu_backward(x, dy, sc, bi, 32, 1e-5), 20),
+             "k5_plain": cuda_ms(lambda: gn.gn_relu_bwd_plain(x, dy, sc, bi, 32, 1e-5), 5),
+             "k4_bytes": 2 * x.numel() * 2 + 2 * c * 4,
+             "k5_bytes": 3 * x.numel() * 2 + 4 * c * 4}
+        for key, v in t.items():
+            tot[key] += mult * v
+        print(f"groupnorm+relu [{CB}, {hw}, {c}] x{mult}: K4 rel l2 {r4:.3e}, K5 dx rel l2 "
+              f"{r5:.3e} (bound {GN_BOUND:g}), dgamma/dbeta {rp:.3e} (bound {GN_PARAM_BOUND:g}); "
+              f"K4 {t['k4']:.3f} ms (plain {t['k4_plain']:.3f}, group_norm+relu "
+              f"{t['k4_lib']:.3f}), K5 {t['k5']:.3f} ms (plain {t['k5_plain']:.3f})")
+        if not (r4 < GN_BOUND and r5 < GN_BOUND and rp < GN_PARAM_BOUND):
+            fail(f"K4/K5 disagree with their plain versions at [{CB}, {hw}, {c}]")
+        del x, dy, xc, yk, yp, bk, bp
+    # Element-wise arithmetic (~10 flop per element) is far below the bytes.
+    b4, by4 = bound(0.0, tot["k4_bytes"], 1.0, peak_bytes)
+    b5, by5 = bound(0.0, tot["k5_bytes"], 1.0, peak_bytes)
+    return [
+        {"name": "gn_relu_forward", "route": "cuda",
+         "source": "csl_gan_tpu_torch/ops/csrc/gn_relu.cu",
+         "replaces": "csl_gan_tpu/ops/pallas_groupnorm.py:111",
+         "max_abs_err": err["k4"], "ms": tot["k4"], "plain_ms": tot["k4_plain"],
+         "bound_ms": b4, "bound_by": by4, "library_ms": tot["k4_lib"],
+         "per": "G forward (nine norms)"},
+        {"name": "gn_relu_backward", "route": "cuda",
+         "source": "csl_gan_tpu_torch/ops/csrc/gn_relu.cu",
+         "replaces": "csl_gan_tpu/ops/pallas_groupnorm.py:119",
+         "max_abs_err": err["k5"], "ms": tot["k5"], "plain_ms": tot["k5_plain"],
+         "bound_ms": b5, "bound_by": by5, "library_ms": None,
+         "per": "G backward (nine norms)"}]
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """K2-K5's wrappers replaced by their plain versions, so that a step on
+    the card runs the same cuDNN convolutions without the kernels."""
+    from csl_gan_tpu_torch.ops import pallas_conv_ghost as pcg
+    from csl_gan_tpu_torch.ops import pallas_groupnorm as gn
+    swaps = ((pcg, "ghost_sq_norms", pcg.ghost_sq_norms_plain),
+             (pcg, "weighted_kernel_grad", pcg.weighted_kernel_grad_plain),
+             (gn, "gn_relu_forward", gn.gn_relu_plain),
+             (gn, "gn_relu_backward", gn.gn_relu_bwd_plain))
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def celeba_step_check(dev, out_root):
+    """One full-width D step and one G step (bs 8, fp32, TF32 off,
+    deterministic cuDNN), each from the initial state, on the card: through
+    K2-K5 against the same steps through the plain versions. Two witnesses
+    beside the gap: the plain steps run twice (cuDNN repeats exactly, so K2-K5
+    are the only difference), and the plain steps with z moved by 1e-7
+    relative (how far a perturbation the size of K4's reduction-order gap
+    moves the steps)."""
+    import numpy as np
+    import torch
+    from csl_gan_tpu_torch import options as toptions
+    from csl_gan_tpu_torch.models.registry import init_models
+    from csl_gan_tpu_torch.training.steps import StepBuilder
+
+    bs = 8
+    argv = ["CelebA", "--conditional", "-dpm", "gc", "-bs", str(bs), "-tss", "12800",
+            "-nms", "1", "--mean_sample_size", "8", "--sigma", "0", "-c", "1",
+            "--train_d_until_threshold", "1e18", "--manual_seed", "1", "--platform", "gpu",
+            "-o", str(out_root / "celeba_step")]
+    rng = np.random.default_rng(5)
+    x = rng.uniform(-1, 1, (bs, 64, 64, 3)).astype(np.float32)
+    y = rng.integers(0, 2, bs)
+    z, zg = (rng.standard_normal((bs, 128)).astype(np.float32) for _ in range(2))
+    yg = rng.integers(0, 2, bs)
+    pen_x = rng.uniform(-1, 1, (bs, 64, 64, 3)).astype(np.float32)
+    alpha = rng.uniform(0, 1, (bs, 1, 1, 1)).astype(np.float32)
+    nudge = [1 + 1e-7 * rng.standard_normal(v.shape).astype(np.float32) for v in (z, zg)]
+    opt = toptions.parse(argv)
+    G, D = init_models(opt, dev)
+    b = StepBuilder(opt, G, D)
+    assert b.use_conv_ghost
+    st0 = b.init_state()
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    noise = [torch.zeros_like(st0.d_params[k]) for k in b.d_leaves]
+
+    def steps(zd, zgen):
+        st_d, dm = b.d_step_conv_ghost(st0, t(x), t(y), t(zd), noise, t(pen_x), t(y),
+                                       [t(alpha)])
+        # The G step starts from the initial D too: after a first Adam step
+        # (b1 0) each D param has moved by lr times the sign of its gradient,
+        # so a D gradient component within rounding of 0 would flip there.
+        st_g, gm = b.g_step_dcresnet(st0, t(zgen), t(yg))
+        torch.cuda.synchronize()
+        return st_d, st_g, dm, gm
+
+    cudnn = torch.backends.cudnn
+    was = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        kern = steps(z, zg)
+        with plain_versions():
+            plain = steps(z, zg)
+            again = steps(z, zg)
+            nudged = steps(z * nudge[0], zg * nudge[1])
+    finally:
+        cudnn.deterministic, cudnn.benchmark = was
+
+    # Each group as one vector: D params and moments after the D step, G
+    # moments (the gradient and 0.1 x its square; b1 0, b2 0.9) after the G
+    # step. G params are left out: the first Adam step moves each by +-lr,
+    # and those of G's GroupNorm biases start at 0.
+    def gaps(one, ref):
+        (d1, g1, dm1, gm1), (d0, g0, dm0, gm0) = one, ref
+        out = {}
+        for group, u, v in (("D params", d1.d_params, d0.d_params), ("D mu", d1.d_mu, d0.d_mu),
+                            ("D nu", d1.d_nu, d0.d_nu), ("G mu", g1.g_mu, g0.g_mu),
+                            ("G nu", g1.g_nu, g0.g_nu)):
+            out[group] = rel_l2(torch.cat([u[k].reshape(-1) for k in v]),
+                                torch.cat([v[k].reshape(-1) for k in v]))
+        # Accuracies and clipped shares count samples: left out.
+        counts = ("d_real_acc", "d_fake_acc", "d_real_aux_acc", "frac_clipped", "g_aux_acc")
+        out["metrics"] = max(
+            float((m1[k] - m0[k]).abs().max() / max(float(m0[k].abs().max()), 1e-2))
+            for m1, m0 in ((dm1, dm0), (gm1, gm0)) for k in m1 if k not in counts)
+        return out
+
+    fmt = lambda r: ", ".join(f"{k} {v:.3e}" for k, v in r.items())  # noqa: E731
+    gap, rep, wit = gaps(kern, plain), gaps(again, plain), gaps(nudged, plain)
+    print(f"CelebA D step and G step (bs {bs}, fp32, full width) on the card, K2-K5 vs "
+          f"plain: rel l2 {fmt(gap)} (bounds D {STEP_BOUND_D:g}, G {STEP_BOUND_G:g}, "
+          f"metrics {STEP_BOUND_MET:g}); clipped {float(kern[2]['frac_clipped'].mean()):.2f}")
+    print(f"  witnesses: plain repeated {fmt(rep)}; plain with z moved 1e-7 {fmt(wit)}")
+    d_gap = max(v for k, v in gap.items() if k.startswith("D"))
+    g_gap = max(v for k, v in gap.items() if k.startswith("G"))
+    if max(rep.values()) != 0.0:
+        fail("the plain CelebA steps do not repeat exactly on the card")
+    if not (d_gap < STEP_BOUND_D and g_gap < STEP_BOUND_G and gap["metrics"] < STEP_BOUND_MET):
+        fail("the CelebA steps through K2-K5 disagree with the plain steps on the card")
+
+
+def celeba_phases(dev, out_root, peak_bf16, peak_bytes):
+    """The kernel checks, then the CelebA flagship through the Trainer.
+    Returns the kernels-line entries of K2-K5."""
+    import csv
+    import torch
+    from csl_gan_tpu_torch import options as toptions
+    from csl_gan_tpu_torch.ops import pallas_conv_ghost as pcg
+    from csl_gan_tpu_torch.ops import pallas_groupnorm as gn
+    from csl_gan_tpu_torch.training.loop import Trainer
+
+    entries = conv_ghost_phase(dev, peak_bf16, peak_bytes)
+    entries += groupnorm_phase(dev, peak_bytes)
+    celeba_step_check(dev, out_root)
+
+    e = CELEBA_EPOCHS
+    opt = toptions.parse(FLAGSHIP + ["-ne", str(e), "--log_every", str(12800 * e),
+                                     "--manual_seed", "1", "-o", str(out_root / "celeba")])
+    tr = Trainer(opt)
+    wrappers = (pcg.ghost_sq_norms, pcg.weighted_kernel_grad, gn.gn_relu_forward,
+                gn.gn_relu_backward)
+    for w in wrappers:
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = [w.launches for w in wrappers]
+    if not all(n > 0 for n in launches):
+        fail(f"a CelebA-path kernel never launched: K2-K5 launches {launches}")
+    n = tr.n_batches
+    ep_ms = [a.elapsed_time(b) for a, b in tr.runner.epoch_events]
+    with open(out_root / "celeba" / "privacy_log.csv") as fh:
+        eps = [float(r["Epsilon"]) for r in csv.DictReader(fh)]
+    with open(out_root / "celeba" / "log.csv") as fh:
+        row = list(csv.DictReader(fh))[-1]
+    losses = [float(row[k]) for k in ("G Adv Loss", "G Aux Loss", "D Adv Loss",
+                                      "D Real Loss", "D Fake Loss", "D Real Aux Loss",
+                                      "D Penalty")]
+    if len(eps) != e or not all(math.isfinite(x) and x > 0 for x in eps):
+        fail(f"bad epsilon column {eps}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"non-finite CelebA losses {losses}")
+    if not all(torch.isfinite(t).all() for p in (tr.state.d_params, tr.state.g_params)
+               for t in p.values()):
+        fail("non-finite params after CelebA training")
+    if tr.state.d_count != e * n or tr.state.g_count != e * -(-n // opt.n_d_steps):
+        fail(f"D / G update counts {tr.state.d_count} / {tr.state.g_count} after {e} "
+             f"epochs of {n} steps")
+    with torch.no_grad():
+        img = tr.builder.fakes(tr.state.g_params, tr.builder.gen_z(tr.gen, 4),
+                               tr.builder.gen_y(tr.gen, 4))
+    if tuple(img.shape) != (4, 64, 64, 3) or not bool((img.abs() <= 1).all()):
+        fail(f"bad generator output {tuple(img.shape)}")
+    rest = ep_ms[1:] or ep_ms
+    step_ms = sum(rest) / len(rest) / n
+    print(f"CelebA path: {e} epochs x {n} D steps ({tr.state.g_count} G updates), K2-K5 "
+          f"launches {launches}; ms per D step first epoch {ep_ms[0] / n:.3f}, after "
+          f"{step_ms:.3f} (epochs {', '.join(f'{x:.1f}' for x in ep_ms)} ms); "
+          f"{CB * 1e3 / step_ms:.0f} samples/s after the first; wall {wall:.2f} s; "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; epsilon "
+          f"{eps[-1]:.6f} (mean samples {tr.mean_sample_privacy_cost:.6f}); losses "
+          + ", ".join(f"{x:.4f}" for x in losses))
+
+    # Device time by CUDA kernel over one more epoch.
+    from torch.profiler import ProfilerActivity, profile
+    s0, s1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        s0.record()
+        tr.state, *_ = tr.runner.run(tr.state, tr.gen_perm, tr.gen, 1)
+        s1.record()
+        torch.cuda.synchronize()
+    span = s0.elapsed_time(s1)
+    by_kernel = device_ms_by_kernel(prof)
+    busy = sum(r[0] for r in by_kernel)
+    print(f"CelebA profile: device busy {busy:.3f} ms of a {span:.3f} ms epoch "
+          f"({100 * busy / span:.1f}%), by kernel (ms, launches, name):")
+    for t_ms, cnt, key in by_kernel[:25]:
+        print(f"  {t_ms:9.3f} {cnt:6d}  {key}")
+    groups = {}
+    for t_ms, _, key in by_kernel:
+        g = next((name for name, keys in PROFILE_GROUPS if any(k in key for k in keys)),
+                 "other")
+        groups[g] = groups.get(g, 0.0) + t_ms
+    print("CelebA profile by group (ms per D step, share of device busy): " + "; ".join(
+        f"{g} {t / n:.3f} ({100 * t / busy:.1f}%)"
+        for g, t in sorted(groups.items(), key=lambda kv: -kv[1])))
+    for entry, count in zip(entries, launches):
+        entry["launches"] = count
+    return entries
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -103,8 +536,8 @@ def main() -> int:
                          text=True, check=True).stdout.strip().splitlines()[0]
     print(smi)
     kind = torch.cuda.get_device_name(0)
-    peak_flops, peak_bytes = next(((f, b) for key, f, b in PEAKS if key in kind),
-                                  (67.0e12, 3.35e12))
+    peak_flops, peak_bf16, peak_bytes = next(
+        ((f, h, b) for key, f, h, b in PEAKS if key in kind), PEAKS[-1][1:])
     # The plain versions are the fp32 reference: no TF32 in any product.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -217,7 +650,7 @@ def main() -> int:
         if held:
             max_abs = max(max_abs, abs_err, float((mk - mp)[cont].abs().max()))
 
-    # 4. The main path through its entry point.
+    # 4. The MNIST path through its entry point.
     e = EPOCHS
     opt = toptions.parse(["MNIST", "--conditional", "-dpm", "gc", "--sigma", "10",
                           "-bs", str(BS), "-tss", "60000", "-ne", str(e),
@@ -250,13 +683,13 @@ def main() -> int:
         fail("non-finite params after training")
     samples = tr.n_batches * BS
     rest = ep_ms[1:] or ep_ms
-    print(f"main path: {e} epochs x {tr.n_batches} steps in one group, K1 launches "
+    print(f"MNIST path: {e} epochs x {tr.n_batches} steps in one group, K1 launches "
           f"{launches}; epoch ms first {ep_ms[0]:.3f}, rest mean "
           f"{sum(rest) / len(rest):.3f} ({', '.join(f'{x:.3f}' for x in rest)}); "
           f"{samples * len(rest) / (sum(rest) / 1e3):.0f} samples/s after the first; "
           f"wall {wall:.2f} s; epsilon {eps[-1]:.6f}; losses G {losses[0]:.4f} D {losses[1]:.4f}")
 
-    # 5. Kernel and plain times at the main path's shapes (one full epoch).
+    # 5. K1 and plain times at the MNIST path's shapes (one full epoch).
     n = TIME_STEPS
     b = builder(True, "time")
     ins = inputs(b, n, True, seed=12)
@@ -292,14 +725,7 @@ def main() -> int:
         s1.record()
         torch.cuda.synchronize()
     span = s0.elapsed_time(s1)
-    by_kernel = []
-    for ev in prof.key_averages():
-        t_dev = getattr(ev, "self_device_time_total", None)
-        if t_dev is None:
-            t_dev = getattr(ev, "self_cuda_time_total", 0)
-        if t_dev > 0:
-            by_kernel.append((t_dev / 1e3, ev.count, ev.key[:110]))
-    by_kernel.sort(reverse=True)
+    by_kernel = device_ms_by_kernel(prof)
     busy = sum(r[0] for r in by_kernel)
     print(f"profile: device busy {busy:.3f} ms of a {span:.3f} ms epoch "
           f"({100 * busy / span:.1f}%), by kernel (ms, launches, name):")
@@ -313,8 +739,11 @@ def main() -> int:
         "ms": ms, "plain_ms": plain_ms,
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": None,
+        "library_ms": None, "per": f"epoch of {n} steps",
     }]
+
+    # 6. The CelebA path (K2-K5).
+    kernels += celeba_phases(dev, out_root, peak_bf16, peak_bytes)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

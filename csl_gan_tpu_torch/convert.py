@@ -1,12 +1,19 @@
 """Weights and optimizer state carried between the JAX package and the port.
 
-The JAX package's params are flax trees of numpy arrays: Dense ``kernel``
-[in, out] and ``bias`` [out], with the vanilla G's layers auto-named
-``TorchDense_0`` / ``TorchDense_1``. The port's are torch state dicts:
-Linear ``weight`` [out, in] and ``bias``, with G's layers named ``lin1`` /
-``lin2`` like D's. ``train_state_from_jax`` also carries Adam ``mu`` / ``nu``
-/ ``count`` for D and G and the clip value; the ``*_to_jax`` functions invert
-each mapping, so a test can compare in either layout.
+The JAX package's params are flax trees of numpy arrays; the port's are torch
+state dicts. Per leaf:
+
+  - Dense ``kernel`` [in, out]          <-> Linear ``weight`` [out, in]
+  - Conv ``kernel`` [kh, kw, cin, cout] <-> Conv2d ``weight`` [cout, cin, kh, kw]
+  - GroupNorm ``scale``                 <-> ``weight``; ``bias`` <-> ``bias``
+
+Module paths: the vanilla MNIST G's auto-named ``TorchDense_0`` /
+``TorchDense_1`` are ``lin1`` / ``lin2`` in the port (like D's); the DCResNet
+pair keeps the flax names, and a flax conv's ``.../TorchConv_i/Conv_0`` is the
+port's ``....TorchConv_i`` (models/dcresnet.py). ``train_state_from_jax`` also
+carries Adam ``mu`` / ``nu`` / ``count`` for D and G and the clip value; the
+``*_to_jax`` functions invert each mapping, so a test can compare in either
+layout.
 """
 
 from __future__ import annotations
@@ -18,47 +25,72 @@ import torch
 
 from csl_gan_tpu_torch.training.steps import TrainState
 
-G_MODULES = {"TorchDense_0": "lin1", "TorchDense_1": "lin2"}
+VANILLA_G_MODULES = {"TorchDense_0": "lin1", "TorchDense_1": "lin2"}
 
 
-def _module_map(kind: str) -> Dict[str, str]:
-    if kind == "G":
-        return dict(G_MODULES)
-    if kind == "D":
-        return {m: m for m in ("lin1", "lin2", "linOutAux")}
-    raise ValueError(kind)
+def _is_dcresnet(names) -> bool:
+    return any(n.startswith(("TorchConv_", "ResBlockUp_")) or ".TorchConv_" in n
+               for n in names)
+
+
+def _leaves(tree: Mapping, path=()):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _leaves(v, path + (k,))
+        else:
+            yield path + (k,), v
 
 
 def params_from_jax(tree: Mapping, kind: str,
                     device: Optional[torch.device] = None) -> Dict[str, torch.Tensor]:
-    """flax param tree (numpy leaves) -> torch state dict (fp32)."""
-    mm = _module_map(kind)
+    """flax param tree (numpy leaves) -> torch state dict (fp32). `kind` is
+    "G" or "D" (it only matters for the vanilla G's module names)."""
+    if kind not in ("G", "D"):
+        raise ValueError(kind)
+    vanilla_g = kind == "G" and not _is_dcresnet(tree.keys())
     out = {}
-    for mod, leaves in tree.items():
-        name = mm[mod]
-        for leaf, v in leaves.items():
-            a = np.asarray(v, np.float32)
-            if leaf == "kernel":
-                out[f"{name}.weight"] = torch.tensor(np.ascontiguousarray(a.T), device=device)
-            elif leaf == "bias":
-                out[f"{name}.bias"] = torch.tensor(a, device=device)
-            else:
-                raise ValueError(f"unexpected leaf {mod}.{leaf}")
+    for path, v in _leaves(tree):
+        mods = [m for m in path[:-1] if m != "Conv_0"]
+        if vanilla_g:
+            mods = [VANILLA_G_MODULES[m] for m in mods]
+        leaf = path[-1]
+        a = np.asarray(v, np.float32)
+        if leaf == "kernel":
+            a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+            name = "weight"
+        elif leaf == "scale":
+            name = "weight"
+        elif leaf == "bias":
+            name = "bias"
+        else:
+            raise ValueError(f"unexpected leaf {'/'.join(path)}")
+        out[".".join(mods + [name])] = torch.tensor(np.ascontiguousarray(a), device=device)
     return out
 
 
-def params_to_jax(sd: Mapping[str, torch.Tensor], kind: str) -> Dict[str, Dict[str, np.ndarray]]:
+def params_to_jax(sd: Mapping[str, torch.Tensor], kind: str) -> Dict:
     """torch state dict -> flax param tree of numpy arrays."""
-    inv = {v: k for k, v in _module_map(kind).items()}
-    out: Dict[str, Dict[str, np.ndarray]] = {}
+    vanilla_g = kind == "G" and not _is_dcresnet(sd.keys())
+    inv = {v: k for k, v in VANILLA_G_MODULES.items()}
+    out: Dict = {}
     for key, t in sd.items():
-        name, leaf = key.rsplit(".", 1)
+        *mods, leaf = key.split(".")
         a = t.detach().cpu().numpy().astype(np.float32)
-        mod = out.setdefault(inv[name], {})
+        if vanilla_g:
+            mods = [inv[m] for m in mods]
+        if mods[-1].startswith("TorchConv_"):
+            mods = mods + ["Conv_0"]
         if leaf == "weight":
-            mod["kernel"] = np.ascontiguousarray(a.T)
-        else:
-            mod["bias"] = a
+            if a.ndim == 4:
+                leaf, a = "kernel", a.transpose(2, 3, 1, 0)
+            elif a.ndim == 2:
+                leaf, a = "kernel", a.T
+            else:
+                leaf = "scale"
+        node = out
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf] = np.ascontiguousarray(a)
     return out
 
 

@@ -21,7 +21,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-KERNELS = ("k1_epoch",)
+KERNELS = ("k1_epoch", "conv_ghost", "gn_relu")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 # ptxas report (registers, shared memory, spills) of each build, by kernel.
@@ -70,14 +70,37 @@ def build_all(names=KERNELS) -> List[Path]:
     return [_target(n) for n in names]
 
 
-def _bind(lib: ctypes.CDLL) -> None:
-    lib.k1_epoch.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
-                             ctypes.POINTER(ctypes.c_int), ctypes.c_int,
-                             ctypes.POINTER(ctypes.c_float), ctypes.c_int,
-                             ctypes.c_void_p]
-    lib.k1_epoch.restype = ctypes.c_int
-    lib.k1_error_string.argtypes = [ctypes.c_int]
-    lib.k1_error_string.restype = ctypes.c_char_p
+def _bind(name: str, lib: ctypes.CDLL) -> None:
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    IA = ctypes.POINTER(ctypes.c_int)
+    if name == "k1_epoch":
+        lib.k1_epoch.argtypes = [ctypes.POINTER(P), I, IA, I,
+                                 ctypes.POINTER(F), I, P]
+        lib.k1_epoch.restype = I
+        lib.k1_error_string.argtypes = [I]
+        lib.k1_error_string.restype = ctypes.c_char_p
+    elif name == "conv_ghost":
+        lib.ghost_sq_norms_scratch.argtypes = [IA]
+        lib.ghost_sq_norms_scratch.restype = ctypes.c_longlong
+        lib.ghost_sq_norms.argtypes = [P, P, IA, I, P, P, P]
+        lib.ghost_sq_norms.restype = I
+        lib.weighted_kernel_grad_scratch.argtypes = [IA]
+        lib.weighted_kernel_grad_scratch.restype = ctypes.c_longlong
+        lib.weighted_kernel_grad.argtypes = [P, P, P, IA, I, P, P, P]
+        lib.weighted_kernel_grad.restype = I
+        lib.cg_error_string.argtypes = [I]
+        lib.cg_error_string.restype = ctypes.c_char_p
+    elif name == "gn_relu":
+        lib.gn_relu_scratch.argtypes = [IA, I]
+        lib.gn_relu_scratch.restype = ctypes.c_longlong
+        lib.gn_relu_fwd.argtypes = [P, P, P, P, P, IA, I, F, P]
+        lib.gn_relu_fwd.restype = I
+        lib.gn_relu_bwd.argtypes = [P, P, P, P, P, P, P, P, IA, I, F, P]
+        lib.gn_relu_bwd.restype = I
+        lib.gn_error_string.argtypes = [I]
+        lib.gn_error_string.restype = ctypes.c_char_p
+    else:
+        raise ValueError(f"unknown kernel library {name}")
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -87,6 +110,6 @@ def load(name: str) -> ctypes.CDLL:
         if not so.exists():
             build_all((name,))
         lib = ctypes.CDLL(str(so))
-        _bind(lib)
+        _bind(name, lib)
         _libs[name] = lib
     return _libs[name]

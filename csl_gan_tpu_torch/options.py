@@ -1,7 +1,7 @@
 """Config / flag system of the PyTorch port.
 
-The same flag names, MNIST default dict, derived flags and validation rules
-as the JAX package's options module, so an ``opt.txt`` written by either
+The same flag names, per-dataset default dicts, derived flags and validation
+rules as the JAX package's options module, so an ``opt.txt`` written by either
 package reads the same. Differences:
 
   - ``--platform {cpu,gpu}`` picks the torch device (default: gpu). There is
@@ -57,6 +57,50 @@ MNIST_DEFAULTS = {
     "sample_num": 100,
     "n_classes": 10,
     "weights_seed": 42,
+}
+
+CELEBA_DEFAULTS = {
+    "data_path": "/persist/datasets/celeba/img_align_celeba/all/",
+    "label_path": "/persist/datasets/celeba/Anno/list_attr_celeba.txt",
+    "label_attr": "Male",
+    "model": "DeepConvResNet",
+    "im_size": 64,
+    "n_epochs": 1000,
+    "g_lr": 0.0001,
+    "d_lr": 0.0001,
+    "batch_size": 128,
+    "batch_split_size": 32,
+    "train_set_size": 180000,
+    "public_set_size": 0,
+    "g_latent_dim": 128,
+    "n_d_steps": 5,
+    "phase_gn4_max_f": 64,
+    "g_label_emb_mode": "concat",
+    "d_label_emb_mode": "concat",
+    "aux_loss_type": "wasserstein",
+    "adam_b1": 0.0,
+    "adam_b2": 0.9,
+    "penalty": ["WGAN-GP"],
+    "iter_on_mean_samples": 0,
+    "mean_sample_size": 1000,
+    "mean_sample_noise_std": 0.12,
+    "delta": 1e-6,
+    "sigma": 0.5,
+    "imm_sens_scaling_vec": [20, 2, 15, 1.5, 10, 1.5, 10, 1, 30],
+    "imm_sens_scaling_mode": "standard",
+    "imm_sens_per_param": True,
+    "grad_clip_mode": "standard",
+    "clipping_param": 200,
+    "clipping_param_per_layer": [1000, 200, 1000, 100, 1000, 100, 1000, 5, 2500],
+    "tm_m": 10,
+    "tm_min_val": -1,
+    "tm_max_val": 1,
+    "save_every": 10,
+    "log_every": 20000,
+    "sample_every": 60000,
+    "sample_num": 25,
+    "n_classes": 2,
+    "gp_lambda": 10,
 }
 
 
@@ -189,9 +233,12 @@ def build_parser() -> argparse.ArgumentParser:
       help="Store the device image table [x | one-hot | label] in bfloat16; "
            "rows convert to fp32 inside the epoch kernel.")
     a("--u8_table", type=str2bool, default=False)
-    a("--phase_gn4", type=str2bool, default=True)
-    a("--phase_carry", type=str2bool, default=True)
-    a("--phase_gn4_max_f", type=int, default=None)
+    a("--phase_gn4", type=str2bool, default=True,
+      help="A TPU layout choice of the JAX package with identical values; accepted and ignored by the port.")
+    a("--phase_carry", type=str2bool, default=True,
+      help="A TPU layout choice of the JAX package with identical values; accepted and ignored by the port.")
+    a("--phase_gn4_max_f", type=int, default=None,
+      help="A TPU layout choice of the JAX package with identical values; accepted and ignored by the port.")
     a("--group_fakes", type=str2bool, default=False)
     a("--pallas_epoch", type=str2bool, default=True)
     return p
@@ -211,8 +258,15 @@ def derive_and_validate(opt) -> None:
     opt.use_aux_loss = opt.conditional and opt.conditional_arch in ["ACGAN", "WCGAN"]
     if opt.conditional_arch == "WCGAN" and opt.aux_penalty:
         opt.aux_penalty = False
-    if opt.train_d_until_threshold is None:
+    # The reference forces -1 for DP DeepConvResNet runs; like the JAX
+    # package, only when the user set no value.
+    tdut_user_set = opt.train_d_until_threshold is not None
+    if not tdut_user_set:
         opt.train_d_until_threshold = 1e10
+    if opt.model == "DeepConvResNet" and opt.use_dp and not tdut_user_set:
+        print("Setting train_d_until_threshold to -1, which is generally "
+              "recommended for WGAN using DP")
+        opt.train_d_until_threshold = -1
     if opt.batch_size > opt.train_set_size:
         raise Exception(
             f"batch_size ({opt.batch_size}) exceeds train_set_size "
@@ -223,17 +277,43 @@ def derive_and_validate(opt) -> None:
         raise Exception("Vanilla model with embedded labels not implemented")
 
 
+def validate_public_data(opt) -> None:
+    """The JAX package's rules on mean samples and public data
+    (options.py:542-563)."""
+    if opt.num_mean_samples > 0 and opt.mean_sample_size > opt.train_set_size:
+        raise Exception(
+            f"mean_sample_size ({opt.mean_sample_size}) exceeds "
+            f"train_set_size ({opt.train_set_size}): the mean-sampler "
+            "subsampling rate would exceed 1. Lower --mean_sample_size or "
+            "raise -tss.")
+    if len(opt.penalty) > 0 and opt.use_dp and opt.penalty_use_public_data \
+            and opt.public_set_size < 1 and opt.num_mean_samples < 1:
+        raise Exception("In order to enable gradient penalty using public data, "
+                        "please enable mean sampling by setting num_mean_samples "
+                        "or public data by setting public_set_size.")
+
+
+def _vanilla(o) -> bool:
+    return o.model == "Vanilla"
+
+
 # (flag, test on the parsed opt) for every option whose path is not ported.
+# The vanilla MNIST model runs on the epoch kernel K1, the DCResNet pair on
+# the step runner (training/loop.py); each takes its own set of options.
 _NOT_PORTED = [
     ("--dp_mode (only gc is ported)", lambda o: o.dp_mode not in (None, "gc")),
-    ("--penalty", lambda o: bool(o.penalty)),
+    ("--penalty on the vanilla model", lambda o: bool(o.penalty) and _vanilla(o)),
+    ("--penalty DRAGAN", lambda o: any(p.startswith("DRAGAN") for p in o.penalty)),
+    ("-pupd false (the per-sample penalty)",
+     lambda o: bool(o.penalty) and o.use_dp and not o.penalty_use_public_data),
     ("--poisson", lambda o: o.poisson),
     ("--grad_clip_mode (per-layer or adaptive clipping)",
      lambda o: (o.grad_clip_mode or "standard") != "standard"),
-    ("--clipping_param_per_layer", lambda o: o.clipping_param_per_layer is not None),
+    ("--clipping_param_per_layer", lambda o: o.cpl_user_set),
     ("--weight_decay", lambda o: (o.weight_decay or 0) != 0),
-    ("--n_d_steps > 1", lambda o: o.n_d_steps > 1),
-    ("--train_d_until_threshold", lambda o: float(o.train_d_until_threshold) < 1e10),
+    ("--n_d_steps > 1 on the vanilla model", lambda o: o.n_d_steps > 1 and _vanilla(o)),
+    ("--train_d_until_threshold on the vanilla model",
+     lambda o: float(o.train_d_until_threshold) < 1e10 and _vanilla(o)),
     ("--resume_path", lambda o: o.resume_path is not None),
     ("--fsdp", lambda o: o.fsdp),
     ("--tp", lambda o: o.tp != 1),
@@ -244,21 +324,28 @@ _NOT_PORTED = [
     ("--per_sample_chunk", lambda o: o.per_sample_chunk is not None),
     ("--backprop_clip", lambda o: o.backprop_clip),
     ("--grad_clip_split false", lambda o: not o.grad_clip_split),
-    ("--num_mean_samples", lambda o: o.num_mean_samples > 0),
+    ("--conv_ghost false", lambda o: not o.conv_ghost),
+    ("--num_mean_samples on the vanilla model",
+     lambda o: o.num_mean_samples > 0 and _vanilla(o)),
     ("--public_set_size", lambda o: o.public_set_size > 0),
     ("--warmup_iter", lambda o: o.warmup_iter > 0),
     ("--host_loop", lambda o: o.host_loop),
-    ("--bf16", lambda o: o.bf16),
+    ("--bf16 on the vanilla model", lambda o: o.bf16 and _vanilla(o)),
     ("--u8_table", lambda o: o.u8_table),
     ("--group_fakes", lambda o: o.group_fakes),
+    ("--ref_pixel_shuffle", lambda o: o.ref_pixel_shuffle),
     ("--profile_training", lambda o: o.profile_training),
     ("--download_mnist", lambda o: o.download_mnist),
     ("--log_every below one epoch of samples", lambda o: o.log_every_epochs < 0),
     ("--stop_on_g_freeze", lambda o: o.stop_on_g_freeze > 0),
-    ("--model DeepConvResNet", lambda o: o.model != "Vanilla"),
-    ("unconditional or non-ACGAN training (--conditional, --conditional_arch)",
-     lambda o: not (o.conditional and o.conditional_arch == "ACGAN")),
-    ("--aux_loss_type wasserstein", lambda o: o.aux_loss_type != "cross_entropy"),
+    ("--model DeepConvResNet without -dpm gc",
+     lambda o: not _vanilla(o) and o.dp_mode != "gc"),
+    ("--g_label_emb_mode embed", lambda o: o.g_label_emb_mode != "concat"),
+    ("unconditional training (--conditional)", lambda o: not o.conditional),
+    ("--conditional_arch CGAN / WCGAN (only ACGAN is ported)",
+     lambda o: o.conditional_arch != "ACGAN"),
+    ("--aux_loss_type wasserstein on the vanilla model",
+     lambda o: o.aux_loss_type != "cross_entropy" and _vanilla(o)),
     ("--n_classes outside 2..16", lambda o: not 2 <= o.n_classes <= 16),
     ("--batch_size not a multiple of 8", lambda o: o.batch_size % 8 != 0),
 ]
@@ -277,11 +364,11 @@ def parse(argv=None) -> Namespace:
     opt.data_path = add_slash(opt.data_path)
     opt.resume_path = add_slash(opt.resume_path)
     opt.output_dir = add_slash(opt.output_dir)
-    if opt.dataset != "MNIST":
-        raise NotImplementedError(f"dataset {opt.dataset} is not ported yet")
-    fill_defaults(opt, MNIST_DEFAULTS)
+    opt.cpl_user_set = opt.clipping_param_per_layer is not None
+    fill_defaults(opt, MNIST_DEFAULTS if opt.dataset == "MNIST" else CELEBA_DEFAULTS)
     derive_and_validate(opt)
     check_ported(opt)
+    validate_public_data(opt)
 
     if not opt.output_dir:
         now = datetime.now()

@@ -1,12 +1,19 @@
-"""Training orchestration: the host loop around the epoch kernel.
+"""Training orchestration: the host loop around the device runners.
 
-The port's counterpart of the JAX package's training/loop.py ``Trainer`` for
-the MNIST conditional ACGAN path: the dataset lives on the device as one flat
-table ``[x | one-hot | label]`` (bf16 under ``--bf16_table``, the default),
-whole groups of epochs run through the epochs runner (one K1 launch per
-epoch), and between groups the host steps the RDP accountant and writes
-``log.csv`` and ``privacy_log.csv``.
+The port's counterpart of the JAX package's training/loop.py ``Trainer``.
+The dataset lives on the device: MNIST as one flat table ``[x | one-hot |
+label]`` (bf16 under ``--bf16_table``, the default), CelebA as the decoded
+uint8 images plus labels (normalised and randomly flipped after each
+gather). Groups of whole epochs run through a runner, chosen by config:
 
+  - the MNIST vanilla conditional ACGAN path (``pallas_epoch.supports``):
+    the epochs runner, one K1 launch per epoch;
+  - a DCResNet gc config: the step runner (conv-ghost D steps through K2/K3,
+    G forward and backward through K4/K5, WGAN-GP on mean samples);
+  - anything else raises NotImplementedError.
+
+Between groups the host steps the RDP accountant and writes ``log.csv`` and
+``privacy_log.csv`` (epsilon plus the mean samples' privacy cost).
 Checkpoints, sample grids and SIGTERM handling are not ported yet: the save
 and sample cadences are accepted and only announced.
 """
@@ -20,17 +27,24 @@ import numpy as np
 import torch
 
 from csl_gan_tpu_torch import options as options_mod
-from csl_gan_tpu_torch.data import init_data, n_batches
+from csl_gan_tpu_torch.data import Loader, init_data, n_batches
 from csl_gan_tpu_torch.models.registry import init_models
 from csl_gan_tpu_torch.ops import pallas_epoch as pe
-from csl_gan_tpu_torch.privacy import make_accountant
+from csl_gan_tpu_torch.privacy import MeanSampler, make_accountant
 from csl_gan_tpu_torch.training.logger import build_logger
-from csl_gan_tpu_torch.training.segment_runner import EpochsRunner
+from csl_gan_tpu_torch.training.segment_runner import EpochsRunner, StepRunner
 from csl_gan_tpu_torch.training.steps import StepBuilder
 
-# D leaves in torch parameter order (weight before bias) as indices into the
-# JAX leaf order of models/mnist.py D_LEAVES: the per-layer log columns.
-_TORCH_IDX = np.asarray([1, 0, 3, 2, 5, 4])
+_D_STATS = (("d_adv_loss", "D Adv Loss"), ("d_real_loss", "D Real Loss"),
+            ("d_fake_loss", "D Fake Loss"), ("d_real_acc", "D Real Acc"),
+            ("d_fake_acc", "D Fake Acc"), ("d_real_aux_loss", "D Real Aux Loss"),
+            ("d_real_aux_acc", "D Real Aux Acc"), ("penalty", "D Penalty"))
+_G_STATS = (("g_adv_loss", "G Adv Loss"), ("g_aux_loss", "G Aux Loss"),
+            ("g_aux_acc", "G Aux Acc"))
+_NORM_STATS = (("norm_mean", "D Layer Grad Norm Means"),
+               ("norm_std", "D Layer Grad Norm Stds"),
+               ("norm_max", "D Layer Grad Norm Maxes"),
+               ("frac_clipped", "Grads Clipped"))
 
 
 def resolve_device(opt) -> torch.device:
@@ -53,13 +67,28 @@ class Trainer:
         self.G, self.D = init_models(opt, self.device)
         self.dataset = init_data(opt)
         self.n_batches = n_batches(self.dataset, opt.batch_size)
-        self.builder = StepBuilder(opt, self.G, self.D)
+        label1_prob = 0.5
+        if opt.dataset == "CelebA" and opt.conditional and \
+                self.dataset.label_true_count is not None:
+            label1_prob = self.dataset.label_true_count / opt.train_set_size
+        self.builder = StepBuilder(opt, self.G, self.D, label1_prob)
         self.state = self.builder.init_state()
+        self._setup_mean_samples()
         self._setup_device_data()
-        if not pe.supports(self.builder, opt.use_dp, 1):
-            raise NotImplementedError("this configuration does not run on the "
-                                      "ported epoch kernel")
-        self.runner = EpochsRunner(self.builder, self.n_batches, opt.use_dp)
+        if pe.supports(self.builder, opt.use_dp, 1):
+            self.runner = EpochsRunner(self.builder, self.n_batches, opt.use_dp)
+        elif self.builder.use_conv_ghost:
+            self.runner = StepRunner(self.builder, self.n_batches, len(self.dataset),
+                                     self._gather, self._u8_images,
+                                     self.mean_sampler, self._dev_mean)
+        else:
+            raise NotImplementedError("this configuration runs on neither the "
+                                      "ported epoch kernel nor the ported "
+                                      "DCResNet gc step runner")
+        # D leaves in torch parameter order (weight before bias) as indices
+        # into the JAX leaf order: the per-layer log columns.
+        leaves = list(self.builder.d_leaves)
+        self._torch_idx = np.asarray([leaves.index(n) for n in self.D.state_dict()])
         self.accountant = make_accountant(opt) if opt.use_dp else None
         seed = int(opt.manual_seed)
         self.gen_perm = torch.Generator(self.device).manual_seed(seed * 2 + 1)
@@ -73,13 +102,53 @@ class Trainer:
             self.privacy_writer.writerow(["Epoch", "Epsilon"])
             self.privacy_log.flush()
 
-    def _setup_device_data(self):
-        """The flat [x | one-hot | label] table on the device. bf16 rounds to
-        nearest even, as JAX's astype does, so the stored pixels equal the
-        JAX package's table bit for bit; one-hot and labels are exact."""
+    def _setup_mean_samples(self):
+        """Privatized per-class mean images as the penalty's public surrogate
+        data (the JAX Trainer, training/loop.py:112-142)."""
         opt = self.opt
-        imgs = np.asarray(self.dataset.images, np.float32)
+        self.mean_sampler = None
+        self.mean_sample_privacy_cost = 0.0
+        if opt.num_mean_samples <= 0:
+            return
+        print("Generating mean samples...")
+        n_cls = opt.n_classes if opt.conditional else 1
+        loader = Loader(self.dataset, batch_size=opt.mean_sample_size * n_cls,
+                        seed=opt.manual_seed + 7)
+        if opt.dataset == "CelebA" and opt.conditional:
+            ltc = self.dataset.label_true_count
+            scs = min(ltc, opt.train_set_size - ltc)
+        elif opt.conditional:
+            scs = opt.train_set_size / opt.n_classes
+        else:
+            scs = None
+        self.mean_sampler = MeanSampler(
+            dataloader=loader, dataset_size=opt.train_set_size,
+            noise_std=opt.mean_sample_noise_std, num_samples=opt.num_mean_samples,
+            mean_size=opt.mean_sample_size,
+            res=28 if opt.dataset == "MNIST" else opt.im_size,
+            ch=1 if opt.dataset == "MNIST" else 3, n_classes=n_cls,
+            smallest_class_size=scs, seed=opt.manual_seed + 11)
+        self.mean_sample_privacy_cost, _ = \
+            self.mean_sampler.get_privacy_cost(target_delta=opt.delta)
+        print("Privacy Cost from Mean Samples:", self.mean_sample_privacy_cost)
+
+    def _setup_device_data(self):
+        """The dataset on the device. MNIST: the flat [x | one-hot | label]
+        table; bf16 rounds to nearest even, as JAX's astype does, so the
+        stored pixels equal the JAX package's table bit for bit. CelebA: the
+        uint8 images [N, H, W, 3] and the labels."""
+        opt = self.opt
+        self._dev_mean = None
+        if self.mean_sampler is not None:
+            self._dev_mean = torch.from_numpy(self.mean_sampler.mean_samples).to(self.device)
         labels = np.asarray(self.dataset.labels, np.int64)
+        self._u8_images = self.dataset.images.dtype == np.uint8
+        if self._u8_images:
+            self.images = torch.from_numpy(np.ascontiguousarray(self.dataset.images)).to(self.device)
+            self.labels = torch.from_numpy(labels).to(self.device)
+            self.builder.img_shape = tuple(self.images.shape[1:])
+            return
+        imgs = np.asarray(self.dataset.images, np.float32)
         self.builder.img_shape = imgs.shape[1:]
         flat = imgs.reshape(len(imgs), -1)
         eye = np.eye(opt.n_classes, dtype=np.float32)
@@ -89,6 +158,13 @@ class Trainer:
         self.table = t.to(torch.bfloat16) if opt.bf16_table else t
         self.builder.labels_in_table = True
         self.builder.onehot_in_table = True
+
+    def _gather(self, idx: torch.Tensor):
+        """(images, labels) of the rows idx of the device dataset."""
+        if self._u8_images:
+            return self.images[idx], self.labels[idx]
+        x, y, _ = self.builder.gather_batch(self.table, idx)
+        return x, y
 
     def _group_epochs(self, epoch: int) -> int:
         """Epochs from `epoch` that can run as one group: extend while the
@@ -115,28 +191,42 @@ class Trainer:
             k += 1
         return k
 
-    def _fold(self, met: torch.Tensor, k: int) -> None:
-        """Add a group's metric sums (one host read) to the logger stats."""
-        m = met.cpu().numpy()
+    def _run_group(self, k: int) -> None:
+        """k epochs through the runner, then their metric sums (one host read
+        per group) into the logger stats."""
         s = self.logger.stats
-        for name, slot in (("D Adv Loss", pe.M_D_ADV), ("D Real Loss", pe.M_D_REAL),
-                           ("D Fake Loss", pe.M_D_FAKE), ("D Real Acc", pe.M_D_RACC),
-                           ("D Fake Acc", pe.M_D_FACC),
-                           ("D Real Aux Loss", pe.M_D_RAUX_LOSS),
-                           ("D Real Aux Acc", pe.M_D_RAUX_ACC),
-                           ("G Adv Loss", pe.M_G_ADV), ("G Aux Loss", pe.M_G_AUX),
-                           ("G Aux Acc", pe.M_G_AUX_ACC)):
-            if name in s:
-                s[name] = s[name] + m[slot]
+        if isinstance(self.runner, EpochsRunner):
+            self.state, met = self.runner.run(self.state, self.table,
+                                              self.gen_perm, self.gen, k)
+            m = met.cpu().numpy()
+            d_sums = {key: m[slot] for key, slot in (
+                ("d_adv_loss", pe.M_D_ADV), ("d_real_loss", pe.M_D_REAL),
+                ("d_fake_loss", pe.M_D_FAKE), ("d_real_acc", pe.M_D_RACC),
+                ("d_fake_acc", pe.M_D_FACC), ("d_real_aux_loss", pe.M_D_RAUX_LOSS),
+                ("d_real_aux_acc", pe.M_D_RAUX_ACC))}
+            for key, lo in (("norm_mean", pe.M_NORM_MEAN), ("norm_std", pe.M_NORM_STD),
+                            ("norm_max", pe.M_NORM_MAX), ("frac_clipped", pe.M_FRAC)):
+                d_sums[key] = m[lo:lo + len(self._torch_idx)]
+            g_sums = {"g_adv_loss": m[pe.M_G_ADV], "g_aux_loss": m[pe.M_G_AUX],
+                      "g_aux_acc": m[pe.M_G_AUX_ACC]}
+            g_count = self.n_batches * k
+        else:
+            self.state, d_t, g_t, g_count = self.runner.run(self.state, self.gen_perm,
+                                                            self.gen, k)
+            d_sums = {key: v.cpu().numpy() for key, v in d_t.items()}
+            g_sums = {key: v.cpu().numpy() for key, v in g_t.items()}
+        for key, name in _D_STATS:
+            if key in d_sums and name in s:
+                s[name] = s[name] + d_sums[key]
+        for key, name in _G_STATS:
+            if key in g_sums and name in s:
+                s[name] = s[name] + g_sums[key]
         if self.opt.use_dp:
-            for name, lo in (("D Layer Grad Norm Means", pe.M_NORM_MEAN),
-                             ("D Layer Grad Norm Stds", pe.M_NORM_STD),
-                             ("D Layer Grad Norm Maxes", pe.M_NORM_MAX),
-                             ("Grads Clipped", pe.M_FRAC)):
-                s[name] = s[name] + m[lo:lo + 6][_TORCH_IDX]
+            for key, name in _NORM_STATS:
+                s[name] = s[name] + d_sums[key][self._torch_idx]
             s["Clipping Params"] = s["Clipping Params"] + np.float32(
                 self.n_batches * k * self.state.clipping)
-        self.logger.log_g_iter += self.n_batches * k
+        self.logger.log_g_iter += g_count
 
     def _flush_log(self, epoch: int) -> None:
         lg = self.logger
@@ -160,9 +250,7 @@ class Trainer:
         epoch = next_e = 0
         while next_e < opt.n_epochs:
             k = self._group_epochs(next_e)
-            self.state, met = self.runner.run(self.state, self.table,
-                                              self.gen_perm, self.gen, k)
-            self._fold(met, k)
+            self._run_group(k)
             stop = False
             for e in range(next_e, next_e + k):
                 epoch = e
@@ -171,8 +259,10 @@ class Trainer:
                 if opt.log_every_epochs > 0 and (e + 1) % opt.log_every_epochs == 0:
                     self._flush_log(e)
                 if opt.use_dp:
+                    # The budget stop reads the bare epsilon (reference
+                    # train.py:592); the log adds the mean samples' cost.
                     eps, _ = self.accountant.get_privacy_spent(opt.delta)
-                    self.privacy_writer.writerow([e, eps])
+                    self.privacy_writer.writerow([e, eps + self.mean_sample_privacy_cost])
                     self.privacy_log.flush()
                     if opt.epsilon_budget is not None and eps > opt.epsilon_budget:
                         stop = True

@@ -1,4 +1,8 @@
-"""The epochs runner: k whole epochs through the epoch kernel K1.
+"""The runners that drive whole epochs: ``EpochsRunner`` (the MNIST vanilla
+path, one K1 launch per epoch) and ``StepRunner`` (the DCResNet gc path, one
+D step at a time with a G update on the n_d_steps cadence).
+
+EpochsRunner:
 
 For each epoch it draws, on the device and from the Trainer's generators, the
 permutation of the table rows and every step's randomness (z_d, z_g, y_g and
@@ -12,7 +16,7 @@ seed; value parity is tested with injected draws (tests/test_torch_epoch.py).
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -20,6 +24,7 @@ from csl_gan_tpu_torch.models.common import one_hot
 from csl_gan_tpu_torch.models.mnist import D_LEAVES
 from csl_gan_tpu_torch.ops import grads as gops
 from csl_gan_tpu_torch.ops import pallas_epoch
+from csl_gan_tpu_torch.privacy.mean_sampler import MeanSampler
 from csl_gan_tpu_torch.training.steps import StepBuilder, TrainState
 
 
@@ -74,3 +79,105 @@ class EpochsRunner:
                 ev[1].record()
                 self.epoch_events.append(ev)
         return pallas_epoch.state_from_leaves(params, mu, nu, state.clipping, t), met
+
+
+class StepRunner:
+    """k whole epochs of the DCResNet gc path (the JAX package's
+    segment_runner.py _build_run, written as a Python loop over steps).
+
+    Per epoch it draws the row permutation from ``gen_perm``; per step, from
+    ``gen`` and in this order: the horizontal flips (uint8 image tables),
+    z_d, the per-leaf DP noise, the mean-sample surrogates of the penalty
+    batch and the penalty's interpolation weights; on a G update, z_g and
+    y_g. The G update follows the D steps i with i % n_d_steps == 0, gated
+    while train_d_until_threshold < 1e10 by the mean D adversarial loss
+    since the last cadence point (one host read per cadence point; none
+    without gating). Metric sums stay on the device; the caller reads them
+    once per group.
+
+    ``gather(idx) -> (x, y)`` returns a batch's images and labels from the
+    device-resident dataset; with ``u8_images`` the images are uint8 and get
+    the JAX Trainer's ``/127.5 - 1`` and random flip after the gather.
+    """
+
+    def __init__(self, builder: StepBuilder, n_batches: int, n_rows: int,
+                 gather: Callable, u8_images: bool,
+                 mean_sampler: Optional[MeanSampler] = None,
+                 mean_samples: Optional[torch.Tensor] = None):
+        self.builder = builder
+        self.n = n_batches
+        self.n_rows = n_rows
+        self.gather = gather
+        self.u8_images = u8_images
+        self.mean_sampler = mean_sampler
+        self.mean_samples = mean_samples
+        opt = builder.opt
+        self.n_d = max(1, int(opt.n_d_steps))
+        self.threshold = float(opt.train_d_until_threshold)
+        # Running D adversarial-loss sum since the last cadence point; it
+        # persists across run() calls, like the JAX runner's carry.
+        self.d_acc = None
+        self.epoch_events: List[tuple] = []
+
+    def _batch(self, idx: torch.Tensor, gen: torch.Generator):
+        x, y = self.gather(idx)
+        if self.u8_images:
+            flip = torch.rand(x.shape[0], generator=gen, device=x.device) < 0.5
+            x = x.float() / 127.5 - 1.0
+            x = torch.where(flip[:, None, None, None], x.flip(2), x)
+        return x, y
+
+    def _penalty_inputs(self, gen: torch.Generator, y: torch.Tensor, bs: int):
+        b = self.builder
+        if not b.penalty_types:
+            return None, None, None
+        pen_x, pen_y = self.mean_sampler.device_sample(self.mean_samples, gen, y, bs)
+        alphas = [torch.rand((bs, 1, 1, 1), generator=gen, device=y.device)
+                  for _ in b.penalty_types]
+        return pen_x, pen_y, alphas
+
+    def run(self, state: TrainState, gen_perm: torch.Generator,
+            gen: torch.Generator, k: int):
+        """k epochs from `state`. Returns (state, D metric sums, G metric
+        sums, number of G updates)."""
+        b = self.builder
+        bs = b.opt.batch_size
+        dev = gen.device
+        d_sums: Dict[str, torch.Tensor] = {}
+        g_sums: Dict[str, torch.Tensor] = {}
+        g_count = 0
+        if self.d_acc is None:
+            self.d_acc = torch.zeros((), device=dev)
+        timed = dev.type == "cuda"
+        self.epoch_events = []
+        std = gops.noise_std(b.sigma, state.clipping)
+        for _ in range(k):
+            if timed:
+                ev = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+            perm = torch.randperm(self.n_rows, generator=gen_perm, device=dev)
+            for i in range(self.n):
+                x, y = self._batch(perm[i * bs:(i + 1) * bs], gen)
+                z = b.gen_z(gen, bs)
+                noise = gops.noise_like(gen, [state.d_params[n] for n in b.d_leaves], std)
+                pen_x, pen_y, alphas = self._penalty_inputs(gen, y, bs)
+                state, dm = b.d_step_conv_ghost(state, x, y, z, noise, pen_x,
+                                                pen_y, alphas)
+                for key, v in dm.items():
+                    d_sums[key] = d_sums[key] + v if key in d_sums else v
+                self.d_acc = self.d_acc + dm["d_adv_loss"]
+                if i % self.n_d == 0:
+                    g_on = (self.threshold >= 1e10
+                            or float(self.d_acc) / self.n_d < self.threshold)
+                    if g_on:
+                        state, gm = b.g_step_dcresnet(state, b.gen_z(gen, bs),
+                                                      b.gen_y(gen, bs))
+                        for key, v in gm.items():
+                            g_sums[key] = g_sums[key] + v if key in g_sums else v
+                        g_count += 1
+                    self.d_acc = torch.zeros((), device=dev)
+            if timed:
+                ev[1].record()
+                self.epoch_events.append(ev)
+        return state, d_sums, g_sums, g_count

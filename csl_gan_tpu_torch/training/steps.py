@@ -1,16 +1,21 @@
-"""Train-step math of the MNIST conditional ACGAN gc path, in plain PyTorch.
+"""Train-step math of the ported conditional ACGAN gc paths, in PyTorch.
 
-These are the port's counterparts of the JAX package's training/steps.py
-pieces that the whole-epoch kernel K1 mirrors: the gc D step (ghost-clipped
-real pass plus the clean fake pass ``fake_sum``, JAX ``_d_step_gc``), the
-non-private D step, the G step against the updated D (``_g_step``), and
-optax's Adam. All randomness is an explicit input (pre-drawn z, labels and
-DP noise), so the same inputs give the same values in both packages.
+The port's counterparts of the JAX package's training/steps.py pieces:
 
-They are the plain version of K1 (ops/pallas_epoch.py ``epoch_plain``) on the
-CPU and the reference the CUDA kernels are held against on the card.
-Parameters are dicts of torch state-dict names; per-leaf lists follow the JAX
-leaf order (models/mnist.py D_LEAVES / G_LEAVES).
+- MNIST vanilla (the steps the whole-epoch kernel K1 mirrors): the gc D step
+  (ghost-clipped real pass plus the clean fake pass ``fake_sum``, JAX
+  ``_d_step_gc``), the non-private D step and the G step (``_g_step``). They
+  are the plain version of K1 (ops/pallas_epoch.py ``epoch_plain``).
+- DCResNet (``d_step_conv_ghost``, ``g_step_dcresnet``): the gc D step's
+  conv-ghost branch (ops/conv_ghost.py, K2/K3) with the clean fake pass, the
+  WGAN-GP penalty on mean samples scaled by the batch size, the noise and
+  Adam; the G step through the K4/K5 GroupNorm+ReLU layers.
+- optax's Adam.
+
+All randomness is an explicit input (z, labels, per-leaf DP noise, penalty
+interpolation weights, mean-sample surrogates), so the same inputs give the
+same values in both packages. Parameters are dicts of torch state-dict names;
+per-leaf lists follow the JAX leaf order (``StepBuilder.d_leaves``).
 """
 
 from __future__ import annotations
@@ -23,9 +28,10 @@ import torch
 from torch.func import functional_call
 
 from csl_gan_tpu_torch.models import losses
-from csl_gan_tpu_torch.models.mnist import (D_LEAVES, G_LEAVES, MNISTVanillaD,
-                                            MNISTVanillaG)
-from csl_gan_tpu_torch.ops import ghost
+from csl_gan_tpu_torch.models.dcresnet import DCResNetDiscriminator, d_leaves
+from csl_gan_tpu_torch.models.mnist import D_LEAVES, G_LEAVES, MNISTVanillaD
+from csl_gan_tpu_torch.ops import conv_ghost, ghost
+from csl_gan_tpu_torch.training import penalty as penalty_mod
 
 Params = Dict[str, torch.Tensor]
 
@@ -52,9 +58,11 @@ def adam_update(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
     m = b1 * m + (1.0 - b1) * g
     v = b2 * v + (1.0 - b2) * (g * g)
     tt = torch.tensor(float(t), dtype=torch.float32, device=p.device)
-    bc1 = 1.0 - torch.exp(tt * math.log(b1))
-    bc2 = 1.0 - torch.exp(tt * math.log(b2))
-    u = (m / bc1) / (torch.sqrt(v / bc2) + eps)
+
+    def bias_correction(b):       # 1 - b**t; 0**t = 0 for t >= 1 (b1 = 0)
+        return 1.0 if b == 0.0 else 1.0 - torch.exp(tt * math.log(b))
+
+    u = (m / bias_correction(b1)) / (torch.sqrt(v / bias_correction(b2)) + eps)
     return p - lr * u, m, v
 
 
@@ -78,7 +86,7 @@ class StepBuilder:
     """Config of the ported step functions (the JAX TrainStepBuilder's
     fields that the epoch kernel's gate reads) plus the step math."""
 
-    def __init__(self, opt, G: MNISTVanillaG, D: MNISTVanillaD):
+    def __init__(self, opt, G, D, label1_prob: float = 0.5):
         self.opt = opt
         self.G, self.D = G, D
         self.family = G.family
@@ -98,11 +106,25 @@ class StepBuilder:
         self.penalty_types = list(opt.penalty or [])
         self.use_bpc = bool(opt.backprop_clip)
         self.chunk = opt.per_sample_chunk
-        self.compute_dtype = None
+        self.is_acgan = bool(opt.is_acgan)
+        self.aux_penalty = bool(opt.aux_penalty)
+        # Bernoulli(label1_prob) labels for two classes (the CelebA label
+        # frequency; the JAX package's gen_y).
+        self.label1_prob = label1_prob
         self.g_has_bn = False
         self.use_ghost = (isinstance(D, MNISTVanillaD) and self.dp_mode == "gc"
                           and bool(opt.grad_clip_split) and not self.use_bpc
                           and self.chunk is None)
+        # DCResNet D: conv ghost clipping (ops/conv_ghost.py) for the private
+        # real pass, bf16 compute under --bf16.
+        dcresnet = isinstance(D, DCResNetDiscriminator)
+        self.use_conv_ghost = (dcresnet and self.dp_mode == "gc"
+                               and bool(opt.grad_clip_split)
+                               and bool(opt.conv_ghost) and not self.use_bpc
+                               and self.chunk is None)
+        self.compute_dtype = torch.bfloat16 if dcresnet and opt.bf16 else None
+        self.d_leaves = tuple(d_leaves(D)) if dcresnet else D_LEAVES
+        self.g_leaves = tuple(G.state_dict()) if dcresnet else G_LEAVES
         self.img_shape = (28, 28, 1)
         # Set by the Trainer when the device table is [x | one-hot | label].
         self.labels_in_table = False
@@ -113,8 +135,8 @@ class StepBuilder:
     def init_state(self) -> TrainState:
         d = {k: v.detach().clone() for k, v in self.D.state_dict().items()}
         g = {k: v.detach().clone() for k, v in self.G.state_dict().items()}
-        d = {k: d[k] for k in D_LEAVES}
-        g = {k: g[k] for k in G_LEAVES}
+        d = {k: d[k] for k in self.d_leaves}
+        g = {k: g[k] for k in self.g_leaves}
         zeros = lambda t: {k: torch.zeros_like(v) for k, v in t.items()}  # noqa: E731
         return TrainState(d, g, zeros(d), zeros(d), zeros(g), zeros(g), 0, 0,
                           float(self.opt.clipping_param or 1.0))
@@ -124,8 +146,11 @@ class StepBuilder:
                            device=gen.device, dtype=torch.float32)
 
     def gen_y(self, gen: torch.Generator, size: int, lead: tuple = ()):
-        """Uniform class labels (reference train.py:153-161); for two
-        classes this is the JAX package's Bernoulli(0.5) MNIST branch."""
+        """Class labels (reference train.py:153-161): Bernoulli(label1_prob)
+        for two classes, uniform otherwise (the JAX package's gen_y)."""
+        if self.n_classes == 2:
+            u = torch.rand(lead + (size,), generator=gen, device=gen.device)
+            return (u < self.label1_prob).to(torch.int64)
         return torch.randint(0, self.n_classes, lead + (size,), generator=gen,
                              device=gen.device)
 
@@ -159,8 +184,8 @@ class StepBuilder:
                 loss = loss + losses.aux_loss(
                     self.arch, self.aux_type, self.aux_scalar, aux_o, y,
                     self.n_classes, reduction="sum")
-            grads = torch.autograd.grad(loss, [p[k] for k in D_LEAVES])
-        return dict(zip(D_LEAVES, grads)), out.detach()
+            grads = torch.autograd.grad(loss, [p[k] for k in self.d_leaves])
+        return dict(zip(self.d_leaves, grads)), out.detach()
 
     def _real_sum_grads(self, d_params: Params, x, y):
         """Plain summed grads of the per-sample real loss (non-private)."""
@@ -170,8 +195,8 @@ class StepBuilder:
             loss = losses.d_real_loss(self.family, out, "sum") + losses.aux_loss(
                 self.arch, self.aux_type, self.aux_scalar, aux_o, y,
                 self.n_classes, reduction="sum")
-            grads = torch.autograd.grad(loss, [p[k] for k in D_LEAVES])
-        return dict(zip(D_LEAVES, grads)), out.detach(), aux_o.detach()
+            grads = torch.autograd.grad(loss, [p[k] for k in self.d_leaves])
+        return dict(zip(self.d_leaves, grads)), out.detach(), aux_o.detach()
 
     def d_step(self, state: TrainState, x, y, y_onehot, z,
                noise: Optional[List[torch.Tensor]], use_dp: bool):
@@ -236,5 +261,106 @@ class StepBuilder:
             self.opt.g_lr, self.opt.adam_b1, self.opt.adam_b2)
         m = {"g_adv_loss": adv.detach(), "g_aux_loss": aux.detach(),
              "g_aux_acc": 100.0 * _acc_vs_max(aux_o.detach(), y_onehot).mean()}
+        return replace(state, g_params=g_params, g_mu=g_mu, g_nu=g_nu,
+                       g_count=state.g_count + 1), m
+
+    # ---------------- DCResNet (conv ghost) ----------------
+
+    def row_weights(self, y: torch.Tensor) -> Optional[torch.Tensor]:
+        """Per-row 1 / count of the row's class in the batch, for the ACGAN
+        wasserstein aux loss (JAX steps.py _row_weights)."""
+        if not (self.use_aux and self.aux_type == "wasserstein"):
+            return None
+        onehot = torch.nn.functional.one_hot(y.long(), self.n_classes).float()
+        return 1.0 / torch.clamp(onehot @ onehot.sum(dim=0), min=1.0)
+
+    def _penalty_grads(self, d_params: Params, pen_x, pen_y, fake, alphas):
+        """(value, grads by name) of the gradient penalty on the public /
+        mean-sample batch (JAX steps.py _penalty_grads)."""
+        p = {k: v.detach().requires_grad_(True) for k, v in d_params.items()}
+        with torch.enable_grad():
+            def d_apply(xx, yy):
+                return functional_call(self.D, p, (xx, yy))
+
+            val = penalty_mod.calc_penalty(
+                d_apply, self.penalty_types, pen_x, pen_y, fake, alphas,
+                aux_penalty=self.aux_penalty, n_classes=self.n_classes)
+            # The input gradient does not depend on the head biases: their
+            # penalty gradient is zero.
+            grads = torch.autograd.grad(val, [p[k] for k in self.d_leaves],
+                                        allow_unused=True)
+        return val.detach(), {k: torch.zeros_like(p[k]) if g is None else g
+                              for k, g in zip(self.d_leaves, grads)}
+
+    def fakes(self, g_params: Params, z, y):
+        """Fresh fakes for a D step: a G forward without autograd."""
+        with torch.no_grad():
+            return functional_call(self.G, g_params, (z, y))
+
+    def d_step_conv_ghost(self, state: TrainState, x, y, z,
+                          noise: List[torch.Tensor], pen_x=None, pen_y=None,
+                          alphas: Optional[List[torch.Tensor]] = None):
+        """One gc D update of the DCResNet D (JAX _d_step_gc, conv-ghost
+        branch): clipped real pass + per-leaf noise + clean fake pass
+        [+ b * penalty grads], then /b and Adam. Returns (state, metrics)."""
+        b = x.shape[0]
+        fake = self.fakes(state.g_params, z, y)
+        summed, stats, (r_out, r_aux) = conv_ghost.dcresnet_real_ghost(
+            state.d_params, x, y, n_classes=self.n_classes, arch=self.arch,
+            aux_type=self.aux_type, aux_scalar=self.aux_scalar,
+            row_w=self.row_weights(y), max_norm=state.clipping,
+            per_layer=self.per_layer, compute_dtype=self.compute_dtype)
+        fake_grads, f_out = self._fake_sum_grads(state.d_params, fake, y)
+        total = {k: (summed[k] + noise[i]) + fake_grads[k]
+                 for i, k in enumerate(self.d_leaves)}
+        pen_value = None
+        if self.penalty_types:
+            pen_value, pen_grads = self._penalty_grads(state.d_params, pen_x,
+                                                       pen_y, fake, alphas)
+            total = {k: t + pen_grads[k] * b for k, t in total.items()}
+        grads = {k: t / b for k, t in total.items()}
+        d_params, d_mu, d_nu = _adam_all(
+            state.d_params, grads, state.d_mu, state.d_nu, state.d_count + 1,
+            self.opt.d_lr, self.opt.adam_b1, self.opt.adam_b2)
+
+        r_loss = losses.d_real_loss(self.family, r_out)
+        f_loss = losses.d_fake_loss(self.family, f_out)
+        m = {"d_adv_loss": r_loss + f_loss, "d_real_loss": r_loss,
+             "d_fake_loss": f_loss,
+             "d_real_acc": 100.0 * (r_out > 0).float().mean(),
+             "d_fake_acc": 100.0 * (f_out < 0).float().mean(),
+             "norm_mean": stats.norm_mean, "norm_std": stats.norm_std,
+             "norm_max": stats.norm_max, "frac_clipped": stats.frac_clipped}
+        if self.use_aux:
+            m["d_real_aux_loss"] = losses.aux_loss(
+                self.arch, self.aux_type, self.aux_scalar, r_aux, y, self.n_classes)
+            m["d_real_aux_acc"] = 100.0 * (r_aux.argmax(dim=1) == y).float().mean()
+        if pen_value is not None:
+            m["penalty"] = pen_value
+        return replace(state, d_params=d_params, d_mu=d_mu, d_nu=d_nu,
+                       d_count=state.d_count + 1), m
+
+    def g_step_dcresnet(self, state: TrainState, z, y):
+        """G update against the current D: wgan adversarial loss + ACGAN aux
+        loss (JAX _g_step); the GroupNorm+ReLU backward runs K5."""
+        p = {k: v.detach().requires_grad_(True) for k, v in state.g_params.items()}
+        with torch.enable_grad():
+            img = functional_call(self.G, p, (z, y))
+            out, aux_o = functional_call(self.D, state.d_params, (img, y))
+            adv = losses.g_adv_loss(self.family, out)
+            loss = adv
+            if self.is_acgan:
+                aux = losses.aux_loss(self.arch, self.aux_type, self.aux_scalar,
+                                      aux_o, y, self.n_classes)
+                loss = adv + aux
+            grads = torch.autograd.grad(loss, [p[k] for k in self.g_leaves])
+        g_params, g_mu, g_nu = _adam_all(
+            state.g_params, dict(zip(self.g_leaves, grads)), state.g_mu,
+            state.g_nu, state.g_count + 1, self.opt.g_lr, self.opt.adam_b1,
+            self.opt.adam_b2)
+        m = {"g_adv_loss": adv.detach()}
+        if self.is_acgan:
+            m["g_aux_loss"] = aux.detach()
+            m["g_aux_acc"] = 100.0 * (aux_o.detach().argmax(dim=1) == y).float().mean()
         return replace(state, g_params=g_params, g_mu=g_mu, g_nu=g_nu,
                        g_count=state.g_count + 1), m
