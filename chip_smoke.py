@@ -33,9 +33,27 @@ toolkit, it:
      celeba_g64 / celeba_d64 width) for 2 epochs, checks that K2-K5 each
      launched, finite losses and epsilon, prints ms per D step and samples/s,
      and the device time by CUDA kernel of one more epoch;
-  5. prints one JSON ``kernels`` line (K1-K5: launches on their main path,
+  5. materialized per-sample-gradient paths (K6). Holds K6 against its
+     plain version (the same Philox stream) at path 1's leaf [600, 101632],
+     at every large leaf of celeba_d64 at B 128, at an odd P and at the leaf
+     gate's P = 16384: the sum at std 0, sum and noise at std 2.5 with one
+     seed, another seed, the same seed twice (bitwise), and the noise's
+     moments; times each beside its plain version, ``w @ g`` +
+     ``std * torch.randn`` and its bytes bound. Holds the MNIST ghost-clipped
+     real sum against the materialized one (bs 600), and one full-width D
+     step of each path through K6 against the same step through K6's plain
+     version with the same seeds. Then drives, through the Trainer, path 1
+     (``MNIST --conditional -dpm gc --sigma 10 -bs 600 --pallas true
+     --grad_clip_split false``) and path 2 (``CelebA --conditional -dpm gc
+     -bs 128 -tss 1280 -nms 1 --mean_sample_size 8 --bf16 true
+     --train_d_until_threshold 1e18 --conv_ghost false --pallas true``) for 2
+     epochs each, counts K6's launches, and prints ms per D step beside the
+     K1 path's and the conv-ghost path's of the same run, where each step's
+     time goes (vmap(grad), norms, K6 and small leaves, the rest) and the
+     device time by CUDA kernel of one more epoch;
+  6. prints one JSON ``kernels`` line (K1-K6: launches on their main path,
      max abs gap to the plain version, ms, plain ms, bound, library ms);
-  6. ends with ``{"ok": true, "device": {...}}`` as the last line.
+  7. ends with ``{"ok": true, "device": {...}}`` as the last line.
 Any failure raises or exits non-zero, and no result line is printed. It
 needs no network and imports nothing of JAX or of the JAX package.
 """
@@ -138,8 +156,36 @@ GN_BOUND, GN_PARAM_BOUND = 1e-3, 1e-4
 STEP_BOUND_D, STEP_BOUND_G, STEP_BOUND_MET = 1e-4, 2e-2, 1e-4
 
 
-# CUDA kernel names by group, for the CelebA profile; the first match wins.
+# ---------------- the materialized paths (K6) ----------------
+
+PATH1 = ["MNIST", "--conditional", "-dpm", "gc", "--sigma", "10", "-bs", str(BS),
+         "-tss", "60000", "--pallas", "true", "--grad_clip_split", "false"]
+PATH2 = ["CelebA", "--conditional", "-dpm", "gc", "-bs", str(CB), "-tss", "1280",
+         "-nms", "1", "--mean_sample_size", "8", "--bf16", "true",
+         "--train_d_until_threshold", "1e18", "--conv_ghost", "false", "--pallas", "true"]
+K6_EPOCHS = 2
+K6_STD = 2.5
+# K6 vs plain. The sum: the same fp32 products added in another order (K6:
+# ascending rows per split, then the splits; plain: cuBLAS), ~1e-7 relative
+# (H100). The noise: both compute the same Philox words exactly and the same
+# Box-Muller in fp32, whose logf / cosf may differ by an ulp between the two
+# compilers' math libraries: ~1e-6 * std. So with one seed the results are
+# held to 1e-4 * std absolute (the sum's gap included: inputs are N(0, 1)
+# rows and weights in [0.1, 1]), which a wrong counter, key or uniform (an
+# independent draw, gap ~ std) fails by four orders of magnitude.
+K6_SUM_BOUND, K6_NOISE_BOUND = 1e-5, 1e-4
+# One full-width D step through K6 against the same step through K6's plain
+# version, same seeds (deterministic cuDNN): only the sum's order differs, so
+# D's params and moments are held like the CelebA step check's; the metrics
+# are taken before the update and must not move at all beyond that bound.
+K6_STEP_BOUND = 1e-4
+# The ghost-clipped real sum against the materialized one (fp32, TF32 off):
+# analytic norms and matrix products against vmap(grad) and K6's sum.
+GHOST_BOUND = 1e-4
+
+# CUDA kernel names by group, for the step profiles; the first match wins.
 PROFILE_GROUPS = (
+    ("K6 clip_noise", ("wsum_partial", "sum_noise")),
     ("K2 ghost_sq_norms", ("ghost_norm_tiles", "sum_rows")),
     ("K3 weighted_kernel_grad", ("wsum_tiles", "sum_splits")),
     ("K4/K5 gn_relu", ("gn_channel_sums", "gn_relu_apply", "gn_bwd_", "gn_param_grads")),
@@ -320,15 +366,7 @@ def groupnorm_phase(dev, peak_bytes):
 
 
 @contextlib.contextmanager
-def plain_versions():
-    """K2-K5's wrappers replaced by their plain versions, so that a step on
-    the card runs the same cuDNN convolutions without the kernels."""
-    from csl_gan_tpu_torch.ops import pallas_conv_ghost as pcg
-    from csl_gan_tpu_torch.ops import pallas_groupnorm as gn
-    swaps = ((pcg, "ghost_sq_norms", pcg.ghost_sq_norms_plain),
-             (pcg, "weighted_kernel_grad", pcg.weighted_kernel_grad_plain),
-             (gn, "gn_relu_forward", gn.gn_relu_plain),
-             (gn, "gn_relu_backward", gn.gn_relu_bwd_plain))
+def _swapped(swaps):
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, fn in swaps:
         setattr(mod, name, fn)
@@ -337,6 +375,29 @@ def plain_versions():
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
+
+
+def plain_versions():
+    """K2-K5's wrappers replaced by their plain versions, so that a step on
+    the card runs the same cuDNN convolutions without the kernels."""
+    from csl_gan_tpu_torch.ops import pallas_conv_ghost as pcg
+    from csl_gan_tpu_torch.ops import pallas_groupnorm as gn
+    return _swapped(((pcg, "ghost_sq_norms", pcg.ghost_sq_norms_plain),
+                     (pcg, "weighted_kernel_grad", pcg.weighted_kernel_grad_plain),
+                     (gn, "gn_relu_forward", gn.gn_relu_plain),
+                     (gn, "gn_relu_backward", gn.gn_relu_bwd_plain)))
+
+
+def plain_clip():
+    """K6's wrapper replaced by its plain version (and nothing else: the G
+    forward of the step goes on through K4 on both sides)."""
+    from csl_gan_tpu_torch.ops import pallas_clip as pc
+
+    def clip_plain(g, w, seed, std):
+        return pc.weighted_sum_noise_plain(g.reshape(g.shape[0], -1), w, seed,
+                                           std).reshape(g.shape[1:])
+
+    return _swapped(((pc, "leaf_weighted_sum_noise", clip_plain),))
 
 
 def celeba_step_check(dev, out_root):
@@ -429,9 +490,38 @@ def celeba_step_check(dev, out_root):
         fail("the CelebA steps through K2-K5 disagree with the plain steps on the card")
 
 
+def profile_step_runner(tr, label: str) -> None:
+    """Device time by CUDA kernel and by group over one more epoch of a
+    Trainer on the step runner (torch.profiler / CUPTI)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    n = tr.n_batches
+    s0, s1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        s0.record()
+        tr.state, *_ = tr.runner.run(tr.state, tr.gen_perm, tr.gen, 1)
+        s1.record()
+        torch.cuda.synchronize()
+    span = s0.elapsed_time(s1)
+    by_kernel = device_ms_by_kernel(prof)
+    busy = sum(r[0] for r in by_kernel)
+    print(f"{label} profile: device busy {busy:.3f} ms of a {span:.3f} ms epoch "
+          f"({100 * busy / span:.1f}%), by kernel (ms, launches, name):")
+    for t_ms, cnt, key in by_kernel[:25]:
+        print(f"  {t_ms:9.3f} {cnt:6d}  {key}")
+    groups = {}
+    for t_ms, _, key in by_kernel:
+        g = next((name for name, keys in PROFILE_GROUPS if any(k in key for k in keys)),
+                 "other")
+        groups[g] = groups.get(g, 0.0) + t_ms
+    print(f"{label} profile by group (ms per D step, share of device busy): " + "; ".join(
+        f"{g} {t / n:.3f} ({100 * t / busy:.1f}%)"
+        for g, t in sorted(groups.items(), key=lambda kv: -kv[1])))
+
+
 def celeba_phases(dev, out_root, peak_bf16, peak_bytes):
     """The kernel checks, then the CelebA flagship through the Trainer.
-    Returns the kernels-line entries of K2-K5."""
+    Returns the kernels-line entries of K2-K5 and the path's ms per D step."""
     import csv
     import torch
     from csl_gan_tpu_torch import options as toptions
@@ -494,32 +584,293 @@ def celeba_phases(dev, out_root, peak_bf16, peak_bytes):
           f"{eps[-1]:.6f} (mean samples {tr.mean_sample_privacy_cost:.6f}); losses "
           + ", ".join(f"{x:.4f}" for x in losses))
 
-    # Device time by CUDA kernel over one more epoch.
-    from torch.profiler import ProfilerActivity, profile
-    s0, s1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        s0.record()
-        tr.state, *_ = tr.runner.run(tr.state, tr.gen_perm, tr.gen, 1)
-        s1.record()
-        torch.cuda.synchronize()
-    span = s0.elapsed_time(s1)
-    by_kernel = device_ms_by_kernel(prof)
-    busy = sum(r[0] for r in by_kernel)
-    print(f"CelebA profile: device busy {busy:.3f} ms of a {span:.3f} ms epoch "
-          f"({100 * busy / span:.1f}%), by kernel (ms, launches, name):")
-    for t_ms, cnt, key in by_kernel[:25]:
-        print(f"  {t_ms:9.3f} {cnt:6d}  {key}")
-    groups = {}
-    for t_ms, _, key in by_kernel:
-        g = next((name for name, keys in PROFILE_GROUPS if any(k in key for k in keys)),
-                 "other")
-        groups[g] = groups.get(g, 0.0) + t_ms
-    print("CelebA profile by group (ms per D step, share of device busy): " + "; ".join(
-        f"{g} {t / n:.3f} ({100 * t / busy:.1f}%)"
-        for g, t in sorted(groups.items(), key=lambda kv: -kv[1])))
+    profile_step_runner(tr, "CelebA")
     for entry, count in zip(entries, launches):
         entry["launches"] = count
-    return entries
+    return entries, step_ms
+
+
+def _step_builder(argv, dev, out_dir):
+    """(opt, StepBuilder) of a config on the card, as the Trainer builds them."""
+    from csl_gan_tpu_torch import options as toptions
+    from csl_gan_tpu_torch.models.registry import init_models
+    from csl_gan_tpu_torch.training.steps import StepBuilder
+
+    opt = toptions.parse(argv + ["--manual_seed", "1", "--platform", "gpu", "-o", str(out_dir)])
+    G, D = init_models(opt, dev)
+    return opt, StepBuilder(opt, G, D)
+
+
+def clip_kernel_phase(dev, peak_bytes, large_leaves):
+    """K6 against its plain version and timed: at path 1's leaf, at every
+    large leaf of celeba_d64 (B 128), at an odd P and at the gate's P.
+    Returns the kernels-line entry (without its launch counts)."""
+    import torch
+    from csl_gan_tpu_torch.ops import pallas_clip as pc
+
+    g = torch.Generator(dev).manual_seed(23)
+    path2 = sorted({n for _, n in large_leaves})
+    shapes = [(BS, (F + NC) * H, "path 1")] + [(CB, n, "path 2") for n in path2]
+    shapes += [(CB, n, "extra") for n in (33300, pc.MIN_PALLAS_ELEMS) if n not in path2]
+    std = torch.tensor(K6_STD, device=dev)
+    zero = torch.tensor(0.0, device=dev)
+    rows, err = {}, 0.0
+    for b, p, tag in shapes:
+        x = torch.randn(b, p, generator=g, device=dev)
+        w = torch.rand(b, generator=g, device=dev) * 0.9 + 0.1
+        seed = torch.randint(0, 2 ** 63 - 1, (), generator=g, device=dev)
+        k0, p0 = pc.leaf_weighted_sum_noise(x, w, seed, zero), \
+            pc.weighted_sum_noise_plain(x, w, seed, zero)
+        k1, p1 = pc.leaf_weighted_sum_noise(x, w, seed, std), \
+            pc.weighted_sum_noise_plain(x, w, seed, std)
+        again = pc.leaf_weighted_sum_noise(x, w, seed, std)
+        other = pc.leaf_weighted_sum_noise(x, w, seed + 1, std)
+        torch.cuda.synchronize()
+        r0 = rel_l2(k0, p0)
+        gap = float((k1 - p1).abs().max())
+        err = max(err, gap, float((k0 - p0).abs().max()))
+        z = (k1 - k0) / K6_STD
+        mean, sd = float(z.mean()), float(z.std())
+        t = {"ms": cuda_ms(lambda: pc.leaf_weighted_sum_noise(x, w, seed, std), 20),
+             "plain_ms": cuda_ms(lambda: pc.weighted_sum_noise_plain(x, w, seed, std), 3),
+             "library_ms": cuda_ms(lambda: w @ x + std * torch.randn(p, device=dev), 20),
+             "bytes": 4.0 * (b * p + b + p) + 12}
+        t["bound_ms"] = t["bytes"] / peak_bytes * 1e3
+        rows[(b, p)] = (tag, t)
+        print(f"K6 [{b}, {p}] ({tag}): std 0 rel l2 {r0:.3e} (bound {K6_SUM_BOUND:g}); std "
+              f"{K6_STD} same seed max abs gap {gap:.3e} (bound {K6_NOISE_BOUND * K6_STD:g}); "
+              f"noise mean {mean:+.4f} std {sd:.4f}; K6 {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f}, w @ g + randn {t['library_ms']:.4f}, bound "
+              f"{t['bound_ms']:.4f} ({100 * t['bound_ms'] / t['ms']:.1f}% of the memory rate)")
+        if not (r0 <= K6_SUM_BOUND and gap <= K6_NOISE_BOUND * K6_STD):
+            fail(f"K6 disagrees with its plain version at [{b}, {p}]")
+        if not torch.equal(k1, again):
+            fail(f"K6 is not bitwise reproducible at [{b}, {p}]")
+        if not float((k1 - other).abs().max()) > 0.1 * K6_STD:
+            fail(f"K6's noise does not depend on the seed at [{b}, {p}]")
+        if p >= 1 << 17 and not (abs(mean) < 0.05 and abs(sd - 1.0) < 0.02):
+            fail(f"K6's noise moments are off at [{b}, {p}]: mean {mean}, std {sd}")
+        del x, k0, p0, k1, p1, again, other, z
+    one = rows[(BS, (F + NC) * H)][1]
+    two = {key: sum(rows[(CB, n)][1][key] for _, n in large_leaves)
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    print("K6 over celeba_d64's large leaves (one D step of path 2): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in two.items()))
+    return {"name": "leaf_weighted_sum_noise", "route": "cuda",
+            "source": "csl_gan_tpu_torch/ops/csrc/clip_noise.cu",
+            "replaces": "csl_gan_tpu/ops/pallas_clip.py:61",
+            "max_abs_err": err, "ms": one["ms"], "plain_ms": one["plain_ms"],
+            "bound_ms": one["bound_ms"], "bound_by": "bytes", "library_ms": one["library_ms"],
+            "per": f"launch at path 1's leaf [{BS}, {(F + NC) * H}] (one per D step)",
+            "path2": dict(two, per=f"D step: {len(large_leaves)} launches at B {CB}")}
+
+
+def ghost_vs_materialized(dev, out_root):
+    """The MNIST ghost-clipped real sum (analytic norms, matrix products)
+    against the materialized one (vmap(grad), norms, weighted sum), bs 600."""
+    import torch
+    from csl_gan_tpu_torch.data.mnist import synthetic_mnist
+    from csl_gan_tpu_torch.models.common import one_hot
+    from csl_gan_tpu_torch.ops import ghost, grads as gops
+
+    _, b = _step_builder(["MNIST", "--conditional", "-dpm", "gc", "--sigma", "10", "-bs",
+                          str(BS), "-tss", "60000"], dev, out_root / "ghost_check")
+    imgs, labels = synthetic_mnist(BS, seed=13)
+    x, y = torch.from_numpy(imgs).to(dev), torch.from_numpy(labels).to(dev)
+    st = b.init_state()
+    worst = 0.0
+    for clip in (st.clipping, 0.05):        # some rows clipped; nearly all
+        got, st_g, _ = ghost.vanilla_real_ghost(st.d_params, x, one_hot(y, NC), y,
+                                                b.aux_scalar, clip, False)
+        f, args = b.real_ps_args(x, y, b.row_weights(y))
+        want, st_m = gops.clipped_grad_sum(f, st.d_params, *args, max_norm=clip)
+        torch.cuda.synchronize()
+        gap = max(rel_l2(got[k], want[k]) for k in b.d_leaves)
+        worst = max(worst, gap, rel_l2(st_g.norm_mean, st_m.norm_mean))
+        print(f"MNIST real pass bs {BS}, C {clip:g}: ghost vs materialized clipped sum rel l2 "
+              f"{gap:.3e} (bound {GHOST_BOUND:g}), clipped {float(st_m.frac_clipped.mean()):.2f}")
+    if not worst < GHOST_BOUND:
+        fail("the ghost and the materialized clipped sums disagree")
+
+
+def clip_step_check(dev, out_root, name, argv, batch):
+    """One full-width D step through K6 against the same step through K6's
+    plain version: same state, inputs and seeds, both on the card."""
+    import torch
+    from csl_gan_tpu_torch.ops import grads as gops
+
+    opt, b = _step_builder(argv, dev, out_root / f"{name}_step")
+    assert b.fused_route
+    st0 = b.init_state()
+    bs = opt.batch_size
+    g = torch.Generator(dev).manual_seed(31)
+    x, y = batch(g, bs)
+    z = b.gen_z(g, bs)
+    leaves = [st0.d_params[k] for k in b.d_leaves]
+    stds = torch.tensor(gops.noise_stds(len(leaves), b.sigma, st0.clipping, b.per_layer),
+                        device=dev)
+    fused = gops.draw_fused_noise(g, leaves, stds)
+    pen = {}
+    if b.penalty_types:
+        pen = dict(pen_x=torch.rand(x.shape, generator=g, device=dev) * 2 - 1, pen_y=y,
+                   alphas=[torch.rand((bs, 1, 1, 1), generator=g, device=dev)])
+
+    def step():
+        out = b.d_step_gc(st0, x, y, z, fused=fused, **pen)
+        torch.cuda.synchronize()
+        return out
+
+    cudnn = torch.backends.cudnn
+    was = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        (sk, mk) = step()
+        with plain_clip():
+            (sp, mp) = step()
+    finally:
+        cudnn.deterministic, cudnn.benchmark = was
+    cat = lambda d: torch.cat([d[k].reshape(-1) for k in b.d_leaves])  # noqa: E731
+    gaps = {"D params": rel_l2(cat(sk.d_params), cat(sp.d_params)),
+            "D mu": rel_l2(cat(sk.d_mu), cat(sp.d_mu)), "D nu": rel_l2(cat(sk.d_nu), cat(sp.d_nu))}
+    met = max(float((mk[k] - mp[k]).abs().max() / max(float(mp[k].abs().max()), 1e-2))
+              for k in mk if "acc" not in k and k != "frac_clipped")
+    print(f"{name} D step (bs {bs}, full width, sigma {b.sigma:g}) on the card, K6 vs plain: "
+          f"rel l2 " + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
+          + f", metrics {met:.3e} (bound {K6_STEP_BOUND:g}); clipped "
+          f"{float(mk['frac_clipped'].mean()):.2f}")
+    if not (max(gaps.values()) < K6_STEP_BOUND and met < K6_STEP_BOUND):
+        fail(f"the {name} D step through K6 disagrees with the plain step on the card")
+    return b, st0, (x, y, z, fused, pen)
+
+
+def clip_step_breakdown(name, b, st0, inputs):
+    """Where one full-width D step's device time goes: vmap(grad), the norms
+    and clip factors, the fused sum (K6 and the small leaves), the rest."""
+    import torch
+    from csl_gan_tpu_torch.ops import grads as gops
+
+    x, y, z, fused, pen = inputs
+    fake = b.fakes(st0.g_params, z, y)
+    row_w = b.row_weights(y)
+    f, args = (b.real_ps_args(x, y, row_w) if b.grad_clip_split
+               else b.combined_ps_args(x, y, fake, row_w))
+    g_ps = gops.per_sample_grads(f, st0.d_params, *args)
+    norms = gops.leaf_norms(g_ps)
+    factors = gops.clip_factors(norms, st0.clipping, b.per_layer)
+    t = {"vmap(grad)": cuda_ms(lambda: gops.per_sample_grads(f, st0.d_params, *args), 5),
+         "norms and factors": cuda_ms(lambda: gops.clip_factors(
+             gops.leaf_norms(g_ps), st0.clipping, b.per_layer), 5),
+         "K6 + small leaves": cuda_ms(lambda: gops.weighted_sum_fused_noise(
+             g_ps, factors, fused), 5)}
+    # The same sum and noise unfused (--pallas false): one product and one
+    # torch.randn per leaf.
+    gen = torch.Generator(x.device).manual_seed(32)
+    leaves, stds = list(st0.d_params.values()), fused.stds.tolist()
+    unfused = cuda_ms(lambda: [s + n for s, n in zip(
+        gops.weighted_sum(g_ps, factors).values(), gops.noise_like(gen, leaves, stds))], 5)
+    del g_ps
+    step = cuda_ms(lambda: b.d_step_gc(st0, x, y, z, fused=fused, **pen), 5)
+    t["the rest (fakes, fake pass, penalty, Adam, metrics)"] = step - sum(t.values())
+    print(f"{name} D step breakdown (CUDA events around each part, ms): whole step {step:.3f}; "
+          + "; ".join(f"{k} {v:.3f} ({100 * v / step:.1f}%)" for k, v in t.items())
+          + f"; beside it, the unfused sum + noise of --pallas false: {unfused:.3f}")
+
+
+def clip_path(name, argv, tss, out_root, expect_per_step):
+    """A materialized path through the Trainer for K6_EPOCHS epochs.
+    Returns (ms per D step after the first epoch, K6 launches)."""
+    import torch
+    from csl_gan_tpu_torch import options as toptions
+    from csl_gan_tpu_torch.ops import pallas_clip as pc
+    from csl_gan_tpu_torch.training.loop import Trainer
+    from csl_gan_tpu_torch.training.segment_runner import StepRunner
+
+    e = K6_EPOCHS
+    opt = toptions.parse(argv + ["-ne", str(e), "--log_every", str(tss * e), "--manual_seed",
+                                 "1", "-o", str(out_root / name)])
+    tr = Trainer(opt)
+    if not (isinstance(tr.runner, StepRunner) and tr.builder.fused_route):
+        fail(f"{name} does not take the step runner's fused route")
+    pc.leaf_weighted_sum_noise.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = pc.leaf_weighted_sum_noise.launches
+    n = tr.n_batches
+    if launches != e * n * expect_per_step:
+        fail(f"K6 launched {launches} times on {name}, expected {e * n * expect_per_step}")
+    ep_ms = [a.elapsed_time(b) for a, b in tr.runner.epoch_events]
+    with open(out_root / name / "privacy_log.csv") as fh:
+        eps = [float(r["Epsilon"]) for r in csv.DictReader(fh)]
+    with open(out_root / name / "log.csv") as fh:
+        row = list(csv.DictReader(fh))[-1]
+    losses = {k: float(row[k]) for k in ("G Adv Loss", "G Aux Loss", "D Adv Loss", "D Real Loss",
+                                         "D Fake Loss", "D Real Aux Loss")}
+    if len(eps) != e or not all(math.isfinite(v) and v > 0 for v in eps):
+        fail(f"bad epsilon column {eps} on {name}")
+    if not all(math.isfinite(v) for v in losses.values()):
+        fail(f"non-finite losses on {name}: {losses}")
+    if not all(torch.isfinite(t).all() for p in (tr.state.d_params, tr.state.g_params)
+               for t in p.values()):
+        fail(f"non-finite params after {name}")
+    if tr.state.d_count != e * n or tr.state.g_count != e * -(-n // opt.n_d_steps):
+        fail(f"D / G update counts {tr.state.d_count} / {tr.state.g_count} on {name}")
+    rest = ep_ms[1:] or ep_ms
+    step_ms = sum(rest) / len(rest) / n
+    print(f"{name}: {e} epochs x {n} D steps ({tr.state.g_count} G updates), K6 launches "
+          f"{launches} ({expect_per_step} per D step); ms per D step first epoch "
+          f"{ep_ms[0] / n:.3f}, after {step_ms:.3f} (epochs "
+          f"{', '.join(f'{v:.1f}' for v in ep_ms)} ms); {opt.batch_size * 1e3 / step_ms:.0f} "
+          f"samples/s after the first; wall {wall:.2f} s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; epsilon {eps[-1]:.6f}; losses "
+          + ", ".join(f"{k} {v:.4f}" for k, v in losses.items()))
+    profile_step_runner(tr, name)
+    return step_ms, launches
+
+
+def clip_phases(dev, out_root, peak_bytes, k1_epoch_ms, celeba_step_ms):
+    """K6's checks and the two materialized paths. Returns K6's kernels-line
+    entry."""
+    import torch
+    from csl_gan_tpu_torch.data.mnist import synthetic_mnist
+    from csl_gan_tpu_torch.models.dcresnet import celeba_d64, d_leaves
+    from csl_gan_tpu_torch.ops import pallas_clip as pc
+
+    d = celeba_d64(n_classes=2)
+    sizes = {k: v.numel() for k, v in d.state_dict().items()}
+    large = [(k, sizes[k]) for k in d_leaves(d) if sizes[k] >= pc.MIN_PALLAS_ELEMS]
+    print(f"celeba_d64: {sum(sizes.values())} params; leaves the gate (>= "
+          f"{pc.MIN_PALLAS_ELEMS} elements) sends to K6: "
+          + ", ".join(f"{k} {n}" for k, n in large) + "; small-leaf branch: "
+          + ", ".join(f"{k} {sizes[k]}" for k in d_leaves(d) if sizes[k] < pc.MIN_PALLAS_ELEMS))
+    entry = clip_kernel_phase(dev, peak_bytes, large)
+    ghost_vs_materialized(dev, out_root)
+
+    def mnist_batch(g, bs):
+        imgs, labels = synthetic_mnist(bs, seed=14)
+        return torch.from_numpy(imgs).to(dev), torch.from_numpy(labels).to(dev)
+
+    def celeba_batch(g, bs):
+        return (torch.rand(bs, 64, 64, 3, generator=g, device=dev) * 2 - 1,
+                torch.randint(0, 2, (bs,), generator=g, device=dev))
+
+    for name, argv, batch in (("path 1", PATH1, mnist_batch), ("path 2", PATH2, celeba_batch)):
+        b, st0, inputs = clip_step_check(dev, out_root, name, argv, batch)
+        clip_step_breakdown(name, b, st0, inputs)
+        del b, st0, inputs
+        torch.cuda.empty_cache()
+    ms1, n1 = clip_path("path 1", PATH1, 60000, out_root, 1)
+    print(f"path 1 against the K1 path of this run: {ms1 * 100:.3f} ms per 100-step epoch "
+          f"against {k1_epoch_ms:.3f} ({ms1 * 100 / k1_epoch_ms:.2f}x)")
+    ms2, n2 = clip_path("path 2", PATH2, 1280, out_root, len(large))
+    print(f"path 2 against the conv-ghost path of this run: {ms2:.3f} ms per D step against "
+          f"{celeba_step_ms:.3f} ({ms2 / celeba_step_ms:.2f}x)")
+    entry["launches"] = n1
+    entry["path2"]["launches"] = n2
+    return entry
 
 
 def main() -> int:
@@ -683,6 +1034,7 @@ def main() -> int:
         fail("non-finite params after training")
     samples = tr.n_batches * BS
     rest = ep_ms[1:] or ep_ms
+    k1_epoch_ms = sum(rest) / len(rest)
     print(f"MNIST path: {e} epochs x {tr.n_batches} steps in one group, K1 launches "
           f"{launches}; epoch ms first {ep_ms[0]:.3f}, rest mean "
           f"{sum(rest) / len(rest):.3f} ({', '.join(f'{x:.3f}' for x in rest)}); "
@@ -743,7 +1095,11 @@ def main() -> int:
     }]
 
     # 6. The CelebA path (K2-K5).
-    kernels += celeba_phases(dev, out_root, peak_bf16, peak_bytes)
+    celeba_entries, celeba_step_ms = celeba_phases(dev, out_root, peak_bf16, peak_bytes)
+    kernels += celeba_entries
+
+    # 7. The materialized per-sample-gradient paths (K6).
+    kernels.append(clip_phases(dev, out_root, peak_bytes, k1_epoch_ms, celeba_step_ms))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

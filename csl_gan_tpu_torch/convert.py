@@ -13,7 +13,9 @@ pair keeps the flax names, and a flax conv's ``.../TorchConv_i/Conv_0`` is the
 port's ``....TorchConv_i`` (models/dcresnet.py). ``train_state_from_jax`` also
 carries Adam ``mu`` / ``nu`` / ``count`` for D and G and the clip value; the
 ``*_to_jax`` functions invert each mapping, so a test can compare in either
-layout.
+layout. The clip value is a float (flat clipping) or, under per-layer
+clipping, the thresholds in leaf order, which both packages share: a tuple of
+floats in the port, an fp32 vector in the JAX package.
 """
 
 from __future__ import annotations
@@ -94,6 +96,13 @@ def params_to_jax(sd: Mapping[str, torch.Tensor], kind: str) -> Dict:
     return out
 
 
+def clipping_from_jax(clipping):
+    """The JAX TrainState's clipping (fp32 scalar, or per-leaf vector) as the
+    port's float or tuple of floats."""
+    c = np.asarray(clipping, np.float32)
+    return float(c) if c.ndim == 0 else tuple(float(v) for v in c)
+
+
 def train_state_from_jax(d_params, g_params, d_adam, g_adam, clipping,
                          device: Optional[torch.device] = None) -> TrainState:
     """The port's TrainState from the JAX one's pieces as numpy trees.
@@ -108,7 +117,7 @@ def train_state_from_jax(d_params, g_params, d_adam, g_adam, clipping,
         g_mu=params_from_jax(g_mu, "G", device),
         g_nu=params_from_jax(g_nu, "G", device),
         d_count=int(d_count), g_count=int(g_count),
-        clipping=float(np.asarray(clipping)))
+        clipping=clipping_from_jax(clipping))
 
 
 def train_state_to_jax(state: TrainState) -> dict:
@@ -120,5 +129,5 @@ def train_state_to_jax(state: TrainState) -> dict:
                    state.d_count),
         "g_adam": (params_to_jax(state.g_mu, "G"), params_to_jax(state.g_nu, "G"),
                    state.g_count),
-        "clipping": np.float32(state.clipping),
+        "clipping": np.asarray(state.clipping, np.float32),
     }

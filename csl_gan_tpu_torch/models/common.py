@@ -27,7 +27,11 @@ def torch_kernel_init(layer: nn.Module, gen: torch.Generator) -> None:
 
 
 def one_hot(y: torch.Tensor, n_classes: int) -> torch.Tensor:
-    return nn.functional.one_hot(y.long(), n_classes).to(torch.float32)
+    """fp32 one-hot rows of integer labels, as a comparison against the class
+    range: ``nn.functional.one_hot`` checks its input's range on the host,
+    which ``torch.func.vmap`` (the per-sample-gradient route) cannot batch."""
+    classes = torch.arange(n_classes, device=y.device)
+    return (y.long()[..., None] == classes).to(torch.float32)
 
 
 def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:

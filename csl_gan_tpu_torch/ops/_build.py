@@ -21,7 +21,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-KERNELS = ("k1_epoch", "conv_ghost", "gn_relu")
+KERNELS = ("k1_epoch", "conv_ghost", "gn_relu", "clip_noise")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 # ptxas report (registers, shared memory, spills) of each build, by kernel.
@@ -99,6 +99,14 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.gn_relu_bwd.restype = I
         lib.gn_error_string.argtypes = [I]
         lib.gn_error_string.restype = ctypes.c_char_p
+    elif name == "clip_noise":
+        LL = ctypes.c_longlong
+        lib.clip_noise_scratch.argtypes = [I, LL]
+        lib.clip_noise_scratch.restype = LL
+        lib.clip_noise.argtypes = [P, P, P, P, I, LL, P, P, P]
+        lib.clip_noise.restype = I
+        lib.cn_error_string.argtypes = [I]
+        lib.cn_error_string.restype = ctypes.c_char_p
     else:
         raise ValueError(f"unknown kernel library {name}")
 

@@ -298,8 +298,8 @@ def _vanilla(o) -> bool:
 
 
 # (flag, test on the parsed opt) for every option whose path is not ported.
-# The vanilla MNIST model runs on the epoch kernel K1, the DCResNet pair on
-# the step runner (training/loop.py); each takes its own set of options.
+# The vanilla MNIST flagship runs on the epoch kernel K1, every other ported
+# configuration on the step runner (training/loop.py).
 _NOT_PORTED = [
     ("--dp_mode (only gc is ported)", lambda o: o.dp_mode not in (None, "gc")),
     ("--penalty on the vanilla model", lambda o: bool(o.penalty) and _vanilla(o)),
@@ -307,24 +307,15 @@ _NOT_PORTED = [
     ("-pupd false (the per-sample penalty)",
      lambda o: bool(o.penalty) and o.use_dp and not o.penalty_use_public_data),
     ("--poisson", lambda o: o.poisson),
-    ("--grad_clip_mode (per-layer or adaptive clipping)",
-     lambda o: (o.grad_clip_mode or "standard") != "standard"),
-    ("--clipping_param_per_layer", lambda o: o.cpl_user_set),
+    ("--grad_clip_mode adaptive / adaptive-pl (adaptive clipping)",
+     lambda o: (o.grad_clip_mode or "standard").startswith("adaptive")),
     ("--weight_decay", lambda o: (o.weight_decay or 0) != 0),
-    ("--n_d_steps > 1 on the vanilla model", lambda o: o.n_d_steps > 1 and _vanilla(o)),
-    ("--train_d_until_threshold on the vanilla model",
-     lambda o: float(o.train_d_until_threshold) < 1e10 and _vanilla(o)),
     ("--resume_path", lambda o: o.resume_path is not None),
     ("--fsdp", lambda o: o.fsdp),
     ("--tp", lambda o: o.tp != 1),
     ("--mesh_shape", lambda o: (o.mesh_shape or 1) != 1),
     ("--multihost", lambda o: o.multihost),
-    ("--pallas", lambda o: o.pallas),
-    ("--pallas_epoch false", lambda o: not o.pallas_epoch),
-    ("--per_sample_chunk", lambda o: o.per_sample_chunk is not None),
     ("--backprop_clip", lambda o: o.backprop_clip),
-    ("--grad_clip_split false", lambda o: not o.grad_clip_split),
-    ("--conv_ghost false", lambda o: not o.conv_ghost),
     ("--num_mean_samples on the vanilla model",
      lambda o: o.num_mean_samples > 0 and _vanilla(o)),
     ("--public_set_size", lambda o: o.public_set_size > 0),

@@ -6,11 +6,14 @@ label]`` (bf16 under ``--bf16_table``, the default), CelebA as the decoded
 uint8 images plus labels (normalised and randomly flipped after each
 gather). Groups of whole epochs run through a runner, chosen by config:
 
-  - the MNIST vanilla conditional ACGAN path (``pallas_epoch.supports``):
-    the epochs runner, one K1 launch per epoch;
-  - a DCResNet gc config: the step runner (conv-ghost D steps through K2/K3,
-    G forward and backward through K4/K5, WGAN-GP on mean samples);
-  - anything else raises NotImplementedError.
+  - the MNIST vanilla conditional ACGAN path (``pallas_epoch.supports`` and
+    ``--pallas_epoch true``): the epochs runner, one K1 launch per epoch;
+  - every other ported configuration: the step runner, whose gc D step takes
+    the route the config selects (ghost, conv ghost through K2/K3, two-pass,
+    or materialized per-sample gradients, fused through K6 under
+    ``--pallas true``), with the DCResNet G forward and backward through
+    K4/K5 and WGAN-GP on mean samples.
+Options outside the ported slice are refused by ``options.check_ported``.
 
 Between groups the host steps the RDP accountant and writes ``log.csv`` and
 ``privacy_log.csv`` (epsilon plus the mean samples' privacy cost).
@@ -75,16 +78,12 @@ class Trainer:
         self.state = self.builder.init_state()
         self._setup_mean_samples()
         self._setup_device_data()
-        if pe.supports(self.builder, opt.use_dp, 1):
+        if opt.pallas_epoch and pe.supports(self.builder, opt.use_dp, 1):
             self.runner = EpochsRunner(self.builder, self.n_batches, opt.use_dp)
-        elif self.builder.use_conv_ghost:
+        else:
             self.runner = StepRunner(self.builder, self.n_batches, len(self.dataset),
                                      self._gather, self._u8_images,
                                      self.mean_sampler, self._dev_mean)
-        else:
-            raise NotImplementedError("this configuration runs on neither the "
-                                      "ported epoch kernel nor the ported "
-                                      "DCResNet gc step runner")
         # D leaves in torch parameter order (weight before bias) as indices
         # into the JAX leaf order: the per-layer log columns.
         leaves = list(self.builder.d_leaves)
@@ -224,8 +223,10 @@ class Trainer:
         if self.opt.use_dp:
             for key, name in _NORM_STATS:
                 s[name] = s[name] + d_sums[key][self._torch_idx]
-            s["Clipping Params"] = s["Clipping Params"] + np.float32(
-                self.n_batches * k * self.state.clipping)
+            clip = np.asarray(self.state.clipping, np.float32)
+            if clip.ndim:       # per-layer thresholds: a torch-order column
+                clip = clip[self._torch_idx]
+            s["Clipping Params"] = s["Clipping Params"] + self.n_batches * k * clip
         self.logger.log_g_iter += g_count
 
     def _flush_log(self, epoch: int) -> None:

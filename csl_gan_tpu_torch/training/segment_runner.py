@@ -1,6 +1,7 @@
 """The runners that drive whole epochs: ``EpochsRunner`` (the MNIST vanilla
-path, one K1 launch per epoch) and ``StepRunner`` (the DCResNet gc path, one
-D step at a time with a G update on the n_d_steps cadence).
+path, one K1 launch per epoch) and ``StepRunner`` (every other ported
+configuration of either model, one D step at a time with a G update on the
+n_d_steps cadence).
 
 EpochsRunner:
 
@@ -82,18 +83,23 @@ class EpochsRunner:
 
 
 class StepRunner:
-    """k whole epochs of the DCResNet gc path (the JAX package's
-    segment_runner.py _build_run, written as a Python loop over steps).
+    """k whole epochs, one D step at a time (the JAX package's
+    segment_runner.py _build_run, written as a Python loop over steps): the
+    gc D step by the route the config selects (training/steps.py
+    ``d_step_gc``) or, without DP, the vanilla model's plain D step; the G
+    step of the model family.
 
     Per epoch it draws the row permutation from ``gen_perm``; per step, from
     ``gen`` and in this order: the horizontal flips (uint8 image tables),
-    z_d, the per-leaf DP noise, the mean-sample surrogates of the penalty
-    batch and the penalty's interpolation weights; on a G update, z_g and
-    y_g. The G update follows the D steps i with i % n_d_steps == 0, gated
-    while train_d_until_threshold < 1e10 by the mean D adversarial loss
-    since the last cadence point (one host read per cadence point; none
-    without gating). Metric sums stay on the device; the caller reads them
-    once per group.
+    z_d, the DP noise (per-leaf normals, or on the fused route the per-leaf
+    seeds and then the small leaves' normals, ``ops/grads.draw_fused_noise``),
+    the mean-sample surrogates of the penalty batch and the penalty's
+    interpolation weights; on a G update, z_g and y_g. The G update follows
+    the D steps i with i % n_d_steps == 0, gated while
+    train_d_until_threshold < 1e10 by the mean D adversarial loss since the
+    last cadence point (one host read per cadence point; none without
+    gating). Metric sums stay on the device; the caller reads them once per
+    group.
 
     ``gather(idx) -> (x, y)`` returns a batch's images and labels from the
     device-resident dataset; with ``u8_images`` the images are uint8 and get
@@ -112,6 +118,7 @@ class StepRunner:
         self.mean_sampler = mean_sampler
         self.mean_samples = mean_samples
         opt = builder.opt
+        self.use_dp = bool(opt.use_dp)
         self.n_d = max(1, int(opt.n_d_steps))
         self.threshold = float(opt.train_d_until_threshold)
         # Running D adversarial-loss sum since the last cadence point; it
@@ -136,6 +143,29 @@ class StepRunner:
                   for _ in b.penalty_types]
         return pen_x, pen_y, alphas
 
+    def _d_step(self, state: TrainState, x, y, gen: torch.Generator, stds):
+        b = self.builder
+        bs = x.shape[0]
+        z = b.gen_z(gen, bs)
+        if not self.use_dp:
+            return b.d_step(state, x, y, one_hot(y, b.n_classes), z, None, False)
+        leaves = [state.d_params[n] for n in b.d_leaves]
+        noise = fused = None
+        if b.fused_route:
+            fused = gops.draw_fused_noise(gen, leaves, stds)
+        else:
+            noise = gops.noise_like(gen, leaves, stds)
+        pen_x, pen_y, alphas = self._penalty_inputs(gen, y, bs)
+        return b.d_step_gc(state, x, y, z, noise=noise, fused=fused, pen_x=pen_x,
+                           pen_y=pen_y, alphas=alphas)
+
+    def _g_step(self, state: TrainState, gen: torch.Generator, bs: int):
+        b = self.builder
+        z, y = b.gen_z(gen, bs), b.gen_y(gen, bs)
+        if b.family == "vanilla":
+            return b.g_step(state, z, one_hot(y, b.n_classes))
+        return b.g_step_dcresnet(state, z, y)
+
     def run(self, state: TrainState, gen_perm: torch.Generator,
             gen: torch.Generator, k: int):
         """k epochs from `state`. Returns (state, D metric sums, G metric
@@ -150,7 +180,11 @@ class StepRunner:
             self.d_acc = torch.zeros((), device=dev)
         timed = dev.type == "cuda"
         self.epoch_events = []
-        std = gops.noise_std(b.sigma, state.clipping)
+        stds = None
+        if self.use_dp:
+            stds = gops.noise_stds(len(b.d_leaves), b.sigma, state.clipping, b.per_layer)
+            if b.fused_route:    # K6 reads each leaf's std from device memory
+                stds = torch.tensor(stds, dtype=torch.float32, device=dev)
         for _ in range(k):
             if timed:
                 ev = (torch.cuda.Event(enable_timing=True),
@@ -159,11 +193,7 @@ class StepRunner:
             perm = torch.randperm(self.n_rows, generator=gen_perm, device=dev)
             for i in range(self.n):
                 x, y = self._batch(perm[i * bs:(i + 1) * bs], gen)
-                z = b.gen_z(gen, bs)
-                noise = gops.noise_like(gen, [state.d_params[n] for n in b.d_leaves], std)
-                pen_x, pen_y, alphas = self._penalty_inputs(gen, y, bs)
-                state, dm = b.d_step_conv_ghost(state, x, y, z, noise, pen_x,
-                                                pen_y, alphas)
+                state, dm = self._d_step(state, x, y, gen, stds)
                 for key, v in dm.items():
                     d_sums[key] = d_sums[key] + v if key in d_sums else v
                 self.d_acc = self.d_acc + dm["d_adv_loss"]
@@ -171,8 +201,7 @@ class StepRunner:
                     g_on = (self.threshold >= 1e10
                             or float(self.d_acc) / self.n_d < self.threshold)
                     if g_on:
-                        state, gm = b.g_step_dcresnet(state, b.gen_z(gen, bs),
-                                                      b.gen_y(gen, bs))
+                        state, gm = self._g_step(state, gen, bs)
                         for key, v in gm.items():
                             g_sums[key] = g_sums[key] + v if key in g_sums else v
                         g_count += 1

@@ -2,8 +2,10 @@
 size: one epoch writes log.csv and privacy_log.csv with finite values, its
 epsilon equals the JAX package's accountant for the same steps (plus the
 mean samples' privacy cost on the DCResNet path), the DCResNet step runner
-updates G exactly on the n_d_steps cadence points, and the port refuses to
-fall back to the CPU or to ignore an unported flag."""
+updates G exactly on the n_d_steps cadence points, every flag that selects
+a route of the gc D step trains through the step runner (``--pallas true``
+on K6's plain version, reproducibly), and the port refuses to fall back to
+the CPU or to ignore an unported flag."""
 
 import csv
 import os
@@ -15,7 +17,7 @@ import torch
 from csl_gan_tpu.privacy import RdpAccountant as JaxRdpAccountant
 from csl_gan_tpu.privacy.mean_sampler import MeanSampler as JaxMeanSampler
 from csl_gan_tpu_torch import options as toptions
-from csl_gan_tpu_torch.ops import pallas_epoch
+from csl_gan_tpu_torch.ops import pallas_clip, pallas_epoch
 from csl_gan_tpu_torch.training.loop import Trainer
 from csl_gan_tpu_torch.training.segment_runner import StepRunner
 
@@ -124,17 +126,126 @@ def test_no_platform_without_cuda_raises(tmp_path, monkeypatch):
     (["--penalty", "WGAN-GP"], "--penalty"),
     (["--poisson", "true"], "--poisson"),
     (["-gcm", "adaptive"], "--grad_clip_mode"),
-    (["-gcm", "constant-pl"], "--grad_clip_mode"),
+    (["-gcm", "adaptive-pl"], "--grad_clip_mode"),
     (["-wd", "0.1"], "--weight_decay"),
-    (["--n_d_steps", "2"], "--n_d_steps"),
+    (["--backprop_clip", "true"], "--backprop_clip"),
     (["-rp", "/nonexistent"], "--resume_path"),
     (["--fsdp", "true"], "--fsdp"),
     (["--tp", "2"], "--tp"),
-    (["--pallas", "true"], "--pallas"),
+    (["--u8_table", "true"], "--u8_table"),
+    (["--mesh_shape", "2"], "--mesh_shape"),
+    (["--multihost", "true"], "--multihost"),
+    (["-nms", "1"], "--num_mean_samples"),
+    (["-pss", "10"], "--public_set_size"),
+    (["-wi", "5"], "--warmup_iter"),
+    (["--host_loop", "true"], "--host_loop"),
+    (["--bf16", "true"], "--bf16"),
+    (["--group_fakes", "true"], "--group_fakes"),
+    (["--ref_pixel_shuffle", "true"], "--ref_pixel_shuffle"),
+    (["-p"], "--profile_training"),
+    (["--download_mnist"], "--download_mnist"),
+    (["--log_every", "32"], "--log_every"),
+    (["--stop_on_g_freeze", "3"], "--stop_on_g_freeze"),
+    (["--conditional_arch", "CGAN"], "--conditional_arch"),
+    (["--aux_loss_type", "wasserstein"], "--aux_loss_type"),
+    (["-bs", "20"], "--batch_size"),
 ])
 def test_unported_flags_raise(tmp_path, extra, flag):
     with pytest.raises(NotImplementedError, match=flag):
         toptions.parse(TINY + extra + ["--platform", "cpu", "-o", str(tmp_path)])
+
+
+# Flag combinations that the step runner serves, each with the route the gc D
+# step must take for it.
+DCRN_ON = DCRN + ["--train_d_until_threshold", "1e18"]     # G never gated off
+STEP_RUNNER_FLAGS = {
+    "pallas-combined": (TINY + ["--pallas", "true", "--grad_clip_split", "false"], "fused"),
+    "combined": (TINY + ["--grad_clip_split", "false"], "materialized"),
+    "chunk": (TINY + ["--per_sample_chunk", "5"], "materialized"),
+    "pallas-with-chunk": (TINY + ["--pallas", "true", "--per_sample_chunk", "5"],
+                          "materialized"),
+    "pallas-epoch-off": (TINY + ["--pallas_epoch", "false"], "ghost"),
+    "pallas-ghost-wins": (TINY + ["--pallas", "true", "--pallas_epoch", "false"], "ghost"),
+    "n-d-steps": (TINY + ["--n_d_steps", "2"], "ghost"),
+    "threshold": (TINY + ["--train_d_until_threshold", "0.5"], "ghost"),
+    "per-layer": (TINY + ["-gcm", "constant-pl", "-cpl", "1", "2", "3", "4", "5", "6"], "ghost"),
+    "per-layer-pallas": (TINY + ["-gcm", "constant-pl", "--grad_clip_split", "false",
+                                 "--pallas", "true"], "fused"),
+    "dcresnet-two-pass": (DCRN_ON + ["--conv_ghost", "false"], "two_pass"),
+    "dcresnet-bf16-pallas": (DCRN_ON + ["--conv_ghost", "false", "--bf16", "true",
+                                        "--pallas", "true"], "fused"),
+    "dcresnet-per-layer": (DCRN_ON + ["-gcm", "constant-pl"], "conv_ghost"),
+    "dcresnet-chunk": (DCRN_ON + ["--per_sample_chunk", "3"], "materialized"),
+}
+
+
+@pytest.mark.parametrize("name", list(STEP_RUNNER_FLAGS))
+def test_step_runner_flags_train_an_epoch(tmp_path, name):
+    """Each combination parses, takes the step runner and its route, trains an
+    epoch on the CPU and logs the JAX accountant's epsilon."""
+    args, route = STEP_RUNNER_FLAGS[name]
+    out = tmp_path / "run"
+    tss = int(args[args.index("-tss") + 1])
+    opt = toptions.parse(args + ["-ne", "1", "--log_every", str(tss), "--platform", "cpu",
+                                 "-o", str(out)])
+    tr = Trainer(opt)
+    b = tr.builder
+    assert isinstance(tr.runner, StepRunner)
+    assert {"fused": b.fused_route, "materialized": b.materialized and not b.fused_route,
+            "ghost": b.use_ghost, "two_pass": b.use_two_pass,
+            "conv_ghost": b.use_conv_ghost}[route]
+    launches = pallas_clip.leaf_weighted_sum_noise.launches
+    assert tr.run() == 0
+    # On the CPU the fused route runs K6's plain version: no launch is counted.
+    assert pallas_clip.leaf_weighted_sum_noise.launches == launches
+    assert tr.state.d_count == tr.n_batches
+    assert tr.state.g_count == (0 if name == "threshold" else -(-tr.n_batches // opt.n_d_steps))
+    with open(out / "log.csv") as f:
+        row = list(csv.DictReader(f))[-1]
+    for k in ("D Adv Loss", "D Real Loss", "D Fake Loss", "D Real Aux Loss"):
+        assert np.isfinite(float(row[k])), k
+    n_leaves = len(b.d_leaves)
+    clip = np.asarray(row["Clipping Params"].strip("[]").split(), np.float32)
+    assert clip.size == (n_leaves if b.per_layer else 1)
+    if name == "per-layer":      # -cpl is in torch order, and so is the log column
+        np.testing.assert_allclose(clip, [1, 2, 3, 4, 5, 6])
+        assert tr.state.clipping == (2.0, 1.0, 4.0, 3.0, 6.0, 5.0)
+    with open(out / "privacy_log.csv") as f:
+        eps = float(list(csv.DictReader(f))[-1]["Epsilon"])
+    ref = JaxRdpAccountant(batch_size=opt.batch_size, sample_size=tss,
+                           noise_multiplier=opt.sigma)
+    ref.step(tr.n_batches)
+    np.testing.assert_allclose(eps - tr.mean_sample_privacy_cost,
+                               ref.get_privacy_spent(opt.delta)[0], rtol=1e-9)
+    for t in list(tr.state.d_params.values()) + list(tr.state.g_params.values()):
+        assert torch.isfinite(t).all()
+
+
+def test_pallas_true_on_the_cpu_is_reproducible(tmp_path):
+    """--pallas true on CPU tensors takes K6's plain version; the Philox
+    stream is a function of the drawn seeds, so one seed gives one result."""
+    args = STEP_RUNNER_FLAGS["pallas-combined"][0] + ["-ne", "1", "--log_every", "160", "--platform", "cpu"]
+    runs = []
+    for tag, seed in (("a", "3"), ("b", "3"), ("c", "4")):
+        tr = Trainer(toptions.parse(args + ["--manual_seed", seed, "-o", str(tmp_path / tag)]))
+        tr.run()
+        runs.append(tr.state.d_params)
+    for k in runs[0]:
+        assert torch.equal(runs[0][k], runs[1][k]), k
+    assert any(not torch.equal(runs[0][k], runs[2][k]) for k in runs[0])
+
+
+def test_not_ported_names_only_unported_flags():
+    """The flags of STEP_RUNNER_FLAGS are off the refusal list; the options
+    still outside the port are on it."""
+    names = [flag for flag, _ in toptions._NOT_PORTED]
+    for lifted in ("--pallas", "--per_sample_chunk", "--grad_clip_split", "--conv_ghost",
+                   "--clipping_param_per_layer", "--n_d_steps", "--train_d_until_threshold"):
+        assert not any(lifted in n for n in names), lifted
+    for kept in ("--dp_mode", "--poisson", "adaptive", "-pupd", "DRAGAN", "--backprop_clip",
+                 "--weight_decay", "unconditional", "CGAN / WCGAN", "--resume_path",
+                 "--fsdp", "--tp", "--mesh_shape", "--multihost"):
+        assert any(kept in n for n in names), kept
 
 
 def test_celeba_raises(tmp_path):
