@@ -22,16 +22,24 @@ toolkit, it:
   4. CelebA path (K2-K5). Holds K2/K3 against their plain versions at the
      flagship's ghost-order layers conv2-conv4 and K4/K5 at the generator's
      five norm shapes (B 128, bf16), timing each beside its plain version
-     and one PyTorch library call where one computes the same function;
-     holds one port D step and one G step at full width (bs 8, fp32) through
-     K2-K5 against the same steps through the plain versions, both on the
-     card, and prints two witnesses beside the gap (the plain steps
-     repeated, and the plain steps with z moved by 1e-7 relative); drives
+     and one PyTorch library call where one computes the same function. K2
+     and K3 have two variants: the tensor-core one, which these bf16 layers
+     take, is also held at a bf16 geometry with ragged edges, the FFMA one
+     at the same layers with fp32 operands (B 8), and the two are timed in
+     turns (FFMA, tensor cores, tensor cores, FFMA) per layer with TFLOP/s
+     and the share of the bf16 bound, by CUDA events around the wrapper
+     calls and by device time (torch.profiler);
+     holds one port D step and one G step at full width (bs 8; fp32, and
+     bf16 compute) through K2-K5 against the same steps through the plain
+     versions, both on the card, and prints two witnesses beside the gap
+     (the plain steps repeated, and the plain steps with z moved by 1e-7
+     relative); drives
      the path through its entry point, the port's Trainer on ``CelebA
      --conditional -dpm gc -bs 128 -tss 12800 -nms 1 --mean_sample_size 8
      --bf16 true --train_d_until_threshold 1e18`` (synthetic CelebA, full
      celeba_g64 / celeba_d64 width) for 2 epochs, checks that K2-K5 each
-     launched, finite losses and epsilon, prints ms per D step and samples/s,
+     launched (K2 and K3 three times per D step, each time the tensor-core
+     variant), finite losses and epsilon, prints ms per D step and samples/s,
      and the device time by CUDA kernel of one more epoch;
   5. materialized per-sample-gradient paths (K6). Holds K6 against its
      plain version (the same Philox stream) at path 1's leaf [600, 101632],
@@ -135,9 +143,14 @@ FLAGSHIP = ["CelebA", "--conditional", "-dpm", "gc", "-bs", str(CB), "-tss", "12
 CELEBA_EPOCHS = 2
 # K2/K3 vs plain: the same bf16 inputs, exact fp32 products, fp32 sums in
 # another order (and K3 rounds w * c to bf16 exactly as the plain version
-# does), so the gap is reduction order: ~1e-7 to 1e-5 relative (H100). A
+# does), so the gap is reduction order: ~1e-7 to 1e-5 relative with FFMA
+# sums and up to ~2e-5 with the tensor cores' fp32 accumulation (H100). A
 # wrong term or a dropped tile moves it to >= 1e-3.
 CONV_BOUND = 1e-4
+# A bf16 geometry whose S, K and O are no multiples of the tensor-core tiles
+# (B, H, Cin, Cout; 5x5, stride 2, pad 2), and the batch of the fp32 check.
+CONV_RAGGED = (7, 16, 24, 40)
+CONV_FP32_BATCH = 8
 # K4/K5 vs plain: fp32 statistics in another summation order; the bf16
 # outputs (y, dx) then round to the other side of a bf16 step on rare
 # elements (one ulp, 2^-8 relative), ~2e-5 in relative l2 (H100). dgamma /
@@ -186,8 +199,8 @@ GHOST_BOUND = 1e-4
 # CUDA kernel names by group, for the step profiles; the first match wins.
 PROFILE_GROUPS = (
     ("K6 clip_noise", ("wsum_partial", "sum_noise")),
-    ("K2 ghost_sq_norms", ("ghost_norm_tiles", "sum_rows")),
-    ("K3 weighted_kernel_grad", ("wsum_tiles", "sum_splits")),
+    ("K2 ghost_sq_norms", ("ghost_norm_tc", "ghost_norm_tiles", "sum_rows")),
+    ("K3 weighted_kernel_grad", ("wsum_tc", "scale_cotangent", "wsum_tiles", "sum_splits")),
     ("K4/K5 gn_relu", ("gn_channel_sums", "gn_relu_apply", "gn_bwd_", "gn_param_grads")),
     ("cuDNN convolutions", ("implicit_gemm", "cudnn", "fprop", "dgrad", "wgrad")),
     ("cuBLAS GEMMs", ("gemm", "gemv")),
@@ -228,6 +241,41 @@ def cuda_ms(fn, reps: int) -> float:
     return s0.elapsed_time(s1) / reps
 
 
+def device_ms(fn, reps: int):
+    """Device time of fn by CUDA kernel over reps calls (torch.profiler /
+    CUPTI): (sum of the kernels' ms per call, {kernel name: ms per call})."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(5):              # a trace now and then comes back empty
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = device_ms_by_kernel(prof)
+        if rows and all(cnt % reps == 0 for _, cnt, _ in rows):
+            by = {key: t / reps for t, _, key in rows}
+            return sum(by.values()), by
+    fail("torch.profiler recorded no complete device trace in 5 tries")
+
+
+def ptxas_by_kernel(log: str):
+    """{demangled-enough kernel name: "N registers, ... spill ..."} from a
+    ptxas -v report."""
+    out, name, frame = {}, None, ""
+    for line in log.splitlines():
+        line = line.strip()
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "bytes stack frame" in line:
+            frame = line
+        elif line.startswith("ptxas info") and "Used" in line and name:
+            out[name] = f"{line.split(':', 1)[1].strip()}; {frame}"
+            name = None
+    return out
+
+
 def bound(ops: float, nbytes: float, peak_ops: float, peak_bytes: float):
     t_ops, t_bytes = ops / peak_ops * 1e3, nbytes / peak_bytes * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
@@ -243,63 +291,120 @@ def k2_ops(b: int, s: int, k: int, o: int) -> float:
 
 
 def conv_ghost_phase(dev, peak_bf16, peak_bytes):
-    """K2 / K3 against their plain versions and timed, at conv2-conv4."""
+    """K2 / K3 against their plain versions: the tensor-core variant at
+    conv2-conv4 (bf16, B 128) and at a ragged bf16 geometry, the FFMA variant
+    at conv2-conv4 with fp32 operands; then both variants timed in turns."""
     import torch
     from csl_gan_tpu_torch.ops import pallas_conv_ghost as pcg
 
     g = torch.Generator(dev).manual_seed(21)
-    tot = {k: 0.0 for k in ("k2", "k2_plain", "k3", "k3_plain", "k3_lib",
-                            "k2_ops", "k2_bytes", "k3_ops", "k3_bytes")}
-    err = {"k2": 0.0, "k3": 0.0}
-    for h, cin, cout in CONV_LAYERS:
-        ho = h // 2
-        a = torch.randn(CB, h, h, cin, generator=g, device=dev).to(torch.bfloat16)
-        c = torch.randn(CB, ho, ho, cout, generator=g, device=dev).to(torch.bfloat16)
-        w = torch.rand(CB, generator=g, device=dev) * 0.9 + 0.1
-        ks = (5, 5, cin, cout)
+
+    def operands(b, h, cin, cout, dtype):
+        ho = (h + 4 - 5) // 2 + 1
+        a = torch.randn(b, h, h, cin, generator=g, device=dev).to(dtype)
+        c = torch.randn(b, ho, ho, cout, generator=g, device=dev).to(dtype)
+        w = torch.rand(b, generator=g, device=dev) * 0.9 + 0.1
+        return a, c, w, (5, 5, cin, cout)
+
+    def held(tag, a, c, w, ks, want):
+        """Both kernels against plain; the variant they took must be `want`."""
+        before = (pcg.ghost_sq_norms.launches_tc, pcg.weighted_kernel_grad.launches_tc)
         nk, npl = pcg.ghost_sq_norms(a, c, 5, 5, 2, 2), pcg.ghost_sq_norms_plain(a, c, 5, 5, 2, 2)
         wk = pcg.weighted_kernel_grad(a, c, w, ks, 2, 2)
         wp = pcg.weighted_kernel_grad_plain(a, c, w, ks, 2, 2)
         torch.cuda.synchronize()
+        took = (pcg.ghost_sq_norms.launches_tc - before[0],
+                pcg.weighted_kernel_grad.launches_tc - before[1])
         r2, r3 = rel_l2(nk, npl), rel_l2(wk, wp)
-        err["k2"] = max(err["k2"], float((nk - npl).abs().max()))
-        err["k3"] = max(err["k3"], float((wk - wp).abs().max()))
+        if took != ((1, 1) if want == "tc" else (0, 0)):
+            fail(f"K2/K3 did not take the {want} variant at {tag}")
+        if not (r2 < CONV_BOUND and r3 < CONV_BOUND):
+            fail(f"K2/K3 ({want}) disagree with their plain versions at {tag}: "
+                 f"rel l2 {r2:.3e}, {r3:.3e}")
+        return r2, r3, float((nk - npl).abs().max()), float((wk - wp).abs().max())
+
+    b, h, cin, cout = CONV_RAGGED
+    r2, r3, _, _ = held("the ragged geometry", *operands(b, h, cin, cout, torch.bfloat16), "tc")
+    print(f"conv ragged [{b}, {h}, {h}, {cin}]->{cout} bf16, tensor cores: K2 rel l2 {r2:.3e}, "
+          f"K3 rel l2 {r3:.3e} (bound {CONV_BOUND:g})")
+    for h, cin, cout in CONV_LAYERS:
+        r2, r3, _, _ = held(f"fp32 conv {h}x{h}x{cin}->{cout}",
+                            *operands(CONV_FP32_BATCH, h, cin, cout, torch.float32), "ffma")
+        print(f"conv {h}x{h}x{cin}->{cout} fp32 (B {CONV_FP32_BATCH}), FFMA: K2 rel l2 {r2:.3e}, "
+              f"K3 rel l2 {r3:.3e} (bound {CONV_BOUND:g})")
+
+    keys = ("k2", "k2_ffma", "k2_dev", "k2_plain", "k3", "k3_ffma", "k3_dev", "k3_pre_dev",
+            "k3_plain", "k3_lib", "k3_lib_dev", "k2_ops", "k2_bytes", "k3_ops", "k3_bytes")
+    tot = {k: 0.0 for k in keys}
+    err = {"k2": 0.0, "k3": 0.0}
+    for h, cin, cout in CONV_LAYERS:
+        ho = h // 2
+        a, c, w, ks = operands(CB, h, cin, cout, torch.bfloat16)
+        r2, r3, e2, e3 = held(f"conv {h}x{h}x{cin}->{cout}", a, c, w, ks, "tc")
+        err["k2"], err["k3"] = max(err["k2"], e2), max(err["k3"], e3)
         # Library yardstick of K3: cuDNN's weight gradient of the conv on the
         # w-scaled bf16 cotangent (the scaling is not timed).
         a_nchw = a.permute(0, 3, 1, 2)
         cw = (c.float() * w[:, None, None, None]).to(torch.bfloat16).permute(0, 3, 1, 2)
         wshape = (cout, cin, 5, 5)
-        t = {"k2": cuda_ms(lambda: pcg.ghost_sq_norms(a, c, 5, 5, 2, 2), 10),
+        k2 = lambda v: (lambda: pcg.ghost_sq_norms(a, c, 5, 5, 2, 2, variant=v))  # noqa: E731
+        k3 = lambda v: (lambda: pcg.weighted_kernel_grad(a, c, w, ks, 2, 2, variant=v))  # noqa: E731
+        lib = lambda: torch.nn.grad.conv2d_weight(a_nchw, wshape, cw, 2, 2)  # noqa: E731
+        # In turns within this call: FFMA, tensor cores, tensor cores, FFMA.
+        turns = {key: [cuda_ms(fn(v), 10) for v in ("ffma", "tc", "tc", "ffma")]
+                 for key, fn in (("k2", k2), ("k3", k3))}
+        t = {"k2": sum(turns["k2"][1:3]) / 2, "k2_ffma": (turns["k2"][0] + turns["k2"][3]) / 2,
+             "k3": sum(turns["k3"][1:3]) / 2, "k3_ffma": (turns["k3"][0] + turns["k3"][3]) / 2,
              "k2_plain": cuda_ms(lambda: pcg.ghost_sq_norms_plain(a, c, 5, 5, 2, 2), 5),
-             "k3": cuda_ms(lambda: pcg.weighted_kernel_grad(a, c, w, ks, 2, 2), 10),
              "k3_plain": cuda_ms(lambda: pcg.weighted_kernel_grad_plain(a, c, w, ks, 2, 2), 5),
-             "k3_lib": cuda_ms(lambda: torch.nn.grad.conv2d_weight(a_nchw, wshape, cw, 2, 2), 10)}
+             "k3_lib": cuda_ms(lib, 10)}
+        t["k2_dev"], _ = device_ms(k2("tc"), 10)
+        t["k3_dev"], by3 = device_ms(k3("tc"), 10)
+        t["k3_pre_dev"] = sum(v for k, v in by3.items() if "scale_cotangent" in k)
+        t["k3_lib_dev"], _ = device_ms(lib, 10)
         s, k = ho * ho, 25 * cin
         in_bytes = (a.numel() + c.numel()) * 2
         t.update(k2_ops=k2_ops(CB, s, k, cout), k2_bytes=in_bytes + CB * 4,
                  k3_ops=2.0 * CB * s * k * cout, k3_bytes=in_bytes + CB * 4 + k * cout * 4)
         for key, v in t.items():
             tot[key] += v
-        print(f"conv {h}x{h}x{cin}->{cout}: K2 rel l2 {r2:.3e}, K3 rel l2 {r3:.3e} "
-              f"(bound {CONV_BOUND:g}); K2 {t['k2']:.3f} ms (plain {t['k2_plain']:.3f}), "
-              f"K3 {t['k3']:.3f} ms (plain {t['k3_plain']:.3f}, conv2d_weight {t['k3_lib']:.3f})")
-        if not (r2 < CONV_BOUND and r3 < CONV_BOUND):
-            fail(f"K2/K3 disagree with their plain versions at conv {h}x{h}x{cin}->{cout}")
-        del a, c, a_nchw, cw, npl, wp
+        rate = lambda ops, ms: (f"{ops / ms / 1e9:.1f} TFLOP/s, "  # noqa: E731
+                                f"{100 * ops / peak_bf16 * 1e3 / ms:.1f}% of the bf16 bound")
+        print(f"conv {h}x{h}x{cin}->{cout} bf16 (B {CB}), tensor cores: K2 rel l2 {r2:.3e}, K3 rel "
+              f"l2 {r3:.3e} (bound {CONV_BOUND:g})")
+        print(f"  K2 ms by CUDA events, in turns FFMA/tc/tc/FFMA: "
+              f"{', '.join(f'{x:.4f}' for x in turns['k2'])}; tensor cores {t['k2']:.4f} "
+              f"(device {t['k2_dev']:.4f}: {rate(t['k2_ops'], t['k2_dev'])}), FFMA "
+              f"{t['k2_ffma']:.4f}, plain {t['k2_plain']:.3f}")
+        print(f"  K3 ms by CUDA events, in turns FFMA/tc/tc/FFMA: "
+              f"{', '.join(f'{x:.4f}' for x in turns['k3'])}; tensor cores {t['k3']:.4f} "
+              f"(device {t['k3_dev']:.4f}, the pre-pass {t['k3_pre_dev']:.4f} of it: "
+              f"{rate(t['k3_ops'], t['k3_dev'])}), FFMA {t['k3_ffma']:.4f}, plain "
+              f"{t['k3_plain']:.3f}, conv2d_weight {t['k3_lib']:.4f} (device {t['k3_lib_dev']:.4f})")
+        del a, c, a_nchw, cw
     b2, by2 = bound(tot["k2_ops"], tot["k2_bytes"], peak_bf16, peak_bytes)
     b3, by3 = bound(tot["k3_ops"], tot["k3_bytes"], peak_bf16, peak_bytes)
     per = "D step (conv2 + conv3 + conv4)"
+    print(f"K2 / K3 per {per}, ms: K2 tensor cores {tot['k2']:.4f} by CUDA events, "
+          f"{tot['k2_dev']:.4f} on the device (bound {b2:.4f}, {by2}), FFMA {tot['k2_ffma']:.4f}; "
+          f"K3 tensor cores {tot['k3']:.4f} by CUDA events, {tot['k3_dev']:.4f} on the device "
+          f"(pre-pass {tot['k3_pre_dev']:.4f} of it; bound {b3:.4f}, {by3}), FFMA "
+          f"{tot['k3_ffma']:.4f}, conv2d_weight {tot['k3_lib']:.4f} by CUDA events, "
+          f"{tot['k3_lib_dev']:.4f} on the device")
     return [
         {"name": "ghost_sq_norms", "route": "cuda",
          "source": "csl_gan_tpu_torch/ops/csrc/conv_ghost.cu",
          "replaces": "csl_gan_tpu/ops/pallas_conv_ghost.py:170",
          "max_abs_err": err["k2"], "ms": tot["k2"], "plain_ms": tot["k2_plain"],
-         "bound_ms": b2, "bound_by": by2, "library_ms": None, "per": per},
+         "bound_ms": b2, "bound_by": by2, "library_ms": None, "per": per,
+         "variant": "tc", "device_ms": tot["k2_dev"], "ffma_ms": tot["k2_ffma"]},
         {"name": "weighted_kernel_grad", "route": "cuda",
          "source": "csl_gan_tpu_torch/ops/csrc/conv_ghost.cu",
          "replaces": "csl_gan_tpu/ops/pallas_conv_ghost.py:234",
          "max_abs_err": err["k3"], "ms": tot["k3"], "plain_ms": tot["k3_plain"],
-         "bound_ms": b3, "bound_by": by3, "library_ms": tot["k3_lib"], "per": per}]
+         "bound_ms": b3, "bound_by": by3, "library_ms": tot["k3_lib"], "per": per,
+         "variant": "tc", "device_ms": tot["k3_dev"], "ffma_ms": tot["k3_ffma"],
+         "library_device_ms": tot["k3_lib_dev"]}]
 
 
 def groupnorm_phase(dev, peak_bytes):
@@ -377,15 +482,17 @@ def _swapped(swaps):
             setattr(mod, name, fn)
 
 
-def plain_versions():
-    """K2-K5's wrappers replaced by their plain versions, so that a step on
-    the card runs the same cuDNN convolutions without the kernels."""
+def plain_versions(groupnorm=True):
+    """K2-K5's wrappers (K2/K3's only with groupnorm=False) replaced by their
+    plain versions, so that a step on the card runs the same cuDNN
+    convolutions without the kernels."""
     from csl_gan_tpu_torch.ops import pallas_conv_ghost as pcg
     from csl_gan_tpu_torch.ops import pallas_groupnorm as gn
-    return _swapped(((pcg, "ghost_sq_norms", pcg.ghost_sq_norms_plain),
-                     (pcg, "weighted_kernel_grad", pcg.weighted_kernel_grad_plain),
-                     (gn, "gn_relu_forward", gn.gn_relu_plain),
-                     (gn, "gn_relu_backward", gn.gn_relu_bwd_plain)))
+    swaps = ((pcg, "ghost_sq_norms", pcg.ghost_sq_norms_plain),
+             (pcg, "weighted_kernel_grad", pcg.weighted_kernel_grad_plain),
+             (gn, "gn_relu_forward", gn.gn_relu_plain),
+             (gn, "gn_relu_backward", gn.gn_relu_bwd_plain))
+    return _swapped(swaps if groupnorm else swaps[:2])
 
 
 def plain_clip():
@@ -400,14 +507,20 @@ def plain_clip():
     return _swapped(((pc, "leaf_weighted_sum_noise", clip_plain),))
 
 
-def celeba_step_check(dev, out_root):
-    """One full-width D step and one G step (bs 8, fp32, TF32 off,
-    deterministic cuDNN), each from the initial state, on the card: through
+def celeba_step_check(dev, out_root, bf16=False):
+    """One full-width D step and one G step (bs 8; fp32 with TF32 off, or
+    bf16 compute, where K2/K3 take their tensor-core variant; deterministic
+    cuDNN), each from the initial state, on the card: through
     K2-K5 against the same steps through the plain versions. Two witnesses
     beside the gap: the plain steps run twice (cuDNN repeats exactly, so K2-K5
     are the only difference), and the plain steps with z moved by 1e-7
     relative (how far a perturbation the size of K4's reduction-order gap
-    moves the steps)."""
+    moves the steps). Under bf16 the reference swaps K2/K3 only: K4/K5's bf16
+    outputs differ from their plain versions' by single-ulp roundings (2^-8
+    relative on rare elements, GN_BOUND), which the bf16 step amplifies to
+    ~3e-2 on D's moments and ~8e-2 on G's (H100; printed beside the gap, not
+    held), and a z moved by 1e-7 rounds back to the same bf16 value. K4/K5
+    are held in the step by the fp32 check."""
     import numpy as np
     import torch
     from csl_gan_tpu_torch import options as toptions
@@ -418,7 +531,8 @@ def celeba_step_check(dev, out_root):
     argv = ["CelebA", "--conditional", "-dpm", "gc", "-bs", str(bs), "-tss", "12800",
             "-nms", "1", "--mean_sample_size", "8", "--sigma", "0", "-c", "1",
             "--train_d_until_threshold", "1e18", "--manual_seed", "1", "--platform", "gpu",
-            "-o", str(out_root / "celeba_step")]
+            "-o", str(out_root / ("celeba_step_bf16" if bf16 else "celeba_step"))]
+    argv += ["--bf16", "true"] if bf16 else []
     rng = np.random.default_rng(5)
     x = rng.uniform(-1, 1, (bs, 64, 64, 3)).astype(np.float32)
     y = rng.integers(0, 2, bs)
@@ -448,12 +562,18 @@ def celeba_step_check(dev, out_root):
     cudnn = torch.backends.cudnn
     was = cudnn.deterministic, cudnn.benchmark
     cudnn.deterministic, cudnn.benchmark = True, False
+    from csl_gan_tpu_torch.ops import pallas_conv_ghost as pcg
+    tc_before = pcg.ghost_sq_norms.launches_tc + pcg.weighted_kernel_grad.launches_tc
     try:
         kern = steps(z, zg)
-        with plain_versions():
+        took_tc = pcg.ghost_sq_norms.launches_tc + pcg.weighted_kernel_grad.launches_tc - tc_before
+        with plain_versions(groupnorm=not bf16):
             plain = steps(z, zg)
             again = steps(z, zg)
             nudged = steps(z * nudge[0], zg * nudge[1])
+        if bf16:
+            with plain_versions():
+                all_plain = steps(z, zg)
     finally:
         cudnn.deterministic, cudnn.benchmark = was
 
@@ -478,16 +598,26 @@ def celeba_step_check(dev, out_root):
 
     fmt = lambda r: ", ".join(f"{k} {v:.3e}" for k, v in r.items())  # noqa: E731
     gap, rep, wit = gaps(kern, plain), gaps(again, plain), gaps(nudged, plain)
-    print(f"CelebA D step and G step (bs {bs}, fp32, full width) on the card, K2-K5 vs "
-          f"plain: rel l2 {fmt(gap)} (bounds D {STEP_BOUND_D:g}, G {STEP_BOUND_G:g}, "
-          f"metrics {STEP_BOUND_MET:g}); clipped {float(kern[2]['frac_clipped'].mean()):.2f}")
+    print(f"CelebA D step and G step (bs {bs}, {'bf16' if bf16 else 'fp32'}, full width) on the "
+          f"card, {'K2/K3' if bf16 else 'K2-K5'} vs plain: rel l2 {fmt(gap)} (bounds D "
+          f"{STEP_BOUND_D:g}, G "
+          f"{STEP_BOUND_G:g}, metrics {STEP_BOUND_MET:g}); clipped "
+          f"{float(kern[2]['frac_clipped'].mean()):.2f}; K2 + K3 launches on the tensor cores "
+          f"{took_tc}")
+    if took_tc != (2 * len(CONV_LAYERS) if bf16 else 0):
+        fail(f"K2/K3 took the tensor-core variant {took_tc} times in the "
+             f"{'bf16' if bf16 else 'fp32'} step")
     print(f"  witnesses: plain repeated {fmt(rep)}; plain with z moved 1e-7 {fmt(wit)}")
+    if bf16:
+        print(f"  printed only: K4/K5 too replaced by their plain versions, against that "
+              f"reference {fmt(gaps(all_plain, plain))}")
     d_gap = max(v for k, v in gap.items() if k.startswith("D"))
     g_gap = max(v for k, v in gap.items() if k.startswith("G"))
     if max(rep.values()) != 0.0:
         fail("the plain CelebA steps do not repeat exactly on the card")
     if not (d_gap < STEP_BOUND_D and g_gap < STEP_BOUND_G and gap["metrics"] < STEP_BOUND_MET):
-        fail("the CelebA steps through K2-K5 disagree with the plain steps on the card")
+        fail(f"the CelebA steps ({'bf16' if bf16 else 'fp32'}) through the kernels disagree "
+             f"with the plain steps on the card")
 
 
 def profile_step_runner(tr, label: str) -> None:
@@ -532,6 +662,7 @@ def celeba_phases(dev, out_root, peak_bf16, peak_bytes):
     entries = conv_ghost_phase(dev, peak_bf16, peak_bytes)
     entries += groupnorm_phase(dev, peak_bytes)
     celeba_step_check(dev, out_root)
+    celeba_step_check(dev, out_root, bf16=True)
 
     e = CELEBA_EPOCHS
     opt = toptions.parse(FLAGSHIP + ["-ne", str(e), "--log_every", str(12800 * e),
@@ -541,6 +672,7 @@ def celeba_phases(dev, out_root, peak_bf16, peak_bytes):
                 gn.gn_relu_backward)
     for w in wrappers:
         w.launches = 0
+    pcg.ghost_sq_norms.launches_tc = pcg.weighted_kernel_grad.launches_tc = 0
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -551,6 +683,10 @@ def celeba_phases(dev, out_root, peak_bf16, peak_bytes):
     if not all(n > 0 for n in launches):
         fail(f"a CelebA-path kernel never launched: K2-K5 launches {launches}")
     n = tr.n_batches
+    launches_tc = [pcg.ghost_sq_norms.launches_tc, pcg.weighted_kernel_grad.launches_tc]
+    if launches[:2] != launches_tc or launches_tc != [len(CONV_LAYERS) * e * n] * 2:
+        fail(f"K2/K3 launched {launches[:2]} times on the flagship, {launches_tc} of them "
+             f"on the tensor cores; expected {len(CONV_LAYERS)} per D step, all tensor-core")
     ep_ms = [a.elapsed_time(b) for a, b in tr.runner.epoch_events]
     with open(out_root / "celeba" / "privacy_log.csv") as fh:
         eps = [float(r["Epsilon"]) for r in csv.DictReader(fh)]
@@ -577,7 +713,7 @@ def celeba_phases(dev, out_root, peak_bf16, peak_bytes):
     rest = ep_ms[1:] or ep_ms
     step_ms = sum(rest) / len(rest) / n
     print(f"CelebA path: {e} epochs x {n} D steps ({tr.state.g_count} G updates), K2-K5 "
-          f"launches {launches}; ms per D step first epoch {ep_ms[0] / n:.3f}, after "
+          f"launches {launches} (K2 / K3 on the tensor cores {launches_tc}); ms per D step first epoch {ep_ms[0] / n:.3f}, after "
           f"{step_ms:.3f} (epochs {', '.join(f'{x:.1f}' for x in ep_ms)} ms); "
           f"{CB * 1e3 / step_ms:.0f} samples/s after the first; wall {wall:.2f} s; "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; epsilon "
@@ -912,6 +1048,27 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}")
+    # The tensor-core kernels of K2 / K3 by name, and any ptxas advisory
+    # (C75xx: e.g. wgmma serialised) of their source.
+    for fn, report in ptxas_by_kernel(_build.build_logs.get("conv_ghost", "")).items():
+        if any(k in fn for k in ("wsum_tc", "ghost_norm_tc", "scale_cotangent")):
+            print(f"ptxas conv_ghost {fn}: {report}")
+    for line in _build.build_logs.get("conv_ghost", "").splitlines():
+        if "(C75" in line or "warning" in line:
+            print(f"ptxas conv_ghost: {line.strip()}")
+    # K2 / K3's tensor-core variants must hold warpgroup MMA instructions.
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(_build._target("conv_ghost"))],
+                          capture_output=True, text=True) if cuobjdump.exists() else None
+    if sass is None:
+        print(f"cuobjdump -sass conv_ghost: not run (no {cuobjdump})")
+    elif sass.returncode == 0:
+        n_hgmma = sass.stdout.count("HGMMA")
+        print(f"cuobjdump -sass conv_ghost: {n_hgmma} HGMMA (wgmma) instructions")
+        if n_hgmma == 0:
+            fail("no HGMMA instruction in the conv_ghost library")
+    else:
+        print(f"cuobjdump -sass conv_ghost: not run ({sass.stderr.strip()[:200]})")
 
     out_root = REPO / "build" / "chip_smoke"
 

@@ -80,13 +80,13 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.k1_error_string.argtypes = [I]
         lib.k1_error_string.restype = ctypes.c_char_p
     elif name == "conv_ghost":
-        lib.ghost_sq_norms_scratch.argtypes = [IA]
+        lib.ghost_sq_norms_scratch.argtypes = [IA, I]
         lib.ghost_sq_norms_scratch.restype = ctypes.c_longlong
-        lib.ghost_sq_norms.argtypes = [P, P, IA, I, P, P, P]
+        lib.ghost_sq_norms.argtypes = [P, P, IA, I, I, P, P, P]
         lib.ghost_sq_norms.restype = I
-        lib.weighted_kernel_grad_scratch.argtypes = [IA]
+        lib.weighted_kernel_grad_scratch.argtypes = [IA, I]
         lib.weighted_kernel_grad_scratch.restype = ctypes.c_longlong
-        lib.weighted_kernel_grad.argtypes = [P, P, P, IA, I, P, P, P]
+        lib.weighted_kernel_grad.argtypes = [P, P, P, IA, I, I, P, P, P]
         lib.weighted_kernel_grad.restype = I
         lib.cg_error_string.argtypes = [I]
         lib.cg_error_string.restype = ctypes.c_char_p

@@ -14,6 +14,13 @@ as the TPU kernel does. CUDA tensors launch the hand-written kernels of
 ``csrc/conv_ghost.cu``, which never form the patch tensor; CPU tensors take
 the plain versions (``F.unfold`` + products). The output layout is the JAX
 kernel's [kh, kw, Cin, O]; convert.py maps it as it maps a conv kernel.
+
+Each kernel has two hand-written variants, and ``kernel_variant`` chooses
+between them by the operands' type and geometry: "tc" (wgmma on the tensor
+cores) for bf16 operands whose Cin and O are multiples of 8, "ffma" (fp32
+FFMA on the CUDA cores) for fp32 operands and every other geometry. This is a
+dispatch between two kernels, not a fallback: a variant that fails to build
+or to launch raises.
 """
 
 from __future__ import annotations
@@ -24,6 +31,19 @@ import torch
 import torch.nn.functional as F
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+VARIANTS = {"ffma": 0, "tc": 1}
+
+
+def kernel_variant(dtype: torch.dtype, geo) -> str:
+    """Which variant of K2 / K3 takes operands of ``dtype`` at
+    geo = [B, H, W, Cin, Ho, Wo, O, ...]. "tc": bf16 with Cin and O multiples
+    of 8 (8 channels are one aligned 16-byte line) and fewer than 2^31
+    elements an operand (32-bit offsets); "ffma": everything else."""
+    b, h, w, cin, ho, wo, o = geo[:7]
+    if (dtype == torch.bfloat16 and cin % 8 == 0 and o % 8 == 0
+            and b * h * w * cin < 2 ** 31 and b * ho * wo * o < 2 ** 31):
+        return "tc"
+    return "ffma"
 
 
 def _out_hw(h: int, k: int, stride: int, pad: int) -> int:
@@ -90,40 +110,58 @@ def _dispatch(a, name):
     return True
 
 
-def _scratch(lib, name: str, geo, device) -> torch.Tensor:
+def _variant(a, geo, variant) -> str:
+    chosen = kernel_variant(a.dtype, geo)
+    if variant is None:
+        return chosen
+    if variant not in VARIANTS or (variant == "tc" and chosen != "tc"):
+        raise ValueError(f"variant {variant!r} does not take {a.dtype} operands at "
+                         f"geometry {list(geo)}")
+    return variant
+
+
+def _scratch(lib, name: str, geo, variant: str, device) -> torch.Tensor:
     """The fp32 scratch that the kernel's launcher asks for at this geometry
-    (the launcher chooses its own tiling)."""
-    n = getattr(lib, f"{name}_scratch")(geo)
+    and variant (the launcher chooses its own tiling)."""
+    n = getattr(lib, f"{name}_scratch")(geo, VARIANTS[variant])
     return torch.empty(max(n, 1), dtype=torch.float32, device=device)
 
 
 def ghost_sq_norms(a: torch.Tensor, c: torch.Tensor, kh: int, kw: int,
-                   stride: int, pad: int) -> torch.Tensor:
+                   stride: int, pad: int, variant: str | None = None) -> torch.Tensor:
     """Per-sample squared kernel-grad norms [B] fp32: K2 for CUDA tensors,
-    the plain version for CPU tensors. Adds one to ``ghost_sq_norms.launches``
-    per K2 launch."""
+    the plain version for CPU tensors. K2's variant is ``kernel_variant``'s
+    unless ``variant`` names one ("ffma" takes everything). Adds one to
+    ``ghost_sq_norms.launches`` per K2 launch, and to ``.launches_tc`` when
+    it was the tensor-core variant."""
     if not _dispatch(a, "ghost_sq_norms"):
         return ghost_sq_norms_plain(a, c, kh, kw, stride, pad)
     from csl_gan_tpu_torch.ops import _build
 
-    geo = (ctypes.c_int * 11)(*_geo(a, c, kh, kw, stride, pad))
+    geo = _geo(a, c, kh, kw, stride, pad)
+    variant = _variant(a, geo, variant)
+    geo = (ctypes.c_int * 11)(*geo)
     out = torch.empty(a.shape[0], dtype=torch.float32, device=a.device)
     lib = _build.load("conv_ghost")
-    partial = _scratch(lib, "ghost_sq_norms", geo, a.device)
+    partial = _scratch(lib, "ghost_sq_norms", geo, variant, a.device)
     rc = lib.ghost_sq_norms(a.data_ptr(), c.data_ptr(), geo, _DTYPES[a.dtype],
-                            partial.data_ptr(), out.data_ptr(),
+                            VARIANTS[variant], partial.data_ptr(), out.data_ptr(),
                             torch.cuda.current_stream(a.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ghost_sq_norms failed: {lib.cg_error_string(rc).decode()}")
     ghost_sq_norms.launches += 1
+    ghost_sq_norms.launches_tc += variant == "tc"
     return out
 
 
 def weighted_kernel_grad(a: torch.Tensor, c: torch.Tensor, w: torch.Tensor,
-                         kernel_shape, stride: int, pad: int) -> torch.Tensor:
+                         kernel_shape, stride: int, pad: int,
+                         variant: str | None = None) -> torch.Tensor:
     """sum_i w_i U_i^T C_i as [kh, kw, Cin, O] fp32: K3 for CUDA tensors, the
-    plain version for CPU tensors. Adds one to
-    ``weighted_kernel_grad.launches`` per K3 launch."""
+    plain version for CPU tensors. K3's variant is ``kernel_variant``'s
+    unless ``variant`` names one ("ffma" takes everything). Adds one to
+    ``weighted_kernel_grad.launches`` per K3 launch, and to ``.launches_tc``
+    when it was the tensor-core variant."""
     if not _dispatch(a, "weighted_kernel_grad"):
         return weighted_kernel_grad_plain(a, c, w, kernel_shape, stride, pad)
     from csl_gan_tpu_torch.ops import _build
@@ -137,18 +175,21 @@ def weighted_kernel_grad(a: torch.Tensor, c: torch.Tensor, w: torch.Tensor,
     if w.device != a.device or w.dtype != torch.float32 or tuple(w.shape) != (b,) \
             or not w.is_contiguous():
         raise ValueError(f"w must be a contiguous fp32 [{b}] tensor on {a.device}")
+    variant = _variant(a, geo, variant)
     geo = (ctypes.c_int * 11)(*geo)
     out = torch.empty(kernel_shape, dtype=torch.float32, device=a.device)
     lib = _build.load("conv_ghost")
-    partial = _scratch(lib, "weighted_kernel_grad", geo, a.device)
+    scratch = _scratch(lib, "weighted_kernel_grad", geo, variant, a.device)
     rc = lib.weighted_kernel_grad(a.data_ptr(), c.data_ptr(), w.data_ptr(), geo,
-                                  _DTYPES[a.dtype], partial.data_ptr(), out.data_ptr(),
+                                  _DTYPES[a.dtype], VARIANTS[variant], scratch.data_ptr(),
+                                  out.data_ptr(),
                                   torch.cuda.current_stream(a.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"weighted_kernel_grad failed: {lib.cg_error_string(rc).decode()}")
     weighted_kernel_grad.launches += 1
+    weighted_kernel_grad.launches_tc += variant == "tc"
     return out
 
 
-ghost_sq_norms.launches = 0
-weighted_kernel_grad.launches = 0
+ghost_sq_norms.launches = ghost_sq_norms.launches_tc = 0
+weighted_kernel_grad.launches = weighted_kernel_grad.launches_tc = 0

@@ -15,7 +15,12 @@
    bf16 convs round at different places (torch adds the bias inside the
    conv, XLA after it), so activations differ by about one bf16 ulp (2^-8)
    on some elements; norms and outputs are held to 2e-2 relative and the
-   summed grads to 5e-2 in normalised l2."""
+   summed grads to 5e-2 in normalised l2.
+3. The rule that sends a CUDA call of K2/K3 to the tensor-core or the FFMA
+   variant (``kernel_variant``), which is plain Python: the flagship's
+   conv2-conv4 at bf16 take the tensor cores; fp32 operands, and layers
+   whose Cin or O is no multiple of 8, take FFMA. The CUDA kernels
+   themselves run only on a card (chip_smoke.py holds them there)."""
 
 import jax
 import jax.numpy as jnp
@@ -38,6 +43,7 @@ GEOMS = [
     (6, 28, 3, 16, 5, 2, 2),
     (8, 8, 16, 32, 3, 1, 1),
     (7, 16, 24, 40, 5, 2, 2),
+    (2, 8, 256, 512, 5, 2, 2),           # the CelebA flagship's conv4
 ]
 
 
@@ -60,11 +66,29 @@ def _data(B, H, C, O, k, st, pad, dtype, seed=0):
     return (a, c, jnp.asarray(w)), (to_t(a), to_t(c), torch.tensor(w))
 
 
+def _jax_norms(a, c, k, st, pad, dtype):
+    """The JAX package's norms for this layer: the Pallas kernel (interpret
+    mode), or its plain XLA expression where the kernel's accumulator gate
+    refuses the layer (conv4), as dcresnet_real_ghost chooses."""
+    if pcg.supported((k, k, a.shape[-1], c.shape[-1])):
+        return pcg.ghost_sq_norms(a, c, k, k, st, pad)
+    dt = None if dtype == jnp.float32 else dtype
+    return cg._conv_kernel_sq_norms(cg._patches(a, k, k, st, pad, dt), c, dt)
+
+
+def _jax_wsum(a, c, w, k, st, pad, dtype):
+    kshape = (k, k, a.shape[-1], c.shape[-1])
+    if pcg.supported(kshape):
+        return pcg.weighted_kernel_grad(a, c, w, kshape, st, pad)
+    dt = None if dtype == jnp.float32 else dtype
+    return cg._conv_kernel_weighted_sum(cg._patches(a, k, k, st, pad, dt), c, w, kshape, dt)
+
+
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
 @pytest.mark.parametrize("B,H,C,O,k,st,pad", GEOMS)
 def test_ghost_sq_norms_plain_matches_pallas(B, H, C, O, k, st, pad, dtype):
     (a, c, _), (at, ct, _) = _data(B, H, C, O, k, st, pad, dtype)
-    want = np.asarray(pcg.ghost_sq_norms(a, c, k, k, st, pad))
+    want = np.asarray(_jax_norms(a, c, k, st, pad, dtype))
     got = tpcg.ghost_sq_norms(at, ct, k, k, st, pad)
     assert got.shape == (B,) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5)
@@ -74,11 +98,62 @@ def test_ghost_sq_norms_plain_matches_pallas(B, H, C, O, k, st, pad, dtype):
 @pytest.mark.parametrize("B,H,C,O,k,st,pad", GEOMS)
 def test_weighted_kernel_grad_plain_matches_pallas(B, H, C, O, k, st, pad, dtype):
     (a, c, w), (at, ct, wt) = _data(B, H, C, O, k, st, pad, dtype, seed=1)
-    want = np.asarray(pcg.weighted_kernel_grad(a, c, w, (k, k, C, O), st, pad))
+    want = np.asarray(_jax_wsum(a, c, w, k, st, pad, dtype))
     got = tpcg.weighted_kernel_grad(at, ct, wt, (k, k, C, O), st, pad)
     assert tuple(got.shape) == (k, k, C, O) and got.dtype == torch.float32
     scale = float(np.abs(want).max())
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("B,H,C,O,k,st,pad", [GEOMS[0], GEOMS[4], GEOMS[5]])
+def test_weighted_kernel_grad_plain_rounds_the_scaled_cotangent(B, H, C, O, k, st, pad):
+    """bf16 operands: w * c is rounded to bf16 before the product (the DP
+    margin of the bf16 route rests on it). Against an independent float64
+    sum over the rounded cotangent the plain version holds to 1e-5; the same
+    sum without the rounding is 1e-3 away, so skipping it cannot pass."""
+    (a, c, w), (at, ct, wt) = _data(B, H, C, O, k, st, pad, jnp.bfloat16, seed=2)
+    got = tpcg.weighted_kernel_grad(at, ct, wt, (k, k, C, O), st, pad).numpy()
+    u = tpcg.patches(at, k, k, st, pad).double().numpy()
+    c32 = np.asarray(c.astype(jnp.float32)) * np.asarray(w)[:, None, None, None]
+    rounded = np.asarray(jnp.asarray(c32).astype(jnp.bfloat16).astype(jnp.float32))
+    want, skipped = (np.einsum("bsk,bso->ko", u, v.reshape(B, -1, O).astype(np.float64))
+                     .reshape(k, k, C, O) for v in (rounded, c32))
+    assert _rel(got, want) < 1e-5
+    assert _rel(skipped, want) > 1e-3 and _rel(got, skipped) > 1e-3
+
+
+# (dtype, [B, H, W, Cin, Ho, Wo, O]) -> variant. The CelebA flagship's
+# conv2-conv4 (B 128), the MNIST DCResNet D's conv1 (Cin 1) and conv2.
+FLAGSHIP_GEOS = [[128, 32, 32, 64, 16, 16, 128], [128, 16, 16, 128, 8, 8, 256],
+                 [128, 8, 8, 256, 4, 4, 512]]
+
+
+@pytest.mark.parametrize("dtype,geo,want", (
+    [(torch.bfloat16, g, "tc") for g in FLAGSHIP_GEOS]
+    + [(torch.float32, g, "ffma") for g in FLAGSHIP_GEOS]
+    + [(torch.bfloat16, [8, 28, 28, 1, 14, 14, 64], "ffma"),
+       (torch.float32, [8, 28, 28, 1, 14, 14, 64], "ffma"),
+       (torch.bfloat16, [8, 14, 14, 64, 7, 7, 128], "tc"),
+       (torch.bfloat16, [7, 16, 16, 24, 8, 8, 40], "tc"),
+       (torch.bfloat16, [6, 28, 28, 3, 14, 14, 16], "ffma"),       # Cin 3
+       (torch.bfloat16, [6, 28, 28, 16, 14, 14, 12], "ffma"),      # O 12
+       (torch.bfloat16, [2 ** 15, 256, 256, 8, 128, 128, 8], "ffma")]))  # 2^34 elements
+def test_kernel_variant_rule(dtype, geo, want):
+    assert tpcg.kernel_variant(dtype, geo + [5, 5, 2, 2]) == want
+
+
+def test_forced_variant_must_take_the_operands():
+    """"ffma" takes everything; "tc" only what the rule gives it; anything
+    else is refused (the wrappers raise before they reach a kernel)."""
+    bf, fp = torch.zeros(1, dtype=torch.bfloat16), torch.zeros(1)
+    geo = FLAGSHIP_GEOS[0] + [5, 5, 2, 2]
+    assert tpcg._variant(bf, geo, None) == "tc" and tpcg._variant(fp, geo, None) == "ffma"
+    assert tpcg._variant(bf, geo, "ffma") == "ffma" and tpcg._variant(bf, geo, "tc") == "tc"
+    with pytest.raises(ValueError, match="variant"):
+        tpcg._variant(fp, geo, "tc")
+    with pytest.raises(ValueError, match="variant"):
+        tpcg._variant(bf, geo, "mma")
+    assert tpcg.ghost_sq_norms.launches_tc == 0 and tpcg.weighted_kernel_grad.launches_tc == 0
 
 
 def _setup(tmp_path, aux_type, bs=8, seed=0):
@@ -151,3 +226,6 @@ def test_wrappers_raise_on_other_devices():
         tpcg.ghost_sq_norms(a, c, 5, 5, 2, 2)
     with pytest.raises(ValueError, match="CPU or CUDA"):
         tpcg.weighted_kernel_grad(a, c, torch.ones(2, device="meta"), (5, 5, 4, 8), 2, 2)
+    for variant in ("ffma", "tc"):
+        with pytest.raises(ValueError, match="CPU or CUDA"):
+            tpcg.ghost_sq_norms(a, c, 5, 5, 2, 2, variant=variant)
