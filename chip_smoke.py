@@ -7,18 +7,24 @@ From the root of a checkout, on a machine with one NVIDIA H100 and the CUDA
 toolkit, it:
   1. prints the card's name and power limit (nvidia-smi);
   2. builds every kernel of the ported paths from the sources (one nvcc per
-     source, in parallel) and prints the build time and ptxas report;
+     source, in parallel) and prints the build time and ptxas report; checks
+     in the SASS that K2/K3 hold warpgroup MMA instructions and that K1 holds
+     no tensor-core instruction (its products are fp32 FFMA);
   3. MNIST path (K1). Holds K1 against its plain PyTorch version on the
      card, at the path's full width (bs 600, F 784, nc 10, latent 100,
      H 128), with seeded inputs: 5 steps with DP from the initial state, 5
      without DP from a mid-training Adam state, and 5 with DP on an fp32
      table; it also prints, without holding it to the bound, the gap of 5
-     steps without DP from zero Adam moments. Then drives the path through
+     steps without DP from zero Adam moments. Runs K1 twice on the same
+     inputs and fails unless state and metrics are bitwise equal, and
+     prints the split plan of a step (each product's tile, BK, splits and
+     CTAs). Then drives the path through
      its entry point, the port's Trainer on ``MNIST --conditional -dpm gc
      --sigma 10 -bs 600 -tss 60000`` (synthetic MNIST) for 2 epochs in one
      group, checks the K1 launch count, finite losses and epsilon, prints
      ms/epoch and samples/s, and times K1 and its plain version on one
-     100-step epoch with the device time by CUDA kernel (torch.profiler);
+     100-step epoch with the device time by CUDA kernel and by product
+     group and the CUDA launches per step (torch.profiler);
   4. CelebA path (K2-K5). Holds K2/K3 against their plain versions at the
      flagship's ghost-order layers conv2-conv4 and K4/K5 at the generator's
      five norm shapes (B 128, bf16), timing each beside its plain version
@@ -127,6 +133,276 @@ def k1_bytes(n: int, p_d: int, p_g: int, use_dp: bool) -> float:
     noise = n * p_d * 4 if use_dp else 0
     state = 2 * 3 * (p_d + p_g) * 4
     return float(rows + rand + noise + state + 40 * 4)
+
+
+# ---------------- the MNIST path (K1) ----------------
+
+# K1's CUDA kernels by product group (the profile of one epoch); a GEMM's
+# group follows from its template arguments (tile, TA, TB, A and B types).
+K1_GROUPS = (("split-K reduce passes", "splitk_reduce"), ("bias sums", "colsum_kernel"),
+             ("row, Adam, metrics", "row_kernel"), ("row, Adam, metrics", "adam_kernel"),
+             ("row, Adam, metrics", "metrics_kernel"))
+
+
+def k1_group(name: str) -> str:
+    for group, key in K1_GROUPS:
+        if key in name:
+            return group
+    if "gemm_kernel<" not in name:
+        return "other"
+    # gemm_kernel<BM, BN, BK, TA, TB, TTA, TTB>
+    args = [a.strip() for a in name.split("gemm_kernel<", 1)[1].split(">", 1)[0].split(",")]
+    form = {("true", "false"): "TN weighted sums", ("false", "true"): "NT forwards",
+            ("false", "false"): "NN G backward"}[(args[3], args[4])]
+    bf16 = " (bf16 table rows)" if any("bfloat16" in a for a in args[5:]) else ""
+    return f"{form}{bf16}"
+
+
+def mnist_builder(dev, out_root, use_dp: bool, tag: str):
+    from csl_gan_tpu_torch import options as toptions
+    from csl_gan_tpu_torch.models.registry import init_models
+    from csl_gan_tpu_torch.training.steps import StepBuilder
+
+    argv = ["MNIST", "--conditional", "--sigma", "10", "-bs", str(BS),
+            "-tss", "60000", "--manual_seed", "1", "--platform", "gpu",
+            "-o", str(out_root / tag)] + (["-dpm", "gc"] if use_dp else [])
+    opt = toptions.parse(argv)
+    G, D = init_models(opt, dev)
+    b = StepBuilder(opt, G, D)
+    b.labels_in_table = b.onehot_in_table = True
+    return b
+
+
+def mnist_inputs(dev, b, n: int, use_dp: bool, seed: int, warm: bool = False):
+    """K1's inputs for n steps, drawn on the card from a seed."""
+    import torch
+    from csl_gan_tpu_torch.data.mnist import synthetic_mnist
+    from csl_gan_tpu_torch.models.common import one_hot
+    from csl_gan_tpu_torch.models.mnist import D_LEAVES
+    from csl_gan_tpu_torch.ops import grads as gops
+    from csl_gan_tpu_torch.ops import pallas_epoch as pe
+
+    imgs, labels = synthetic_mnist(n * BS, seed=seed)
+    x = torch.from_numpy(imgs.reshape(n * BS, -1)).to(dev)
+    y = torch.from_numpy(labels).to(dev)
+    rows = torch.cat([x, one_hot(y, NC), y[:, None].float()], 1).to(torch.bfloat16)
+    g = torch.Generator(dev).manual_seed(seed)
+    z_d, z_g = b.gen_z(g, BS, (n,)), b.gen_z(g, BS, (n,))
+    ohg = one_hot(b.gen_y(g, BS, (n,)), NC)
+    st = b.init_state()
+    noise = (gops.noise_like(g, [st.d_params[k] for k in D_LEAVES],
+                             gops.noise_std(b.sigma, st.clipping), lead=(n,))
+             if use_dp else None)
+    params, mu, nu = pe.leaves_of(st)
+    t = (0, 0)
+    if warm:
+        # Mid-training Adam state: seeded moments of the size the first
+        # epochs leave (|grad| ~ 1e-3) and counts past an epoch.
+        mu = [1e-3 * torch.randn(x.shape, generator=g, device=dev) for x in mu]
+        nu = [(3e-3 * torch.randn(x.shape, generator=g, device=dev)) ** 2 + 1e-8
+              for x in nu]
+        t = (300, 300)
+    return (rows, z_d, z_g, ohg, noise, st.clipping, t, params, mu, nu)
+
+
+def k1_check_phase(dev, out_root) -> float:
+    """K1 against its plain version at full width in four cases, the same
+    inputs through K1 twice (bitwise equal), and the split plan. Returns the
+    largest absolute gap of the held cases."""
+    import torch
+    from csl_gan_tpu_torch.models.mnist import D_LEAVES, G_LEAVES
+    from csl_gan_tpu_torch.ops import pallas_epoch as pe
+
+    # With DP from the initial state (the main path's start), without DP
+    # from a mid-training Adam state. At count 0 without noise, Adam's first
+    # update is ~sign(grad), so the few grad elements within fp32 rounding
+    # of zero flip sign between any two summation orders and the state
+    # drifts by 2 lr there; with nonzero moments the update is smooth in the
+    # gradient, so the check holds to the bound.
+    max_abs = 0.0
+    # (use_dp, table dtype, mid-training Adam state, held to the bound). The
+    # third case stores the table in fp32 (--bf16_table false); the last is
+    # only printed, to show the size of the sign sensitivity above.
+    cases = ((True, torch.bfloat16, False, True), (False, torch.bfloat16, True, True),
+             (True, torch.float32, False, True), (False, torch.bfloat16, False, False))
+    for use_dp, row_dtype, warm, held in cases:
+        b = mnist_builder(dev, out_root, use_dp, f"check_dp{int(use_dp)}")
+        ins = mnist_inputs(dev, b, CHECK_STEPS, use_dp, seed=11, warm=warm)
+        ins = (ins[0].to(row_dtype),) + ins[1:]
+        outk = pe.epoch_kernel(b, *ins, use_dp=use_dp)
+        outp = pe.epoch_plain(b, *ins, use_dp=use_dp)
+        torch.cuda.synchronize()
+        worst, abs_err, per_leaf = 0.0, 0.0, []
+        names = [f"D.{k}" for k in D_LEAVES] + [f"G.{k}" for k in G_LEAVES]
+        for group, gk, gp in zip(("param", "mu", "nu"), outk[:3], outp[:3]):
+            for name, xk, xp in zip(names, gk, gp):
+                r = rel_l2(xk, xp)
+                per_leaf.append((r, f"{group} {name}"))
+                worst = max(worst, r)
+                abs_err = max(abs_err, float((xk - xp).abs().max()))
+        per_leaf.sort(reverse=True)
+        mk, mp = outk[3], outp[3]
+        cont = [s for s in range(pe.MET_SLOTS) if s not in
+                (pe.M_D_RACC, pe.M_D_FACC, pe.M_D_RAUX_ACC, pe.M_G_AUX_ACC)
+                and not pe.M_FRAC <= s < pe.M_FRAC + 6]
+        met_rel = rel_l2(mk[cont], mp[cont])
+        # Accuracy and clipped-share slots count samples; one sample on the
+        # other side of a threshold moves a step's value by 100/bs (or 1/bs).
+        count_gap = float(max((mk - mp)[[pe.M_D_RACC, pe.M_D_FACC,
+                                          pe.M_D_RAUX_ACC, pe.M_G_AUX_ACC]].abs().max(),
+                              100.0 * (mk - mp)[pe.M_FRAC:pe.M_FRAC + 6].abs().max()))
+        print(f"kernel vs plain (dp={use_dp}, rows {row_dtype}, "
+              f"{'mid-training' if warm else 'zero'} moments, {CHECK_STEPS} steps): "
+              f"max rel l2 state {worst:.3e}, metrics {met_rel:.3e}, count slots "
+              f"{count_gap:.3e}, max abs {abs_err:.3e} "
+              + (f"(bound {REL_BOUND:g})" if held else "(printed only)"))
+        print("  worst leaves: " + ", ".join(f"{n} {r:.2e}" for r, n in per_leaf[:3]))
+        if held and not (worst < REL_BOUND and met_rel < REL_BOUND
+                         and count_gap <= 2 * 100.0 * CHECK_STEPS / BS):
+            fail(f"K1 disagrees with its plain version (dp={use_dp})")
+        if not all(torch.isfinite(x).all() for g in outk[:3] for x in g):
+            fail("K1 produced non-finite state")
+        if held:
+            max_abs = max(max_abs, abs_err, float((mk - mp)[cont].abs().max()))
+
+    # Split-K adds its partials in a fixed order and nothing is atomic, so
+    # the same inputs give the same bits.
+    b = mnist_builder(dev, out_root, True, "repeat")
+    ins = mnist_inputs(dev, b, CHECK_STEPS, True, seed=13)
+    one, two = pe.epoch_kernel(b, *ins), pe.epoch_kernel(b, *ins)
+    torch.cuda.synchronize()
+    same = all(torch.equal(u, v) for g1, g2 in zip(one[:3], two[:3]) for u, v in zip(g1, g2))
+    print(f"K1 twice on the same inputs ({CHECK_STEPS} DP steps): state "
+          f"{'bitwise equal' if same else 'DIFFERS'}, metrics "
+          f"{'bitwise equal' if torch.equal(one[3], two[3]) else 'DIFFER'}")
+    if not (same and torch.equal(one[3], two[3])):
+        fail("K1 is not bitwise repeatable")
+
+    plan = pe.split_plan(b, ins[0], ins[1], ins[7])
+    print(f"K1 split plan of one step on {torch.cuda.get_device_properties(0).multi_processor_count}"
+          f" SMs (M x N x K: tile, BK, splits, CTAs): "
+          + "; ".join(f"{m}x{n}x{k}: {bm}x{bn}, BK {bk}, S {sp}, {c}"
+                      for m, n, k, bm, bn, bk, sp, c in plan))
+    return max_abs
+
+
+def mnist_path_phase(out_root):
+    """The MNIST path through its entry point. Returns (K1 launches, ms per
+    epoch after the first)."""
+    import torch
+    from csl_gan_tpu_torch import options as toptions
+    from csl_gan_tpu_torch.ops import pallas_epoch as pe
+    from csl_gan_tpu_torch.training.loop import Trainer
+
+    e = EPOCHS
+    opt = toptions.parse(["MNIST", "--conditional", "-dpm", "gc", "--sigma", "10",
+                          "-bs", str(BS), "-tss", "60000", "-ne", str(e),
+                          "--log_every", str(60000 * e), "--manual_seed", "1",
+                          "-o", str(out_root / "train")])
+    tr = Trainer(opt)
+    pe.epoch_kernel.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = pe.epoch_kernel.launches
+    if launches != e:
+        fail(f"K1 launched {launches} times on the main path, expected {e}")
+    ep_ms = [a.elapsed_time(b) for a, b in tr.runner.epoch_events]
+    with open(out_root / "train" / "privacy_log.csv") as fh:
+        eps = [float(r["Epsilon"]) for r in csv.DictReader(fh)]
+    with open(out_root / "train" / "log.csv") as fh:
+        rows = list(csv.DictReader(fh))
+    losses = [float(rows[-1][k]) for k in ("G Adv Loss", "D Adv Loss", "D Real Loss",
+                                           "D Fake Loss", "D Real Aux Loss")]
+    if len(eps) != e or not all(math.isfinite(x) and x > 0 for x in eps):
+        fail(f"bad epsilon column {eps}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"non-finite losses {losses}")
+    state_ok = all(torch.isfinite(t).all() for t in tr.state.d_params.values()) and \
+        all(torch.isfinite(t).all() for t in tr.state.g_params.values())
+    if not state_ok:
+        fail("non-finite params after training")
+    samples = tr.n_batches * BS
+    rest = ep_ms[1:] or ep_ms
+    k1_epoch_ms = sum(rest) / len(rest)
+    print(f"MNIST path: {e} epochs x {tr.n_batches} steps in one group, K1 launches "
+          f"{launches}; epoch ms first {ep_ms[0]:.3f}, rest mean "
+          f"{sum(rest) / len(rest):.3f} ({', '.join(f'{x:.3f}' for x in rest)}); "
+          f"{samples * len(rest) / (sum(rest) / 1e3):.0f} samples/s after the first; "
+          f"wall {wall:.2f} s; epsilon {eps[-1]:.6f}; losses G {losses[0]:.4f} D {losses[1]:.4f}")
+    return launches, k1_epoch_ms
+
+
+def k1_timing_phase(dev, out_root, peak_flops, peak_bytes, launches, max_abs):
+    """K1 and its plain version timed on one 100-step epoch at the MNIST
+    path's shapes, and K1's device time by kernel and by product group.
+    Returns K1's kernels-line entry."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from csl_gan_tpu_torch.ops import pallas_epoch as pe
+
+    n = TIME_STEPS
+    b = mnist_builder(dev, out_root, True, "time")
+    ins = mnist_inputs(dev, b, n, True, seed=12)
+    pe.epoch_kernel(b, *ins)                        # warm-up
+    times = []
+    for _ in range(3):
+        s0, s1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s0.record()
+        pe.epoch_kernel(b, *ins)
+        s1.record()
+        torch.cuda.synchronize()
+        times.append(s0.elapsed_time(s1))
+    s0, s1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s0.record()
+    pe.epoch_plain(b, *ins)
+    s1.record()
+    torch.cuda.synchronize()
+    plain_ms = s0.elapsed_time(s1)
+    p_d = sum(t.numel() for t in ins[7][:6])
+    p_g = sum(t.numel() for t in ins[7][6:])
+    flops, nbytes = k1_flops(n), k1_bytes(n, p_d, p_g, True)
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bytes * 1e3
+    ms = min(times)
+    print(f"K1 epoch of {n} steps: kernel {ms:.3f} ms (runs {', '.join(f'{x:.3f}' for x in times)}), "
+          f"plain {plain_ms:.3f} ms, bound {max(t_ops, t_bytes):.3f} ms "
+          f"({flops / 1e9:.1f} GFLOP at {peak_flops / 1e12:g} TFLOP/s fp32; "
+          f"{nbytes / 1e6:.1f} MB at {peak_bytes / 1e12:g} TB/s)")
+    # Device time by CUDA kernel over one K1 epoch (torch.profiler / CUPTI).
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        s0.record()
+        pe.epoch_kernel(b, *ins)
+        s1.record()
+        torch.cuda.synchronize()
+    span = s0.elapsed_time(s1)
+    by_kernel = device_ms_by_kernel(prof)
+    busy = sum(r[0] for r in by_kernel)
+    n_launch = sum(r[1] for r in by_kernel)
+    print(f"profile: device busy {busy:.3f} ms of a {span:.3f} ms epoch "
+          f"({100 * busy / span:.1f}%), {n_launch} CUDA launches ({n_launch / n:g} per step), "
+          f"by kernel (ms, launches, name):")
+    for t_ms, cnt, key in by_kernel[:16]:
+        print(f"  {t_ms:9.3f} {cnt:6d}  {key}")
+    groups = {}
+    for t_ms, cnt, key in by_kernel:
+        g = groups.setdefault(k1_group(key), [0.0, 0])
+        g[0] += t_ms
+        g[1] += cnt
+    print("K1 profile by product group (device ms per epoch, launches per step): " + "; ".join(
+        f"{g} {t:.3f} ({c / n:g})" for g, (t, c) in sorted(groups.items(), key=lambda kv: -kv[1][0])))
+    return {
+        "name": "k1_epoch", "route": "cuda",
+        "source": "csl_gan_tpu_torch/ops/csrc/k1_epoch.cu",
+        "replaces": "csl_gan_tpu/ops/pallas_epoch.py:184",
+        "launches": launches, "max_abs_err": max_abs,
+        "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": None, "per": f"epoch of {n} steps", "device_ms": busy,
+        "cuda_launches_per_step": n_launch / n,
+    }
 
 
 # ---------------- the CelebA path (K2-K5) ----------------
@@ -1030,15 +1306,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
 
-    from csl_gan_tpu_torch import options as toptions
-    from csl_gan_tpu_torch.data.mnist import synthetic_mnist
-    from csl_gan_tpu_torch.models.common import one_hot
-    from csl_gan_tpu_torch.models.mnist import D_LEAVES, G_LEAVES
-    from csl_gan_tpu_torch.models.registry import init_models
-    from csl_gan_tpu_torch.ops import _build, grads as gops
-    from csl_gan_tpu_torch.ops import pallas_epoch as pe
-    from csl_gan_tpu_torch.training.loop import Trainer
-    from csl_gan_tpu_torch.training.steps import StepBuilder
+    from csl_gan_tpu_torch.ops import _build
 
     # 2. Build.
     t0 = time.perf_counter()
@@ -1056,206 +1324,36 @@ def main() -> int:
     for line in _build.build_logs.get("conv_ghost", "").splitlines():
         if "(C75" in line or "warning" in line:
             print(f"ptxas conv_ghost: {line.strip()}")
-    # K2 / K3's tensor-core variants must hold warpgroup MMA instructions.
+    # K2 / K3's tensor-core variants must hold warpgroup MMA instructions;
+    # K1's products are fp32 FFMA and must hold no tensor-core instruction.
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "-sass", str(_build._target("conv_ghost"))],
-                          capture_output=True, text=True) if cuobjdump.exists() else None
-    if sass is None:
-        print(f"cuobjdump -sass conv_ghost: not run (no {cuobjdump})")
-    elif sass.returncode == 0:
-        n_hgmma = sass.stdout.count("HGMMA")
-        print(f"cuobjdump -sass conv_ghost: {n_hgmma} HGMMA (wgmma) instructions")
-        if n_hgmma == 0:
-            fail("no HGMMA instruction in the conv_ghost library")
-    else:
-        print(f"cuobjdump -sass conv_ghost: not run ({sass.stderr.strip()[:200]})")
+    for lib, want_mma in (("conv_ghost", True), ("k1_epoch", False)):
+        sass = subprocess.run([str(cuobjdump), "-sass", str(_build._target(lib))],
+                              capture_output=True, text=True) if cuobjdump.exists() else None
+        if sass is None:
+            print(f"cuobjdump -sass {lib}: not run (no {cuobjdump})")
+        elif sass.returncode == 0:
+            n_hgmma, n_hmma = sass.stdout.count("HGMMA"), sass.stdout.count("HMMA")
+            print(f"cuobjdump -sass {lib}: {n_hgmma} HGMMA (wgmma), {n_hmma} HMMA (mma), "
+                  f"{sass.stdout.count('FFMA')} FFMA instructions")
+            if want_mma and n_hgmma == 0:
+                fail(f"no HGMMA instruction in the {lib} library")
+            if not want_mma and n_hgmma + n_hmma > 0:
+                fail(f"tensor-core instructions in the {lib} library")
+        else:
+            print(f"cuobjdump -sass {lib}: not run ({sass.stderr.strip()[:200]})")
 
+    # 3. The MNIST path (K1): kernel vs plain, the Trainer, K1's timing.
     out_root = REPO / "build" / "chip_smoke"
+    max_abs = k1_check_phase(dev, out_root)
+    launches, k1_epoch_ms = mnist_path_phase(out_root)
+    kernels = [k1_timing_phase(dev, out_root, peak_flops, peak_bytes, launches, max_abs)]
 
-    def builder(use_dp: bool, tag: str) -> StepBuilder:
-        argv = ["MNIST", "--conditional", "--sigma", "10", "-bs", str(BS),
-                "-tss", "60000", "--manual_seed", "1", "--platform", "gpu",
-                "-o", str(out_root / tag)] + (["-dpm", "gc"] if use_dp else [])
-        opt = toptions.parse(argv)
-        G, D = init_models(opt, dev)
-        b = StepBuilder(opt, G, D)
-        b.labels_in_table = b.onehot_in_table = True
-        return b
-
-    def inputs(b: StepBuilder, n: int, use_dp: bool, seed: int, warm: bool = False):
-        imgs, labels = synthetic_mnist(n * BS, seed=seed)
-        x = torch.from_numpy(imgs.reshape(n * BS, -1)).to(dev)
-        y = torch.from_numpy(labels).to(dev)
-        rows = torch.cat([x, one_hot(y, NC), y[:, None].float()], 1).to(torch.bfloat16)
-        g = torch.Generator(dev).manual_seed(seed)
-        z_d, z_g = b.gen_z(g, BS, (n,)), b.gen_z(g, BS, (n,))
-        ohg = one_hot(b.gen_y(g, BS, (n,)), NC)
-        st = b.init_state()
-        noise = (gops.noise_like(g, [st.d_params[k] for k in D_LEAVES],
-                                 gops.noise_std(b.sigma, st.clipping), lead=(n,))
-                 if use_dp else None)
-        params, mu, nu = pe.leaves_of(st)
-        t = (0, 0)
-        if warm:
-            # Mid-training Adam state: seeded moments of the size the first
-            # epochs leave (|grad| ~ 1e-3) and counts past an epoch.
-            mu = [1e-3 * torch.randn(x.shape, generator=g, device=dev) for x in mu]
-            nu = [(3e-3 * torch.randn(x.shape, generator=g, device=dev)) ** 2 + 1e-8
-                  for x in nu]
-            t = (300, 300)
-        return (rows, z_d, z_g, ohg, noise, st.clipping, t, params, mu, nu)
-
-    # 3. Kernel vs plain at full width: with DP from the initial state (the
-    # main path's start), without DP from a mid-training Adam state. At count
-    # 0 without noise, Adam's first update is ~sign(grad), so the few grad
-    # elements within fp32 rounding of zero flip sign between any two
-    # summation orders and the state drifts by 2 lr there; with nonzero
-    # moments the update is smooth in the gradient, so the check holds to
-    # the bound.
-    max_abs = 0.0
-    # (use_dp, table dtype, mid-training Adam state, held to the bound). The
-    # third case stores the table in fp32 (--bf16_table false); the last is
-    # only printed, to show the size of the sign sensitivity above.
-    cases = ((True, torch.bfloat16, False, True), (False, torch.bfloat16, True, True),
-             (True, torch.float32, False, True), (False, torch.bfloat16, False, False))
-    for use_dp, row_dtype, warm, held in cases:
-        b = builder(use_dp, f"check_dp{int(use_dp)}")
-        ins = inputs(b, CHECK_STEPS, use_dp, seed=11, warm=warm)
-        ins = (ins[0].to(row_dtype),) + ins[1:]
-        outk = pe.epoch_kernel(b, *ins, use_dp=use_dp)
-        outp = pe.epoch_plain(b, *ins, use_dp=use_dp)
-        torch.cuda.synchronize()
-        worst, abs_err, per_leaf = 0.0, 0.0, []
-        names = [f"D.{k}" for k in D_LEAVES] + [f"G.{k}" for k in G_LEAVES]
-        for group, gk, gp in zip(("param", "mu", "nu"), outk[:3], outp[:3]):
-            for name, xk, xp in zip(names, gk, gp):
-                r = rel_l2(xk, xp)
-                per_leaf.append((r, f"{group} {name}"))
-                worst = max(worst, r)
-                abs_err = max(abs_err, float((xk - xp).abs().max()))
-        per_leaf.sort(reverse=True)
-        mk, mp = outk[3], outp[3]
-        cont = [s for s in range(pe.MET_SLOTS) if s not in
-                (pe.M_D_RACC, pe.M_D_FACC, pe.M_D_RAUX_ACC, pe.M_G_AUX_ACC)
-                and not pe.M_FRAC <= s < pe.M_FRAC + 6]
-        met_rel = rel_l2(mk[cont], mp[cont])
-        # Accuracy and clipped-share slots count samples; one sample on the
-        # other side of a threshold moves a step's value by 100/bs (or 1/bs).
-        count_gap = float(max((mk - mp)[[pe.M_D_RACC, pe.M_D_FACC,
-                                          pe.M_D_RAUX_ACC, pe.M_G_AUX_ACC]].abs().max(),
-                              100.0 * (mk - mp)[pe.M_FRAC:pe.M_FRAC + 6].abs().max()))
-        print(f"kernel vs plain (dp={use_dp}, rows {row_dtype}, "
-              f"{'mid-training' if warm else 'zero'} moments, {CHECK_STEPS} steps): "
-              f"max rel l2 state {worst:.3e}, metrics {met_rel:.3e}, count slots "
-              f"{count_gap:.3e}, max abs {abs_err:.3e} "
-              + (f"(bound {REL_BOUND:g})" if held else "(printed only)"))
-        print("  worst leaves: " + ", ".join(f"{n} {r:.2e}" for r, n in per_leaf[:3]))
-        if held and not (worst < REL_BOUND and met_rel < REL_BOUND
-                         and count_gap <= 2 * 100.0 * CHECK_STEPS / BS):
-            fail(f"K1 disagrees with its plain version (dp={use_dp})")
-        if not all(torch.isfinite(x).all() for g in outk[:3] for x in g):
-            fail("K1 produced non-finite state")
-        if held:
-            max_abs = max(max_abs, abs_err, float((mk - mp)[cont].abs().max()))
-
-    # 4. The MNIST path through its entry point.
-    e = EPOCHS
-    opt = toptions.parse(["MNIST", "--conditional", "-dpm", "gc", "--sigma", "10",
-                          "-bs", str(BS), "-tss", "60000", "-ne", str(e),
-                          "--log_every", str(60000 * e), "--manual_seed", "1",
-                          "-o", str(out_root / "train")])
-    tr = Trainer(opt)
-    pe.epoch_kernel.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    tr.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = pe.epoch_kernel.launches
-    if launches != e:
-        fail(f"K1 launched {launches} times on the main path, expected {e}")
-    ep_ms = [a.elapsed_time(b) for a, b in tr.runner.epoch_events]
-    with open(out_root / "train" / "privacy_log.csv") as fh:
-        eps = [float(r["Epsilon"]) for r in csv.DictReader(fh)]
-    with open(out_root / "train" / "log.csv") as fh:
-        rows = list(csv.DictReader(fh))
-    losses = [float(rows[-1][k]) for k in ("G Adv Loss", "D Adv Loss", "D Real Loss",
-                                           "D Fake Loss", "D Real Aux Loss")]
-    if len(eps) != e or not all(math.isfinite(x) and x > 0 for x in eps):
-        fail(f"bad epsilon column {eps}")
-    if not all(math.isfinite(x) for x in losses):
-        fail(f"non-finite losses {losses}")
-    state_ok = all(torch.isfinite(t).all() for t in tr.state.d_params.values()) and \
-        all(torch.isfinite(t).all() for t in tr.state.g_params.values())
-    if not state_ok:
-        fail("non-finite params after training")
-    samples = tr.n_batches * BS
-    rest = ep_ms[1:] or ep_ms
-    k1_epoch_ms = sum(rest) / len(rest)
-    print(f"MNIST path: {e} epochs x {tr.n_batches} steps in one group, K1 launches "
-          f"{launches}; epoch ms first {ep_ms[0]:.3f}, rest mean "
-          f"{sum(rest) / len(rest):.3f} ({', '.join(f'{x:.3f}' for x in rest)}); "
-          f"{samples * len(rest) / (sum(rest) / 1e3):.0f} samples/s after the first; "
-          f"wall {wall:.2f} s; epsilon {eps[-1]:.6f}; losses G {losses[0]:.4f} D {losses[1]:.4f}")
-
-    # 5. K1 and plain times at the MNIST path's shapes (one full epoch).
-    n = TIME_STEPS
-    b = builder(True, "time")
-    ins = inputs(b, n, True, seed=12)
-    pe.epoch_kernel(b, *ins)                        # warm-up
-    times = []
-    for _ in range(3):
-        s0, s1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        s0.record()
-        pe.epoch_kernel(b, *ins)
-        s1.record()
-        torch.cuda.synchronize()
-        times.append(s0.elapsed_time(s1))
-    s0, s1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    s0.record()
-    pe.epoch_plain(b, *ins)
-    s1.record()
-    torch.cuda.synchronize()
-    plain_ms = s0.elapsed_time(s1)
-    p_d = sum(t.numel() for t in ins[7][:6])
-    p_g = sum(t.numel() for t in ins[7][6:])
-    flops, nbytes = k1_flops(n), k1_bytes(n, p_d, p_g, True)
-    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bytes * 1e3
-    ms = min(times)
-    print(f"K1 epoch of {n} steps: kernel {ms:.3f} ms (runs {', '.join(f'{x:.3f}' for x in times)}), "
-          f"plain {plain_ms:.3f} ms, bound {max(t_ops, t_bytes):.3f} ms "
-          f"({flops / 1e9:.1f} GFLOP at {peak_flops / 1e12:g} TFLOP/s fp32; "
-          f"{nbytes / 1e6:.1f} MB at {peak_bytes / 1e12:g} TB/s)")
-    # Device time by CUDA kernel over one K1 epoch (torch.profiler / CUPTI).
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        s0.record()
-        pe.epoch_kernel(b, *ins)
-        s1.record()
-        torch.cuda.synchronize()
-    span = s0.elapsed_time(s1)
-    by_kernel = device_ms_by_kernel(prof)
-    busy = sum(r[0] for r in by_kernel)
-    print(f"profile: device busy {busy:.3f} ms of a {span:.3f} ms epoch "
-          f"({100 * busy / span:.1f}%), by kernel (ms, launches, name):")
-    for t_ms, cnt, key in by_kernel[:12]:
-        print(f"  {t_ms:9.3f} {cnt:6d}  {key}")
-    kernels = [{
-        "name": "k1_epoch", "route": "cuda",
-        "source": "csl_gan_tpu_torch/ops/csrc/k1_epoch.cu",
-        "replaces": "csl_gan_tpu/ops/pallas_epoch.py:184",
-        "launches": launches, "max_abs_err": max_abs,
-        "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": None, "per": f"epoch of {n} steps",
-    }]
-
-    # 6. The CelebA path (K2-K5).
+    # 4. The CelebA path (K2-K5).
     celeba_entries, celeba_step_ms = celeba_phases(dev, out_root, peak_bf16, peak_bytes)
     kernels += celeba_entries
 
-    # 7. The materialized per-sample-gradient paths (K6).
+    # 5. The materialized per-sample-gradient paths (K6).
     kernels.append(clip_phases(dev, out_root, peak_bytes, k1_epoch_ms, celeba_step_ms))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

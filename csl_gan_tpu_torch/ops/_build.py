@@ -77,6 +77,10 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.k1_epoch.argtypes = [ctypes.POINTER(P), I, IA, I,
                                  ctypes.POINTER(F), I, P]
         lib.k1_epoch.restype = I
+        lib.k1_epoch_scratch.argtypes = [IA, I]
+        lib.k1_epoch_scratch.restype = ctypes.c_longlong
+        lib.k1_epoch_plan.argtypes = [IA, I, IA, I]
+        lib.k1_epoch_plan.restype = I
         lib.k1_error_string.argtypes = [I]
         lib.k1_error_string.restype = ctypes.c_char_p
     elif name == "conv_ghost":

@@ -25,15 +25,40 @@
 // fused prologue row scale and epilogues: one-hot product, bias, ReLU,
 // sigmoid, sigmoid-derivative, ReLU mask, accumulate), one row-wise kernel
 // (per-sample cotangents, the six ghost norms, the clip factor and per-row
-// metric terms; one warp per row), a column-sum kernel for bias gradients, one
-// Adam kernel per model over its flat buffer, and a one-block metric
-// reduction. The host loop of the epoch runs here in C, so Python makes one
-// call per epoch and reads the metric vector once per epoch. Every product is
-// fp32 FFMA: no TF32 and no tensor cores, since the weighted sums are the DP
-// signal and the TPU kernel runs them at HIGHEST. Noise is consumed pre-drawn;
-// there is no RNG here. Speed is later work (wgmma tiling without TF32, one
-// persistent L2-resident epoch kernel, CUDA graphs).
+// metric terms; one warp per row), a bias-sum kernel, one Adam kernel per
+// model over its flat buffer, and a one-block metric reduction. The host loop
+// of the epoch runs here in C, so Python makes one call per epoch and reads
+// the metric vector once per epoch. Every product is fp32 FFMA: no TF32 and
+// no tensor cores, since the weighted sums are the DP signal and the TPU
+// kernel runs them at HIGHEST. Noise is consumed pre-drawn; there is no RNG
+// here.
 //
+// Filling the card. At bs 600 on 132 SMs one CTA per 64x64 output tile gives
+// the heavy products 20-26 CTAs, so the launcher (plan_of) cuts each product
+// from (M, N, K) and the SM count: split-K for the weighted sums (K = bs =
+// 600: 208 CTAs of 5 BK stages for the 128x794, 128x784 and 784x128 sums)
+// and for G's masked backward product (200 CTAs), each followed by a pass
+// that adds the S partials in a fixed order and applies the epilogue;
+// 32x64 tiles for the N = 784 products (247 CTAs); a 16x32 tile with BK 64
+// for the ReLU products, which are never split (plan_of says why). Stages are
+// double-buffered through registers, with one barrier each. The bias sums
+// are batch-parallel (32 row slices per column, met in shared memory), up
+// to three to a launch. No atomics anywhere, so an epoch is bitwise repeatable: a step
+// is 38 launches.
+//
+// What bounds it now (NVIDIA H100 80GB HBM3, 700 W, profile of one 100-step
+// epoch in chip_smoke.py; PERF.md has the run): ~35 ms an epoch against
+// 121 ms before, with the device busy ~86% of it and 3,807 launches, so the
+// gaps between dependent launches take ~5 ms. Of ~32 ms on the device the
+// unsplit ReLU products (NT forwards, bf16 rows included) take ~12 ms: one
+// chain of 794 FMAs per output at 2 outputs a thread leaves the 16x32 tile
+// bound by shared-memory reads and latency. Then the row, Adam and metric
+// kernels ~5, the fp32 weighted sums ~4.5, the reduce passes ~2.6, the N =
+// 784 forwards ~2.6, G's NN products ~2.5, the bf16 weighted sums ~1.7 and
+// the bias sums ~1. Open: more outputs a thread for the ReLU products, one
+// persistent kernel or a CUDA graph over the launch chain, and 3xTF32-style
+// tensor-core products if fp32 accuracy can be shown.
+
 // Layouts (torch): Linear weight [out, in] row-major. Flat D buffer, in the JAX
 // leaf order: lin1.b [H] | lin1.W [H, A0] | lin2.b [1] | lin2.W [1, H] |
 // aux.b [nc] | aux.W [nc, H]. Flat G buffer: lin1.b [H] | lin1.W [H, L+nc] |
@@ -78,88 +103,145 @@ struct Epi {
   int accumulate;                    // C = C + acc
 };
 
-constexpr int BM = 64, BN = 64, BK = 16;
+// One fp32 FFMA tile kernel for every product. A CTA of 256 threads owns a
+// BM x BN output tile (64x64, 32x64 or 32x32 with BK = 16; 16x32 with BK =
+// 64; each thread BM/16 x BN/16 outputs) and walks K in BK stages, each
+// output one FMA chain in the order k = 0, 1, .... Each stage is staged through
+// registers into one of two shared-memory buffers: the next stage's global
+// loads are issued before this stage's FFMAs, and one __syncthreads() per
+// stage suffices. With split-K, blockIdx.z = s sums only K in [s * kc,
+// (s + 1) * kc) and writes its raw tile to part[s] ([S, M, N]); the
+// epilogue then runs in splitk_reduce after the S partials are added in the
+// order s = 0, 1, ..., S - 1. Without split-K (part null) it runs here.
+constexpr int kGemmThreads = 256;
+constexpr int kMinSlice = 64;   // a split-K slice is at least 4 stages of 16
 
-template <bool TA, bool TB, typename TTA, typename TTB>
-__global__ void __launch_bounds__(256)
-gemm_kernel(int M, int N, int K, const TTA* __restrict__ A, int lda,
+__device__ __forceinline__ void epilogue(const Epi& e, int m, int n, float v,
+                                         float* C, int ldc) {
+  if (e.oh) {
+    float s = 0.f;
+    for (int q = 0; q < e.n_oh; ++q)
+      s = fmaf(ld_any(e.oh, e.oh_bf16, (size_t)m * e.ld_oh + q),
+               e.wy[(size_t)n * e.ld_wy + q], s);
+    v = v + s;
+  }
+  if (e.bias) v = v + e.bias[n];
+  if (e.act == 1) v = fmaxf(v, 0.f);
+  else if (e.act == 2) v = sigmoidf_(v);
+  if (e.sig) {
+    const float s = e.sig[(size_t)m * e.ld_sig + n];
+    v = v * s * (1.f - s);
+  }
+  if (e.mask) v = e.mask[(size_t)m * e.ld_mask + n] > 0.f ? v : v * 0.f;
+  float* c = C + (size_t)m * ldc + n;
+  *c = e.accumulate ? *c + v : v;
+}
+
+template <int BM, int BN, int BK, bool TA, bool TB, typename TTA, typename TTB>
+__global__ void __launch_bounds__(kGemmThreads)
+gemm_kernel(int M, int N, int K, int kc, const TTA* __restrict__ A, int lda,
             const TTB* __restrict__ B, int ldb, const float* __restrict__ rs,
-            float* C, int ldc, Epi e) {
-  __shared__ float As[BK][BM + 4];
-  __shared__ float Bs[BK][BN + 4];
+            float* C, int ldc, float* __restrict__ part, Epi e) {
+  constexpr int TM = BM / 16, TN = BN / 16;
+  constexpr int LA = BM * BK / kGemmThreads, LB = BN * BK / kGemmThreads;
+  __shared__ float As[2][BK][BM + 4];
+  __shared__ float Bs[2][BK][BN + 4];
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  float acc[4][4];
+  const int kb = blockIdx.z * kc, ke = min(K, kb + kc);
+  float acc[TM][TN];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < TM; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int i = tid; i < BM * BK; i += 256) {
-      int mm, kk;
-      if (TA) { mm = i % BM; kk = i / BM; } else { kk = i % BK; mm = i / BK; }
+  float ra[LA], rb[LB];
+  auto fetch = [&](int k0) {
+#pragma unroll
+    for (int l = 0; l < LA; ++l) {
+      const int i = tid + l * kGemmThreads;
+      const int mm = TA ? i % BM : i / BK, kk = TA ? i / BM : i % BK;
       const int gm = m0 + mm, gk = k0 + kk;
       float v = 0.f;
-      if (gm < M && gk < K)
+      if (gm < M && gk < ke)
         v = TA ? ldf(A + (size_t)gk * lda + gm) : ldf(A + (size_t)gm * lda + gk);
-      As[kk][mm] = v;
+      ra[l] = v;
     }
-    for (int i = tid; i < BN * BK; i += 256) {
-      int nn, kk;
-      if (TB) { kk = i % BK; nn = i / BK; } else { nn = i % BN; kk = i / BN; }
+#pragma unroll
+    for (int l = 0; l < LB; ++l) {
+      const int i = tid + l * kGemmThreads;
+      const int nn = TB ? i / BK : i % BN, kk = TB ? i % BK : i / BN;
       const int gn = n0 + nn, gk = k0 + kk;
       float v = 0.f;
-      if (gn < N && gk < K) {
+      if (gn < N && gk < ke) {
         v = TB ? ldf(B + (size_t)gn * ldb + gk) : ldf(B + (size_t)gk * ldb + gn);
         if (rs) v = rs[gk] * v;
       }
-      Bs[kk][nn] = v;
+      rb[l] = v;
     }
+  };
+  auto stash = [&](int buf) {
+#pragma unroll
+    for (int l = 0; l < LA; ++l) {
+      const int i = tid + l * kGemmThreads;
+      As[buf][TA ? i / BM : i % BK][TA ? i % BM : i / BK] = ra[l];
+    }
+#pragma unroll
+    for (int l = 0; l < LB; ++l) {
+      const int i = tid + l * kGemmThreads;
+      Bs[buf][TB ? i % BK : i / BN][TB ? i / BK : i % BN] = rb[l];
+    }
+  };
+
+  fetch(kb);
+  int buf = 0;
+  for (int k0 = kb; k0 < ke; k0 += BK) {
+    // Buffer `buf` was last read two stages ago, before every thread passed
+    // the previous stage's barrier.
+    stash(buf);
     __syncthreads();
+    if (k0 + BK < ke) fetch(k0 + BK);
 #pragma unroll
     for (int kk = 0; kk < BK; ++kk) {
-      float a[4], b[4];
+      float a[TM], b[TN];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
+      for (int i = 0; i < TM; ++i) a[i] = As[buf][kk][ty + 16 * i];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx + 16 * j];
+      for (int j = 0; j < TN; ++j) b[j] = Bs[buf][kk][tx + 16 * j];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
     }
-    __syncthreads();
+    buf ^= 1;
   }
 
+  float* out = part ? part + (size_t)blockIdx.z * M * N : nullptr;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < TM; ++i) {
     const int m = m0 + ty + 16 * i;
     if (m >= M) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < TN; ++j) {
       const int n = n0 + tx + 16 * j;
       if (n >= N) continue;
-      float v = acc[i][j];
-      if (e.oh) {
-        float s = 0.f;
-        for (int q = 0; q < e.n_oh; ++q)
-          s = fmaf(ld_any(e.oh, e.oh_bf16, (size_t)m * e.ld_oh + q),
-                   e.wy[(size_t)n * e.ld_wy + q], s);
-        v = v + s;
-      }
-      if (e.bias) v = v + e.bias[n];
-      if (e.act == 1) v = fmaxf(v, 0.f);
-      else if (e.act == 2) v = sigmoidf_(v);
-      if (e.sig) {
-        const float s = e.sig[(size_t)m * e.ld_sig + n];
-        v = v * s * (1.f - s);
-      }
-      if (e.mask) v = e.mask[(size_t)m * e.ld_mask + n] > 0.f ? v : v * 0.f;
-      float* c = C + (size_t)m * ldc + n;
-      *c = e.accumulate ? *c + v : v;
+      if (out) out[(size_t)m * N + n] = acc[i][j];
+      else epilogue(e, m, n, acc[i][j], C, ldc);
     }
   }
+}
+
+// The split-K second pass: C[m, n] (=|+=) epilogue(sum_s part[s, m, n]),
+// the S partials added in the order s = 0, 1, ..., S - 1 (no atomics, so an
+// epoch is bitwise repeatable).
+__global__ void splitk_reduce(int M, int N, int S, const float* __restrict__ part,
+                              float* C, int ldc, Epi e) {
+  const size_t mn = (size_t)M * N;
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= mn) return;
+  float v = part[i];
+  for (int s = 1; s < S; ++s) v += part[(size_t)s * mn + i];
+  epilogue(e, (int)(i / N), (int)(i % N), v, C, ldc);
 }
 
 // ------------------------------------------------------------ row-wise ------
@@ -309,19 +391,46 @@ __global__ void __launch_bounds__(256) row_kernel(RowArgs a) {
 }
 
 // ----------------------------------------------------- bias gradients -------
-// out[i] (=|+=) sum_b X[b * ldx + i] * (rs ? rs[b] : 1)
-__global__ void colsum_kernel(int B, int ncols, const float* __restrict__ X,
-                              int ldx, const float* __restrict__ rs, float* out,
-                              int accumulate) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= ncols) return;
+// out[i] = sum_b X1[b * ld1 + i] * (rs1 ? rs1[b] : 1)  [+ sum_b X2[b * ld2 + i]]
+// Up to three such sums per launch (blockIdx.y). A block of 32 warps covers
+// 32 columns: warp w sums rows w, w + 32, ... of each column (lanes on
+// neighbouring columns), the 32 slices meet in shared memory, and warp c
+// adds column c's slices with a fixed butterfly. Fixed order, no atomics.
+struct ColJob {
+  const float* X1; int ld1; const float* rs1;
+  const float* X2; int ld2;
+  int ncols; float* out;
+};
+struct ColArgs { ColJob job[3]; int B; };
+constexpr int kColThreads = 1024;
+
+// The column sum of rows [0, B) for column c0 + (warp index), in every lane.
+__device__ float block_colsum(const float* X, int ld, const float* rs, int B,
+                              int col, bool valid, float (*sh)[33]) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   float s = 0.f;
-  for (int b = 0; b < B; ++b) {
-    float v = X[(size_t)b * ldx + i];
-    if (rs) v = v * rs[b];
-    s += v;
-  }
-  out[i] = accumulate ? out[i] + s : s;
+  if (valid)
+    for (int b = w; b < B; b += 32) {
+      float v = X[(size_t)b * ld + col];
+      if (rs) v = v * rs[b];
+      s += v;
+    }
+  __syncthreads();
+  sh[w][lane] = s;
+  __syncthreads();
+  return warp_sum(sh[lane][w]);
+}
+
+__global__ void __launch_bounds__(kColThreads) colsum_kernel(ColArgs a) {
+  __shared__ float sh[32][33];
+  const ColJob& J = a.job[blockIdx.y];
+  const int c0 = blockIdx.x * 32;
+  if (J.out == nullptr || c0 >= J.ncols) return;   // uniform over the block
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const bool valid = c0 + lane < J.ncols;
+  float t = block_colsum(J.X1, J.ld1, J.rs1, a.B, c0 + lane, valid, sh);
+  if (J.X2) t = t + block_colsum(J.X2, J.ld2, nullptr, a.B, c0 + lane, valid, sh);
+  if (lane == 0 && c0 + w < J.ncols) J.out[c0 + w] = t;
 }
 
 // ---------------------------------------------------------------- Adam ------
@@ -423,12 +532,13 @@ enum Ptr {
   P_ROWS, P_ZD, P_ZG, P_OHG, P_N0, P_N1, P_N2, P_N3, P_N4, P_N5,
   P_PD, P_MD, P_VD, P_PG, P_MG, P_VG, P_MET,
   P_GH, P_FIMG, P_HR, P_HF, P_CZR, P_CZF, P_COR, P_COF, P_CAR, P_CAF, P_FAC,
-  P_RS, P_GD, P_GHB, P_IMG, P_HG, P_CZG, P_CGLOG, P_CGZ1, P_GG, P_COUNT
+  P_RS, P_GD, P_GHB, P_IMG, P_HG, P_CZG, P_CGLOG, P_CGZ1, P_GG, P_WS, P_COUNT
 };
 enum Int { I_N, I_BS, I_F, I_NC, I_LAT, I_H, I_DP, I_FAUX, I_TD, I_TG, I_RBF16, I_COUNT };
 enum Flt { F_AUX, F_B1, F_B2, F_OMB1, F_OMB2, F_LNB1, F_LNB2, F_GLR, F_DLR, F_EPS, F_C, F_COUNT };
 
 constexpr int kErrBadArgs = 100000;
+constexpr int kErrWorkspace = 100001;
 
 #define CK()                                   \
   do {                                         \
@@ -441,19 +551,137 @@ Epi epi() {
   return e;
 }
 
+int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// SMs of the current device, asked once.
+int sm_count() {
+  static const int n_sm = [] {
+    int dev = 0, n = 132;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n;
+  }();
+  return n_sm;
+}
+
+// How one product M x N x K is cut across the SMs: tile kTile[t] (rows,
+// columns, BK) and S splits of K, kc long each (a multiple of BK). The
+// largest of the first three tiles that alone gives a CTA per SM runs
+// unsplit, with its epilogue fused. A product whose epilogue is a ReLU is
+// never split: its mask is a decision, and a pre-activation within rounding
+// of 0 takes the other side under another order of the sum (one such unit
+// of the fake pass's hidden layer moved a step's G gradient by 1.6e-3
+// against the plain version on an H100). It keeps one chain per output, on
+// the 16x32 tile with BK 64 (more CTAs, fewer stages). Every other product
+// splits K on the largest tile that, with slices of at least kMinSlice,
+// reaches one CTA per SM, aiming at two (so an SM holds two CTAs and one's
+// loads overlap the other's FFMAs); where none does, 32x32 takes the most
+// splits K allows.
+constexpr int kTile[4][3] = {{64, 64, 16}, {32, 64, 16}, {32, 32, 16}, {16, 32, 64}};
+struct Plan { int t, s, kc; };
+
+Plan plan_of(int M, int N, int K, bool relu) {
+  const int n_sm = sm_count();
+  auto tiles = [&](int t) { return cdiv(M, kTile[t][0]) * cdiv(N, kTile[t][1]); };
+  for (int t = 0; t < 3; ++t)
+    if (tiles(t) >= n_sm) return Plan{t, 1, K};
+  if (relu) return Plan{3, 1, K};
+  const int max_s = K / kMinSlice > 1 ? K / kMinSlice : 1;
+  int t = 2;
+  for (int u = 0; u < 3; ++u)
+    if (tiles(u) * max_s >= n_sm) { t = u; break; }
+  const int want = cdiv(2 * n_sm, tiles(t)) < max_s ? cdiv(2 * n_sm, tiles(t)) : max_s;
+  const int bk = kTile[t][2];
+  const int kc = cdiv(cdiv(K, want), bk) * bk;
+  return Plan{t, cdiv(K, kc), kc};
+}
+
+// The products of one step as (M, N, K, ReLU epilogue), in run_epoch's
+// order (the fake pass's aux product only when d_fake_aux), for the
+// workspace size and the printed plan. run_epoch checks each launch against
+// the workspace.
+int step_products(const int* in, int (*out)[4]) {
+  const int bs = in[I_BS], F = in[I_F], nc = in[I_NC], L = in[I_LAT], H = in[I_H];
+  const int A0 = F + nc;
+  const int prods[][4] = {
+      {bs, H, L, 1}, {bs, F, H, 0}, {bs, H, A0, 1}, {bs, H, F, 1},          // G fwd, D hidden
+      {H, A0, bs, 0}, {1, H, bs, 0}, {nc, H, bs, 0},                        // real sums
+      {H, F, bs, 0}, {H, nc, bs, 0}, {1, H, bs, 0}, {nc, H, bs, 0},         // fake sums
+      {bs, H, L, 1}, {bs, F, H, 0}, {bs, H, F, 1},                          // G step forward
+      {bs, F, H, 0}, {F, H, bs, 0}, {bs, H, F, 0}, {H, L, bs, 0}, {H, nc, bs, 0}  // G step backward
+  };
+  int k = 0;
+  for (int i = 0; i < (int)(sizeof(prods) / sizeof(prods[0])); ++i) {
+    if (i == 10 && !in[I_FAUX]) continue;
+    for (int j = 0; j < 4; ++j) out[k][j] = prods[i][j];
+    ++k;
+  }
+  return k;
+}
+
+constexpr int kMaxProducts = 24;
+
+// Floats of split-K workspace the step needs: the largest S * M * N.
+long long workspace_floats(const int* in) {
+  int pr[kMaxProducts][4];
+  const int np = step_products(in, pr);
+  long long need = 0;
+  for (int i = 0; i < np; ++i) {
+    const Plan pl = plan_of(pr[i][0], pr[i][1], pr[i][2], pr[i][3]);
+    const long long w = pl.s > 1 ? (long long)pl.s * pr[i][0] * pr[i][1] : 0;
+    need = w > need ? w : need;
+  }
+  return need;
+}
+
+struct Ctx {
+  cudaStream_t st;
+  float* ws;
+  long long ws_floats;
+};
+
+template <int BM, int BN, int BK, bool TA, bool TB, typename TTA, typename TTB>
+void launch_tile(const Ctx& cx, dim3 grid, int M, int N, int K, int kc, const TTA* A,
+                 int lda, const TTB* B, int ldb, const float* rs, float* C, int ldc,
+                 float* part, const Epi& e) {
+  gemm_kernel<BM, BN, BK, TA, TB, TTA, TTB><<<grid, kGemmThreads, 0, cx.st>>>(
+      M, N, K, kc, A, lda, B, ldb, rs, C, ldc, part, e);
+}
+
 template <bool TA, bool TB, typename TTA, typename TTB>
-int gemm(cudaStream_t st, int M, int N, int K, const TTA* A, int lda,
+int gemm(const Ctx& cx, int M, int N, int K, const TTA* A, int lda,
          const TTB* B, int ldb, const float* rs, float* C, int ldc,
          const Epi& e) {
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  gemm_kernel<TA, TB, TTA, TTB><<<grid, 256, 0, st>>>(M, N, K, A, lda, B, ldb, rs, C, ldc, e);
+  const Plan pl = plan_of(M, N, K, e.act == 1);
+  float* part = nullptr;
+  if (pl.s > 1) {
+    if ((long long)pl.s * M * N > cx.ws_floats) return kErrWorkspace;
+    part = cx.ws;
+  }
+  const dim3 grid(cdiv(N, kTile[pl.t][1]), cdiv(M, kTile[pl.t][0]), pl.s);
+  switch (pl.t) {
+    case 0: launch_tile<64, 64, 16, TA, TB>(cx, grid, M, N, K, pl.kc, A, lda, B, ldb, rs, C, ldc, part, e); break;
+    case 1: launch_tile<32, 64, 16, TA, TB>(cx, grid, M, N, K, pl.kc, A, lda, B, ldb, rs, C, ldc, part, e); break;
+    case 2: launch_tile<32, 32, 16, TA, TB>(cx, grid, M, N, K, pl.kc, A, lda, B, ldb, rs, C, ldc, part, e); break;
+    default: launch_tile<16, 32, 64, TA, TB>(cx, grid, M, N, K, pl.kc, A, lda, B, ldb, rs, C, ldc, part, e); break;
+  }
   CK();
+  if (pl.s > 1) {
+    splitk_reduce<<<cdiv(M * N, 256), 256, 0, cx.st>>>(M, N, pl.s, part, C, ldc, e);
+    CK();
+  }
   return 0;
 }
 
-int colsum(cudaStream_t st, int B, int ncols, const float* X, int ldx,
-           const float* rs, float* out, int accumulate) {
-  colsum_kernel<<<(ncols + 127) / 128, 128, 0, st>>>(B, ncols, X, ldx, rs, out, accumulate);
+// The jobs of `a` are filled from job[0] on.
+int colsum(cudaStream_t st, const ColArgs& a) {
+  int blocks = 0, jobs = 0;
+  for (const ColJob& j : a.job)
+    if (j.out) {
+      ++jobs;
+      if (cdiv(j.ncols, 32) > blocks) blocks = cdiv(j.ncols, 32);
+    }
+  colsum_kernel<<<dim3(blocks, jobs), kColThreads, 0, st>>>(a);
   CK();
   return 0;
 }
@@ -494,6 +722,7 @@ int run_epoch(void* const* p, const int* in, const float* f, cudaStream_t st) {
   float* pD = static_cast<float*>(p[P_PD]);
   float* pG = static_cast<float*>(p[P_PG]);
   auto S = [&](int i) { return static_cast<float*>(p[i]); };
+  const Ctx cx{st, S(P_WS), workspace_floats(in)};
 
   // Flat offsets (see the layout note at the top).
   const long long oDb1 = 0, oDW1 = H, oDb2 = oDW1 + (long long)H * A0,
@@ -518,16 +747,16 @@ int run_epoch(void* const* p, const int* in, const float* f, cudaStream_t st) {
     Epi e = epi();
     e.oh = OHD; e.oh_bf16 = rbf; e.ld_oh = W; e.n_oh = nc; e.wy = GW1 + L; e.ld_wy = LG;
     e.bias = Gb1; e.act = 1;
-    RUN((gemm<false, true, float, float>(st, bs, H, L, zd, L, GW1, LG, nullptr, S(P_GH), H, e)));
+    RUN((gemm<false, true, float, float>(cx, bs, H, L, zd, L, GW1, LG, nullptr, S(P_GH), H, e)));
     e = epi(); e.bias = Gb2; e.act = 2;
-    RUN((gemm<false, true, float, float>(st, bs, F, H, S(P_GH), H, GW2, H, nullptr, S(P_FIMG), F, e)));
+    RUN((gemm<false, true, float, float>(cx, bs, F, H, S(P_GH), H, GW2, H, nullptr, S(P_FIMG), F, e)));
     // (2)-(3) D hidden layer on the real rows and on the fakes.
     e = epi(); e.bias = Db1; e.act = 1;
-    RUN((gemm<false, true, RowT, float>(st, bs, H, A0, R, W, DW1, A0, nullptr, S(P_HR), H, e)));
+    RUN((gemm<false, true, RowT, float>(cx, bs, H, A0, R, W, DW1, A0, nullptr, S(P_HR), H, e)));
     e = epi();
     e.oh = OHD; e.oh_bf16 = rbf; e.ld_oh = W; e.n_oh = nc; e.wy = DW1 + F; e.ld_wy = A0;
     e.bias = Db1; e.act = 1;
-    RUN((gemm<false, true, float, float>(st, bs, H, F, S(P_FIMG), F, DW1, A0, nullptr, S(P_HF), H, e)));
+    RUN((gemm<false, true, float, float>(cx, bs, H, F, S(P_FIMG), F, DW1, A0, nullptr, S(P_HF), H, e)));
     // Per-sample cotangents, ghost norms, clip factors, row metrics.
     RowArgs ra{};
     ra.job[0] = RowJob{S(P_HR), OHD, rbf, W, R, rbf, W, S(P_CZR), S(P_COR), S(P_CAR), 0};
@@ -541,23 +770,23 @@ int run_epoch(void* const* p, const int* in, const float* f, cudaStream_t st) {
     // Real-pass sums (clip-weighted under DP): the activation side is scaled.
     const float* fac = dp ? S(P_FAC) : nullptr;
     e = epi();
-    RUN((gemm<true, false, float, RowT>(st, H, A0, bs, S(P_CZR), H, R, W, fac, GD + oDW1, A0, e)));
-    RUN((gemm<true, false, float, float>(st, 1, H, bs, S(P_COR), 1, S(P_HR), H, fac, GD + oDW2, H, e)));
-    RUN((gemm<true, false, float, float>(st, nc, H, bs, S(P_CAR), nc, S(P_HR), H, fac, GD + oDWa, H, e)));
-    RUN(colsum(st, bs, H, S(P_CZR), H, fac, GD + oDb1, 0));
-    RUN(colsum(st, bs, 1, S(P_COR), 1, fac, GD + oDb2, 0));
-    RUN(colsum(st, bs, nc, S(P_CAR), nc, fac, GD + oDba, 0));
+    RUN((gemm<true, false, float, RowT>(cx, H, A0, bs, S(P_CZR), H, R, W, fac, GD + oDW1, A0, e)));
+    RUN((gemm<true, false, float, float>(cx, 1, H, bs, S(P_COR), 1, S(P_HR), H, fac, GD + oDW2, H, e)));
+    RUN((gemm<true, false, float, float>(cx, nc, H, bs, S(P_CAR), nc, S(P_HR), H, fac, GD + oDWa, H, e)));
     // Clean fake-pass sums, accumulated onto the real ones.
     e = epi(); e.accumulate = 1;
-    RUN((gemm<true, false, float, float>(st, H, F, bs, S(P_CZF), H, S(P_FIMG), F, nullptr, GD + oDW1, A0, e)));
-    RUN((gemm<true, false, float, RowT>(st, H, nc, bs, S(P_CZF), H, OHD, W, nullptr, GD + oDW1 + F, A0, e)));
-    RUN((gemm<true, false, float, float>(st, 1, H, bs, S(P_COF), 1, S(P_HF), H, nullptr, GD + oDW2, H, e)));
-    RUN(colsum(st, bs, H, S(P_CZF), H, nullptr, GD + oDb1, 1));
-    RUN(colsum(st, bs, 1, S(P_COF), 1, nullptr, GD + oDb2, 1));
-    if (faux) {
-      RUN((gemm<true, false, float, float>(st, nc, H, bs, S(P_CAF), nc, S(P_HF), H, nullptr, GD + oDWa, H, e)));
-      RUN(colsum(st, bs, nc, S(P_CAF), nc, nullptr, GD + oDba, 1));
-    }
+    RUN((gemm<true, false, float, float>(cx, H, F, bs, S(P_CZF), H, S(P_FIMG), F, nullptr, GD + oDW1, A0, e)));
+    RUN((gemm<true, false, float, RowT>(cx, H, nc, bs, S(P_CZF), H, OHD, W, nullptr, GD + oDW1 + F, A0, e)));
+    RUN((gemm<true, false, float, float>(cx, 1, H, bs, S(P_COF), 1, S(P_HF), H, nullptr, GD + oDW2, H, e)));
+    if (faux)
+      RUN((gemm<true, false, float, float>(cx, nc, H, bs, S(P_CAF), nc, S(P_HF), H, nullptr, GD + oDWa, H, e)));
+    // Bias sums of both passes in one launch: (real, clip-weighted) + fake.
+    ColArgs cs{};
+    cs.B = bs;
+    cs.job[0] = ColJob{S(P_CZR), H, fac, S(P_CZF), H, H, GD + oDb1};
+    cs.job[1] = ColJob{S(P_COR), 1, fac, S(P_COF), 1, 1, GD + oDb2};
+    cs.job[2] = ColJob{S(P_CAR), nc, fac, faux ? S(P_CAF) : nullptr, nc, nc, GD + oDba};
+    RUN(colsum(st, cs));
     // (4)-(5) + noise, / bs, Adam for D.
     Noise nz{};
     long long off = 0;
@@ -574,28 +803,32 @@ int run_epoch(void* const* p, const int* in, const float* f, cudaStream_t st) {
     e = epi();
     e.oh = ohg; e.oh_bf16 = 0; e.ld_oh = nc; e.n_oh = nc; e.wy = GW1 + L; e.ld_wy = LG;
     e.bias = Gb1; e.act = 1;
-    RUN((gemm<false, true, float, float>(st, bs, H, L, zg, L, GW1, LG, nullptr, S(P_GHB), H, e)));
+    RUN((gemm<false, true, float, float>(cx, bs, H, L, zg, L, GW1, LG, nullptr, S(P_GHB), H, e)));
     e = epi(); e.bias = Gb2; e.act = 2;
-    RUN((gemm<false, true, float, float>(st, bs, F, H, S(P_GHB), H, GW2, H, nullptr, S(P_IMG), F, e)));
+    RUN((gemm<false, true, float, float>(cx, bs, F, H, S(P_GHB), H, GW2, H, nullptr, S(P_IMG), F, e)));
     e = epi();
     e.oh = ohg; e.oh_bf16 = 0; e.ld_oh = nc; e.n_oh = nc; e.wy = DW1 + F; e.ld_wy = A0;
     e.bias = Db1; e.act = 1;
-    RUN((gemm<false, true, float, float>(st, bs, H, F, S(P_IMG), F, DW1, A0, nullptr, S(P_HG), H, e)));
+    RUN((gemm<false, true, float, float>(cx, bs, H, F, S(P_IMG), F, DW1, A0, nullptr, S(P_HG), H, e)));
     RowArgs rg = ra;
     rg.job[0] = RowJob{S(P_HG), ohg, 0, nc, nullptr, 0, 0, S(P_CZG), nullptr, nullptr, 2};
     row_kernel<<<dim3((bs + 7) / 8, 1), 256, 0, st>>>(rg);
     CK();
     e = epi(); e.sig = S(P_IMG); e.ld_sig = F;   // c_glog = (c_z1 W1_img) * img * (1 - img)
-    RUN((gemm<false, false, float, float>(st, bs, F, H, S(P_CZG), H, DW1, A0, nullptr, S(P_CGLOG), F, e)));
+    RUN((gemm<false, false, float, float>(cx, bs, F, H, S(P_CZG), H, DW1, A0, nullptr, S(P_CGLOG), F, e)));
     e = epi();
-    RUN((gemm<true, false, float, float>(st, F, H, bs, S(P_CGLOG), F, S(P_GHB), H, nullptr, GG + oGW2, H, e)));
-    RUN(colsum(st, bs, F, S(P_CGLOG), F, nullptr, GG + oGb2, 0));
+    RUN((gemm<true, false, float, float>(cx, F, H, bs, S(P_CGLOG), F, S(P_GHB), H, nullptr, GG + oGW2, H, e)));
+    ColArgs cg{};
+    cg.B = bs;
+    cg.job[0] = ColJob{S(P_CGLOG), F, nullptr, nullptr, 0, F, GG + oGb2};
+    RUN(colsum(st, cg));
     e = epi(); e.mask = S(P_GHB); e.ld_mask = H;
-    RUN((gemm<false, false, float, float>(st, bs, H, F, S(P_CGLOG), F, GW2, H, nullptr, S(P_CGZ1), H, e)));
+    RUN((gemm<false, false, float, float>(cx, bs, H, F, S(P_CGLOG), F, GW2, H, nullptr, S(P_CGZ1), H, e)));
     e = epi();
-    RUN((gemm<true, false, float, float>(st, H, L, bs, S(P_CGZ1), H, zg, L, nullptr, GG + oGW1, LG, e)));
-    RUN((gemm<true, false, float, float>(st, H, nc, bs, S(P_CGZ1), H, ohg, nc, nullptr, GG + oGW1 + L, LG, e)));
-    RUN(colsum(st, bs, H, S(P_CGZ1), H, nullptr, GG + oGb1, 0));
+    RUN((gemm<true, false, float, float>(cx, H, L, bs, S(P_CGZ1), H, zg, L, nullptr, GG + oGW1, LG, e)));
+    RUN((gemm<true, false, float, float>(cx, H, nc, bs, S(P_CGZ1), H, ohg, nc, nullptr, GG + oGW1 + L, LG, e)));
+    cg.job[0] = ColJob{S(P_CGZ1), H, nullptr, nullptr, 0, H, GG + oGb1};
+    RUN(colsum(st, cg));
     Noise none{};
     RUN(adam(st, PG, pG, S(P_MG), S(P_VG), GG, none, 0, 1.f, f[F_GLR], f,
              in[I_TG] + s + 1));
@@ -607,15 +840,44 @@ int run_epoch(void* const* p, const int* in, const float* f, cudaStream_t st) {
   return 0;
 }
 
+bool bad_args(int n_ptrs, const int* ints, int n_ints, int n_floats) {
+  return n_ptrs != P_COUNT || n_ints != I_COUNT || n_floats != F_COUNT ||
+         ints[I_NC] > kMaxNc || ints[I_H] % 32 != 0;
+}
+
 }  // namespace
 
 extern "C" {
 
-// One epoch of K1 on `stream`. Returns 0, a cudaError_t, or kErrBadArgs.
+// Floats of split-K workspace (the last pointer of k1_epoch) for these ints,
+// or -1 for bad arguments.
+long long k1_epoch_scratch(const int* ints, int n_ints) {
+  if (bad_args(P_COUNT, ints, n_ints, F_COUNT)) return -1;
+  return workspace_floats(ints);
+}
+
+// The split plan of one step: for each product, 8 ints (M, N, K, tile rows,
+// tile columns, BK, splits S, CTAs) into out[0 .. 8 * max_rows). Returns
+// the number of products, or -1 for bad arguments.
+int k1_epoch_plan(const int* ints, int n_ints, int* out, int max_rows) {
+  if (bad_args(P_COUNT, ints, n_ints, F_COUNT)) return -1;
+  int pr[kMaxProducts][4];
+  const int np = step_products(ints, pr);
+  for (int i = 0; i < np && i < max_rows; ++i) {
+    const Plan pl = plan_of(pr[i][0], pr[i][1], pr[i][2], pr[i][3]);
+    const int bm = kTile[pl.t][0], bn = kTile[pl.t][1];
+    const int row[8] = {pr[i][0], pr[i][1], pr[i][2], bm, bn, kTile[pl.t][2], pl.s,
+                        cdiv(pr[i][0], bm) * cdiv(pr[i][1], bn) * pl.s};
+    for (int j = 0; j < 8; ++j) out[8 * i + j] = row[j];
+  }
+  return np;
+}
+
+// One epoch of K1 on `stream`. Returns 0, a cudaError_t, kErrBadArgs or
+// kErrWorkspace.
 int k1_epoch(void* const* ptrs, int n_ptrs, const int* ints, int n_ints,
              const float* floats, int n_floats, void* stream) {
-  if (n_ptrs != P_COUNT || n_ints != I_COUNT || n_floats != F_COUNT) return kErrBadArgs;
-  if (ints[I_NC] > kMaxNc || ints[I_H] % 32 != 0) return kErrBadArgs;
+  if (bad_args(n_ptrs, ints, n_ints, n_floats)) return kErrBadArgs;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (ints[I_RBF16]) return run_epoch<__nv_bfloat16>(ptrs, ints, floats, st);
   return run_epoch<float>(ptrs, ints, floats, st);
@@ -623,6 +885,7 @@ int k1_epoch(void* const* ptrs, int n_ptrs, const int* ints, int n_ints,
 
 const char* k1_error_string(int code) {
   if (code == kErrBadArgs) return "bad argument counts or shapes";
+  if (code == kErrWorkspace) return "split-K workspace smaller than a product's plan";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

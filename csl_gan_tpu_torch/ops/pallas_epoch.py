@@ -12,6 +12,8 @@ D; the G step against the updated D; the metric sums.
   ``epoch_plain()``, and for anything else it raises.
 - ``epoch_plain()`` is the same function in plain PyTorch, built from the
   port's step math (training/steps.py).
+- ``split_plan()`` reports how the CUDA launcher cuts each product of a step
+  across the card's SMs (tile, splits of K, CTAs).
 
 Both take exactly the inputs of the JAX kernel, all randomness pre-drawn:
 gathered table rows [n*bs, F+nc+1], z_d / z_g [n, bs, latent], one_hot(y_g)
@@ -124,7 +126,7 @@ def epoch_plain(builder, rows, z_d, z_g, ohg, noise, C, t, params, mu, nu,
 
 
 # Pointer slots of the C entry point k1_epoch (csrc/k1_epoch.cu, enum Ptr).
-_N_PTRS = 37
+_N_PTRS = 38
 _N_INTS = 11
 _N_FLOATS = 11
 
@@ -138,6 +140,29 @@ def _check(name: str, x: torch.Tensor, shape: Sequence[int], dtypes, dev):
         raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{name} is not contiguous")
+
+
+def _ints(builder, rows, z_d, t, H: int, use_dp: bool) -> List[int]:
+    """The Int slots of the C entry point (csrc/k1_epoch.cu, enum Int)."""
+    n, bs, latent = z_d.shape
+    return [n, bs, math.prod(builder.img_shape), builder.n_classes, latent, H,
+            int(use_dp), int(builder.d_fake_aux and builder.use_aux), int(t[0]),
+            int(t[1]), int(rows.dtype == torch.bfloat16)]
+
+
+def split_plan(builder, rows, z_d, params):
+    """How the CUDA launcher cuts each product of one step across the SMs of
+    the current card: [(M, N, K, tile rows, tile columns, BK, splits, CTAs)],
+    in the step's order."""
+    from csl_gan_tpu_torch.ops import _build
+
+    lib = _build.load("k1_epoch")
+    ints = _ints(builder, rows, z_d, (0, 0), params[0].shape[0], True)
+    out = (ctypes.c_int * (8 * 32))()
+    k = lib.k1_epoch_plan((ctypes.c_int * _N_INTS)(*ints), _N_INTS, out, 32)
+    if k < 0:
+        raise ValueError(f"k1_epoch_plan refused the shapes {ints}")
+    return [tuple(out[8 * i:8 * i + 8]) for i in range(k)]
 
 
 def _launch_cuda(builder, rows, z_d, z_g, ohg, noise, C, t, params, mu, nu,
@@ -187,22 +212,25 @@ def _launch_cuda(builder, rows, z_d, z_g, ohg, noise, C, t, params, mu, nu,
                e(pD.numel()),                                 # GD
                e(bs, H), e(bs, F), e(bs, H), e(bs, H),        # GHb IMG Hg CZg
                e(bs, F), e(bs, H), e(pG.numel())]             # CGLOG CGZ1 GG
+    ints = _ints(builder, rows, z_d, t, H, use_dp)
+    lib = _build.load("k1_epoch")
+    c_ints = (ctypes.c_int * _N_INTS)(*ints)
+    # Split-K workspace: the kernel's launcher sizes it from the step's plan.
+    ws = lib.k1_epoch_scratch(c_ints, _N_INTS)
+    if ws < 0:
+        raise ValueError(f"k1_epoch_scratch refused the shapes {ints}")
+    scratch.append(e(max(ws, 1)))                             # WS
     noise_ptrs = [x.data_ptr() for x in noise] if use_dp else [0] * 6
     ptr_list = ([rows.data_ptr(), z_d.data_ptr(), z_g.data_ptr(), ohg.data_ptr()]
                 + noise_ptrs
                 + [x.data_ptr() for x in (pD, mD, vD, pG, mG, vG, met)]
                 + [x.data_ptr() for x in scratch])
     assert len(ptr_list) == _N_PTRS
-    ints = [n, bs, F, nc, latent, H, int(use_dp),
-            int(builder.d_fake_aux and builder.use_aux), int(t[0]), int(t[1]),
-            int(rows.dtype == torch.bfloat16)]
     b1, b2 = float(opt.adam_b1), float(opt.adam_b2)
     floats = [builder.aux_scalar, b1, b2, 1.0 - b1, 1.0 - b2,
               math.log(b1), math.log(b2),
               float(opt.g_lr), float(opt.d_lr), 1e-8, float(C)]
-    lib = _build.load("k1_epoch")
     c_ptrs = (ctypes.c_void_p * _N_PTRS)(*ptr_list)
-    c_ints = (ctypes.c_int * _N_INTS)(*ints)
     c_floats = (ctypes.c_float * _N_FLOATS)(*floats)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.k1_epoch(c_ptrs, _N_PTRS, c_ints, _N_INTS, c_floats, _N_FLOATS,

@@ -11,6 +11,10 @@ are held to a normalized l2 gap < 2e-3 and metric sums to rtol 2e-4 /
 atol 1e-4.
 """
 
+import ctypes
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -169,3 +173,54 @@ def test_epoch_kernel_takes_plain_only_for_cpu(tmp_path):
         tpe.epoch_kernel(pb, rows.to("meta"), z.to("meta"), z.to("meta"),
                          ohg.to("meta"), meta(noise), 4.0, (0, 0), meta(params),
                          meta(mu), meta(nu))
+
+
+def _enum(src: str, name: str):
+    """The names of `enum <name> { ... };` in a C source, in order."""
+    body = re.search(r"enum %s \{(.*?)\};" % name, src, re.S).group(1)
+    return [x.strip() for x in body.split(",") if x.strip()]
+
+
+@pytest.mark.parametrize("enum, count", [("Ptr", "_N_PTRS"), ("Int", "_N_INTS"),
+                                         ("Flt", "_N_FLOATS")])
+def test_entry_point_slot_counts_match_the_kernel(enum, count):
+    """The wrapper passes as many pointers, ints and floats as the C entry
+    point's enums count; a mismatch would show only on the card, as
+    kErrBadArgs."""
+    src = (Path(tpe.__file__).parent / "csrc" / "k1_epoch.cu").read_text()
+    names = _enum(src, enum)
+    assert names[-1].endswith("_COUNT")
+    assert len(names) - 1 == getattr(tpe, count)
+
+
+def test_entry_point_ints_follow_the_int_enum(tmp_path):
+    """`_ints` fills the Int slots in the enum's order."""
+    src = (Path(tpe.__file__).parent / "csrc" / "k1_epoch.cu").read_text()
+    names = _enum(src, "Int")[:-1]
+    pb = _port_builder(tmp_path, ["-dpm", "gc"])
+    rows = torch.zeros(3 * 32, 795, dtype=torch.bfloat16)
+    got = dict(zip(names, tpe._ints(pb, rows, torch.zeros(3, 32, 100), (7, 9), 128, True)))
+    assert got == {"I_N": 3, "I_BS": 32, "I_F": 784, "I_NC": 10, "I_LAT": 100, "I_H": 128,
+                   "I_DP": 1, "I_FAUX": int(pb.d_fake_aux and pb.use_aux), "I_TD": 7,
+                   "I_TG": 9, "I_RBF16": 1}
+
+
+def test_build_declares_the_k1_entry_points():
+    """_build binds k1_epoch_scratch and k1_epoch_plan with full-width
+    argument types (an undeclared long long result would be cut to 32 bits)."""
+    from csl_gan_tpu_torch.ops import _build
+
+    class Lib:
+        def __getattr__(self, name):
+            fn = type(name, (), {})()
+            setattr(self, name, fn)
+            return fn
+
+    lib = Lib()
+    _build._bind("k1_epoch", lib)
+    IA = ctypes.POINTER(ctypes.c_int)
+    assert lib.k1_epoch_scratch.argtypes == [IA, ctypes.c_int]
+    assert lib.k1_epoch_scratch.restype is ctypes.c_longlong
+    assert lib.k1_epoch_plan.argtypes == [IA, ctypes.c_int, IA, ctypes.c_int]
+    assert lib.k1_epoch_plan.restype is ctypes.c_int
+    assert len(lib.k1_epoch.argtypes) == 7
