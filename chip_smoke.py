@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch port (csl_gan_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --gn-plans   # steps 1-2, then K4/K5 over every plan
 
 From the root of a checkout, on a machine with one NVIDIA H100 and the CUDA
 toolkit, it:
@@ -27,8 +28,15 @@ toolkit, it:
      group and the CUDA launches per step (torch.profiler);
   4. CelebA path (K2-K5). Holds K2/K3 against their plain versions at the
      flagship's ghost-order layers conv2-conv4 and K4/K5 at the generator's
-     five norm shapes (B 128, bf16), timing each beside its plain version
-     and one PyTorch library call where one computes the same function. K2
+     five norm shapes (B 128, bf16; fp32 at B 8 and at the flagship's first
+     norm; both dtypes at ragged geometries, one of them two-pass), each
+     K4/K5 pair run twice (bitwise equal), its launch plan and residency
+     printed, K5's ReLU mask checked against the one K4 applied, its bf16
+     outputs counted in ulps (none may be more than one ulp off,
+     ReLU-boundary cases left out) and its CUDA launches a call counted in a
+     profiler trace against the plan's, timing each beside its plain
+     version and one PyTorch library call where one computes the same
+     function (for K5, the autograd backward of group_norm + relu). K2
      and K3 have two variants: the tensor-core one, which these bf16 layers
      take, is also held at a bf16 geometry with ragged edges, the FFMA one
      at the same layers with fp32 operands (B 8), and the two are timed in
@@ -39,14 +47,17 @@ toolkit, it:
      bf16 compute) through K2-K5 against the same steps through the plain
      versions, both on the card, and prints two witnesses beside the gap
      (the plain steps repeated, and the plain steps with z moved by 1e-7
-     relative); drives
+     relative; in bf16, K2-K5 are held against the all-plain step to 3x its
+     own witness with K4/K5's outputs moved by one ulp on the share of
+     elements K4/K5 moved); drives
      the path through its entry point, the port's Trainer on ``CelebA
      --conditional -dpm gc -bs 128 -tss 12800 -nms 1 --mean_sample_size 8
      --bf16 true --train_d_until_threshold 1e18`` (synthetic CelebA, full
      celeba_g64 / celeba_d64 width) for 2 epochs, checks that K2-K5 each
      launched (K2 and K3 three times per D step, each time the tensor-core
      variant), finite losses and epsilon, prints ms per D step and samples/s,
-     and the device time by CUDA kernel of one more epoch;
+     and the device time by CUDA kernel of one more epoch (the K4/K5 group
+     must be non-zero, there and on path 2);
   5. materialized per-sample-gradient paths (K6). Holds K6 against its
      plain version (the same Philox stream) at path 1's leaf [600, 101632],
      at every large leaf of celeba_d64 at B 128, at an odd P and at the leaf
@@ -432,6 +443,21 @@ CONV_FP32_BATCH = 8
 # elements (one ulp, 2^-8 relative), ~2e-5 in relative l2 (H100). dgamma /
 # dbeta are fp32 sums: reduction order only.
 GN_BOUND, GN_PARAM_BOUND = 1e-3, 1e-4
+# The fp32 kernel check runs the G's norms at the fp32 step check's batch;
+# the ragged geometries ([B, HW, C]) take odd cuts (a 7-CTA cluster, a last
+# CTA with fewer rows, one row per sample) and the two-pass variant (the
+# last: 8 MiB of bf16 a sample).
+GN_FP32_BATCH = 8
+# A ReLU mask flip: where the fp32 pre-activation z lies within rounding of
+# 0, the two summation orders of the statistics can put it on either side,
+# and the element's whole dy then enters dbeta on one side only (one such
+# element at z ~ 3e-8 moved dbeta by 9.2e-4 in relative l2 at [2, 4096,
+# 1024] bf16, B 2; H100).
+# K5 is held on dy zeroed where the plain version's |z| <= GN_EDGE times z's
+# rms (the same dy on both sides; ~2^-16 of the elements), far above the
+# ~1e-6 that the orders move z by; the raw gaps are printed beside.
+GN_EDGE = 2.0 ** -16
+GN_RAGGED = ((3, 49, 32), (5, 1, 1024), (3, 49, 1024), (3, 2500, 64), (2, 4096, 1024))
 # One full-width D step and G step on the card (fp32, TF32 off, deterministic
 # cuDNN) through K2-K5 against the same steps through the plain versions; the
 # plain steps repeat exactly, so only K2-K5 differ. On an H100 the D step's
@@ -443,6 +469,27 @@ GN_BOUND, GN_PARAM_BOUND = 1e-3, 1e-4
 # prints on every run. A fault in the wiring (a layer, a factor, a scale)
 # moves them by O(1).
 STEP_BOUND_D, STEP_BOUND_G, STEP_BOUND_MET = 1e-4, 2e-2, 1e-4
+# The D step's fakes are the G forward through K4; D's gradient is not
+# continuous in them (leaky-ReLU masks, within rounding of 0 on a few
+# elements): K4 moves the fp32 fakes by ~2.5e-6, as much as z moved by 1e-7
+# does, and that moved the plain D step by 2.7e-4 in its params (H100),
+# above STEP_BOUND_D. So the D step is compared on the same fakes on both
+# sides (those of the kernel side), and the fakes themselves, continuous in
+# K4's outputs, are held to STEP_BOUND_FAKES (a wrong term moves them by O(1)).
+STEP_BOUND_FAKES = 1e-4
+# The bf16 step through K2-K5 against the all-plain bf16 step. K4/K5's bf16
+# outputs differ from their plain versions' by one ulp on rare elements,
+# and the bf16 step amplifies that (~3e-2 on D's moments, ~9e-2 on G's;
+# H100). Its witness, computed on every run, is that fault and no more: the
+# all-plain step with the output of each K4/K5 call (y, dx) moved by one ulp,
+# up or down, on a random share of its non-zero elements, the share that
+# K4/K5's call at the same place in the kernel step moved (measured there
+# against the plain version on the same inputs). A z moved by 2^-8 instead
+# moves almost every element and gave a witness 2-8x the gap (H100). Each
+# group (D params, D mu, D nu, G mu, G nu, the metrics) is held to
+# STEP_BF16_FACTOR times the witness's value for that group; a wrong layer,
+# factor or scale in K4/K5 moves the step by O(1).
+STEP_BF16_FACTOR = 3.0
 
 
 # ---------------- the materialized paths (K6) ----------------
@@ -472,12 +519,15 @@ K6_STEP_BOUND = 1e-4
 # analytic norms and matrix products against vmap(grad) and K6's sum.
 GHOST_BOUND = 1e-4
 
+# The CUDA kernels of K4 / K5 (csrc/gn_relu.cu).
+GN_KERNELS = ("gn_fwd_cluster", "gn_bwd_cluster", "gn_param_grads", "gn_chunk_stats",
+              "gn_sample_stats", "gn_apply", "gn_bwd_chunk", "gn_bwd_sample", "gn_bwd_dx")
 # CUDA kernel names by group, for the step profiles; the first match wins.
 PROFILE_GROUPS = (
     ("K6 clip_noise", ("wsum_partial", "sum_noise")),
     ("K2 ghost_sq_norms", ("ghost_norm_tc", "ghost_norm_tiles", "sum_rows")),
     ("K3 weighted_kernel_grad", ("wsum_tc", "scale_cotangent", "wsum_tiles", "sum_splits")),
-    ("K4/K5 gn_relu", ("gn_channel_sums", "gn_relu_apply", "gn_bwd_", "gn_param_grads")),
+    ("K4/K5 gn_relu", GN_KERNELS),
     ("cuDNN convolutions", ("implicit_gemm", "cudnn", "fprop", "dgrad", "wgrad")),
     ("cuBLAS GEMMs", ("gemm", "gemv")),
     ("im2col (conv1's direct order)", ("im2col",)),
@@ -519,7 +569,8 @@ def cuda_ms(fn, reps: int) -> float:
 
 def device_ms(fn, reps: int):
     """Device time of fn by CUDA kernel over reps calls (torch.profiler /
-    CUPTI): (sum of the kernels' ms per call, {kernel name: ms per call})."""
+    CUPTI): (sum of the kernels' ms per call, {kernel name: ms per call},
+    {kernel name: launches per call})."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -532,7 +583,7 @@ def device_ms(fn, reps: int):
         rows = device_ms_by_kernel(prof)
         if rows and all(cnt % reps == 0 for _, cnt, _ in rows):
             by = {key: t / reps for t, _, key in rows}
-            return sum(by.values()), by
+            return sum(by.values()), by, {key: cnt // reps for _, cnt, key in rows}
     fail("torch.profiler recorded no complete device trace in 5 tries")
 
 
@@ -634,10 +685,10 @@ def conv_ghost_phase(dev, peak_bf16, peak_bytes):
              "k2_plain": cuda_ms(lambda: pcg.ghost_sq_norms_plain(a, c, 5, 5, 2, 2), 5),
              "k3_plain": cuda_ms(lambda: pcg.weighted_kernel_grad_plain(a, c, w, ks, 2, 2), 5),
              "k3_lib": cuda_ms(lib, 10)}
-        t["k2_dev"], _ = device_ms(k2("tc"), 10)
-        t["k3_dev"], by3 = device_ms(k3("tc"), 10)
+        t["k2_dev"], *_ = device_ms(k2("tc"), 10)
+        t["k3_dev"], by3, _ = device_ms(k3("tc"), 10)
         t["k3_pre_dev"] = sum(v for k, v in by3.items() if "scale_cotangent" in k)
-        t["k3_lib_dev"], _ = device_ms(lib, 10)
+        t["k3_lib_dev"], *_ = device_ms(lib, 10)
         s, k = ho * ho, 25 * cin
         in_bytes = (a.numel() + c.numel()) * 2
         t.update(k2_ops=k2_ops(CB, s, k, cout), k2_bytes=in_bytes + CB * 4,
@@ -683,67 +734,240 @@ def conv_ghost_phase(dev, peak_bf16, peak_bytes):
          "library_device_ms": tot["k3_lib_dev"]}]
 
 
+def bf16_ulp_counts(k, p):
+    """(elements of k beyond one bf16 ulp of p, elements one ulp off, ReLU-
+    boundary elements beyond one ulp, left out) for bf16 outputs. One ulp is
+    that of the larger magnitude of the two; left out are elements where both
+    values lie within one bf16 ulp of 0 at the layer's scale (the ulp of p's
+    rms)."""
+    import torch
+    kf, pf = k.float(), p.float()
+    big = torch.maximum(kf.abs(), pf.abs())
+    ulp = torch.ldexp(torch.ones_like(big), torch.frexp(big).exponent - 8)
+    rms = pf.pow(2).mean().sqrt().cpu()
+    diff = (kf - pf).abs()
+    edge = big <= float(torch.ldexp(torch.ones(()), torch.frexp(rms).exponent - 8))
+    off = diff > ulp
+    return (int((off & ~edge).sum()), int(((diff > 0) & ~off).sum()), int((off & edge).sum()))
+
+
 def groupnorm_phase(dev, peak_bytes):
-    """K4 / K5 against their plain versions and timed, at the G's norms."""
+    """K4 / K5 against their plain versions: bf16 at the G's norms (B 128,
+    timed), fp32 at the same norms (B 8) and at the flagship's first norm
+    (the G's dense output is fp32), both dtypes at the ragged geometries;
+    each launch plan and its residency printed, each pair run twice (bitwise
+    equal), K5's ReLU mask held to K4's, bf16 outputs counted in ulps, CUDA
+    launches a call counted in a profiler trace."""
     import torch
     import torch.nn.functional as fn
     from csl_gan_tpu_torch.ops import pallas_groupnorm as gn
 
     g = torch.Generator(dev).manual_seed(22)
-    tot = {k: 0.0 for k in ("k4", "k4_plain", "k4_lib", "k5", "k5_plain",
-                            "k4_bytes", "k5_bytes")}
-    err = {"k4": 0.0, "k5": 0.0}
-    for hw, c, mult in GN_SHAPES:
-        x = (torch.randn(CB, hw, c, generator=g, device=dev) * 2 + 0.3).to(torch.bfloat16)
-        dy = torch.randn(CB, hw, c, generator=g, device=dev).to(torch.bfloat16)
+
+    def operands(b, hw, c, dtype):
+        x = (torch.randn(b, hw, c, generator=g, device=dev) * 2 + 0.3).to(dtype)
+        dy = torch.randn(b, hw, c, generator=g, device=dev).to(dtype)
         sc = torch.randn(c, generator=g, device=dev) * 0.2 + 1.0
         bi = torch.randn(c, generator=g, device=dev) * 0.1
+        return x, dy, sc, bi
+
+    def held(x, dy, sc, bi):
+        """Both kernels against plain and against themselves; returns (plans,
+        max abs gaps of K4 and K5)."""
+        b, hw, c = x.shape
+        tag = f"[{b}, {hw}, {c}] {str(x.dtype).replace('torch.', '')}"
+        (p4, occ4), (p5, occ5) = gn.occupancy(x, 32, False), gn.occupancy(x, 32, True)
+        if min(occ4, occ5) <= 0:
+            fail(f"a K4/K5 plan cannot be resident at {tag}: {p4} ({occ4}), {p5} ({occ5})")
+        _, _, a, d = gn._affine(x.float(), sc, bi, 32, 1e-5)
+        z = x.float() * a[:, None, :] + d[:, None, :]
+        edge = z.abs() <= GN_EDGE * z.pow(2).mean().sqrt()
+        raw = [gn.gn_relu_backward(x, dy, sc, bi, 32, 1e-5),
+               gn.gn_relu_bwd_plain(x, dy, sc, bi, 32, 1e-5)]
+        dy = torch.where(edge, torch.zeros_like(dy), dy)
+        del z, a, d
         yk, yp = gn.gn_relu_forward(x, sc, bi, 32, 1e-5), gn.gn_relu_plain(x, sc, bi, 32, 1e-5)
         bk = gn.gn_relu_backward(x, dy, sc, bi, 32, 1e-5)
         bp = gn.gn_relu_bwd_plain(x, dy, sc, bi, 32, 1e-5)
+        y2 = gn.gn_relu_forward(x, sc, bi, 32, 1e-5)
+        b2 = gn.gn_relu_backward(x, dy, sc, bi, 32, 1e-5)
+        # K5's ReLU mask against K4's: with dy = 1, dbeta counts the elements
+        # K5 lets through, exactly in fp32, and y > 0 those K4 let through.
+        ones = gn.gn_relu_backward(x, torch.ones_like(dy), sc, bi, 32, 1e-5)[2]
+        mask_same = torch.equal(ones, (yk > 0).sum(dim=(0, 1)).float())
         torch.cuda.synchronize()
         r4 = rel_l2(yk.float(), yp.float())
         r5 = rel_l2(bk[0].float(), bp[0].float())
         rp = max(rel_l2(bk[1], bp[1]), rel_l2(bk[2], bp[2]))
-        err["k4"] = max(err["k4"], float((yk.float() - yp.float()).abs().max()))
-        err["k5"] = max(err["k5"], max(float((u.float() - v.float()).abs().max())
-                                       for u, v in zip(bk, bp)))
-        # Library yardstick of K4: F.group_norm then relu on an NCHW copy
-        # (bf16 affine; the copy is not timed).
+        r5_raw = rel_l2(raw[0][0].float(), raw[1][0].float())
+        rp_raw = max(rel_l2(raw[0][1], raw[1][1]), rel_l2(raw[0][2], raw[1][2]))
+        same = torch.equal(yk, y2) and all(torch.equal(u, v) for u, v in zip(bk, b2))
+        del raw
+        def kind(p):
+            return "one pass, cluster" if p[0] == gn.ONE_PASS else "two pass, chunk"
+        line = (f"groupnorm+relu {tag}: K4 rel l2 {r4:.3e}, K5 dx rel l2 {r5:.3e} (bound "
+                f"{GN_BOUND:g}), dgamma/dbeta {rp:.3e} (bound {GN_PARAM_BOUND:g}); twice "
+                f"{'bitwise equal' if same else 'DIFFERENT'}; K5's ReLU mask "
+                f"{'is' if mask_same else 'is NOT'} K4's; dy zeroed at {int(edge.sum())} "
+                f"ReLU-edge elements (raw: dx {r5_raw:.3e}, dgamma/dbeta {rp_raw:.3e}); plans "
+                f"(variant, n, rows, threads, smem) K4 {p4} {kind(p4)} {p4[1]}, resident "
+                f"{occ4}; K5 {p5} {kind(p5)} {p5[1]}, resident {occ5}")
+        if x.dtype == torch.bfloat16:
+            u4, u5 = bf16_ulp_counts(yk, yp), bf16_ulp_counts(bk[0], bp[0])
+            line += (f"; bf16 elements beyond one ulp (one ulp off; both within an ulp of 0, "
+                     f"left out): y {u4[0]} ({u4[1]}; {u4[2]}), dx {u5[0]} ({u5[1]}; {u5[2]}) "
+                     f"of {x.numel()}")
+            if u4[0] or u5[0]:
+                fail(f"K4/K5 outputs beyond one bf16 ulp of their plain versions at {tag}")
+        print(line)
+        if not (r4 < GN_BOUND and r5 < GN_BOUND and rp < GN_PARAM_BOUND):
+            fail(f"K4/K5 disagree with their plain versions at {tag}")
+        if not same:
+            fail(f"K4/K5 are not bitwise repeatable at {tag}")
+        if not mask_same:
+            fail(f"K5's ReLU mask is not the one K4 applied at {tag}")
+        e4 = float((yk.float() - yp.float()).abs().max())
+        e5 = max(float((u.float() - v.float()).abs().max()) for u, v in zip(bk, bp))
+        return p4, p5, e4, e5
+
+    for b, hw, c in GN_RAGGED:
+        for dtype in (torch.bfloat16, torch.float32):
+            p4, p5, _, _ = held(*operands(b, hw, c, dtype))
+            if (b, hw, c) == GN_RAGGED[-1] and (p4[0], p5[0]) != (gn.TWO_PASS, gn.TWO_PASS):
+                fail(f"[{b}, {hw}, {c}] did not take the two-pass variant")
+    for hw, c, _ in GN_SHAPES:
+        held(*operands(GN_FP32_BATCH, hw, c, torch.float32))
+    x, dy, sc, bi = operands(CB, 16, 512, torch.float32)
+    held(x, dy, sc, bi)
+    print(f"  the flagship's first norm, fp32 [{CB}, 16, 512]: K4 "
+          f"{cuda_ms(lambda: gn.gn_relu_forward(x, sc, bi, 32, 1e-5), 20):.4f} ms, K5 "
+          f"{cuda_ms(lambda: gn.gn_relu_backward(x, dy, sc, bi, 32, 1e-5), 20):.4f} ms")
+
+    keys = ("k4", "k4_dev", "k4_plain", "k4_lib", "k5", "k5_dev", "k5_plain", "k5_lib",
+            "k4_bytes", "k5_bytes", "k4_launches", "k5_launches")
+    tot = {k: 0.0 for k in keys}
+    err = {"k4": 0.0, "k5": 0.0}
+    plans = []
+    for hw, c, mult in GN_SHAPES:
+        x, dy, sc, bi = operands(CB, hw, c, torch.bfloat16)
+        p4, p5, e4, e5 = held(x, dy, sc, bi)
+        plans.append({"shape": [CB, hw, c], "norms": mult, "k4": list(p4), "k5": list(p5)})
+        err["k4"], err["k5"] = max(err["k4"], e4), max(err["k5"], e5)
+        # Library yardsticks on an NCHW copy (bf16 affine; the copies are not
+        # timed): K4's, F.group_norm then relu; K5's, the autograd backward
+        # of the same two ops (backward only).
         xc = x.transpose(1, 2).contiguous()
+        dyc = dy.transpose(1, 2).contiguous()
         scb, bib = sc.to(torch.bfloat16), bi.to(torch.bfloat16)
-        t = {"k4": cuda_ms(lambda: gn.gn_relu_forward(x, sc, bi, 32, 1e-5), 20),
+        xr, sr, br = (t.detach().requires_grad_() for t in (xc, scb, bib))
+        out = fn.relu(fn.group_norm(xr, 32, sr, br, 1e-5))
+        k4 = lambda: gn.gn_relu_forward(x, sc, bi, 32, 1e-5)  # noqa: E731
+        k5 = lambda: gn.gn_relu_backward(x, dy, sc, bi, 32, 1e-5)  # noqa: E731
+        (k4_dev, _, k4_n), (k5_dev, _, k5_n) = device_ms(k4, 10), device_ms(k5, 10)
+        # CUDA launches per call, counted in the trace; the plan says how
+        # many its variant makes (one pass: K4 1, K5 2; two pass: 3, 6).
+        n4, n5 = (sum(v for k, v in by.items() if any(g in k for g in GN_KERNELS))
+                  for by in (k4_n, k5_n))
+        if (n4, n5) != (1 if p4[0] == gn.ONE_PASS else 3, 2 if p5[0] == gn.ONE_PASS else 6):
+            fail(f"K4/K5 made {n4} / {n5} CUDA launches a call at [{CB}, {hw}, {c}] bf16, "
+                 f"not the {p4} / {p5} plans' count")
+        t = {"k4": cuda_ms(k4, 20), "k4_dev": k4_dev,
              "k4_plain": cuda_ms(lambda: gn.gn_relu_plain(x, sc, bi, 32, 1e-5), 5),
              "k4_lib": cuda_ms(lambda: fn.relu(fn.group_norm(xc, 32, scb, bib, 1e-5)), 20),
-             "k5": cuda_ms(lambda: gn.gn_relu_backward(x, dy, sc, bi, 32, 1e-5), 20),
+             "k5": cuda_ms(k5, 20), "k5_dev": k5_dev,
              "k5_plain": cuda_ms(lambda: gn.gn_relu_bwd_plain(x, dy, sc, bi, 32, 1e-5), 5),
+             "k5_lib": cuda_ms(lambda: torch.autograd.grad(out, (xr, sr, br), dyc,
+                                                           retain_graph=True), 20),
              "k4_bytes": 2 * x.numel() * 2 + 2 * c * 4,
-             "k5_bytes": 3 * x.numel() * 2 + 4 * c * 4}
+             "k5_bytes": 3 * x.numel() * 2 + 4 * c * 4,
+             "k4_launches": n4, "k5_launches": n5}
         for key, v in t.items():
             tot[key] += mult * v
-        print(f"groupnorm+relu [{CB}, {hw}, {c}] x{mult}: K4 rel l2 {r4:.3e}, K5 dx rel l2 "
-              f"{r5:.3e} (bound {GN_BOUND:g}), dgamma/dbeta {rp:.3e} (bound {GN_PARAM_BOUND:g}); "
-              f"K4 {t['k4']:.3f} ms (plain {t['k4_plain']:.3f}, group_norm+relu "
-              f"{t['k4_lib']:.3f}), K5 {t['k5']:.3f} ms (plain {t['k5_plain']:.3f})")
-        if not (r4 < GN_BOUND and r5 < GN_BOUND and rp < GN_PARAM_BOUND):
-            fail(f"K4/K5 disagree with their plain versions at [{CB}, {hw}, {c}]")
-        del x, dy, xc, yk, yp, bk, bp
+        print(f"  x{mult} in the G: K4 {t['k4']:.4f} ms by CUDA events, {t['k4_dev']:.4f} on the "
+              f"device (plain {t['k4_plain']:.3f}, group_norm+relu {t['k4_lib']:.4f}); K5 "
+              f"{t['k5']:.4f} / {t['k5_dev']:.4f} (plain {t['k5_plain']:.3f}, backward of "
+              f"group_norm+relu {t['k5_lib']:.4f})")
+        del x, dy, xc, dyc, xr, sr, br, out
     # Element-wise arithmetic (~10 flop per element) is far below the bytes.
     b4, by4 = bound(0.0, tot["k4_bytes"], 1.0, peak_bytes)
     b5, by5 = bound(0.0, tot["k5_bytes"], 1.0, peak_bytes)
+    per4, per5 = "G forward (nine norms)", "G backward (nine norms)"
+    print(f"K4 per {per4}: {tot['k4']:.4f} ms by CUDA events, {tot['k4_dev']:.4f} on the device "
+          f"(bound {b4:.4f}, {by4}; {100 * b4 / tot['k4_dev']:.1f}% of it on the device), "
+          f"{tot['k4_launches']:g} CUDA launches (traced), plain {tot['k4_plain']:.3f}, group_norm+relu "
+          f"{tot['k4_lib']:.4f}")
+    print(f"K5 per {per5}: {tot['k5']:.4f} ms by CUDA events, {tot['k5_dev']:.4f} on the device "
+          f"(bound {b5:.4f}, {by5}; {100 * b5 / tot['k5_dev']:.1f}% of it on the device), "
+          f"{tot['k5_launches']:g} CUDA launches (traced), plain {tot['k5_plain']:.3f}, backward of "
+          f"group_norm+relu {tot['k5_lib']:.4f}")
     return [
         {"name": "gn_relu_forward", "route": "cuda",
          "source": "csl_gan_tpu_torch/ops/csrc/gn_relu.cu",
          "replaces": "csl_gan_tpu/ops/pallas_groupnorm.py:111",
          "max_abs_err": err["k4"], "ms": tot["k4"], "plain_ms": tot["k4_plain"],
-         "bound_ms": b4, "bound_by": by4, "library_ms": tot["k4_lib"],
-         "per": "G forward (nine norms)"},
+         "bound_ms": b4, "bound_by": by4, "library_ms": tot["k4_lib"], "per": per4,
+         "device_ms": tot["k4_dev"], "cuda_launches_per_pass": tot["k4_launches"],
+         "plans": [{"shape": p["shape"], "norms": p["norms"], "plan": p["k4"]} for p in plans]},
         {"name": "gn_relu_backward", "route": "cuda",
          "source": "csl_gan_tpu_torch/ops/csrc/gn_relu.cu",
          "replaces": "csl_gan_tpu/ops/pallas_groupnorm.py:119",
          "max_abs_err": err["k5"], "ms": tot["k5"], "plain_ms": tot["k5_plain"],
-         "bound_ms": b5, "bound_by": by5, "library_ms": None,
-         "per": "G backward (nine norms)"}]
+         "bound_ms": b5, "bound_by": by5, "library_ms": tot["k5_lib"], "per": per5,
+         "library": "autograd backward of relu(F.group_norm)",
+         "device_ms": tot["k5_dev"], "cuda_launches_per_pass": tot["k5_launches"],
+         "plans": [{"shape": p["shape"], "norms": p["norms"], "plan": p["k5"]} for p in plans]}]
+
+
+def gn_plans_phase(dev):
+    """Every one-pass plan of K4 / K5 (n = 1, 2, 4, ..., 16 CTAs a cluster at
+    128 and 256 threads) and the two-pass plan at the G's norms (B 128,
+    bf16): device time, resident clusters and the gap to the plain version,
+    the plan that launch_plan picks marked. Run with --gn-plans."""
+    import ctypes
+
+    import torch
+    from csl_gan_tpu_torch.ops import _build
+    from csl_gan_tpu_torch.ops import pallas_groupnorm as gn
+
+    lib = _build.load("gn_relu")
+    g = torch.Generator(dev).manual_seed(22)
+    for hw, c, _ in GN_SHAPES:
+        x = (torch.randn(CB, hw, c, generator=g, device=dev) * 2 + 0.3).to(torch.bfloat16)
+        dy = torch.randn(CB, hw, c, generator=g, device=dev).to(torch.bfloat16)
+        sc = torch.randn(c, generator=g, device=dev) * 0.2 + 1.0
+        bi = torch.randn(c, generator=g, device=dev) * 0.1
+        out = torch.empty_like(x)
+        dg, db = torch.empty(c, device=dev), torch.empty(c, device=dev)
+        geo = (ctypes.c_int * 4)(CB, hw, c, 32)
+        st = torch.cuda.current_stream(dev).cuda_stream
+        for bw in (False, True):
+            ref = (gn.gn_relu_bwd_plain(x, dy, sc, bi, 32, 1e-5)[0] if bw
+                   else gn.gn_relu_plain(x, sc, bi, 32, 1e-5))
+            plans = [(gn.ONE_PASS, -(-hw // rows), rows, threads,
+                      gn.one_pass_smem(rows, c, 32, 2, threads, bw))
+                     for threads in (128, 256)
+                     for rows in sorted({-(-hw // n) for n in (1, 2, 4, 8, 16) if n <= hw},
+                                        reverse=True)]
+            plans = [p for p in plans if p[4] <= gn.MAX_SMEM]
+            plans.append((gn.TWO_PASS, 1, max(1, min(hw, gn.TWO_PASS_ELEMS // c)), 256,
+                          gn.red_bytes(c, 2, 256)))
+            for plan in plans:
+                pl = (ctypes.c_int * 5)(*plan)
+                scr = torch.empty(max(lib.gn_relu_scratch(geo, pl, 1, int(bw)), 1), device=dev)
+                args = ((x.data_ptr(), dy.data_ptr(), sc.data_ptr(), bi.data_ptr(),
+                         out.data_ptr(), dg.data_ptr(), db.data_ptr()) if bw else
+                        (x.data_ptr(), sc.data_ptr(), bi.data_ptr(), out.data_ptr()))
+                run = (lib.gn_relu_bwd if bw else lib.gn_relu_fwd)
+                rc = run(*args, scr.data_ptr(), geo, pl, 1, 1e-5, st)
+                if rc:
+                    fail(f"plan {plan} at [{CB}, {hw}, {c}]: {lib.gn_error_string(rc).decode()}")
+                ms, *_ = device_ms(lambda: run(*args, scr.data_ptr(), geo, pl, 1, 1e-5, st), 10)
+                chosen = plan == gn.launch_plan(CB, hw, c, 32, torch.bfloat16, bw)
+                print(f"  [{CB}, {hw}, {c}] {'K5' if bw else 'K4'} plan {plan}: device "
+                      f"{ms:.4f} ms, resident {lib.gn_relu_occupancy(geo, pl, 1, int(bw))}, rel "
+                      f"l2 to plain {rel_l2(out.float(), ref.float()):.2e}"
+                      + (" (chosen)" if chosen else ""), flush=True)
+        del x, dy, out
 
 
 @contextlib.contextmanager
@@ -783,20 +1007,83 @@ def plain_clip():
     return _swapped(((pc, "leaf_weighted_sum_noise", clip_plain),))
 
 
+def _share_moved(k, p):
+    """The share of the elements of k that differ from p."""
+    return float((k != p).sum()) / max(k.numel(), 1)
+
+
+def gn_recorded(shares):
+    """K4/K5's wrappers, each call also run through its plain version on the
+    same inputs; appends the share of the output's elements (y; dx) that the
+    kernel moved to shares["fwd"] / shares["bwd"], in call order, and returns
+    the kernel's outputs."""
+    from csl_gan_tpu_torch.ops import pallas_groupnorm as gn
+    fwd, bwd = gn.gn_relu_forward, gn.gn_relu_backward
+
+    def rec_fwd(x, sc, bi, groups, eps):
+        y = fwd(x, sc, bi, groups, eps)
+        shares["fwd"].append(_share_moved(y, gn.gn_relu_plain(x, sc, bi, groups, eps)))
+        return y
+
+    def rec_bwd(x, dy, sc, bi, groups, eps):
+        out = bwd(x, dy, sc, bi, groups, eps)
+        shares["bwd"].append(_share_moved(out[0], gn.gn_relu_bwd_plain(x, dy, sc, bi, groups,
+                                                                       eps)[0]))
+        return out
+
+    # The wrappers count their launches on the module's names, now these.
+    rec_fwd.launches = rec_bwd.launches = 0
+    return _swapped(((gn, "gn_relu_forward", rec_fwd), (gn, "gn_relu_backward", rec_bwd)))
+
+
+def gn_ulp_moved(shares, seed: int):
+    """K4/K5's wrappers replaced by their plain versions whose outputs (y; dx)
+    are moved by one ulp, up or down, on a random share of their non-zero
+    elements: call i of each takes shares[...][i] (from gn_recorded)."""
+    import torch
+    from csl_gan_tpu_torch.ops import pallas_groupnorm as gn
+    calls = {"fwd": 0, "bwd": 0}
+    gens = {}
+
+    def moved(t, key):
+        share = shares[key][calls[key] % len(shares[key])]
+        calls[key] += 1
+        if t.device not in gens:
+            gens[t.device] = torch.Generator(t.device).manual_seed(seed)
+        g = gens[t.device]
+        bits = t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+        live = t != 0                    # as many elements as the kernel moved
+        p = share * t.numel() / max(int(live.sum()), 1)
+        pick = (torch.rand(t.shape, generator=g, device=t.device) < p) & live
+        step = torch.where(torch.rand(t.shape, generator=g, device=t.device) < 0.5, -1, 1)
+        return (bits + pick.to(bits.dtype) * step.to(bits.dtype)).view(t.dtype)
+
+    def fwd(x, sc, bi, groups, eps):
+        return moved(gn.gn_relu_plain(x, sc, bi, groups, eps), "fwd")
+
+    def bwd(x, dy, sc, bi, groups, eps):
+        dx, dg, db = gn.gn_relu_bwd_plain(x, dy, sc, bi, groups, eps)
+        return moved(dx, "bwd"), dg, db
+
+    return _swapped(((gn, "gn_relu_forward", fwd), (gn, "gn_relu_backward", bwd)))
+
+
 def celeba_step_check(dev, out_root, bf16=False):
     """One full-width D step and one G step (bs 8; fp32 with TF32 off, or
     bf16 compute, where K2/K3 take their tensor-core variant; deterministic
     cuDNN), each from the initial state, on the card: through
-    K2-K5 against the same steps through the plain versions. Two witnesses
+    K2-K5 against the same steps through the plain versions, the D step on
+    the kernel side's fakes on both sides (its fakes, the G forward through
+    K4, are held on their own: STEP_BOUND_FAKES). Two witnesses
     beside the gap: the plain steps run twice (cuDNN repeats exactly, so K2-K5
     are the only difference), and the plain steps with z moved by 1e-7
     relative (how far a perturbation the size of K4's reduction-order gap
-    moves the steps). Under bf16 the reference swaps K2/K3 only: K4/K5's bf16
-    outputs differ from their plain versions' by single-ulp roundings (2^-8
-    relative on rare elements, GN_BOUND), which the bf16 step amplifies to
-    ~3e-2 on D's moments and ~8e-2 on G's (H100; printed beside the gap, not
-    held), and a z moved by 1e-7 rounds back to the same bf16 value. K4/K5
-    are held in the step by the fp32 check."""
+    moves the steps). Under bf16 the steps are held twice: K2/K3 alone (the
+    reference swaps K2/K3 only, to the fixed bounds), and K2-K5 against the
+    all-plain step, to STEP_BF16_FACTOR times the all-plain step's own
+    witness with K4/K5's outputs moved by one ulp on the share of elements
+    that K4/K5 moved in the kernel step (a z moved by 1e-7 rounds back to
+    the same bf16 value)."""
     import numpy as np
     import torch
     from csl_gan_tpu_torch import options as toptions
@@ -825,31 +1112,47 @@ def celeba_step_check(dev, out_root, bf16=False):
     t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
     noise = [torch.zeros_like(st0.d_params[k]) for k in b.d_leaves]
 
-    def steps(zd, zgen):
-        st_d, dm = b.d_step_conv_ghost(st0, t(x), t(y), t(zd), noise, t(pen_x), t(y),
-                                       [t(alpha)])
+    def steps(zd, zgen, fakes=None):
+        """(D state, G state, D metrics, G metrics, the D step's fakes); the
+        D step takes `fakes` instead of its own G forward when given."""
+        used = []
+
+        def own_or_given(g_params, zz, yy):
+            used.append(StepBuilder.fakes(b, g_params, zz, yy) if fakes is None else fakes)
+            return used[-1]
+        b.fakes = own_or_given
+        try:
+            st_d, dm = b.d_step_conv_ghost(st0, t(x), t(y), t(zd), noise, t(pen_x), t(y),
+                                           [t(alpha)])
+        finally:
+            del b.fakes
         # The G step starts from the initial D too: after a first Adam step
         # (b1 0) each D param has moved by lr times the sign of its gradient,
         # so a D gradient component within rounding of 0 would flip there.
         st_g, gm = b.g_step_dcresnet(st0, t(zgen), t(yg))
         torch.cuda.synchronize()
-        return st_d, st_g, dm, gm
+        return st_d, st_g, dm, gm, used[0]
 
     cudnn = torch.backends.cudnn
     was = cudnn.deterministic, cudnn.benchmark
     cudnn.deterministic, cudnn.benchmark = True, False
     from csl_gan_tpu_torch.ops import pallas_conv_ghost as pcg
     tc_before = pcg.ghost_sq_norms.launches_tc + pcg.weighted_kernel_grad.launches_tc
+    shares = {"fwd": [], "bwd": []}
     try:
-        kern = steps(z, zg)
+        with gn_recorded(shares) if bf16 else contextlib.nullcontext():
+            kern = steps(z, zg)
         took_tc = pcg.ghost_sq_norms.launches_tc + pcg.weighted_kernel_grad.launches_tc - tc_before
         with plain_versions(groupnorm=not bf16):
-            plain = steps(z, zg)
-            again = steps(z, zg)
+            plain = steps(z, zg, fakes=kern[4])
+            again = steps(z, zg, fakes=kern[4])
             nudged = steps(z * nudge[0], zg * nudge[1])
+            own = steps(z, zg)
         if bf16:
             with plain_versions():
                 all_plain = steps(z, zg)
+            with plain_versions(groupnorm=False), gn_ulp_moved(shares, seed=7):
+                all_moved = steps(z, zg)
     finally:
         cudnn.deterministic, cudnn.benchmark = was
 
@@ -858,7 +1161,7 @@ def celeba_step_check(dev, out_root, bf16=False):
     # step. G params are left out: the first Adam step moves each by +-lr,
     # and those of G's GroupNorm biases start at 0.
     def gaps(one, ref):
-        (d1, g1, dm1, gm1), (d0, g0, dm0, gm0) = one, ref
+        (d1, g1, dm1, gm1, _), (d0, g0, dm0, gm0, _) = one, ref
         out = {}
         for group, u, v in (("D params", d1.d_params, d0.d_params), ("D mu", d1.d_mu, d0.d_mu),
                             ("D nu", d1.d_nu, d0.d_nu), ("G mu", g1.g_mu, g0.g_mu),
@@ -873,7 +1176,7 @@ def celeba_step_check(dev, out_root, bf16=False):
         return out
 
     fmt = lambda r: ", ".join(f"{k} {v:.3e}" for k, v in r.items())  # noqa: E731
-    gap, rep, wit = gaps(kern, plain), gaps(again, plain), gaps(nudged, plain)
+    gap, rep, wit = gaps(kern, plain), gaps(again, plain), gaps(nudged, own)
     print(f"CelebA D step and G step (bs {bs}, {'bf16' if bf16 else 'fp32'}, full width) on the "
           f"card, {'K2/K3' if bf16 else 'K2-K5'} vs plain: rel l2 {fmt(gap)} (bounds D "
           f"{STEP_BOUND_D:g}, G "
@@ -883,10 +1186,29 @@ def celeba_step_check(dev, out_root, bf16=False):
     if took_tc != (2 * len(CONV_LAYERS) if bf16 else 0):
         fail(f"K2/K3 took the tensor-core variant {took_tc} times in the "
              f"{'bf16' if bf16 else 'fp32'} step")
+    fakes_gap, fakes_wit = rel_l2(kern[4], own[4]), rel_l2(nudged[4], own[4])
     print(f"  witnesses: plain repeated {fmt(rep)}; plain with z moved 1e-7 {fmt(wit)}")
+    print(f"  the D step's fakes (the kernel side's G forward vs the reference's): rel l2 "
+          f"{fakes_gap:.3e} (bound "
+          f"{STEP_BOUND_FAKES:g}; z moved 1e-7: {fakes_wit:.3e}); the plain D step on its own "
+          f"fakes, against the kernel D step: {fmt(gaps(kern, own))} (printed only)")
+    if not fakes_gap < STEP_BOUND_FAKES:
+        fail("the G forward through K4 leaves the plain G forward in the CelebA step check")
     if bf16:
-        print(f"  printed only: K4/K5 too replaced by their plain versions, against that "
-              f"reference {fmt(gaps(all_plain, plain))}")
+        full, wit16 = gaps(kern, all_plain), gaps(all_moved, all_plain)
+        held16 = [(k, full[k], STEP_BF16_FACTOR * wit16[k]) for k in full]
+        mean = lambda v: sum(v) / len(v)  # noqa: E731
+        print(f"  K4/K5 in the kernel step moved {mean(shares['fwd']):.3e} of y's elements and "
+              f"{mean(shares['bwd']):.3e} of dx's against their plain versions (mean of "
+              f"{len(shares['fwd'])} / {len(shares['bwd'])} calls; largest "
+              f"{max(shares['fwd']):.3e} / {max(shares['bwd']):.3e})")
+        print(f"  K2-K5 vs all plain (bf16): rel l2 {fmt(full)}; witness, all plain with K4/K5's "
+              f"outputs moved one ulp on those shares: {fmt(wit16)}; held "
+              + ", ".join(f"{kind} {gap:.3e} <= {b:.3e}" for kind, gap, b in held16)
+              + f" ({STEP_BF16_FACTOR:g}x the witness)")
+        if not all(gap <= b for _, gap, b in held16):
+            fail("the bf16 CelebA steps through K2-K5 leave the all-plain steps by more than "
+                 f"{STEP_BF16_FACTOR:g}x the one-ulp witness")
     d_gap = max(v for k, v in gap.items() if k.startswith("D"))
     g_gap = max(v for k, v in gap.items() if k.startswith("G"))
     if max(rep.values()) != 0.0:
@@ -896,9 +1218,10 @@ def celeba_step_check(dev, out_root, bf16=False):
              f"with the plain steps on the card")
 
 
-def profile_step_runner(tr, label: str) -> None:
+def profile_step_runner(tr, label: str, need=()) -> None:
     """Device time by CUDA kernel and by group over one more epoch of a
-    Trainer on the step runner (torch.profiler / CUPTI)."""
+    Trainer on the step runner (torch.profiler / CUPTI). Fails if a group in
+    `need` took no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     n = tr.n_batches
@@ -923,6 +1246,9 @@ def profile_step_runner(tr, label: str) -> None:
     print(f"{label} profile by group (ms per D step, share of device busy): " + "; ".join(
         f"{g} {t / n:.3f} ({100 * t / busy:.1f}%)"
         for g, t in sorted(groups.items(), key=lambda kv: -kv[1])))
+    for g in need:
+        if not groups.get(g, 0.0) > 0.0:
+            fail(f"the {label} profile shows no device time in the group {g}")
 
 
 def celeba_phases(dev, out_root, peak_bf16, peak_bytes):
@@ -996,7 +1322,7 @@ def celeba_phases(dev, out_root, peak_bf16, peak_bytes):
           f"{eps[-1]:.6f} (mean samples {tr.mean_sample_privacy_cost:.6f}); losses "
           + ", ".join(f"{x:.4f}" for x in losses))
 
-    profile_step_runner(tr, "CelebA")
+    profile_step_runner(tr, "CelebA", need=("K4/K5 gn_relu",))
     for entry, count in zip(entries, launches):
         entry["launches"] = count
     return entries, step_ms
@@ -1188,7 +1514,7 @@ def clip_step_breakdown(name, b, st0, inputs):
           + f"; beside it, the unfused sum + noise of --pallas false: {unfused:.3f}")
 
 
-def clip_path(name, argv, tss, out_root, expect_per_step):
+def clip_path(name, argv, tss, out_root, expect_per_step, need=()):
     """A materialized path through the Trainer for K6_EPOCHS epochs.
     Returns (ms per D step after the first epoch, K6 launches)."""
     import torch
@@ -1239,7 +1565,7 @@ def clip_path(name, argv, tss, out_root, expect_per_step):
           f"samples/s after the first; wall {wall:.2f} s; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; epsilon {eps[-1]:.6f}; losses "
           + ", ".join(f"{k} {v:.4f}" for k, v in losses.items()))
-    profile_step_runner(tr, name)
+    profile_step_runner(tr, name, need)
     return step_ms, launches
 
 
@@ -1277,7 +1603,7 @@ def clip_phases(dev, out_root, peak_bytes, k1_epoch_ms, celeba_step_ms):
     ms1, n1 = clip_path("path 1", PATH1, 60000, out_root, 1)
     print(f"path 1 against the K1 path of this run: {ms1 * 100:.3f} ms per 100-step epoch "
           f"against {k1_epoch_ms:.3f} ({ms1 * 100 / k1_epoch_ms:.2f}x)")
-    ms2, n2 = clip_path("path 2", PATH2, 1280, out_root, len(large))
+    ms2, n2 = clip_path("path 2", PATH2, 1280, out_root, len(large), need=("K4/K5 gn_relu",))
     print(f"path 2 against the conv-ghost path of this run: {ms2:.3f} ms per D step against "
           f"{celeba_step_ms:.3f} ({ms2 / celeba_step_ms:.2f}x)")
     entry["launches"] = n1
@@ -1342,6 +1668,10 @@ def main() -> int:
                 fail(f"tensor-core instructions in the {lib} library")
         else:
             print(f"cuobjdump -sass {lib}: not run ({sass.stderr.strip()[:200]})")
+
+    if "--gn-plans" in sys.argv[1:]:
+        gn_plans_phase(dev)
+        return 0
 
     # 3. The MNIST path (K1): kernel vs plain, the Trainer, K1's timing.
     out_root = REPO / "build" / "chip_smoke"

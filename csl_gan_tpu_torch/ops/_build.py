@@ -95,12 +95,14 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.cg_error_string.argtypes = [I]
         lib.cg_error_string.restype = ctypes.c_char_p
     elif name == "gn_relu":
-        lib.gn_relu_scratch.argtypes = [IA, I]
+        lib.gn_relu_scratch.argtypes = [IA, IA, I, I]
         lib.gn_relu_scratch.restype = ctypes.c_longlong
-        lib.gn_relu_fwd.argtypes = [P, P, P, P, P, IA, I, F, P]
+        lib.gn_relu_fwd.argtypes = [P, P, P, P, P, IA, IA, I, F, P]
         lib.gn_relu_fwd.restype = I
-        lib.gn_relu_bwd.argtypes = [P, P, P, P, P, P, P, P, IA, I, F, P]
+        lib.gn_relu_bwd.argtypes = [P, P, P, P, P, P, P, P, IA, IA, I, F, P]
         lib.gn_relu_bwd.restype = I
+        lib.gn_relu_occupancy.argtypes = [IA, IA, I, I]
+        lib.gn_relu_occupancy.restype = I
         lib.gn_error_string.argtypes = [I]
         lib.gn_error_string.restype = ctypes.c_char_p
     elif name == "clip_noise":

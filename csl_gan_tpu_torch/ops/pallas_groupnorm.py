@@ -12,11 +12,17 @@ per-(sample, group) statistics in fp32 (var = E[x^2] - mean^2), the affine
 a = rstd * gamma, d = beta - (mean * rstd) * gamma, the ReLU mask from the
 fp32 affine x * a + d (not from a bf16-rounded value), and the output in x's
 dtype. The backward recomputes the statistics from x.
+
+Each launch follows a plan that ``launch_plan`` computes from the geometry
+alone: the one-pass variant (a thread-block cluster holds a sample in shared
+memory and reads x, and dy, once) or, for a sample too large for 16 CTAs, the
+two-pass variant; the kernels check the plan and refuse one that does not fit.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -77,17 +83,123 @@ def gn_relu_bwd_plain(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
 
 # ---------------- CUDA (K4 / K5) ----------------
 
-def _scratch(lib, x3: torch.Tensor, groups: int, backward: bool):
-    """(geometry, fp32 scratch) of one launch; the launcher chooses its own
-    row chunks and says what scratch they need."""
-    b, hw, c = x3.shape
-    geo = (ctypes.c_int * 4)(b, hw, c, groups)
-    n = lib.gn_relu_scratch(geo, int(backward))
+ONE_PASS, TWO_PASS = 1, 2
+MAX_SMEM = 232448            # dynamic shared memory a CTA may use (H100)
+SLICE_BYTES = 128 * 1024     # a one-pass CTA's share of a sample
+LARGE_SAMPLE = 256 * 1024    # above it, slices of half as much
+MAX_CLUSTER = 16             # 9..16 need the non-portable cluster attribute
+MAX_THREADS = 256
+PIECES = 4                   # bulk-copy pieces of a one-pass slice
+TWO_PASS_ELEMS = 16384       # elements of one chunk of the two-pass variant
+
+
+def _align(v: int) -> int:
+    return (v + 127) // 128 * 128
+
+
+def red_bytes(c: int, esize: int, threads: int) -> int:
+    """The lane-sum scratch of a CTA (csrc/gn_relu.cu Lay): two quantities by
+    one row a warp (one row a lane where a channel vector spans warps)."""
+    vr = c // (16 // esize)
+    return _align(2 * (threads // max(vr, 32)) * c * 4)
+
+
+def one_pass_smem(rows: int, c: int, groups: int, esize: int, threads: int,
+                  backward: bool) -> int:
+    """Dynamic shared memory of a one-pass CTA (csrc/gn_relu.cu OnePassSmem):
+    the row slice of x (and dy), the lane-sum scratch, the exchanged sums,
+    the group statistics and the mbarriers, each 128-byte aligned."""
+    slice_ = _align(rows * c * esize)
+    return (slice_ * (2 if backward else 1) + red_bytes(c, esize, threads)
+            + _align((4 if backward else 2) * c * 4) + _align(4 * groups * 4)
+            + _align(PIECES * 8))
+
+
+def launch_plan(b: int, hw: int, c: int, groups: int, dtype: torch.dtype,
+                backward: bool):
+    """(variant, cluster n, rows per CTA, threads, dynamic shared memory) of
+    one K4 (backward=False) or K5 launch, from the geometry alone.
+
+    One pass: a cluster of n CTAs holds one sample, each CTA its rows of x
+    (and dy) in shared memory. n is the smallest power of two (at most 16,
+    at most HW) that cuts the sample's x and dy into slices of SLICE_BYTES,
+    256 threads a CTA; x and dy of more than LARGE_SAMPLE bytes a sample are
+    cut into slices of half that, 128 threads a CTA, so that three or four
+    CTAs share an SM. (On an H100 a cluster costs more the larger it is, and
+    small slices pay in waves: ``python3 chip_smoke.py --gn-plans`` times
+    every n = 1..16 at 128 and 256 threads at the G's norms.) A slice that
+    does not fit a CTA even at n = 16: the two-pass variant, chunks of
+    TWO_PASS_ELEMS elements streamed from device memory.
+
+    The forward takes the backward's cut (variant, n, rows, threads) and
+    only its own shared memory: the statistics' sums then run in the same
+    order in K4 and K5, so K5's ReLU mask is the one K4 applied."""
+    if b < 1 or hw < 1:
+        raise ValueError(f"gn_relu kernels need B, HW >= 1, got [{b}, {hw}, {c}]")
+    if not (((8 <= c <= 256 and 256 % c == 0) or (256 < c <= 1024 and c % 256 == 0))
+            and groups >= 1 and c % groups == 0):
+        raise ValueError(f"gn_relu kernels take C from 8 to 256 dividing 256 or a "
+                         f"multiple of 256 up to 1024, divisible by groups; got "
+                         f"[{b}, {hw}, {c}], groups={groups}")
+    if dtype not in _DTYPES:
+        raise ValueError(f"gn_relu kernels take fp32 or bf16, got {dtype}")
+    esize = 2 if dtype == torch.bfloat16 else 4
+    vr = c // (16 // esize)
+    sample = hw * c * esize * 2                      # x and dy: the backward's
+    large = sample > LARGE_SAMPLE
+    target = SLICE_BYTES // 2 if large else SLICE_BYTES
+    threads = vr * max(1, (MAX_THREADS // 2 if large else MAX_THREADS) // vr)
+    n = 1
+    while n < MAX_CLUSTER and n < hw and sample > target * n:
+        n *= 2
+    rows = -(-hw // n)
+    n = -(-hw // rows)                               # no CTA without rows
+    if one_pass_smem(rows, c, groups, esize, threads, True) <= MAX_SMEM:
+        return (ONE_PASS, n, rows, threads,
+                one_pass_smem(rows, c, groups, esize, threads, backward))
+    threads = vr * max(1, MAX_THREADS // vr)
+    rows = max(1, min(hw, TWO_PASS_ELEMS // c))
+    return (TWO_PASS, 1, rows, threads, red_bytes(c, esize, threads))
+
+
+@functools.lru_cache(maxsize=None)
+def _launch_args(shape, dtype, groups: int, backward: bool):
+    """(geometry, plan as C arrays, fp32 scratch floats) of one K4 / K5 launch
+    at x's shape. The plan raises on a geometry outside the kernels' rules
+    before any build; the kernels' own check (gn_relu_scratch) runs once per
+    geometry."""
+    from csl_gan_tpu_torch.ops import _build
+
+    plan = launch_plan(*shape, groups, dtype, backward)
+    geo = (ctypes.c_int * 4)(*shape, groups)
+    pl = (ctypes.c_int * 5)(*plan)
+    n = _build.load("gn_relu").gn_relu_scratch(geo, pl, _DTYPES[dtype], int(backward))
     if n < 0:
-        raise ValueError(f"gn_relu kernels take C in 32..256 dividing 256 or a "
-                         f"multiple of 256 up to 1024, divisible by groups; "
-                         f"got x {tuple(x3.shape)}, groups={groups}")
-    return geo, torch.empty(n, dtype=torch.float32, device=x3.device)
+        raise ValueError(f"gn_relu kernels refused the plan {plan} for x {shape}, "
+                         f"groups={groups}")
+    return geo, pl, max(n, 1)
+
+
+def _args(x3: torch.Tensor, groups: int, backward: bool):
+    """(library, geometry, plan, fp32 scratch) of a launch on CUDA tensor x3."""
+    from csl_gan_tpu_torch.ops import _build
+
+    geo, pl, n = _launch_args(tuple(x3.shape), x3.dtype, groups, backward)
+    return (_build.load("gn_relu"), geo, pl,
+            torch.empty(n, dtype=torch.float32, device=x3.device))
+
+
+def occupancy(x3: torch.Tensor, groups: int, backward: bool):
+    """(plan, resident count) of the K4 / K5 launch on CUDA tensor x3: how many
+    clusters of a one-pass plan the card can hold at once
+    (cudaOccupancyMaxActiveClusters), or CTAs per SM of the two-pass
+    element-wise kernel. Printed by chip_smoke.py; a 0 would mean the plan
+    cannot be scheduled."""
+    from csl_gan_tpu_torch.ops import _build
+
+    geo, pl, _ = _launch_args(tuple(x3.shape), x3.dtype, groups, backward)
+    return tuple(pl), _build.load("gn_relu").gn_relu_occupancy(geo, pl, _DTYPES[x3.dtype],
+                                                               int(backward))
 
 
 def _check_cuda(name, t, dev, dtype=None, shape=None):
@@ -123,14 +235,11 @@ def gn_relu_forward(x3: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         return gn_relu_plain(x3, scale, bias, groups, eps)
     if x3.device.type != "cuda":
         raise ValueError(f"gn_relu takes CPU or CUDA tensors, got {x3.device}")
-    from csl_gan_tpu_torch.ops import _build
-
     _check_inputs(x3, scale, bias)
-    lib = _build.load("gn_relu")
-    geo, scratch = _scratch(lib, x3, groups, backward=False)
+    lib, geo, pl, scratch = _args(x3, groups, backward=False)
     y = torch.empty_like(x3)
     rc = lib.gn_relu_fwd(x3.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                         y.data_ptr(), scratch.data_ptr(), geo,
+                         y.data_ptr(), scratch.data_ptr(), geo, pl,
                          _DTYPES[x3.dtype], float(eps),
                          torch.cuda.current_stream(x3.device).cuda_stream)
     if rc != 0:
@@ -147,19 +256,16 @@ def gn_relu_backward(x3: torch.Tensor, dy3: torch.Tensor, scale: torch.Tensor,
         return gn_relu_bwd_plain(x3, dy3, scale, bias, groups, eps)
     if x3.device.type != "cuda":
         raise ValueError(f"gn_relu takes CPU or CUDA tensors, got {x3.device}")
-    from csl_gan_tpu_torch.ops import _build
-
     _check_inputs(x3, scale, bias)
     _check_cuda("dy", dy3, x3.device, x3.dtype, x3.shape)
-    lib = _build.load("gn_relu")
-    geo, scratch = _scratch(lib, x3, groups, backward=True)
+    lib, geo, pl, scratch = _args(x3, groups, backward=True)
     c = x3.shape[2]
     dx = torch.empty_like(x3)
     dgamma = torch.empty(c, dtype=torch.float32, device=x3.device)
     dbeta = torch.empty(c, dtype=torch.float32, device=x3.device)
     rc = lib.gn_relu_bwd(x3.data_ptr(), dy3.data_ptr(), scale.data_ptr(),
                          bias.data_ptr(), dx.data_ptr(), dgamma.data_ptr(),
-                         dbeta.data_ptr(), scratch.data_ptr(), geo,
+                         dbeta.data_ptr(), scratch.data_ptr(), geo, pl,
                          _DTYPES[x3.dtype], float(eps),
                          torch.cuda.current_stream(x3.device).cuda_stream)
     if rc != 0:

@@ -146,3 +146,125 @@ def test_cuda_tensor_never_takes_the_plain_version():
     before = tgn.gn_relu_forward.launches
     tgn.gn_relu_forward(torch.zeros(1, 4, 32), torch.ones(32), torch.zeros(32), 32, 1e-5)
     assert tgn.gn_relu_forward.launches == before
+
+
+# ---------------- K4 / K5 launch plans (csrc/gn_relu.cu) ----------------
+
+# The G's norms (HW, C) at the flagship's batch and the fp32 check's, and
+# ragged geometries with odd cuts and the two-pass variant ([B, HW, C]).
+G_NORMS = [(16, 512), (64, 512), (256, 256), (1024, 128), (4096, 64)]
+RAGGED = [(3, 49, 32), (5, 1, 1024), (3, 49, 1024), (3, 2500, 64), (2, 4096, 1024)]
+PLAN_GEOMETRIES = ([(b, hw, c) for b in (128, 8) for hw, c in G_NORMS] + RAGGED)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("geo", PLAN_GEOMETRIES)
+def test_launch_plan_fits_the_card_and_covers_every_row(geo, dtype):
+    b, hw, c = geo
+    esize = 2 if dtype == torch.bfloat16 else 4
+    vr = c // (16 // esize)
+    for backward in (False, True):
+        variant, n, rows, threads, smem = tgn.launch_plan(b, hw, c, 32, dtype, backward)
+        assert 0 < smem <= 232448 and 1 <= n <= 16
+        assert threads % 32 == 0 and threads % vr == 0 and threads <= 256
+        # The CTAs of a sample (a cluster's n, or the two-pass chunks) take
+        # consecutive row ranges of `rows`, the last one possibly shorter:
+        # every row once, no CTA empty.
+        ctas = -(-hw // rows)
+        assert (ctas - 1) * rows < hw <= ctas * rows
+        if variant == tgn.ONE_PASS:
+            assert n == ctas
+            assert smem == tgn.one_pass_smem(rows, c, 32, esize, threads, backward)
+        else:
+            assert variant == tgn.TWO_PASS and n == 1
+            assert smem >= tgn.red_bytes(c, esize, threads)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("geo", PLAN_GEOMETRIES)
+def test_forward_takes_the_backwards_cut(geo, dtype):
+    """K4 and K5 cut a sample alike (variant, n, rows, threads), so they sum
+    the statistics in one order and K5's ReLU mask is the one K4 applied;
+    only their shared memory differs."""
+    fwd = tgn.launch_plan(*geo, 32, dtype, False)
+    bwd = tgn.launch_plan(*geo, 32, dtype, True)
+    assert fwd[:4] == bwd[:4]
+    assert fwd[4] <= bwd[4]
+
+
+@pytest.mark.parametrize("hw,c", G_NORMS)
+def test_flagship_norms_take_the_one_pass_variant(hw, c):
+    """All of the G's bf16 norms at B 128 read x (and dy) once: one-pass
+    clusters."""
+    for backward in (False, True):
+        plan = tgn.launch_plan(128, hw, c, 32, torch.bfloat16, backward)
+        assert plan[0] == tgn.ONE_PASS, plan
+
+
+def test_a_sample_too_large_for_a_cluster_takes_two_passes():
+    for dtype in (torch.bfloat16, torch.float32):
+        assert tgn.launch_plan(2, 4096, 1024, 32, dtype, False)[0] == tgn.TWO_PASS
+        assert tgn.launch_plan(2, 4096, 1024, 32, dtype, True)[0] == tgn.TWO_PASS
+
+
+@pytest.mark.parametrize("geo,groups,dtype", [
+    ((2, 16, 4), 4, torch.float32),        # C below 8
+    ((2, 16, 12), 4, torch.bfloat16),      # C not dividing 256
+    ((2, 16, 384), 32, torch.bfloat16),    # above 256, not a multiple of it
+    ((2, 16, 2048), 32, torch.float32),    # above 1024
+    ((2, 16, 64), 24, torch.float32),      # groups not dividing C
+    ((0, 16, 64), 32, torch.float32),      # empty batch
+    ((2, 0, 64), 32, torch.bfloat16),      # empty spatial extent
+    ((2, 16, 64), 32, torch.float16),      # dtype
+])
+def test_geometry_outside_the_rules_raises_before_any_build(geo, groups, dtype, monkeypatch):
+    from csl_gan_tpu_torch.ops import _build
+
+    def no_build(name):
+        raise AssertionError("the kernels were built for a geometry they refuse")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    with pytest.raises(ValueError):
+        tgn.launch_plan(*geo, groups, dtype, False)
+    for backward in (False, True):
+        with pytest.raises(ValueError):
+            tgn._launch_args(geo, dtype, groups, backward)
+
+
+def _c_entry_points(src):
+    """{name: (return type, [parameter types])} of the extern "C" functions."""
+    import re
+
+    return {name: (ret, [p.strip().rsplit(" ", 1)[0] for p in params.split(",")])
+            for ret, name, params in re.findall(r'extern "C" (.+?) (\w+)\(([^)]*)\)', src)}
+
+
+def test_build_declares_the_gn_relu_entry_points():
+    """_build binds every C entry point of gn_relu.cu with its own argument
+    and result types (a pointer passed as a 32-bit int, or a long long
+    result read as an int, would show only on the card)."""
+    import ctypes
+    from pathlib import Path
+
+    from csl_gan_tpu_torch.ops import _build
+
+    src = (Path(tgn.__file__).parent / "csrc" / "gn_relu.cu").read_text()
+    entries = _c_entry_points(src)
+    assert set(entries) == {"gn_relu_scratch", "gn_relu_fwd", "gn_relu_bwd",
+                            "gn_relu_occupancy", "gn_error_string"}
+
+    class Lib:
+        def __getattr__(self, name):
+            fn = type(name, (), {})()
+            setattr(self, name, fn)
+            return fn
+
+    lib = Lib()
+    _build._bind("gn_relu", lib)
+    ctype = {"int": ctypes.c_int, "float": ctypes.c_float, "long long": ctypes.c_longlong,
+             "const int*": ctypes.POINTER(ctypes.c_int), "const char*": ctypes.c_char_p}
+    for name, (ret, params) in entries.items():
+        fn = getattr(lib, name)
+        want = [ctype.get(t, ctypes.c_void_p if t.endswith("*") else None) for t in params]
+        assert fn.argtypes == want, name
+        assert fn.restype is ctype[ret], name
