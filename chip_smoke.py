@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --gn-plans   # steps 1-2, then K4/K5 over every plan
+    python3 chip_smoke.py --saves      # steps 1-2, then step 5 alone
 
 From the root of a checkout, on a machine with one NVIDIA H100 and the CUDA
 toolkit, it:
@@ -58,7 +59,32 @@ toolkit, it:
      variant), finite losses and epsilon, prints ms per D step and samples/s,
      and the device time by CUDA kernel of one more epoch (the K4/K5 group
      must be non-zero, there and on path 2);
-  5. materialized per-sample-gradient paths (K6). Holds K6 against its
+  5. saves and resume (outputs under build/chip_smoke/saves/). The MNIST
+     flagship through K1 (bs 600, -tss 60000) and the CelebA flagship
+     through K2-K5 (deterministic cuDNN): 2 epochs with a save every epoch
+     (CelebA twice, the witness) against 1 epoch and 1 more resumed from its
+     saves/*-1 with ``-rp <dir> -re 1 -ne 2 -ka n_epochs``; fails unless
+     saves G-2 / D-2 (params, Adam moments and counts, clipping, accountant,
+     generator states) are bitwise equal (CelebA: held to 3x the gap of its
+     two uninterrupted runs, were they not equal), the privacy_log.csv rows
+     are equal, each CSV has one header, and the path's kernels launched
+     after the resume. Checks the sample grids (MNIST each epoch, CelebA
+     every 50 D steps) and mean-sample PNGs by pixel size; holds
+     sample_images at the CelebA grid (B 24) and gensamples' batch (B 50)
+     through K4: each K4 call against its plain version (the groupnorm
+     phase's bound), the images against the plain G forward to 3x a witness
+     (K4's outputs moved one ulp on the share each call moved), K4's CUDA
+     launches counted in a profiler trace. Sends SIGTERM to the port's CLI
+     (a subprocess on the MNIST flagship) after its first privacy_log.csv
+     row: it must exit 0, print "Preempted after epoch" and leave its
+     saves; 1 more epoch resumed from them must continue epsilon. Runs
+     gensamples (CelebA, -n 60 -bs 50), temp_file (both models),
+     budget_analysis and mem_inf_attack (MNIST, pixel FID) on the saves,
+     each timed. downstream is not run here: scikit-learn is not installed
+     on the card's machine; the CPU tests cover it. Prints each save's and
+     load's ms and MB and the resumed runs' time to their first epoch,
+     each beside the card's name and power limit;
+  6. materialized per-sample-gradient paths (K6). Holds K6 against its
      plain version (the same Philox stream) at path 1's leaf [600, 101632],
      at every large leaf of celeba_d64 at B 128, at an odd P and at the leaf
      gate's P = 16384: the sum at std 0, sum and noise at std 2.5 with one
@@ -76,9 +102,9 @@ toolkit, it:
      K1 path's and the conv-ghost path's of the same run, where each step's
      time goes (vmap(grad), norms, K6 and small leaves, the rest) and the
      device time by CUDA kernel of one more epoch;
-  6. prints one JSON ``kernels`` line (K1-K6: launches on their main path,
+  7. prints one JSON ``kernels`` line (K1-K6: launches on their main path,
      max abs gap to the plain version, ms, plain ms, bound, library ms);
-  7. ends with ``{"ok": true, "device": {...}}`` as the last line.
+  8. ends with ``{"ok": true, "device": {...}}`` as the last line.
 Any failure raises or exits non-zero, and no result line is printed. It
 needs no network and imports nothing of JAX or of the JAX package.
 """
@@ -1022,7 +1048,10 @@ def gn_recorded(shares):
 
     def rec_fwd(x, sc, bi, groups, eps):
         y = fwd(x, sc, bi, groups, eps)
-        shares["fwd"].append(_share_moved(y, gn.gn_relu_plain(x, sc, bi, groups, eps)))
+        plain = gn.gn_relu_plain(x, sc, bi, groups, eps)
+        shares["fwd"].append(_share_moved(y, plain))
+        if "fwd_gap" in shares:
+            shares["fwd_gap"].append(rel_l2(y, plain))
         return y
 
     def rec_bwd(x, dy, sc, bi, groups, eps):
@@ -1611,6 +1640,373 @@ def clip_phases(dev, out_root, peak_bytes, k1_epoch_ms, celeba_step_ms):
     return entry
 
 
+# The saves phase: the flagships with saves every epoch, the MNIST one with
+# a grid each epoch, the CelebA one with a grid every 50 D steps (a sub-epoch
+# cadence, as its default is at full data).
+SAVES_MNIST = ["MNIST", "--conditional", "-dpm", "gc", "--sigma", "10", "-bs", str(BS),
+               "-tss", "60000", "--log_every", "60000", "--manual_seed", "1"]
+SAVES_CELEBA = FLAGSHIP + ["--log_every", "12800", "--sample_every", "6400",
+                           "--manual_seed", "1"]
+# Where two uninterrupted CelebA runs are not bitwise equal, the resumed run
+# is held to this multiple of their gap (the bf16 step check's factor).
+RESUME_FACTOR = 3.0
+K4_FWD_KERNELS = ("gn_fwd_cluster", "gn_chunk_stats", "gn_sample_stats", "gn_apply")
+
+
+def _one_header(path) -> list:
+    with open(path) as fh:
+        rows = list(csv.reader(fh))
+    if not rows or rows[0][:1] != ["Epoch"] or sum(r[:1] == ["Epoch"] for r in rows) != 1:
+        fail(f"{path} does not hold exactly one header")
+    return rows[1:]
+
+
+def _leaves(tree, path=()):
+    if isinstance(tree, dict):
+        for k in tree:
+            yield from _leaves(tree[k], path + (k,))
+    else:
+        yield "/".join(path), tree
+
+
+def save_gap(a: Path, b: Path) -> float:
+    """0 when saves/G-2 and D-2 of two runs are equal byte for byte; else the
+    largest relative l2 gap over their float leaves. Fails when anything else
+    differs: Adam counts, accountant, generator states."""
+    import numpy as np
+    from csl_gan_tpu_torch.utils import msgpack
+
+    worst = 0.0
+    for f in ("G-2", "D-2"):
+        ra, rb = (a / "saves" / f).read_bytes(), (b / "saves" / f).read_bytes()
+        if ra == rb:
+            continue
+        la, lb = list(_leaves(msgpack.unpackb(ra))), list(_leaves(msgpack.unpackb(rb)))
+        if [k for k, _ in la] != [k for k, _ in lb]:
+            fail(f"{a.name} and {b.name}: saves/{f} hold other leaves")
+        for (key, x), (_, y) in zip(la, lb):
+            if isinstance(x, np.ndarray) and x.dtype.kind == "f" and x.shape == np.shape(y):
+                d = float(np.linalg.norm((x - y).astype(np.float64)))
+                worst = max(worst, d / (float(np.linalg.norm(y.astype(np.float64))) + 1e-30))
+            elif not (np.array_equal(x, y) if isinstance(x, np.ndarray) else x == y):
+                fail(f"{a.name} and {b.name}: saves/{f} differ at {key}")
+    return worst
+
+
+def train_run(argv, launches=()):
+    """A Trainer built from the CLI arguments and run; `launches` are kernel
+    wrappers whose counts are set to 0 just before the run and read just
+    after. Returns (trainer, seconds to build it, ms of its first epoch,
+    counts)."""
+    import torch
+    from csl_gan_tpu_torch import options as toptions
+    from csl_gan_tpu_torch.training.loop import Trainer
+
+    t0 = time.perf_counter()
+    tr = Trainer(toptions.parse(argv))
+    t_init = time.perf_counter() - t0
+    for w in launches:
+        w.launches = 0
+    tr.run()
+    torch.cuda.synchronize()
+    counts = [w.launches for w in launches]
+    first = tr.runner.epoch_events[0] if tr.runner.epoch_events else None
+    return tr, t_init, first[0].elapsed_time(first[1]) if first else math.nan, counts
+
+
+def resume_pair(name, argv, dataset, root, launches, smi, runs_a=1):
+    """Run A (2 epochs, saves every epoch) `runs_a` times and run B (1 epoch,
+    then 1 more resumed from its saves/*-1); returns (the gap of B to A, the
+    gap of A to itself, the first A trainer)."""
+    tr_a = None
+    dirs = []
+    for i in range(runs_a):
+        d = root / f"{name}_a{i}"
+        tr, _, _, _ = train_run(argv + ["-ne", "2", "--save_every", "1", "-o", str(d)])
+        tr_a = tr_a or tr
+        dirs.append(d)
+    b = root / f"{name}_b"
+    train_run(argv + ["-ne", "1", "-o", str(b)])
+    tr_b, t_init, first_ms, counts = train_run(
+        [dataset, "-rp", str(b), "-re", "1", "-ne", "2", "-ka", "n_epochs"], launches)
+    if tr_b.start_epoch != 1:
+        fail(f"{name}: the resumed run started at epoch {tr_b.start_epoch}")
+    if not all(c > 0 for c in counts):
+        fail(f"{name}: a kernel of the path did not launch after the resume: {counts}")
+    for f in ("privacy_log.csv", "log.csv"):
+        ra, rb = _one_header(dirs[0] / f), _one_header(b / f)
+        if f == "privacy_log.csv" and ra != rb:
+            fail(f"{name}: privacy_log.csv of the resumed run {rb} differs from {ra}")
+    self_gap = save_gap(dirs[0], dirs[1]) if runs_a > 1 else 0.0
+    gap = save_gap(dirs[0], b)
+    print(f"{name} resume [{smi}]: saves/G-2 and D-2 of 1 + 1 resumed epochs against 2 "
+          f"epochs: {'bitwise equal' if gap == 0 else f'gap {gap:.3e}'}"
+          + (f" (two uninterrupted runs: "
+             f"{'bitwise equal' if self_gap == 0 else f'gap {self_gap:.3e}'})"
+             if runs_a > 1 else "")
+          + f"; kernel launches after the resume {counts}; resumed run: Trainer with its "
+          f"loads {t_init:.2f} s, first epoch {first_ms:.3f} ms")
+    return gap, self_gap, tr_a
+
+
+def checkpoint_io(name, tr, root, smi) -> None:
+    """ms of one save_pair of a trainer's state and of load_g + load_d back,
+    and the files' sizes."""
+    import torch
+    from csl_gan_tpu_torch.training import checkpoint
+
+    d = root / f"{name}_io"
+    acc = tr.accountant.state_dict()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.save_pair(str(d), 1, 0, tr.state, acc)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    st, _ = checkpoint.load_g(str(d / "saves" / "G-1"), tr.state)
+    st, _, acc_back, _ = checkpoint.load_d(str(d / "saves" / "D-1"), st)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    for a, b in ((st.d_params, tr.state.d_params), (st.g_params, tr.state.g_params),
+                 (st.d_nu, tr.state.d_nu), (st.g_mu, tr.state.g_mu)):
+        if not all(torch.equal(a[k], v) for k, v in b.items()):
+            fail(f"{name}: a save loaded back differs from the state saved")
+    if acc_back != acc:
+        fail(f"{name}: the accountant loaded back is {acc_back}")
+    mb = {f: (d / "saves" / f"{f}-1").stat().st_size / 1e6 for f in ("G", "D")}
+    print(f"{name} checkpoint [{smi}]: save_pair {save_ms:.1f} ms (G {mb['G']:.2f} MB, "
+          f"D {mb['D']:.2f} MB), load_g + load_d {load_ms:.1f} ms")
+
+
+def k4_launches_traced(fn) -> int:
+    """K4's CUDA launches in a profiler trace of one call of fn (after a
+    warm-up call; a trace now and then comes back empty, so up to 5 tries)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n = sum(cnt for _, cnt, key in device_ms_by_kernel(prof)
+                if any(k in key for k in K4_FWD_KERNELS))
+        if n:
+            return n
+    fail("torch.profiler recorded no K4 launch in 5 traces")
+
+
+def sample_check(tr, smi) -> None:
+    """sample_images through K4 at the CelebA grid (B 24) and at gensamples'
+    batch (B 50): each K4 call against its plain version on the same inputs
+    (the groupnorm phase's bound), K4's CUDA launches counted in a profiler
+    trace, and the images against the plain G forward on the card, to
+    STEP_BF16_FACTOR times a witness: the plain G forward with each K4
+    output moved one ulp on the share of elements that K4 call moved."""
+    import torch
+    from csl_gan_tpu_torch.ops import pallas_groupnorm as gn
+
+    b = tr.builder
+    g = torch.Generator(tr.device).manual_seed(50)
+    for tag, z, y in (("grid", tr.fixed_z, tr.fixed_y),
+                      ("gensamples batch", b.gen_z(g, 50), b.gen_y(g, 50))):
+        n = z.shape[0]
+        gn.gn_relu_forward.launches = 0
+        k = b.sample_images(tr.state, z, y)
+        calls = gn.gn_relu_forward.launches
+        shares = {"fwd": [], "bwd": [], "fwd_gap": []}
+        with gn_recorded(shares):
+            again = b.sample_images(tr.state, z, y)
+        with plain_versions():
+            p = b.sample_images(tr.state, z, y)
+        with gn_ulp_moved(shares, seed=7):
+            w = b.sample_images(tr.state, z, y)
+        gap, witness, per_call = rel_l2(k, p), rel_l2(w, p), max(shares["fwd_gap"])
+        traced = k4_launches_traced(lambda: b.sample_images(tr.state, z, y))
+        want = sum(m * (1 if gn.launch_plan(n, hw, c, 32, torch.float32 if i == 0
+                                            else torch.bfloat16, False)[0] == gn.ONE_PASS
+                        else 3) for i, (hw, c, m) in enumerate(GN_SHAPES))
+        print(f"sample_images at B {n} ({tag}) [{smi}]: each K4 call against its plain "
+              f"version at most {per_call:.3e} relative l2 (bound {GN_BOUND:g}; "
+              f"{100 * sum(shares['fwd']) / len(shares['fwd']):.2f}% of y's elements "
+              f"moved on average); the images against the plain G forward {gap:.3e} "
+              f"(witness, K4's outputs moved one ulp on those shares: {witness:.3e}; "
+              f"bound {STEP_BF16_FACTOR:g}x it); K4 calls {calls}, CUDA launches {traced} "
+              f"(traced; the plans' {want}); images {tuple(k.shape)} in "
+              f"[{float(k.min()):.3f}, {float(k.max()):.3f}]")
+        if not (per_call < GN_BOUND and gap <= STEP_BF16_FACTOR * witness
+                and torch.equal(k, again)):
+            fail(f"sample_images at B {n} is not held through K4")
+        if calls != 9 or traced != want:
+            fail(f"sample_images at B {n}: {calls} K4 calls, {traced} CUDA launches")
+        if tuple(k.shape) != (n, 64, 64, 3) or not bool(torch.isfinite(k).all()):
+            fail(f"bad sample_images output {tuple(k.shape)}")
+
+
+def grid_names(tr) -> list:
+    """The sample grids of 2 epochs of a trainer's configuration."""
+    o, n = tr.opt, tr.n_batches
+    if o.sample_every_epochs > 0:
+        return [f"{e + 1}-{n - 1}.png" for e in range(2) if (e + 1) % o.sample_every_epochs == 0]
+    return sorted(f"{e + 1}-{i}.png" for e in range(2) for i in range(n)
+                  if (i + 1) * o.batch_size % o.sample_every == 0)
+
+
+def png_shape(path):
+    from csl_gan_tpu_torch.utils.images import read_png
+
+    if not Path(path).is_file():
+        fail(f"{path} was not written")
+    return read_png(str(path)).shape
+
+
+def sigterm_check(root, smi) -> None:
+    """SIGTERM to the port's CLI on the MNIST flagship: exit 0, the preempt
+    message and a save; a resume of 1 epoch continues epsilon."""
+    import os
+    import signal
+
+    from csl_gan_tpu_torch.privacy import RdpAccountant
+
+    d = root / "sigterm"
+    argv = [sys.executable, "-m", "csl_gan_tpu_torch.train"] + SAVES_MNIST + [
+        "-ne", "100000", "-o", str(d)]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, cwd=str(REPO), env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    try:
+        while True:
+            if proc.poll() is not None:
+                fail("the CLI exited before SIGTERM:\n" + proc.communicate()[0][-3000:])
+            if d.joinpath("privacy_log.csv").exists() and \
+                    len([r for r in _one_header(d / "privacy_log.csv") if len(r) == 2]) >= 1:
+                break
+            if time.perf_counter() - t0 > 300:
+                fail("no privacy_log.csv row within 300 s of starting the CLI")
+            time.sleep(0.2)
+        t_sig = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=240)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    stop_s = time.perf_counter() - t_sig
+    if proc.returncode != 0 or "Preempted after epoch" not in out:
+        fail(f"SIGTERM: exit {proc.returncode}\n{out[-3000:]}")
+    rows = _one_header(d / "privacy_log.csv")
+    n = len(rows)
+    if not (d / "saves" / f"G-{n}").is_file() or not (d / "saves" / f"D-{n}").is_file():
+        fail(f"SIGTERM after {n} epochs left no saves/G-{n}, D-{n}")
+    eps_before = float(rows[-1][1])
+    tr, _, _, _ = train_run(["MNIST", "-rp", str(d), "-re", str(n), "-ne", str(n + 1),
+                             "-ka", "n_epochs"])
+    rows = _one_header(d / "privacy_log.csv")
+    acc = RdpAccountant(tr.opt.batch_size, tr.opt.train_set_size, tr.opt.sigma)
+    acc.step((n + 1) * tr.n_batches)
+    eps = float(rows[-1][1])
+    print(f"SIGTERM [{smi}]: the CLI stopped {stop_s:.2f} s after the signal with exit 0 "
+          f"after {n} epochs; resumed for 1 epoch, epsilon {eps_before:.6f} -> {eps:.6f} "
+          f"(an accountant of {(n + 1) * tr.n_batches} steps: "
+          f"{acc.get_privacy_spent(1e-5)[0]:.6f})")
+    if len(rows) != n + 1 or not eps > eps_before or eps != acc.get_privacy_spent(1e-5)[0]:
+        fail("the resumed run's epsilon does not continue the preempted run's")
+
+
+def tools_check(root, smi) -> None:
+    """gensamples, temp_file, budget_analysis and mem_inf_attack on the
+    phase's saves, each timed."""
+    import torch
+    from csl_gan_tpu_torch import budget_analysis, gensamples, mem_inf_attack, temp_file
+    from csl_gan_tpu_torch.ops import pallas_groupnorm as gn
+
+    celeba, mnist = root / "celeba_a0", root / "mnist_a0"
+    mia = root / "mia"
+    calls = (
+        ("gensamples (CelebA, -n 60 -bs 50)", gensamples.main,
+         [str(celeba), "-e", "2", "-n", "60", "-bs", "50"]),
+        ("temp_file (MNIST)", temp_file.main, [str(mnist), "-e", "2"]),
+        ("temp_file (CelebA)", temp_file.main, [str(celeba), "-e", "2"]),
+        ("budget_analysis (CelebA)", budget_analysis.main, [str(celeba), "2"]),
+        ("mem_inf_attack (MNIST, pixel FID)", mem_inf_attack.main,
+         ["--model_dir", str(root), "--model_name", "mnist_a0", "--checkpoints", "2",
+          "--asr_iters", "200", "--compute_fid", "--generate_samples",
+          "--num_generated_samples", "500", "--tmp_dir", f"{mia}/tmp/", "--samples_dir",
+          f"{mia}/samples/", "--values_dir", f"{mia}/values/", "--outputs_dir",
+          f"{mia}/outputs/", "--save"]),
+    )
+    for tag, main_fn, argv in calls:
+        gn.gn_relu_forward.launches = 0
+        t0 = time.perf_counter()
+        main_fn(argv)
+        torch.cuda.synchronize()
+        print(f"tool {tag} [{smi}]: {time.perf_counter() - t0:.2f} s, K4 calls "
+              f"{gn.gn_relu_forward.launches}")
+    files = sorted((celeba / "G-2-samples").iterdir())
+    if len(files) != 60 or png_shape(files[0]) != (64, 64, 3):
+        fail(f"gensamples wrote {len(files)} files")
+    with open(mia / "outputs" / "mnist_a0.json") as fh:
+        stats = json.load(fh)["2"]
+    if not (0.0 <= stats["asr"] <= 1.0 and math.isfinite(stats["pixel_fid"])):
+        fail(f"mem_inf_attack stats {stats}")
+
+
+def saves_phase(out_root, smi) -> None:
+    """Checkpoints, resume, sample grids, SIGTERM and the evaluation tools on
+    the card (the port's Trainer and its tools, through K1-K5)."""
+    import shutil
+
+    import torch
+    from csl_gan_tpu_torch.ops import pallas_conv_ghost as pcg
+    from csl_gan_tpu_torch.ops import pallas_epoch as pe
+    from csl_gan_tpu_torch.ops import pallas_groupnorm as gn
+
+    t_phase = time.perf_counter()
+    root = out_root / "saves"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    gap, _, tr_m = resume_pair("mnist", SAVES_MNIST + ["--sample_every", "60000"], "MNIST",
+                               root, (pe.epoch_kernel,), smi)
+    if gap != 0:
+        fail(f"the resumed MNIST run is not bitwise equal to the uninterrupted one ({gap:.3e})")
+    checkpoint_io("mnist", tr_m, root, smi)
+
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        gap, self_gap, tr_c = resume_pair(
+            "celeba", SAVES_CELEBA, "CelebA", root,
+            (pcg.ghost_sq_norms, pcg.weighted_kernel_grad, gn.gn_relu_forward,
+             gn.gn_relu_backward), smi, runs_a=2)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
+    if self_gap == 0 and gap != 0:
+        fail(f"the resumed CelebA run differs from two bitwise-equal runs ({gap:.3e})")
+    if self_gap > 0 and not gap <= RESUME_FACTOR * self_gap:
+        fail(f"the resumed CelebA run's gap {gap:.3e} exceeds {RESUME_FACTOR:g}x the "
+             f"witness {self_gap:.3e}")
+    checkpoint_io("celeba", tr_c, root, smi)
+
+    # The grids: 100 grey 28x28 images 10 a row, 24 RGB 64x64 images 2 a row.
+    for name, tr, shape in (("mnist", tr_m, (302, 302)), ("celeba", tr_c, (794, 134, 3))):
+        names = sorted(f.name for f in (root / f"{name}_a0" / "samples").iterdir())
+        if names != grid_names(tr) or any(
+                png_shape(root / f"{name}_a0" / "samples" / f) != shape for f in names):
+            fail(f"{name} sample grids {names}, expected {grid_names(tr)} of {shape}")
+        print(f"{name} sample grids [{smi}]: {names}, each {shape}")
+    means = sorted((root / "celeba_a0" / "mean_samples").iterdir())
+    if [m.name for m in means] != ["0-1.png", "1-1.png"] or png_shape(means[0]) != (64, 64, 3):
+        fail(f"mean_samples: {[m.name for m in means]}")
+    sample_check(tr_c, smi)
+    del tr_c, tr_m
+    torch.cuda.empty_cache()
+    sigterm_check(root, smi)
+    tools_check(root, smi)
+    print(f"saves phase [{smi}]: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1672,9 +2068,12 @@ def main() -> int:
     if "--gn-plans" in sys.argv[1:]:
         gn_plans_phase(dev)
         return 0
+    out_root = REPO / "build" / "chip_smoke"
+    if "--saves" in sys.argv[1:]:
+        saves_phase(out_root, smi)
+        return 0
 
     # 3. The MNIST path (K1): kernel vs plain, the Trainer, K1's timing.
-    out_root = REPO / "build" / "chip_smoke"
     max_abs = k1_check_phase(dev, out_root)
     launches, k1_epoch_ms = mnist_path_phase(out_root)
     kernels = [k1_timing_phase(dev, out_root, peak_flops, peak_bytes, launches, max_abs)]
@@ -1683,7 +2082,10 @@ def main() -> int:
     celeba_entries, celeba_step_ms = celeba_phases(dev, out_root, peak_bf16, peak_bytes)
     kernels += celeba_entries
 
-    # 5. The materialized per-sample-gradient paths (K6).
+    # 5. Saves, resume, sample grids, SIGTERM and the evaluation tools.
+    saves_phase(out_root, smi)
+
+    # 6. The materialized per-sample-gradient paths (K6).
     kernels.append(clip_phases(dev, out_root, peak_bytes, k1_epoch_ms, celeba_step_ms))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

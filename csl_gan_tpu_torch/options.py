@@ -9,6 +9,11 @@ package reads the same. Differences:
   - Every flag whose code path is not ported yet raises
     ``NotImplementedError`` naming the flag (``check_ported``); the port never
     ignores a flag silently.
+  - ``--resume_path`` reads the run's ``opt.txt``, written by either package,
+    and keeps only the always-kept arguments and those named by ``-ka``
+    from the command line (JAX options.py:596-640). ``--platform`` is
+    always kept: a JAX ``opt.txt`` may say ``tpu``, and the port's device
+    follows its own rule.
 """
 
 from __future__ import annotations
@@ -102,6 +107,10 @@ CELEBA_DEFAULTS = {
     "n_classes": 2,
     "gp_lambda": 10,
 }
+
+
+ALWAYS_KEEP_ARGS = ["g_device", "d_device", "num_workers", "resume_path",
+                    "resume_epochs", "platform"]
 
 
 def add_slash(path):
@@ -297,6 +306,19 @@ def _vanilla(o) -> bool:
     return o.model == "Vanilla"
 
 
+def _k1_path(o) -> bool:
+    """The configurations the Trainer runs on the epochs runner (K1): the
+    option-level part of ``ops/pallas_epoch.supports``."""
+    return bool(o.pallas_epoch and _vanilla(o) and o.dataset == "MNIST"
+                and o.conditional and o.conditional_arch == "ACGAN"
+                and o.aux_loss_type == "cross_entropy" and o.n_classes >= 2
+                and not o.penalty and not o.backprop_clip
+                and o.per_sample_chunk is None and o.n_d_steps <= 1
+                and float(o.train_d_until_threshold) >= 1e10
+                and (o.dp_mode is None or (o.dp_mode == "gc" and o.grad_clip_split
+                                           and not o.use_grad_clip_per_layer)))
+
+
 # (flag, test on the parsed opt) for every option whose path is not ported.
 # The vanilla MNIST flagship runs on the epoch kernel K1, every other ported
 # configuration on the step runner (training/loop.py).
@@ -310,7 +332,6 @@ _NOT_PORTED = [
     ("--grad_clip_mode adaptive / adaptive-pl (adaptive clipping)",
      lambda o: (o.grad_clip_mode or "standard").startswith("adaptive")),
     ("--weight_decay", lambda o: (o.weight_decay or 0) != 0),
-    ("--resume_path", lambda o: o.resume_path is not None),
     ("--fsdp", lambda o: o.fsdp),
     ("--tp", lambda o: o.tp != 1),
     ("--mesh_shape", lambda o: (o.mesh_shape or 1) != 1),
@@ -328,6 +349,9 @@ _NOT_PORTED = [
     ("--profile_training", lambda o: o.profile_training),
     ("--download_mnist", lambda o: o.download_mnist),
     ("--log_every below one epoch of samples", lambda o: o.log_every_epochs < 0),
+    ("--sample_every below one epoch of samples on the K1 path (the MNIST "
+     "vanilla ACGAN epoch kernel)",
+     lambda o: o.sample_every_epochs < 0 and _k1_path(o)),
     ("--stop_on_g_freeze", lambda o: o.stop_on_g_freeze > 0),
     ("--model DeepConvResNet without -dpm gc",
      lambda o: not _vanilla(o) and o.dp_mode != "gc"),
@@ -350,11 +374,24 @@ def check_ported(opt) -> None:
 
 
 def parse(argv=None) -> Namespace:
-    """Parse CLI args into the opt namespace (reference options.py:113-281)."""
+    """Parse CLI args into the opt namespace (reference options.py:113-281);
+    with ``--resume_path``, the run's saved options merged as the JAX package
+    merges them (options.py:596-640)."""
     opt = build_parser().parse_args(argv)
+    opt.keep_args = opt.keep_args + ALWAYS_KEEP_ARGS
     opt.data_path = add_slash(opt.data_path)
     opt.resume_path = add_slash(opt.resume_path)
     opt.output_dir = add_slash(opt.output_dir)
+    if opt.resume_path is not None:
+        loaded = load_opt(opt.resume_path + "opt.txt")
+        for arg in opt.keep_args:
+            if hasattr(opt, arg):
+                setattr(loaded, arg, getattr(opt, arg))
+        loaded.output_dir = opt.resume_path
+        check_ported(loaded)
+        for path in ["samples/", "saves/"]:
+            os.makedirs(loaded.output_dir + path, exist_ok=True)
+        return loaded
     opt.cpl_user_set = opt.clipping_param_per_layer is not None
     fill_defaults(opt, MNIST_DEFAULTS if opt.dataset == "MNIST" else CELEBA_DEFAULTS)
     derive_and_validate(opt)
@@ -378,3 +415,10 @@ def save_opt(opt, path) -> None:
     with open(path, "w") as f:
         json.dump(opt.__dict__, f)
 
+
+def load_opt(path) -> Namespace:
+    """A saved opt.txt of either package (reference options.py:283-287)."""
+    opt = Namespace()
+    with open(path) as f:
+        opt.__dict__ = json.load(f)
+    return opt

@@ -4,18 +4,21 @@ copy of the JAX package's privacy/mean_sampler.py).
 ``num_samples`` noisy per-class mean images are built once from the training
 set; each D step then picks surrogates from them with fresh small noise for
 the gradient penalty, and ``get_privacy_cost`` gives the RDP cost of their
-release, which the Trainer adds to epsilon. Unlike the JAX package, the mean
-images are not written out as PNGs.
+release, which the Trainer adds to epsilon. Given a ``save_path``, the mean
+images are also written there as ``{class}-{i + 1}.png``, as the JAX package
+writes them.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from csl_gan_tpu_torch.privacy import rdp as rdp_mod
+from csl_gan_tpu_torch.utils.images import denorm_celeba, save_image
 
 
 class MeanSampler:
@@ -25,7 +28,7 @@ class MeanSampler:
                  num_samples: int = 32, mean_size: int = 100,
                  dataset_size: int = 180000, res: int = 64, ch: int = 3,
                  n_classes: int = 1, smallest_class_size: Optional[float] = None,
-                 seed: int = 0):
+                 seed: int = 0, save_path: Optional[str] = None):
         self.noise_std = noise_std
         self.num_samples = num_samples
         self.mean_size = mean_size
@@ -37,9 +40,9 @@ class MeanSampler:
                             else mean_size / smallest_class_size)
         self._rng = np.random.default_rng(seed)
         if dataloader is not None:
-            self.make_mean_samples(dataloader)
+            self.make_mean_samples(dataloader, save_path)
 
-    def make_mean_samples(self, dataloader) -> None:
+    def make_mean_samples(self, dataloader, save_path: Optional[str] = None) -> None:
         """One noisy class mean per (class, sample index):
         [n_classes, num_samples, H, W, C] (reference mean_sampler.py:48-73)."""
         per_class = [[] for _ in range(self.n_classes)]
@@ -56,6 +59,12 @@ class MeanSampler:
         self.mean_samples = np.stack([np.stack(s) for s in per_class])
         self.res = self.mean_samples.shape[-3]
         self.ch = self.mean_samples.shape[-1]
+        if save_path is not None:
+            os.makedirs(save_path, exist_ok=True)
+            for c in range(self.mean_samples.shape[0]):
+                for i in range(self.mean_samples.shape[1]):
+                    save_image(denorm_celeba(self.mean_samples[c, i]),
+                               os.path.join(save_path, f"{c}-{i + 1}.png"))
 
     def get_privacy_cost(self, target_delta: float = 1e-6,
                          alphas=None) -> Tuple[float, float]:

@@ -25,6 +25,8 @@ import numpy as np
 from scipy import special
 
 DEFAULT_ALPHAS: List[float] = [1 + x / 10.0 for x in range(1, 100)] + list(range(12, 400))
+# budget_analysis's wider grid (reference budget_analysis.py:39).
+BUDGET_TOOL_ALPHAS: List[float] = [1 + x / 10.0 for x in range(1, 100)] + list(range(12, 1200))
 
 
 def _log_add(logx: float, logy: float) -> float:

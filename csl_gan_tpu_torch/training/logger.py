@@ -16,14 +16,16 @@ import numpy as np
 class Logger:
     def __init__(self, str_format: str, stat_names: List[str], interval: int,
                  csv_path: str,
-                 epoch_batch_str_format: str = "=== Epoch {} ({:2.1f}%) ===\n"):
+                 epoch_batch_str_format: str = "=== Epoch {} ({:2.1f}%) ===\n",
+                 write_header: bool = True):
         self.stat_names = stat_names
         self.stats = {name: 0.0 for name in stat_names}
         self.interval = interval
         self.str_format = epoch_batch_str_format + str_format
         self.f = open(csv_path, "a")
         self.csv_writer = csv.writer(self.f)
-        self.csv_writer.writerow(["Epoch", "Batch"] + stat_names)
+        if write_header:
+            self.csv_writer.writerow(["Epoch", "Batch"] + stat_names)
         self.f.flush()
         self.log_g_iter = 0
 
@@ -55,7 +57,7 @@ class Logger:
         self.f.close()
 
 
-def build_logger(opt, csv_path: str) -> Logger:
+def build_logger(opt, csv_path: str, write_header: bool = True) -> Logger:
     """The dp-mode-dependent format/column sets of reference train.py:263-278."""
     use_aux = opt.use_aux_loss
     has_penalty = len(opt.penalty) > 0
@@ -78,4 +80,4 @@ def build_logger(opt, csv_path: str) -> Logger:
     interval = ((opt.log_every_epochs * opt.train_set_size
                  if opt.log_every_epochs > 0 else opt.log_every)
                 // opt.batch_size)
-    return Logger(fmt, names, interval, csv_path)
+    return Logger(fmt, names, interval, csv_path, write_header=write_header)

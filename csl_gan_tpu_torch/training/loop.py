@@ -15,16 +15,27 @@ gather). Groups of whole epochs run through a runner, chosen by config:
     K4/K5 and WGAN-GP on mean samples.
 Options outside the ported slice are refused by ``options.check_ported``.
 
-Between groups the host steps the RDP accountant and writes ``log.csv`` and
-``privacy_log.csv`` (epsilon plus the mean samples' privacy cost).
-Checkpoints, sample grids and SIGTERM handling are not ported yet: the save
-and sample cadences are accepted and only announced.
+Between groups the host steps the RDP accountant and writes ``log.csv``,
+``privacy_log.csv`` (epsilon plus the mean samples' privacy cost), the
+fixed-z sample grids ``samples/{epoch}-{batch}.png`` on the sample cadence
+(a sub-epoch cadence from inside the step runner) and the
+``saves/{G,D}-{epoch}`` checkpoints on the save cadence and at the end
+(training/checkpoint.py). Save and sample epochs end a group, as log epochs
+do. ``--resume_path`` continues a run of either package from its saves: a
+save of the port carries the Trainer's generator states, so the resumed run
+equals the uninterrupted one; a JAX save does not, and the generators are
+then seeded from (seed, resume epoch). SIGTERM lets the current group
+finish, then saves and returns (JAX training/loop.py:937-1039).
 """
 
 from __future__ import annotations
 
 import csv
 import os
+import shutil
+import signal
+import threading
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -33,10 +44,12 @@ from csl_gan_tpu_torch import options as options_mod
 from csl_gan_tpu_torch.data import Loader, init_data, n_batches
 from csl_gan_tpu_torch.models.registry import init_models
 from csl_gan_tpu_torch.ops import pallas_epoch as pe
-from csl_gan_tpu_torch.privacy import MeanSampler, make_accountant
+from csl_gan_tpu_torch.privacy import MeanSampler, accountant_from_state_dict, make_accountant
+from csl_gan_tpu_torch.training import checkpoint
 from csl_gan_tpu_torch.training.logger import build_logger
 from csl_gan_tpu_torch.training.segment_runner import EpochsRunner, StepRunner
 from csl_gan_tpu_torch.training.steps import StepBuilder
+from csl_gan_tpu_torch.utils.images import denorm_celeba, save_image_grid
 
 _D_STATS = (("d_adv_loss", "D Adv Loss"), ("d_real_loss", "D Real Loss"),
             ("d_fake_loss", "D Fake Loss"), ("d_real_acc", "D Real Acc"),
@@ -60,6 +73,16 @@ def resolve_device(opt) -> torch.device:
     return torch.device("cuda", 0)
 
 
+def snapshot_code(output_dir: str) -> None:
+    """Copy the port's sources into output_dir/code (reference
+    train.py:40-44)."""
+    pkg = Path(__file__).resolve().parents[1]
+    dst = os.path.join(output_dir, "code", pkg.name)
+    if os.path.isdir(dst):
+        shutil.rmtree(dst)
+    shutil.copytree(pkg, dst, ignore=shutil.ignore_patterns("__pycache__"))
+
+
 class Trainer:
     MAX_EPOCH_GROUP = 100
 
@@ -67,6 +90,9 @@ class Trainer:
         self.opt = opt
         self.device = resolve_device(opt)
         options_mod.save_opt(opt, os.path.join(opt.output_dir, "opt.txt"))
+        fresh = opt.resume_path is None
+        if fresh:
+            snapshot_code(opt.output_dir)
         self.G, self.D = init_models(opt, self.device)
         self.dataset = init_data(opt)
         self.n_batches = n_batches(self.dataset, opt.batch_size)
@@ -92,14 +118,57 @@ class Trainer:
         seed = int(opt.manual_seed)
         self.gen_perm = torch.Generator(self.device).manual_seed(seed * 2 + 1)
         self.gen = torch.Generator(self.device).manual_seed(seed * 2)
+        self.start_epoch = 0
+        if not fresh and opt.resume_epochs > 0:
+            self._resume(opt.resume_epochs)
+        if isinstance(self.runner, StepRunner) and opt.sample_every_epochs < 0:
+            self.runner.on_sample = self._sample_in_group
 
-        self.logger = build_logger(opt, os.path.join(opt.output_dir, "log.csv"))
+        # The fixed sampling grid (reference train.py:256-261): z from the
+        # seed alone, drawn on the CPU so both devices draw the same grid;
+        # the labels 0..n_classes-1 repeated, z trimmed to whole classes.
+        reps = max(1, opt.sample_num // opt.n_classes)
+        self.fixed_y = torch.arange(opt.n_classes).repeat(reps).to(self.device)
+        z = torch.randn(opt.sample_num, opt.g_latent_dim,
+                        generator=torch.Generator().manual_seed(seed))
+        self.fixed_z = z[: len(self.fixed_y)].to(self.device)
+
+        # A resumed run appends to its logs without a new header.
+        self.logger = build_logger(opt, os.path.join(opt.output_dir, "log.csv"),
+                                   write_header=fresh)
         self.privacy_log = None
         if opt.use_dp:
             self.privacy_log = open(os.path.join(opt.output_dir, "privacy_log.csv"), "a")
             self.privacy_writer = csv.writer(self.privacy_log)
-            self.privacy_writer.writerow(["Epoch", "Epsilon"])
-            self.privacy_log.flush()
+            if fresh:
+                self.privacy_writer.writerow(["Epoch", "Epsilon"])
+                self.privacy_log.flush()
+
+    def _resume(self, n: int) -> None:
+        """State, accountant and random streams from saves/{G,D}-n of a run
+        of either package (JAX training/loop.py:166-176)."""
+        opt = self.opt
+        saves = os.path.join(opt.resume_path, "saves")
+        self.state, _ = checkpoint.load_g(os.path.join(saves, f"G-{n}"), self.state)
+        self.state, _, acc_state, run_state = checkpoint.load_d(
+            os.path.join(saves, f"D-{n}"), self.state)
+        self.start_epoch = n
+        if acc_state and opt.use_dp:
+            self.accountant = accountant_from_state_dict(acc_state)
+        if run_state is not None and run_state.get("device") == self.device.type:
+            checkpoint.set_generator_state(self.gen, run_state["gen"])
+            checkpoint.set_generator_state(self.gen_perm, run_state["gen_perm"])
+            if run_state.get("d_acc") is not None and isinstance(self.runner, StepRunner):
+                self.runner.d_acc = torch.tensor(run_state["d_acc"], device=self.device)
+            return
+        why = ("holds no generator states (a save of the JAX package)" if run_state is None
+               else f"holds generator states of a {run_state.get('device')} run")
+        seeds = np.random.SeedSequence([int(opt.manual_seed), n]).generate_state(2, np.uint64)
+        self.gen.manual_seed(int(seeds[0]))
+        self.gen_perm.manual_seed(int(seeds[1]))
+        print(f"Resume: saves/D-{n} {why}; the random streams are seeded from "
+              f"(manual_seed {opt.manual_seed}, epoch {n}), a stream no fresh run "
+              "draws.")
 
     def _setup_mean_samples(self):
         """Privatized per-class mean images as the penalty's public surrogate
@@ -121,7 +190,8 @@ class Trainer:
         else:
             scs = None
         self.mean_sampler = MeanSampler(
-            dataloader=loader, dataset_size=opt.train_set_size,
+            dataloader=loader, save_path=os.path.join(opt.output_dir, "mean_samples"),
+            dataset_size=opt.train_set_size,
             noise_std=opt.mean_sample_noise_std, num_samples=opt.num_mean_samples,
             mean_size=opt.mean_sample_size,
             res=28 if opt.dataset == "MNIST" else opt.im_size,
@@ -167,13 +237,18 @@ class Trainer:
 
     def _group_epochs(self, epoch: int) -> int:
         """Epochs from `epoch` that can run as one group: extend while the
-        would-be interior epoch has no log flush or epsilon-budget stop."""
+        would-be interior epoch has no log, sample or save event and no
+        epsilon-budget stop (JAX training/loop.py:721-740)."""
         opt = self.opt
         budget = opt.epsilon_budget if opt.use_dp else None
         base_steps = self.accountant.steps if self.accountant else 0
 
         def has_event(j: int) -> bool:
             if opt.log_every_epochs > 0 and (j + 1) % opt.log_every_epochs == 0:
+                return True
+            if opt.sample_every_epochs > 0 and (j + 1) % opt.sample_every_epochs == 0:
+                return True
+            if (j + 1) % opt.save_every == 0:
                 return True
             if budget is not None:
                 saved = self.accountant.steps
@@ -190,9 +265,10 @@ class Trainer:
             k += 1
         return k
 
-    def _run_group(self, k: int) -> None:
-        """k epochs through the runner, then their metric sums (one host read
-        per group) into the logger stats."""
+    def _run_group(self, epoch: int, k: int) -> None:
+        """Epochs epoch..epoch+k-1 through the runner, then their metric sums
+        (one host read per group) into the logger stats."""
+        self._group_start = epoch
         s = self.logger.stats
         if isinstance(self.runner, EpochsRunner):
             self.state, met = self.runner.run(self.state, self.table,
@@ -240,38 +316,89 @@ class Trainer:
             eps, best_alpha = self.accountant.get_privacy_spent(self.opt.delta)
             print("({}, {})-DP for alpha={}".format(eps, self.opt.delta, best_alpha))
 
+    def sample(self, epoch: int, batch: int, state=None) -> None:
+        """The fixed-z grid of G at `state` (the current one by default) as
+        samples/{epoch + 1}-{batch}.png, one class a column."""
+        st = self.state if state is None else state
+        imgs = self.builder.sample_images(st, self.fixed_z, self.fixed_y).cpu().numpy()
+        if self.opt.dataset == "CelebA":
+            imgs = denorm_celeba(imgs)
+        save_image_grid(imgs, os.path.join(self.opt.output_dir, "samples",
+                                           f"{epoch + 1}-{batch}.png"),
+                        nrow=self.opt.n_classes)
+
+    def _sample_in_group(self, state, j: int, i: int) -> None:
+        self.sample(self._group_start + j, i, state)
+
+    def _save(self, epoch_label: int, epoch: int) -> None:
+        run_state = {"device": self.device.type,
+                     "gen": checkpoint.generator_state(self.gen),
+                     "gen_perm": checkpoint.generator_state(self.gen_perm)}
+        d_acc = getattr(self.runner, "d_acc", None)
+        if d_acc is not None:
+            run_state["d_acc"] = d_acc.cpu().numpy()
+        checkpoint.save_pair(self.opt.output_dir, epoch_label, epoch, self.state,
+                             self.accountant.state_dict() if self.accountant else None,
+                             run_state)
+
     def run(self) -> int:
-        """Full training. Returns the last epoch index."""
+        """Full training from ``start_epoch``. Returns the last epoch index.
+
+        SIGTERM (what batch schedulers send before a kill) requests a clean
+        stop: the current group of epochs finishes, the run prints
+        "Preempted after epoch N", saves through the normal exit path and
+        returns; ``--resume_path`` continues it with the accountant's steps.
+        The handler is installed only on the main thread and the previous
+        one restored on the way out."""
         opt = self.opt
         print("\nStarting training...\n")
-        print("Note: checkpoints (--save_every) and sample grids "
-              "(--sample_every) are not ported yet; no saves/ or samples/ "
-              "files are written.")
         self.logger.reset_stats()
-        epoch = next_e = 0
-        while next_e < opt.n_epochs:
-            k = self._group_epochs(next_e)
-            self._run_group(k)
-            stop = False
-            for e in range(next_e, next_e + k):
-                epoch = e
-                if self.accountant is not None:
-                    self.accountant.step(self.n_batches)
-                if opt.log_every_epochs > 0 and (e + 1) % opt.log_every_epochs == 0:
-                    self._flush_log(e)
-                if opt.use_dp:
-                    # The budget stop reads the bare epsilon (reference
-                    # train.py:592); the log adds the mean samples' cost.
-                    eps, _ = self.accountant.get_privacy_spent(opt.delta)
-                    self.privacy_writer.writerow([e, eps + self.mean_sample_privacy_cost])
-                    self.privacy_log.flush()
-                    if opt.epsilon_budget is not None and eps > opt.epsilon_budget:
-                        stop = True
+        preempted = threading.Event()
+        prev = None
+        installed = threading.current_thread() is threading.main_thread()
+        if installed:
+            def on_sigterm(signum, frame):
+                print("SIGTERM: finishing the current epoch group, then "
+                      "checkpointing and exiting.", flush=True)
+                preempted.set()
+            prev = signal.signal(signal.SIGTERM, on_sigterm)
+        epoch = next_e = self.start_epoch
+        try:
+            while next_e < opt.n_epochs:
+                k = self._group_epochs(next_e)
+                self._run_group(next_e, k)
+                stop = False
+                for e in range(next_e, next_e + k):
+                    if self.accountant is not None:
+                        self.accountant.step(self.n_batches)
+                    if opt.log_every_epochs > 0 and (e + 1) % opt.log_every_epochs == 0:
+                        self._flush_log(e)
+                    if opt.sample_every_epochs > 0 and (e + 1) % opt.sample_every_epochs == 0:
+                        self.sample(e, self.n_batches - 1)
+                    if opt.use_dp:
+                        # The budget stop reads the bare epsilon (reference
+                        # train.py:592); the log adds the mean samples' cost.
+                        eps, _ = self.accountant.get_privacy_spent(opt.delta)
+                        self.privacy_writer.writerow([e, eps + self.mean_sample_privacy_cost])
+                        self.privacy_log.flush()
+                        stop = opt.epsilon_budget is not None and eps > opt.epsilon_budget
+                    if (e + 1) % opt.save_every == 0:
+                        self._save(e + 1, e)
+                    epoch = e
+                    if stop:
                         break
-            if stop:
-                break
-            next_e = epoch + 1
+                if preempted.is_set():
+                    print(f"Preempted after epoch {epoch}; saving and exiting "
+                          "(resume with --resume_path).", flush=True)
+                    stop = True
+                if stop:
+                    break
+                next_e = epoch + 1
+        finally:
+            if installed:
+                signal.signal(signal.SIGTERM, prev if prev is not None else signal.SIG_DFL)
         print("Finished training.")
+        self._save(epoch + 1, opt.n_epochs)
         self.close()
         return epoch
 

@@ -104,6 +104,10 @@ class StepRunner:
     ``gather(idx) -> (x, y)`` returns a batch's images and labels from the
     device-resident dataset; with ``u8_images`` the images are uint8 and get
     the JAX Trainer's ``/127.5 - 1`` and random flip after the gather.
+
+    With ``on_sample`` set, ``on_sample(state, j, i)`` is called after batch i
+    of the run's epoch j whenever ``(i + 1) * batch_size`` is a multiple of
+    ``sample_every`` (the sub-epoch sample cadence, JAX loop.py:829-831).
     """
 
     def __init__(self, builder: StepBuilder, n_batches: int, n_rows: int,
@@ -125,6 +129,8 @@ class StepRunner:
         # persists across run() calls, like the JAX runner's carry.
         self.d_acc = None
         self.epoch_events: List[tuple] = []
+        self.on_sample: Optional[Callable] = None
+        self.sample_every = int(opt.sample_every)
 
     def _batch(self, idx: torch.Tensor, gen: torch.Generator):
         x, y = self.gather(idx)
@@ -185,7 +191,7 @@ class StepRunner:
             stds = gops.noise_stds(len(b.d_leaves), b.sigma, state.clipping, b.per_layer)
             if b.fused_route:    # K6 reads each leaf's std from device memory
                 stds = torch.tensor(stds, dtype=torch.float32, device=dev)
-        for _ in range(k):
+        for j in range(k):
             if timed:
                 ev = (torch.cuda.Event(enable_timing=True),
                       torch.cuda.Event(enable_timing=True))
@@ -206,6 +212,8 @@ class StepRunner:
                             g_sums[key] = g_sums[key] + v if key in g_sums else v
                         g_count += 1
                     self.d_acc = torch.zeros((), device=dev)
+                if self.on_sample is not None and (i + 1) * bs % self.sample_every == 0:
+                    self.on_sample(state, j, i)
             if timed:
                 ev[1].record()
                 self.epoch_events.append(ev)

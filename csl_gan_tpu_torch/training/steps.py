@@ -34,6 +34,7 @@ import math
 from dataclasses import dataclass, replace
 from typing import Dict, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 from torch.func import functional_call
 
@@ -173,9 +174,11 @@ class StepBuilder:
         d = {k: d[k] for k in self.d_leaves}
         g = {k: g[k] for k in self.g_leaves}
         zeros = lambda t: {k: torch.zeros_like(v) for k, v in t.items()}  # noqa: E731
-        clipping = float(self.opt.clipping_param or 1.0)
+        # fp32 values, as the JAX TrainState holds them: a checkpoint then
+        # carries the clipping exactly.
+        clipping = float(np.float32(self.opt.clipping_param or 1.0))
         if self.per_layer:
-            clipping = tuple(self._per_layer_clipping())
+            clipping = tuple(float(np.float32(c)) for c in self._per_layer_clipping())
         return TrainState(d, g, zeros(d), zeros(d), zeros(g), zeros(g), 0, 0, clipping)
 
     def _per_layer_clipping(self) -> List[float]:
@@ -349,6 +352,12 @@ class StepBuilder:
         """Fresh fakes for a D step: a G forward without autograd."""
         with torch.no_grad():
             return functional_call(self.G, g_params, (z, y))
+
+    def sample_images(self, state: TrainState, z, y):
+        """Images of G at `state` for z and labels y (JAX ``sample_images``,
+        steps.py:1129-1140): the G forward without autograd, fp32 NHWC. The
+        DCResNet G's norms run K4 on the card."""
+        return self.fakes(state.g_params, z, y).float()
 
     # ---------------- the gc D step ----------------
 

@@ -129,7 +129,6 @@ def test_no_platform_without_cuda_raises(tmp_path, monkeypatch):
     (["-gcm", "adaptive-pl"], "--grad_clip_mode"),
     (["-wd", "0.1"], "--weight_decay"),
     (["--backprop_clip", "true"], "--backprop_clip"),
-    (["-rp", "/nonexistent"], "--resume_path"),
     (["--fsdp", "true"], "--fsdp"),
     (["--tp", "2"], "--tp"),
     (["--u8_table", "true"], "--u8_table"),
@@ -240,10 +239,11 @@ def test_not_ported_names_only_unported_flags():
     still outside the port are on it."""
     names = [flag for flag, _ in toptions._NOT_PORTED]
     for lifted in ("--pallas", "--per_sample_chunk", "--grad_clip_split", "--conv_ghost",
-                   "--clipping_param_per_layer", "--n_d_steps", "--train_d_until_threshold"):
+                   "--clipping_param_per_layer", "--n_d_steps", "--train_d_until_threshold",
+                   "--resume_path"):
         assert not any(lifted in n for n in names), lifted
     for kept in ("--dp_mode", "--poisson", "adaptive", "-pupd", "DRAGAN", "--backprop_clip",
-                 "--weight_decay", "unconditional", "CGAN / WCGAN", "--resume_path",
+                 "--weight_decay", "unconditional", "CGAN / WCGAN",
                  "--fsdp", "--tp", "--mesh_shape", "--multihost"):
         assert any(kept in n for n in names), kept
 
