@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --gn-plans   # steps 1-2, then K4/K5 over every plan
     python3 chip_smoke.py --saves      # steps 1-2, then step 5 alone
+    python3 chip_smoke.py --dp-modes   # step 1, K4/K5's build, then step 7 alone
 
 From the root of a checkout, on a machine with one NVIDIA H100 and the CUDA
 toolkit, it:
@@ -102,9 +103,27 @@ toolkit, it:
      K1 path's and the conv-ghost path's of the same run, where each step's
      time goes (vmap(grad), norms, K6 and small leaves, the rest) and the
      device time by CUDA kernel of one more epoch;
-  7. prints one JSON ``kernels`` line (K1-K6: launches on their main path,
-     max abs gap to the plain version, ms, plain ms, bound, library ms);
-  8. ends with ``{"ok": true, "device": {...}}`` as the last line.
+  7. the D-step engines beside gc (outputs under build/chip_smoke/dp_modes/).
+     Through the Trainer, one epoch each, one more timed by CUDA events
+     and 10 steps under the profiler: MNIST (``MNIST --conditional --sigma 10
+     -bs 600 -tss 60000``) with ``-dpm is``, ``-dpm is -ispp true``, ``-dpm is
+     -issm moving-avg-pl`` (at ``--sigma 0.01``: at 10 its scaling vector
+     overflows, in the JAX package too), ``-dpm tm`` and ``-dpm sv``; CelebA (the
+     flagship's flags with ``-tss 1280`` and the mode swapped) with ``-dpm
+     is`` (per parameter, CelebA's default), ``-dpm tm`` and no ``-dpm``.
+     Prints ms per D step, the device-busy share, peak memory, the logged IS
+     Mean / Min / Max and epsilon; fails on a non-finite metric or
+     parameter. The DCResNet G has GroupNorm (K4/K5) when per-sample
+     gradients are on (tm) and BatchNorm otherwise (is, no DP), as in the
+     JAX package: K4/K5 must launch on the tm path (wrapper counts and CUDA
+     launches in a trace) and on no other. Holds one bf16 tm D step and G
+     step through K4/K5 against the same steps with the plain versions, to
+     3x a one-ulp witness, and prints where a per-parameter is D step's time
+     goes (first-order pass, the batched second-order pass, the rest);
+  8. prints one JSON ``kernels`` line (K1-K6: launches on their main path,
+     max abs gap to the plain version, ms, plain ms, bound, library ms; K4/K5
+     also their launches on the CelebA tm path);
+  9. ends with ``{"ok": true, "device": {...}}`` as the last line.
 Any failure raises or exits non-zero, and no result line is printed. It
 needs no network and imports nothing of JAX or of the JAX package.
 """
@@ -1249,11 +1268,12 @@ def celeba_step_check(dev, out_root, bf16=False):
 
 def profile_step_runner(tr, label: str, need=()) -> None:
     """Device time by CUDA kernel and by group over one more epoch of a
-    Trainer on the step runner (torch.profiler / CUPTI). Fails if a group in
-    `need` took no device time."""
+    Trainer on the step runner (torch.profiler / CUPTI), of ``tr.runner.n``
+    D steps. Fails if a group in `need` took no device time. Returns (device
+    busy ms, the epoch's ms, [(ms, launches, kernel)])."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    n = tr.n_batches
+    n = tr.runner.n
     s0, s1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         s0.record()
@@ -1278,6 +1298,7 @@ def profile_step_runner(tr, label: str, need=()) -> None:
     for g in need:
         if not groups.get(g, 0.0) > 0.0:
             fail(f"the {label} profile shows no device time in the group {g}")
+    return busy, span, by_kernel
 
 
 def celeba_phases(dev, out_root, peak_bf16, peak_bytes):
@@ -2007,6 +2028,281 @@ def saves_phase(out_root, smi) -> None:
     print(f"saves phase [{smi}]: {time.perf_counter() - t_phase:.1f} s")
 
 
+# The D-step engines beside gc (phase 7): MNIST at the K1 path's width (100
+# steps an epoch), CelebA at the flagship's with its data cut to -tss 1280
+# (10 D steps, 2 G updates an epoch), as path 2 is. moving-avg-pl runs at
+# sigma 0.01: its scaling vector is a moving average of the NOISED per-leaf
+# norms, and at sigma 10 the noise feeds back (lin1.weight's entry grows
+# ~3.2x a step and overflows fp32 near step 36), in the JAX package as in
+# the port.
+DP_MNIST = ["MNIST", "--conditional", "--sigma", "10", "-bs", str(BS), "-tss", "60000"]
+DP_MNIST_MODES = (("is", ["-dpm", "is"]), ("is per-param", ["-dpm", "is", "-ispp", "true"]),
+                  ("is moving-avg-pl", ["-dpm", "is", "-issm", "moving-avg-pl",
+                                        "--sigma", "0.01"]),
+                  ("tm", ["-dpm", "tm"]), ("sv", ["-dpm", "sv"]))
+DP_CELEBA = ["CelebA", "--conditional", "-bs", str(CB), "-tss", "1280", "-nms", "1",
+             "--mean_sample_size", "8", "--bf16", "true", "--train_d_until_threshold", "1e18"]
+DP_CELEBA_MODES = (("is", ["-dpm", "is"]), ("tm", ["-dpm", "tm"]), ("no DP", []))
+DP_PROFILE_STEPS = 10
+K5_BWD_KERNELS = tuple(k for k in GN_KERNELS if k not in K4_FWD_KERNELS)
+
+
+def dp_mode_run(name, argv, tss, out_root, smi):
+    """One Trainer epoch of a D-step engine, then one more epoch timed by CUDA
+    events and DP_PROFILE_STEPS more steps under the profiler. Returns (ms per D step after the
+    first epoch, K4 and K5 launches in the Trainer's epoch, K4 and K5 CUDA
+    launches in the profiled one)."""
+    import torch
+    from csl_gan_tpu_torch import options as toptions
+    from csl_gan_tpu_torch.ops import pallas_groupnorm as gn
+    from csl_gan_tpu_torch.training.loop import Trainer
+    from csl_gan_tpu_torch.training.segment_runner import StepRunner
+
+    out = out_root / "dp_modes" / name.replace(" ", "_")
+    opt = toptions.parse(argv + ["-ne", "1", "--log_every", str(tss), "--manual_seed", "1",
+                                 "-o", str(out)])
+    t_start = time.perf_counter()
+    tr = Trainer(opt)
+    t_init = time.perf_counter() - t_start
+    if not isinstance(tr.runner, StepRunner):
+        fail(f"{name} does not take the step runner")
+    wrappers = (gn.gn_relu_forward, gn.gn_relu_backward)
+    for w in wrappers:
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = [w.launches for w in wrappers]
+    n = tr.n_batches
+    first_ms = [a.elapsed_time(b) for a, b in tr.runner.epoch_events][0] / n
+    with open(out / "log.csv") as fh:
+        row = list(csv.DictReader(fh))[-1]
+    losses = {k: float(row[k]) for k in ("G Adv Loss", "G Aux Loss", "D Adv Loss",
+                                         "D Real Loss", "D Fake Loss", "D Real Aux Loss")}
+    extra = ""
+    if "IS Mean" in row:
+        sens = {k: [float(v) for v in row[k].strip("[]").split()]
+                for k in ("IS Mean", "IS Min", "IS Max")}
+        if not all(math.isfinite(v) and v >= 0 for vs in sens.values() for v in vs) or \
+                not max(sens["IS Max"]) > 0:
+            fail(f"{name}: bad IS columns {sens}")
+        extra += "; " + "; ".join(f"{k} {' '.join(f'{v:.4g}' for v in vs)}"
+                                  for k, vs in sens.items())
+    if opt.use_dp:
+        with open(out / "privacy_log.csv") as fh:
+            eps = [float(r["Epsilon"]) for r in csv.DictReader(fh)]
+        if len(eps) != 1 or not (math.isfinite(eps[0]) and eps[0] > 0):
+            fail(f"{name}: bad epsilon column {eps}")
+        extra += f"; epsilon {eps[0]:.6f} ({type(tr.accountant).__name__})"
+    if not all(math.isfinite(v) for v in losses.values()):
+        fail(f"non-finite losses on {name}: {losses}")
+    if not all(torch.isfinite(t).all() for p in (tr.state.d_params, tr.state.g_params,
+                                                  tr.state.g_batch_stats) for t in p.values()):
+        fail(f"non-finite params after {name}")
+    if tr.state.d_count != n or tr.state.g_count != -(-n // opt.n_d_steps):
+        fail(f"D / G update counts {tr.state.d_count} / {tr.state.g_count} on {name}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    s0, s1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s0.record()
+    tr.state, *_ = tr.runner.run(tr.state, tr.gen_perm, tr.gen, 1)
+    s1.record()
+    torch.cuda.synchronize()
+    step_ms = s0.elapsed_time(s1) / n
+    # The profile is of the first DP_PROFILE_STEPS steps of an epoch: the
+    # tables of a whole MNIST epoch take ~35-60 s to build.
+    t_prof = time.perf_counter()
+    tr.runner.n = min(n, DP_PROFILE_STEPS)
+    busy, span, by_kernel = profile_step_runner(tr, name)
+    tr.runner.n = n
+    t_prof = time.perf_counter() - t_prof
+    traced = [sum(cnt for _, cnt, key in by_kernel if any(k in key for k in ks))
+              for ks in (K4_FWD_KERNELS, K5_BWD_KERNELS)]
+    norm = "BatchNorm" if tr.builder.g_has_bn else ("GroupNorm" if opt.model != "Vanilla"
+                                                    else "no norm")
+    print(f"{name} [{smi}]: {n} D steps an epoch ({tr.state.g_count} G updates so far), "
+          f"G {norm}; ms per D step first epoch {first_ms:.3f}, next epoch {step_ms:.3f} "
+          f"({opt.batch_size * 1e3 / step_ms:.0f} samples/s); device busy {busy:.3f} ms of "
+          f"{span:.3f} ms over {min(n, DP_PROFILE_STEPS)} profiled D steps "
+          f"({100 * busy / span:.1f}%); wall of the Trainer "
+          f"epoch {wall:.2f} s (Trainer built in {t_init:.2f} s; profile and its tables "
+          f"{t_prof:.2f} s; the run {time.perf_counter() - t_start:.2f} s); peak memory {peak:.2f} GiB; K4 / K5 launches {launches} "
+          f"(CUDA launches traced {traced}); losses "
+          + ", ".join(f"{k} {v:.4f}" for k, v in losses.items()) + extra)
+    return step_ms, launches, traced, tr
+
+
+def is_step_breakdown(tr, gc_step_ms):
+    """Where one full-width CelebA is D step's device time goes (CUDA events
+    around each part): the first-order pass with its graph, the second-order
+    pass (under -ispp true one batched backward with a cotangent per D
+    leaf), the penalty's gradient, the rest (fakes, noise, Adam, metrics)."""
+    import torch
+    from csl_gan_tpu_torch.ops import grads as gops
+
+    b, st0 = tr.builder, tr.state
+    gen = torch.Generator(tr.device).manual_seed(33)
+    x = torch.rand(CB, 64, 64, 3, generator=gen, device=tr.device) * 2 - 1
+    y = b.gen_y(gen, CB)
+    z = b.gen_z(gen, CB)
+    leaves = [st0.d_params[k] for k in b.d_leaves]
+    eps = gops.unit_normals(gen, leaves)
+    pen_x, pen_y = tr.mean_sampler.device_sample(tr._dev_mean, gen, y, CB)
+    alphas = [torch.rand((CB, 1, 1, 1), generator=gen, device=tr.device)]
+    fake, _ = b._step_fakes(st0, z, y)
+
+    def first():
+        p = {k: v.detach().requires_grad_(True) for k, v in st0.d_params.items()}
+        x_in = x.detach().requires_grad_(True)
+        with torch.enable_grad():
+            total = b._full_batch_loss(p, x_in, y, fake)[0]
+            g = torch.autograd.grad(total, [p[k] for k in b.d_leaves], create_graph=True)
+        return x_in, g
+
+    def second():
+        x_in, g = first()
+        with torch.enable_grad():
+            return b.sensitivity(list(g), x_in, st0.scaling_vec)
+
+    t_first = cuda_ms(first, 3)
+    t = {"first-order pass (graph kept)": t_first,
+         f"second-order pass ({len(leaves)} leaves, batched)": cuda_ms(second, 3) - t_first,
+         "penalty gradient": cuda_ms(lambda: b._penalty_grads(st0.d_params, pen_x, pen_y, fake,
+                                                              alphas), 3)}
+    whole = cuda_ms(lambda: b.d_step_is(st0, x, y, z, eps, pen_x=pen_x, pen_y=pen_y,
+                                        alphas=alphas), 3)
+    t["the rest (fakes, noise, Adam, metrics)"] = whole - sum(t.values())
+    print(f"CelebA is D step breakdown (bs {CB}, per-parameter, CUDA events, ms): whole step "
+          f"{whole:.3f}; " + "; ".join(f"{k} {v:.3f} ({100 * v / whole:.1f}%)"
+                                       for k, v in t.items())
+          + (f"; the conv-ghost gc D step of this run: {gc_step_ms:.3f} ms "
+             f"({whole / gc_step_ms:.2f}x)" if gc_step_ms else ""))
+
+
+def tm_step_check(dev, out_root):
+    """One full-width CelebA tm D step and G step (bs 8, bf16 compute,
+    deterministic cuDNN) through K4/K5 against the same steps with K4/K5's
+    plain versions swapped in, both on the card and on the same draws (the
+    trimmed mean's noise set to 0, so that the per-sample gradients decide
+    it). Held, as the bf16 gc step is, to STEP_BF16_FACTOR times a witness:
+    the plain steps with K4/K5's outputs moved by one ulp on the share of
+    elements K4/K5 moved in the kernel steps."""
+    import numpy as np
+    import torch
+    from csl_gan_tpu_torch import options as toptions
+    from csl_gan_tpu_torch.models.registry import init_models
+    from csl_gan_tpu_torch.training.steps import StepBuilder
+
+    bs = 8
+    opt = toptions.parse(["CelebA", "--conditional", "-dpm", "tm", "-bs", str(bs), "-tss",
+                          "12800", "-nms", "1", "--mean_sample_size", "8", "--bf16", "true",
+                          "--train_d_until_threshold", "1e18", "--manual_seed", "1",
+                          "--platform", "gpu", "-o", str(out_root / "tm_step")])
+    G, D = init_models(opt, dev)
+    b = StepBuilder(opt, G, D)
+    st0 = b.init_state()
+    rng = np.random.default_rng(6)
+    t = lambda a: torch.from_numpy(np.asarray(a)).to(dev)  # noqa: E731
+    x = t(rng.uniform(-1, 1, (bs, 64, 64, 3)).astype(np.float32))
+    y, yg = t(rng.integers(0, 2, bs)), t(rng.integers(0, 2, bs))
+    z, zg = (t(rng.standard_normal((bs, 128)).astype(np.float32)) for _ in range(2))
+    pen_x = t(rng.uniform(-1, 1, (bs, 64, 64, 3)).astype(np.float32))
+    alpha = t(rng.uniform(0, 1, (bs, 1, 1, 1)).astype(np.float32))
+    noise = [torch.zeros_like(st0.d_params[k]) for k in b.d_leaves]
+
+    def steps():
+        st_d, dm = b.d_step_tmsv(st0, x, y, z, noise, pen_x=pen_x, pen_y=y, alphas=[alpha])
+        st_g, gm = b.g_step_dcresnet(st0, zg, yg)
+        torch.cuda.synchronize()
+        return st_d, st_g, dm, gm
+
+    def gaps(one, ref):
+        (d1, g1, dm1, gm1), (d0, g0, dm0, gm0) = one, ref
+        out = {}
+        for group, u, v in (("D params", d1.d_params, d0.d_params), ("D mu", d1.d_mu, d0.d_mu),
+                            ("D nu", d1.d_nu, d0.d_nu), ("G mu", g1.g_mu, g0.g_mu),
+                            ("G nu", g1.g_nu, g0.g_nu)):
+            out[group] = rel_l2(torch.cat([u[k].reshape(-1) for k in v]),
+                                torch.cat([v[k].reshape(-1) for k in v]))
+        counts = ("d_real_acc", "d_fake_acc", "d_real_aux_acc", "g_aux_acc")
+        out["metrics"] = max(
+            float((m1[k] - m0[k]).abs().max() / max(float(m0[k].abs().max()), 1e-2))
+            for m1, m0 in ((dm1, dm0), (gm1, gm0)) for k in m1 if k not in counts)
+        return out
+
+    cudnn = torch.backends.cudnn
+    was = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    shares = {"fwd": [], "bwd": []}
+    try:
+        with gn_recorded(shares):
+            kern = steps()
+        with plain_versions():
+            plain, again = steps(), steps()
+        with gn_ulp_moved(shares, seed=7):
+            moved = steps()
+    finally:
+        cudnn.deterministic, cudnn.benchmark = was
+    fmt = lambda r: ", ".join(f"{k} {v:.3e}" for k, v in r.items())  # noqa: E731
+    gap, rep, wit = gaps(kern, plain), gaps(again, plain), gaps(moved, plain)
+    held = [(k, gap[k], STEP_BF16_FACTOR * wit[k]) for k in gap]
+    print(f"CelebA tm D step and G step (bs {bs}, bf16, full width) through K4/K5 vs plain "
+          f"on the card: rel l2 {fmt(gap)}; plain repeated {fmt(rep)}; witness, plain with "
+          f"K4/K5's outputs moved one ulp on the shares they moved (mean "
+          f"{sum(shares['fwd']) / len(shares['fwd']):.3e} of y's, "
+          f"{sum(shares['bwd']) / len(shares['bwd']):.3e} of dx's; {len(shares['fwd'])} / "
+          f"{len(shares['bwd'])} calls): {fmt(wit)}; held "
+          + ", ".join(f"{k} {g:.3e} <= {bd:.3e}" for k, g, bd in held)
+          + f" ({STEP_BF16_FACTOR:g}x the witness)")
+    if not shares["fwd"] or not shares["bwd"]:
+        fail("K4 / K5 did not run in the tm step check")
+    if max(rep.values()) != 0.0:
+        fail("the plain tm steps do not repeat exactly on the card")
+    if not all(g <= bd for _, g, bd in held):
+        fail(f"the bf16 CelebA tm steps through K4/K5 leave the plain steps by more than "
+             f"{STEP_BF16_FACTOR:g}x the one-ulp witness")
+
+
+def dp_modes_phase(dev, out_root, smi, gc_step_ms=None):
+    """The D-step engines beside gc through the Trainer: MNIST (is flat, per
+    parameter and moving-avg-pl, tm, sv) and CelebA (is, tm, no DP), the
+    bf16 tm step through K4/K5 against its plain version and the CelebA is
+    step's breakdown. Returns K4's and K5's launches on the CelebA tm
+    path."""
+    import shutil
+
+    import torch
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(out_root / "dp_modes", ignore_errors=True)
+    for name, mode in DP_MNIST_MODES:
+        _, launches, _, tr = dp_mode_run(f"MNIST {name}", DP_MNIST + mode, 60000, out_root, smi)
+        if launches != [0, 0]:
+            fail(f"K4/K5 launched on the MNIST {name} path: {launches}")
+        del tr
+    tm_step_check(dev, out_root)
+    tm_launches = None
+    for name, mode in DP_CELEBA_MODES:
+        _, launches, traced, tr = dp_mode_run(f"CelebA {name}", DP_CELEBA + mode, 1280,
+                                              out_root, smi)
+        # The G has GroupNorm (K4/K5) exactly when per-sample gradients are
+        # on; under -dpm is and without DP it is the BatchNorm G.
+        if not ((max(launches) == 0 and max(traced) == 0) if tr.builder.g_has_bn
+                else (min(launches) > 0 and min(traced) > 0)):
+            fail(f"CelebA {name}: K4 / K5 launches {launches} (traced {traced}) with a "
+                 f"{'BatchNorm' if tr.builder.g_has_bn else 'GroupNorm'} G")
+        if name == "tm":
+            tm_launches = launches
+        if name == "is":
+            is_step_breakdown(tr, gc_step_ms)
+        del tr
+        torch.cuda.empty_cache()
+    print(f"D-step engines phase [{smi}]: {time.perf_counter() - t_phase:.1f} s")
+    return tm_launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2029,6 +2325,12 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     from csl_gan_tpu_torch.ops import _build
+
+    out_root = REPO / "build" / "chip_smoke"
+    if "--dp-modes" in sys.argv[1:]:
+        _build.build_all(("gn_relu",))
+        dp_modes_phase(dev, out_root, smi)
+        return 0
 
     # 2. Build.
     t0 = time.perf_counter()
@@ -2068,7 +2370,6 @@ def main() -> int:
     if "--gn-plans" in sys.argv[1:]:
         gn_plans_phase(dev)
         return 0
-    out_root = REPO / "build" / "chip_smoke"
     if "--saves" in sys.argv[1:]:
         saves_phase(out_root, smi)
         return 0
@@ -2087,6 +2388,12 @@ def main() -> int:
 
     # 6. The materialized per-sample-gradient paths (K6).
     kernels.append(clip_phases(dev, out_root, peak_bytes, k1_epoch_ms, celeba_step_ms))
+
+    # 7. The D-step engines beside gc (is, tm / sv, no DP).
+    tm_launches = dp_modes_phase(dev, out_root, smi, celeba_step_ms)
+    for entry in kernels:
+        if entry["name"] in ("gn_relu_forward", "gn_relu_backward"):
+            entry["celeba_tm_launches"] = tm_launches[entry["name"] == "gn_relu_backward"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

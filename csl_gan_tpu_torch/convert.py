@@ -11,7 +11,9 @@ Module paths: the vanilla MNIST G's auto-named ``TorchDense_0`` /
 ``TorchDense_1`` are ``lin1`` / ``lin2`` in the port (like D's); the DCResNet
 pair keeps the flax names, and a flax conv's ``.../TorchConv_i/Conv_0`` is the
 port's ``....TorchConv_i`` (models/dcresnet.py). ``train_state_from_jax`` also
-carries Adam ``mu`` / ``nu`` / ``count`` for D and G and the clip value; the
+carries Adam ``mu`` / ``nu`` / ``count`` for D and G, the clip value and the
+IS scaling vector (a float placeholder or an fp32 tensor in leaf order) and
+a BatchNorm G's running averages (``batch_stats``); the
 ``*_to_jax`` functions invert each mapping, so a test can compare in either
 layout. The clip value is a float (flat clipping) or, under per-layer
 clipping, the thresholds in leaf order, which both packages share: a tuple of
@@ -103,8 +105,44 @@ def clipping_from_jax(clipping):
     return float(c) if c.ndim == 0 else tuple(float(v) for v in c)
 
 
+def stats_from_jax(tree: Mapping, device: Optional[torch.device] = None
+                   ) -> Dict[str, torch.Tensor]:
+    """flax ``batch_stats`` (BatchNorm running ``mean`` / ``var``) -> the
+    port's buffers by state-dict name."""
+    return {".".join(path): torch.tensor(np.asarray(v, np.float32), device=device)
+            for path, v in _leaves(tree)}
+
+
+def stats_to_jax(stats: Mapping[str, torch.Tensor]) -> Dict:
+    """Inverse of stats_from_jax: a nested tree of numpy arrays."""
+    out: Dict = {}
+    for key, t in stats.items():
+        *mods, leaf = key.split(".")
+        node = out
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf] = t.detach().cpu().numpy().astype(np.float32)
+    return out
+
+
+def scaling_vec_from_jax(v, device: Optional[torch.device] = None):
+    """The JAX TrainState's scaling_vec (the fp32 0.0 placeholder, or the
+    per-leaf vector) as the port's float or fp32 tensor on `device`."""
+    a = np.asarray(v, np.float32)
+    return float(a) if a.ndim == 0 else torch.tensor(a, device=device)
+
+
+def scaling_vec_to_jax(v) -> np.ndarray:
+    """Inverse of scaling_vec_from_jax: an fp32 numpy array."""
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().numpy().astype(np.float32)
+    return np.asarray(v, np.float32)
+
+
 def train_state_from_jax(d_params, g_params, d_adam, g_adam, clipping,
-                         device: Optional[torch.device] = None) -> TrainState:
+                         device: Optional[torch.device] = None,
+                         scaling_vec=0.0, g_batch_stats: Optional[Mapping] = None
+                         ) -> TrainState:
     """The port's TrainState from the JAX one's pieces as numpy trees.
     ``d_adam`` / ``g_adam`` are (mu, nu, count) of optax's ScaleByAdamState."""
     d_mu, d_nu, d_count = d_adam
@@ -117,7 +155,9 @@ def train_state_from_jax(d_params, g_params, d_adam, g_adam, clipping,
         g_mu=params_from_jax(g_mu, "G", device),
         g_nu=params_from_jax(g_nu, "G", device),
         d_count=int(d_count), g_count=int(g_count),
-        clipping=clipping_from_jax(clipping))
+        clipping=clipping_from_jax(clipping),
+        scaling_vec=scaling_vec_from_jax(scaling_vec, device),
+        g_batch_stats=stats_from_jax(g_batch_stats or {}, device))
 
 
 def train_state_to_jax(state: TrainState) -> dict:
@@ -130,4 +170,6 @@ def train_state_to_jax(state: TrainState) -> dict:
         "g_adam": (params_to_jax(state.g_mu, "G"), params_to_jax(state.g_nu, "G"),
                    state.g_count),
         "clipping": np.asarray(state.clipping, np.float32),
+        "scaling_vec": scaling_vec_to_jax(state.scaling_vec),
+        "g_batch_stats": stats_to_jax(state.g_batch_stats),
     }

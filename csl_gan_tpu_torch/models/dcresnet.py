@@ -1,13 +1,16 @@
 """DCResNet WGAN pair (the JAX package's models/dcresnet.py) as nn.Modules.
 
 Generator: linear stem -> upsampling residual blocks (nearest 2x upsample +
-5x5 conv; GroupNorm(32)+ReLU, the per-sample-grad-mode norm) -> GroupNorm+ReLU
--> 3x3 conv -> tanh. Discriminator: strided 5x5 convs with leaky-relu(0.2),
+5x5 conv; norm + ReLU) -> norm + ReLU -> 3x3 conv -> tanh. The norm is
+GroupNorm(32) when per-sample gradients are on (``-dpm gc / tm / sv``) and
+BatchNorm otherwise (``-dpm is`` and non-private runs; ``bn``), as the JAX
+package and the reference choose it (init_util.py: bn = not
+per_sample_grad). Discriminator: strided 5x5 convs with leaky-relu(0.2),
 flatten, linear critic head ``linOut`` and, for ACGAN, the auxiliary
 classifier head ``linOutAux``. family = "wgan".
 
 Module names are the JAX package's (``TorchDense_0``, ``ResBlockUp_i``,
-``UpsampleConv_0/1``, ``GroupNorm_0/1``, ``TorchConv_i``, ``linOut``,
+``UpsampleConv_0/1``, ``GroupNorm_0/1`` or ``BatchNorm_0/1``, ``TorchConv_i``, ``linOut``,
 ``linOutAux``), so a state-dict key is the flax param path without its
 ``Conv_0`` level (convert.py). Activations are NHWC at every public function
 and run as channels-last tensors inside.
@@ -24,8 +27,12 @@ Differences from the JAX modules, by design:
     ``--phase_carry`` variants are TPU layout choices with identical values.
   - Every GroupNorm+ReLU is the K4/K5 autograd function of
     ops/pallas_groupnorm.py.
-  - Only the per-sample-grad (GroupNorm) generator, the concat label
-    embedding and the ACGAN / unconditional discriminators are ported.
+  - BatchNorm (``BatchNormRelu``) keeps its running averages as buffers
+    (``mean``, ``var``: the flax ``batch_stats``); the G forward takes
+    ``train``: batch statistics, with the running averages updated in place
+    in the buffers it was given, or (eval) the running averages.
+  - Only the concat label embedding and the ACGAN / unconditional
+    discriminators are ported.
 """
 
 from __future__ import annotations
@@ -70,6 +77,45 @@ def gn_relu(x: torch.Tensor, gn: nn.GroupNorm) -> torch.Tensor:
     return group_norm_relu(x, gn.weight, gn.bias, gn.num_groups, gn.eps)
 
 
+class BatchNormRelu(nn.Module):
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` + ReLU over NHWC, in
+    fp32 (the JAX G's norm layers compute fp32 under --bf16). In training
+    mode it normalizes by the batch's mean and fast variance
+    max(E[x^2] - E[x]^2, 0) and writes 0.9 * running + 0.1 * batch into its
+    ``mean`` / ``var`` buffers in place (outside autograd); in eval mode it
+    normalizes by the buffers."""
+
+    def __init__(self, features: int, momentum: float = 0.9, eps: float = 1e-5):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+        self.momentum, self.eps = momentum, eps
+
+    def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
+        xf = x.float()
+        if train:
+            mean = xf.mean(dim=(0, 1, 2))
+            var = torch.clamp((xf * xf).mean(dim=(0, 1, 2)) - mean * mean, min=0.0)
+            with torch.no_grad():
+                self.mean.copy_(self.momentum * self.mean + (1.0 - self.momentum) * mean)
+                self.var.copy_(self.momentum * self.var + (1.0 - self.momentum) * var)
+        else:
+            mean, var = self.mean, self.var
+        return torch.relu((xf - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias)
+
+
+def _norm(cin: int, bn: bool) -> nn.Module:
+    return BatchNormRelu(cin) if bn else nn.GroupNorm(32, cin, eps=1e-5)
+
+
+def norm_relu(x: torch.Tensor, norm: nn.Module, train: bool) -> torch.Tensor:
+    if isinstance(norm, BatchNormRelu):
+        return norm(x, train)
+    return gn_relu(x, norm)
+
+
 class UpsampleConv(nn.Module):
     """Nearest 2x upsample + same-padded conv; the 1x1 shortcut runs the conv
     first (it commutes with the upsample)."""
@@ -87,22 +133,24 @@ class UpsampleConv(nn.Module):
 
 
 class ResBlockUp(nn.Module):
-    """Upsampling residual block (reference DCResNet_models.py:19-38), GroupNorm form."""
+    """Upsampling residual block (reference DCResNet_models.py:19-38)."""
 
-    def __init__(self, cin: int, features: int, kernel_size: int = 5):
+    def __init__(self, cin: int, features: int, kernel_size: int = 5, bn: bool = False):
         super().__init__()
+        norm = "BatchNorm" if bn else "GroupNorm"
         self.UpsampleConv_0 = UpsampleConv(cin, features, 1)
-        self.GroupNorm_0 = nn.GroupNorm(32, cin, eps=1e-5)
+        setattr(self, f"{norm}_0", _norm(cin, bn))
         self.UpsampleConv_1 = UpsampleConv(cin, features, kernel_size, bias=False)
-        self.GroupNorm_1 = nn.GroupNorm(32, features, eps=1e-5)
+        setattr(self, f"{norm}_1", _norm(features, bn))
         self.TorchConv_0 = nn.Conv2d(features, features, kernel_size,
                                      padding=(kernel_size - 1) // 2)
+        self.norms = (f"{norm}_0", f"{norm}_1")
 
-    def forward(self, x, dtype=None):
+    def forward(self, x, dtype=None, train: bool = True):
         s = self.UpsampleConv_0(x, dtype)
-        o = gn_relu(x, self.GroupNorm_0)
+        o = norm_relu(x, getattr(self, self.norms[0]), train)
         o = self.UpsampleConv_1(o, dtype)
-        o = gn_relu(o, self.GroupNorm_1)
+        o = norm_relu(o, getattr(self, self.norms[1]), train)
         o = _conv(o, self.TorchConv_0, dtype)
         return o + s
 
@@ -112,7 +160,7 @@ class DCResNetGenerator(nn.Module):
 
     def __init__(self, channels: Sequence[int], first_filter_size: int,
                  z_dim: int = 128, out_ch: int = 3, n_classes: int = 0,
-                 dtype=None):
+                 dtype=None, bn: bool = False):
         super().__init__()
         self.channels = list(channels)
         self.first_filter_size = first_filter_size
@@ -121,12 +169,14 @@ class DCResNetGenerator(nn.Module):
         f = first_filter_size
         self.TorchDense_0 = nn.Linear(z_dim + n_classes, f * f * self.channels[0])
         for i, (cin, ch) in enumerate(zip(self.channels[:-1], self.channels[1:])):
-            setattr(self, f"ResBlockUp_{i}", ResBlockUp(cin, ch, 5))
+            setattr(self, f"ResBlockUp_{i}", ResBlockUp(cin, ch, 5, bn))
         self.n_blocks = len(self.channels) - 1
-        self.GroupNorm_0 = nn.GroupNorm(32, self.channels[-1], eps=1e-5)
+        self.norm = "BatchNorm_0" if bn else "GroupNorm_0"
+        setattr(self, self.norm, _norm(self.channels[-1], bn))
         self.TorchConv_0 = nn.Conv2d(self.channels[-1], out_ch, 3, padding=1)
 
-    def forward(self, z: torch.Tensor, y: Optional[torch.Tensor] = None):
+    def forward(self, z: torch.Tensor, y: Optional[torch.Tensor] = None,
+                train: bool = True):
         x = z
         if y is not None and self.n_classes > 0:
             x = torch.cat([z, one_hot(y, self.n_classes)], dim=1)
@@ -134,8 +184,8 @@ class DCResNetGenerator(nn.Module):
         lin = self.TorchDense_0
         x = dense(x, lin.weight, lin.bias, self.dtype).view(z.shape[0], f, f, self.channels[0])
         for i in range(self.n_blocks):
-            x = getattr(self, f"ResBlockUp_{i}")(x, self.dtype)
-        x = gn_relu(x, self.GroupNorm_0)
+            x = getattr(self, f"ResBlockUp_{i}")(x, self.dtype, train)
+        x = norm_relu(x, getattr(self, self.norm), train)
         x = _conv(x, self.TorchConv_0, self.dtype)
         return torch.tanh(x.float())
 

@@ -27,7 +27,9 @@ def _dcresnet_pair(opt):
 
 def init_models(opt, device: torch.device):
     """(G, D) per config, on `device`: the MNIST vanilla pair, or the DCResNet
-    pair with GroupNorm (per-sample-grad mode), bf16 compute under --bf16."""
+    pair, bf16 compute under --bf16, whose G has GroupNorm when per-sample
+    gradients are on (-dpm gc / tm / sv) and BatchNorm otherwise (the JAX
+    package's ``bn = not per_sample_grad``)."""
     n_classes = opt.n_classes if opt.conditional else 0
     if opt.model == "Vanilla" and opt.dataset == "MNIST":
         G = mnist.MNISTVanillaG(z_dim=opt.g_latent_dim, n_classes=n_classes)
@@ -36,7 +38,8 @@ def init_models(opt, device: torch.device):
     elif opt.model == "DeepConvResNet":
         g_ctor, d_ctor = _dcresnet_pair(opt)
         dtype = torch.bfloat16 if opt.bf16 else None
-        G = g_ctor(z_dim=opt.g_latent_dim, n_classes=n_classes, dtype=dtype)
+        G = g_ctor(z_dim=opt.g_latent_dim, n_classes=n_classes, dtype=dtype,
+                   bn=not opt.per_sample_grad)
         D = d_ctor(n_classes=n_classes, conditional_arch=opt.conditional_arch,
                    dtype=dtype)
     else:

@@ -13,6 +13,11 @@ package's ops/grads.py.
     backward of sum_i w_i * loss_i.
   - ``add_gaussian_noise``: std sigma * C (flat) or sigma * C_l per leaf, which
     keeps the effective noise multiplier exactly sigma in both modes.
+  - ``unit_normals`` / ``add_scaled_noise``: the noise of a step whose per-leaf
+    stds are data-dependent (immediate sensitivity): one N(0, 1) draw sliced
+    per leaf, scaled on the device by an fp32 ``[n_leaves]`` tensor of stds,
+    with no read to the host.
+  - ``per_leaf_norms`` / ``global_norm`` of one (unbatched) gradient.
 
 Params are dicts of torch state-dict names; per-sample gradients are dicts of
 the same names with a leading [batch] axis. Per-leaf vectors (norms, factors,
@@ -275,6 +280,36 @@ def noise_like(gen: torch.Generator, leaves: Sequence[torch.Tensor],
     return [torch.randn(lead + tuple(l.shape), generator=gen,
                         device=gen.device, dtype=torch.float32) * s
             for l, s in zip(leaves, stds)]
+
+
+def unit_normals(gen: torch.Generator, leaves: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """N(0, 1) shaped like each leaf: one flat draw on the generator's device,
+    sliced per leaf (disjoint slices of one draw are independent normals)."""
+    total = sum(l.numel() for l in leaves)
+    flat = torch.randn(total, generator=gen, device=gen.device, dtype=torch.float32)
+    out, off = [], 0
+    for l in leaves:
+        out.append(flat[off:off + l.numel()].reshape(l.shape))
+        off += l.numel()
+    return out
+
+
+def add_scaled_noise(leaves: Sequence[torch.Tensor], eps: Sequence[torch.Tensor],
+                     stds: torch.Tensor) -> List[torch.Tensor]:
+    """leaves[l] + stds[l] * eps[l], with ``stds`` an fp32 ``[n_leaves]`` tensor
+    on the leaves' device (JAX ``add_gaussian_noise(key, grads, 1.0, stds,
+    per_layer=True)``)."""
+    return [g + stds[i] * e for i, (g, e) in enumerate(zip(leaves, eps))]
+
+
+def per_leaf_norms(leaves: Sequence[torch.Tensor]) -> torch.Tensor:
+    """L2 norm of each leaf, in fp32: ``[n_leaves]``."""
+    return torch.stack([torch.sqrt(torch.sum(g.float() ** 2)) for g in leaves])
+
+
+def global_norm(leaves: Sequence[torch.Tensor]) -> torch.Tensor:
+    """L2 norm of all leaves together, in fp32."""
+    return torch.sqrt(sum(torch.sum(g.float() ** 2) for g in leaves))
 
 
 def add_gaussian_noise(gen: torch.Generator, leaves: Sequence[torch.Tensor],

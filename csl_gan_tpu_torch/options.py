@@ -284,6 +284,9 @@ def derive_and_validate(opt) -> None:
             "Lower -bs or raise -tss.")
     if (opt.g_label_emb_mode != "concat" or opt.d_label_emb_mode != "concat") and opt.model == "Vanilla":
         raise Exception("Vanilla model with embedded labels not implemented")
+    if opt.imm_sens_per_param and opt.imm_sens_scaling_mode not in (None, "standard"):
+        raise Exception("Calculating IS per parameter does not require per parameter scaling. "
+                        "Scaling estimates per-parameter calculation.")
 
 
 def validate_public_data(opt) -> None:
@@ -323,7 +326,6 @@ def _k1_path(o) -> bool:
 # The vanilla MNIST flagship runs on the epoch kernel K1, every other ported
 # configuration on the step runner (training/loop.py).
 _NOT_PORTED = [
-    ("--dp_mode (only gc is ported)", lambda o: o.dp_mode not in (None, "gc")),
     ("--penalty on the vanilla model", lambda o: bool(o.penalty) and _vanilla(o)),
     ("--penalty DRAGAN", lambda o: any(p.startswith("DRAGAN") for p in o.penalty)),
     ("-pupd false (the per-sample penalty)",
@@ -353,8 +355,6 @@ _NOT_PORTED = [
      "vanilla ACGAN epoch kernel)",
      lambda o: o.sample_every_epochs < 0 and _k1_path(o)),
     ("--stop_on_g_freeze", lambda o: o.stop_on_g_freeze > 0),
-    ("--model DeepConvResNet without -dpm gc",
-     lambda o: not _vanilla(o) and o.dp_mode != "gc"),
     ("--g_label_emb_mode embed", lambda o: o.g_label_emb_mode != "concat"),
     ("unconditional training (--conditional)", lambda o: not o.conditional),
     ("--conditional_arch CGAN / WCGAN (only ACGAN is ported)",
@@ -393,6 +393,7 @@ def parse(argv=None) -> Namespace:
             os.makedirs(loaded.output_dir + path, exist_ok=True)
         return loaded
     opt.cpl_user_set = opt.clipping_param_per_layer is not None
+    opt.issv_user_set = opt.imm_sens_scaling_vec is not None
     fill_defaults(opt, MNIST_DEFAULTS if opt.dataset == "MNIST" else CELEBA_DEFAULTS)
     derive_and_validate(opt)
     check_ported(opt)

@@ -94,7 +94,12 @@ def accountant_from_state_dict(state: dict):
     return RdpAccountant.from_state_dict(state)
 
 
-def make_accountant(opt) -> RdpAccountant:
-    """The accountant for a gc-mode config (budget_analysis.py:24-33)."""
+def make_accountant(opt):
+    """The accountant for a config (budget_analysis.py:24-33): zCDP at
+    ``tm_rho_per_epoch`` per epoch for tm / sv, RDP of the sampled Gaussian
+    otherwise."""
+    if opt.dp_mode in ("tm", "sv"):
+        steps_per_epoch = max(1, opt.train_set_size // opt.batch_size)
+        return ZcdpAccountant(rho_per_step=opt.tm_rho_per_epoch / steps_per_epoch)
     return RdpAccountant(batch_size=opt.batch_size, sample_size=opt.train_set_size,
                          noise_multiplier=opt.sigma)

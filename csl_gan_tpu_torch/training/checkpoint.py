@@ -8,10 +8,11 @@ does), so a save of either package loads in the other.
   ``convert.params_from_jax`` on the way back).
 - ``optimizer_state_dict``: optax.adam's state, ``{"0": {"count", "mu",
   "nu"}, "1": {}}`` with ``count`` an int32 scalar.
-- G: ``batch_stats`` ``{}``. D: ``clipping`` (an fp32 scalar, or the
-  per-leaf vector in leaf order), ``scaling_vec`` (the fp32 ``0.0``
-  placeholder), ``accountant`` (the accountant's state dict, ``{}`` without
-  DP).
+- G: ``batch_stats``, a BatchNorm G's running averages (``{}`` for the
+  other generators). D: ``clipping`` (an fp32 scalar, or the
+  per-leaf vector in leaf order), ``scaling_vec`` (the IS scaling, an fp32
+  per-leaf vector in leaf order, or the fp32 ``0.0`` placeholder),
+  ``accountant`` (the accountant's state dict, ``{}`` without DP).
 - ``epoch`` and ``loss``.
 
 The D save also carries one key of the port's own, ``torch_run_state``: the
@@ -63,7 +64,7 @@ def save_g(path: str, epoch: int, state: TrainState, loss: float = 0.0) -> None:
     _write(path, {
         "epoch": int(epoch),
         "model_state_dict": convert.params_to_jax(state.g_params, "G"),
-        "batch_stats": {},
+        "batch_stats": convert.stats_to_jax(state.g_batch_stats),
         "optimizer_state_dict": _adam(state.g_mu, state.g_nu, state.g_count, "G"),
         "loss": float(loss),
     })
@@ -77,7 +78,7 @@ def save_d(path: str, epoch: int, state: TrainState,
         "model_state_dict": convert.params_to_jax(state.d_params, "D"),
         "optimizer_state_dict": _adam(state.d_mu, state.d_nu, state.d_count, "D"),
         "clipping": np.asarray(state.clipping, np.float32),
-        "scaling_vec": np.asarray(0.0, np.float32),
+        "scaling_vec": convert.scaling_vec_to_jax(state.scaling_vec),
         "accountant": accountant_state or {},
         "loss": float(loss),
     }
@@ -131,17 +132,28 @@ def _opt_state(p: dict, kind: str, params: Params, path: str):
 
 
 def load_g(path: str, state: TrainState) -> Tuple[TrainState, int]:
-    """(state with G's params and Adam state from the save, saved epoch)."""
+    """(state with G's params, Adam state and batch statistics from the
+    save, saved epoch)."""
     p = _load(path)
     g = _params(p["model_state_dict"], "G", state.g_params, path, "model_state_dict")
     mu, nu, count = _opt_state(p, "G", state.g_params, path)
-    return replace(state, g_params=g, g_mu=mu, g_nu=nu, g_count=count), int(p["epoch"])
+    stats = state.g_batch_stats
+    if stats or p.get("batch_stats"):
+        dev = next(iter(g.values())).device
+        got = convert.stats_from_jax(p.get("batch_stats") or {}, dev)
+        if {k: v.shape for k, v in got.items()} != {k: v.shape for k, v in stats.items()}:
+            raise ValueError(f"{path}: batch_stats {sorted(got)} do not fit the model's "
+                             f"{sorted(stats)}")
+        stats = {k: got[k] for k in stats}
+    return replace(state, g_params=g, g_mu=mu, g_nu=nu, g_count=count,
+                   g_batch_stats=stats), int(p["epoch"])
 
 
 def load_d(path: str, state: TrainState
            ) -> Tuple[TrainState, int, Optional[dict], Optional[dict]]:
-    """(state with D's params, Adam state and clipping from the save, saved
-    epoch, accountant state dict or None, the port's run state or None)."""
+    """(state with D's params, Adam state, clipping and IS scaling from the
+    save, saved epoch, accountant state dict or None, the port's run state or
+    None)."""
     p = _load(path)
     d = _params(p["model_state_dict"], "D", state.d_params, path, "model_state_dict")
     mu, nu, count = _opt_state(p, "D", state.d_params, path)
@@ -151,7 +163,14 @@ def load_d(path: str, state: TrainState
         if np.shape(clipping) != np.shape(state.clipping):
             raise ValueError(f"{path}: clipping {clipping} does not fit this "
                              f"configuration's {state.clipping}")
-    state = replace(state, d_params=d, d_mu=mu, d_nu=nu, d_count=count, clipping=clipping)
+    scaling_vec = state.scaling_vec
+    if p.get("scaling_vec") is not None:
+        if np.shape(p["scaling_vec"]) != np.shape(convert.scaling_vec_to_jax(scaling_vec)):
+            raise ValueError(f"{path}: scaling_vec {p['scaling_vec']} does not fit this "
+                             f"configuration's {scaling_vec}")
+        scaling_vec = convert.scaling_vec_from_jax(p["scaling_vec"], d[next(iter(d))].device)
+    state = replace(state, d_params=d, d_mu=mu, d_nu=nu, d_count=count, clipping=clipping,
+                    scaling_vec=scaling_vec)
     return state, int(p["epoch"]), p.get("accountant") or None, p.get(RUN_STATE_KEY)
 
 

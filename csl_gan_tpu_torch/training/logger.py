@@ -68,7 +68,8 @@ def build_logger(opt, csv_path: str, write_header: bool = True) -> Logger:
            + (", Penalty: {:4.4f}" if has_penalty else "") + ")"
            + ("\n=== Grad Norms ===\nMean Per Layer: {}\nStd Per Layer: {}\n"
               "Max Per Layer: {}\nClipping Params: {}\nGrads Clipped: {}"
-              if opt.dp_mode == "gc" else ""))
+              if opt.dp_mode == "gc" else "")
+           + ("\nIS - Mean: {} - Min: {} - Max: {}" if opt.dp_mode == "is" else ""))
     names = (["G Adv Loss"]
              + (["G Aux Loss", "G Aux Acc"] if use_aux else [])
              + ["D Adv Loss", "D Real Loss", "D Real Acc", "D Fake Loss", "D Fake Acc"]
@@ -76,7 +77,8 @@ def build_logger(opt, csv_path: str, write_header: bool = True) -> Logger:
              + (["D Penalty"] if has_penalty else [])
              + (["D Layer Grad Norm Means", "D Layer Grad Norm Stds",
                  "D Layer Grad Norm Maxes", "Clipping Params", "Grads Clipped"]
-                if opt.dp_mode == "gc" else []))
+                if opt.dp_mode == "gc" else [])
+             + (["IS Mean", "IS Min", "IS Max"] if opt.dp_mode == "is" else []))
     interval = ((opt.log_every_epochs * opt.train_set_size
                  if opt.log_every_epochs > 0 else opt.log_every)
                 // opt.batch_size)

@@ -8,14 +8,17 @@ gather). Groups of whole epochs run through a runner, chosen by config:
 
   - the MNIST vanilla conditional ACGAN path (``pallas_epoch.supports`` and
     ``--pallas_epoch true``): the epochs runner, one K1 launch per epoch;
-  - every other ported configuration: the step runner, whose gc D step takes
-    the route the config selects (ghost, conv ghost through K2/K3, two-pass,
-    or materialized per-sample gradients, fused through K6 under
-    ``--pallas true``), with the DCResNet G forward and backward through
-    K4/K5 and WGAN-GP on mean samples.
+  - every other ported configuration: the step runner, whose D step is that
+    of the config's ``--dp_mode`` (gc by the route the config selects: ghost,
+    conv ghost through K2/K3, two-pass, or materialized per-sample gradients,
+    fused through K6 under ``--pallas true``; immediate sensitivity; trimmed
+    mean or sign vote; the non-private step without it), with the DCResNet G
+    forward and backward through K4/K5 and WGAN-GP on mean samples.
 Options outside the ported slice are refused by ``options.check_ported``.
 
-Between groups the host steps the RDP accountant and writes ``log.csv``,
+Between groups the host steps the accountant (RDP; zCDP for tm / sv) and
+writes ``log.csv`` (under ``-dpm is`` with the interval's mean, least and
+largest sensitivity),
 ``privacy_log.csv`` (epsilon plus the mean samples' privacy cost), the
 fixed-z sample grids ``samples/{epoch}-{batch}.png`` on the sample cadence
 (a sub-epoch cadence from inside the step runner) and the
@@ -115,6 +118,8 @@ class Trainer:
         leaves = list(self.builder.d_leaves)
         self._torch_idx = np.asarray([leaves.index(n) for n in self.D.state_dict()])
         self.accountant = make_accountant(opt) if opt.use_dp else None
+        # The is sensitivity's extremes over the log interval (numpy).
+        self._is_min = self._is_max = None
         seed = int(opt.manual_seed)
         self.gen_perm = torch.Generator(self.device).manual_seed(seed * 2 + 1)
         self.gen = torch.Generator(self.device).manual_seed(seed * 2)
@@ -296,7 +301,12 @@ class Trainer:
         for key, name in _G_STATS:
             if key in g_sums and name in s:
                 s[name] = s[name] + g_sums[key]
-        if self.opt.use_dp:
+        if "is_sens" in d_sums:
+            s["IS Mean"] = s["IS Mean"] + d_sums["is_sens"]
+            lo, hi = d_sums["is_sens_min"], d_sums["is_sens_max"]
+            self._is_min = lo if self._is_min is None else np.minimum(self._is_min, lo)
+            self._is_max = hi if self._is_max is None else np.maximum(self._is_max, hi)
+        if self.opt.dp_mode == "gc":
             for key, name in _NORM_STATS:
                 s[name] = s[name] + d_sums[key][self._torch_idx]
             clip = np.asarray(self.state.clipping, np.float32)
@@ -307,6 +317,12 @@ class Trainer:
 
     def _flush_log(self, epoch: int) -> None:
         lg = self.logger
+        if self._is_min is not None:
+            # The interval's extremes, pre-scaled so that the logger's
+            # average divides back to them (JAX training/loop.py:843-855).
+            lg.stats["IS Min"] = self._is_min * lg.interval
+            lg.stats["IS Max"] = self._is_max * lg.interval
+            self._is_min = self._is_max = None
         scale = 0 if lg.log_g_iter == 0 else lg.interval / lg.log_g_iter
         for stat in [k for k in lg.stats if k.startswith("G ")]:
             lg.stats[stat] = np.asarray(lg.stats[stat]) * scale

@@ -17,6 +17,7 @@ seed; value parity is tested with injected draws (tests/test_torch_epoch.py).
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Dict, List, Optional
 
 import torch
@@ -24,7 +25,7 @@ import torch
 from csl_gan_tpu_torch.models.common import one_hot
 from csl_gan_tpu_torch.models.mnist import D_LEAVES
 from csl_gan_tpu_torch.ops import grads as gops
-from csl_gan_tpu_torch.ops import pallas_epoch
+from csl_gan_tpu_torch.ops import pallas_epoch, tmsv
 from csl_gan_tpu_torch.privacy.mean_sampler import MeanSampler
 from csl_gan_tpu_torch.training.steps import StepBuilder, TrainState
 
@@ -85,21 +86,26 @@ class EpochsRunner:
 class StepRunner:
     """k whole epochs, one D step at a time (the JAX package's
     segment_runner.py _build_run, written as a Python loop over steps): the
-    gc D step by the route the config selects (training/steps.py
-    ``d_step_gc``) or, without DP, the vanilla model's plain D step; the G
-    step of the model family.
+    D step of the config's ``dp_mode`` (training/steps.py ``d_core``: gc by
+    the route the config selects, is, tm / sv, or without DP the model's
+    plain D step); the G step of the model family.
 
     Per epoch it draws the row permutation from ``gen_perm``; per step, from
     ``gen`` and in this order: the horizontal flips (uint8 image tables),
-    z_d, the DP noise (per-leaf normals, or on the fused route the per-leaf
-    seeds and then the small leaves' normals, ``ops/grads.draw_fused_noise``),
-    the mean-sample surrogates of the penalty batch and the penalty's
+    z_d, the DP noise (gc: per-leaf normals times the stds, or on the fused
+    route the per-leaf seeds and then the small leaves' normals,
+    ``ops/grads.draw_fused_noise``; is: one N(0, 1) draw sliced per leaf,
+    which the step scales by its own stds on the device; tm: Student-t(3)
+    per leaf; sv: N(0, 1) per leaf), the penalty batch (the mean-sample
+    surrogates, or the real batch without mean samples) and the penalty's
     interpolation weights; on a G update, z_g and y_g. The G update follows
     the D steps i with i % n_d_steps == 0, gated while
     train_d_until_threshold < 1e10 by the mean D adversarial loss since the
     last cadence point (one host read per cadence point; none without
     gating). Metric sums stay on the device; the caller reads them once per
-    group.
+    group. Under ``-dpm is`` the sums also hold the run's least and largest
+    ``is_sens`` (``is_sens_min`` / ``is_sens_max``, from +inf / -inf, kept
+    on the device).
 
     ``gather(idx) -> (x, y)`` returns a batch's images and labels from the
     device-resident dataset; with ``u8_images`` the images are uint8 and get
@@ -140,30 +146,43 @@ class StepRunner:
             x = torch.where(flip[:, None, None, None], x.flip(2), x)
         return x, y
 
-    def _penalty_inputs(self, gen: torch.Generator, y: torch.Tensor, bs: int):
+    def _penalty_inputs(self, gen: torch.Generator, x: torch.Tensor, y: torch.Tensor,
+                        bs: int):
+        """The penalty's batch (the mean-sample surrogates, else the real
+        batch, as the JAX runner picks it) and interpolation weights."""
         b = self.builder
         if not b.penalty_types:
             return None, None, None
-        pen_x, pen_y = self.mean_sampler.device_sample(self.mean_samples, gen, y, bs)
+        pen_x, pen_y = x, y
+        if self.mean_sampler is not None:
+            pen_x, pen_y = self.mean_sampler.device_sample(self.mean_samples, gen, y, bs)
         alphas = [torch.rand((bs, 1, 1, 1), generator=gen, device=y.device)
                   for _ in b.penalty_types]
         return pen_x, pen_y, alphas
+
+    def _noise(self, gen: torch.Generator, leaves, stds):
+        """(noise, fused) of one DP step, as the mode's D step takes them."""
+        b = self.builder
+        if b.dp_mode == "gc":
+            if b.fused_route:
+                return None, gops.draw_fused_noise(gen, leaves, stds)
+            return gops.noise_like(gen, leaves, stds), None
+        if b.dp_mode == "is":
+            return gops.unit_normals(gen, leaves), None
+        if b.dp_mode == "tm":
+            return [tmsv.student_t3(gen, l.shape) for l in leaves], None
+        return [torch.randn(l.shape, generator=gen, device=gen.device) for l in leaves], None
 
     def _d_step(self, state: TrainState, x, y, gen: torch.Generator, stds):
         b = self.builder
         bs = x.shape[0]
         z = b.gen_z(gen, bs)
-        if not self.use_dp:
-            return b.d_step(state, x, y, one_hot(y, b.n_classes), z, None, False)
-        leaves = [state.d_params[n] for n in b.d_leaves]
         noise = fused = None
-        if b.fused_route:
-            fused = gops.draw_fused_noise(gen, leaves, stds)
-        else:
-            noise = gops.noise_like(gen, leaves, stds)
-        pen_x, pen_y, alphas = self._penalty_inputs(gen, y, bs)
-        return b.d_step_gc(state, x, y, z, noise=noise, fused=fused, pen_x=pen_x,
-                           pen_y=pen_y, alphas=alphas)
+        if self.use_dp:
+            noise, fused = self._noise(gen, [state.d_params[n] for n in b.d_leaves], stds)
+        pen_x, pen_y, alphas = self._penalty_inputs(gen, x, y, bs)
+        return b.d_core(state, x, y, z, self.use_dp, noise=noise, fused=fused, pen_x=pen_x,
+                        pen_y=pen_y, alphas=alphas)
 
     def _g_step(self, state: TrainState, gen: torch.Generator, bs: int):
         b = self.builder
@@ -187,7 +206,7 @@ class StepRunner:
         timed = dev.type == "cuda"
         self.epoch_events = []
         stds = None
-        if self.use_dp:
+        if self.use_dp and b.dp_mode == "gc":
             stds = gops.noise_stds(len(b.d_leaves), b.sigma, state.clipping, b.per_layer)
             if b.fused_route:    # K6 reads each leaf's std from device memory
                 stds = torch.tensor(stds, dtype=torch.float32, device=dev)
@@ -202,6 +221,13 @@ class StepRunner:
                 state, dm = self._d_step(state, x, y, gen, stds)
                 for key, v in dm.items():
                     d_sums[key] = d_sums[key] + v if key in d_sums else v
+                if "is_sens" in dm:
+                    sens = dm["is_sens"]
+                    if "is_sens_min" not in d_sums:
+                        d_sums["is_sens_min"] = torch.full_like(sens, math.inf)
+                        d_sums["is_sens_max"] = torch.full_like(sens, -math.inf)
+                    d_sums["is_sens_min"] = torch.minimum(d_sums["is_sens_min"], sens)
+                    d_sums["is_sens_max"] = torch.maximum(d_sums["is_sens_max"], sens)
                 self.d_acc = self.d_acc + dm["d_adv_loss"]
                 if i % self.n_d == 0:
                     g_on = (self.threshold >= 1e10

@@ -1,4 +1,4 @@
-"""Train-step math of the ported conditional ACGAN gc paths, in PyTorch.
+"""Train-step math of the ported conditional ACGAN paths, in PyTorch.
 
 The port's counterparts of the JAX package's training/steps.py pieces:
 
@@ -14,6 +14,19 @@ The port's counterparts of the JAX package's training/steps.py pieces:
   on mean samples scaled by the batch size, the noise and Adam. Under
   ``--pallas true`` the materialized route's sum and noise are fused (K6,
   ops/pallas_clip.py).
+- ``d_step_is``: the immediate-sensitivity D step (JAX ``_d_step_is``): the
+  full-batch gradient g of the D loss, the sensitivity as the norm of the
+  input gradient of ||g|| (flat), of ||(||g_l|| / v_l)_l|| (``-issm
+  constant-pl`` / ``moving-avg-pl``, v the state's ``scaling_vec``) or of
+  each ||g_l|| (``-ispp true``, one batched backward), by second-order
+  autograd; noise with the
+  per-leaf stds sigma * sens [* v_l] as a device tensor; Adam; under
+  moving-avg-pl, v <- beta v + (1 - beta) ||noised g_l||.
+- ``d_step_tmsv``: trimmed mean / sign vote over the materialized per-sample
+  gradients of real + fake (JAX ``_d_step_tmsv``; ops/tmsv.py).
+- ``d_step_plain``: the non-private full-batch D step with the WGAN-GP
+  penalty (JAX ``_d_step_plain``), the DCResNet's.
+- ``d_core``: the D step by ``dp_mode``, as JAX ``_d_core`` dispatches.
 - MNIST vanilla: ``d_step`` (the gc step above or the non-private D step) and
   ``g_step`` (``_g_step``); they are the plain version of K1
   (ops/pallas_epoch.py ``epoch_plain``).
@@ -31,7 +44,7 @@ per-leaf lists follow the JAX leaf order (``StepBuilder.d_leaves``).
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, field, replace
 from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -42,7 +55,7 @@ from csl_gan_tpu_torch.models import losses
 from csl_gan_tpu_torch.models.common import one_hot
 from csl_gan_tpu_torch.models.dcresnet import DCResNetDiscriminator, d_leaves
 from csl_gan_tpu_torch.models.mnist import D_LEAVES, G_LEAVES, MNISTVanillaD
-from csl_gan_tpu_torch.ops import conv_ghost, ghost
+from csl_gan_tpu_torch.ops import conv_ghost, ghost, tmsv
 from csl_gan_tpu_torch.ops import grads as gops
 from csl_gan_tpu_torch.training import param_order
 from csl_gan_tpu_torch.training import penalty as penalty_mod
@@ -62,6 +75,13 @@ class TrainState:
     g_count: int
     # C of flat clipping, or the per-leaf thresholds in leaf order.
     clipping: Union[float, Tuple[float, ...]]
+    # The IS scaling v: an fp32 [n_leaves] tensor in leaf order on the
+    # params' device (-issm constant-pl / moving-avg-pl), else the 0.0
+    # placeholder of the JAX TrainState.
+    scaling_vec: Union[float, torch.Tensor] = 0.0
+    # The running averages of a BatchNorm G (-dpm is and non-private
+    # DCResNet runs) by buffer name, else empty.
+    g_batch_stats: Params = field(default_factory=dict)
 
 
 def adam_update(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
@@ -127,7 +147,16 @@ class StepBuilder:
         # Bernoulli(label1_prob) labels for two classes (the CelebA label
         # frequency; the JAX package's gen_y).
         self.label1_prob = label1_prob
-        self.g_has_bn = False
+        self.is_per_param = bool(opt.imm_sens_per_param)
+        self.is_scaling_mode = opt.imm_sens_scaling_mode or "standard"
+        self.moving_avg_beta = float(opt.moving_avg_beta)
+        # tm/sv knobs (reference train.py:118-133, its min/max swap undone).
+        steps_per_epoch = max(1, opt.train_set_size // opt.batch_size)
+        self.tm_m = int(opt.tm_m)
+        lo, hi = opt.tm_min_val, opt.tm_max_val
+        self.tm_min_val, self.tm_max_val = min(lo, hi), max(lo, hi)
+        self.smooth_sens_t = float(opt.smooth_sens_t)
+        self.rho_per_step = opt.tm_rho_per_epoch / steps_per_epoch
         self.use_pallas = bool(opt.pallas) and self.chunk is None
         self.use_ghost = (isinstance(D, MNISTVanillaD) and self.dp_mode == "gc"
                           and self.grad_clip_split and not self.use_bpc
@@ -160,7 +189,9 @@ class StepBuilder:
             or not (self.use_ghost or self.use_conv_ghost or self.use_two_pass))
         self.fused_route = self.use_pallas and self.materialized
         self.d_leaves = tuple(d_leaves(D)) if dcresnet else D_LEAVES
-        self.g_leaves = tuple(G.state_dict()) if dcresnet else G_LEAVES
+        self.g_leaves = tuple(n for n, _ in G.named_parameters()) if dcresnet else G_LEAVES
+        self.g_stat_names = tuple(n for n, _ in G.named_buffers())
+        self.g_has_bn = bool(self.g_stat_names)
         self.img_shape = (28, 28, 1)
         # Set by the Trainer when the device table is [x | one-hot | label].
         self.labels_in_table = False
@@ -172,30 +203,42 @@ class StepBuilder:
         d = {k: v.detach().clone() for k, v in self.D.state_dict().items()}
         g = {k: v.detach().clone() for k, v in self.G.state_dict().items()}
         d = {k: d[k] for k in self.d_leaves}
+        stats = {k: g[k] for k in self.g_stat_names}
         g = {k: g[k] for k in self.g_leaves}
         zeros = lambda t: {k: torch.zeros_like(v) for k, v in t.items()}  # noqa: E731
         # fp32 values, as the JAX TrainState holds them: a checkpoint then
         # carries the clipping exactly.
         clipping = float(np.float32(self.opt.clipping_param or 1.0))
         if self.per_layer:
-            clipping = tuple(float(np.float32(c)) for c in self._per_layer_clipping())
-        return TrainState(d, g, zeros(d), zeros(d), zeros(g), zeros(g), 0, 0, clipping)
+            clipping = tuple(float(np.float32(c)) for c in self._per_layer_vector(
+                "clipping_param_per_layer", "-cpl", "cpl_user_set",
+                param_order.default_clipping_per_layer))
+        scaling_vec = 0.0
+        if self.is_scaling_mode != "standard":
+            scaling_vec = torch.tensor(
+                self._per_layer_vector("imm_sens_scaling_vec", "-issv", "issv_user_set",
+                                       param_order.default_is_scaling_per_layer),
+                dtype=torch.float32, device=d[self.d_leaves[0]].device)
+        return TrainState(d, g, zeros(d), zeros(d), zeros(g), zeros(g), 0, 0, clipping,
+                          scaling_vec, stats)
 
-    def _per_layer_clipping(self) -> List[float]:
-        """The torch-order ``-cpl`` vector in leaf order (the JAX package's
-        ``_per_layer_vector``): ones without a vector; a dataset default is
-        rebuilt by leaf role (param_order.default_clipping_per_layer); a
-        user's vector of the wrong length is a config error."""
-        vec = self.opt.clipping_param_per_layer
+    def _per_layer_vector(self, flag: str, cli: str, user_set: str,
+                          default_builder) -> List[float]:
+        """A torch-order per-layer CLI vector (``-cpl``, ``-issv``) in leaf
+        order (the JAX package's ``_per_layer_vector``): ones without a
+        vector; a dataset default is rebuilt by leaf role
+        (``default_builder``); a user's vector of the wrong length is a
+        config error."""
+        vec = getattr(self.opt, flag)
         n = len(self.d_leaves)
         if vec is None:
             return [1.0] * n
-        if not self.opt.cpl_user_set:
-            return param_order.default_clipping_per_layer(self.d_leaves)
+        if not getattr(self.opt, user_set):
+            return default_builder(self.d_leaves)
         torch_names = list(self.D.state_dict())
         if len(vec) != n:
             raise ValueError(
-                f"--clipping_param_per_layer (-cpl) has {len(vec)} entries but the "
+                f"--{flag} ({cli}) has {len(vec)} entries but the "
                 f"discriminator has {n} parameters; expected one entry per "
                 f"parameter in torch order: [{', '.join(torch_names)}]")
         return param_order.from_torch_order(vec, self.d_leaves, torch_names)
@@ -353,10 +396,26 @@ class StepBuilder:
         with torch.no_grad():
             return functional_call(self.G, g_params, (z, y))
 
+    def _step_fakes(self, state: TrainState, z, y):
+        """(fakes, G batch statistics after them) of a D step: a BatchNorm G
+        runs in training mode and updates its running averages, as the JAX
+        package's ``_fake_images`` does."""
+        if not self.g_has_bn:
+            return self.fakes(state.g_params, z, y), state.g_batch_stats
+        stats = {k: v.clone() for k, v in state.g_batch_stats.items()}
+        with torch.no_grad():
+            img = functional_call(self.G, {**state.g_params, **stats}, (z, y), {"train": True})
+        return img, stats
+
     def sample_images(self, state: TrainState, z, y):
         """Images of G at `state` for z and labels y (JAX ``sample_images``,
-        steps.py:1129-1140): the G forward without autograd, fp32 NHWC. The
-        DCResNet G's norms run K4 on the card."""
+        steps.py:1129-1140): the G forward without autograd in eval mode (a
+        BatchNorm G normalizes by its running averages), fp32 NHWC. The
+        DCResNet G's GroupNorms run K4 on the card."""
+        if self.g_has_bn:
+            with torch.no_grad():
+                return functional_call(self.G, {**state.g_params, **state.g_batch_stats},
+                                       (z, y), {"train": False}).float()
         return self.fakes(state.g_params, z, y).float()
 
     # ---------------- the gc D step ----------------
@@ -483,12 +542,159 @@ class StepBuilder:
         return self.d_step_gc(state, x, y, z, noise=noise, pen_x=pen_x, pen_y=pen_y,
                               alphas=alphas)
 
+    # ---------------- the is, tm/sv and non-private D steps ----------------
+
+    def _full_batch_loss(self, d_params: Params, x, y, fake):
+        """The full-batch D loss of JAX ``_d_step_plain`` / ``_d_step_is``
+        without the penalty: mean real and fake losses, the real aux loss and,
+        with ``--d_fake_aux_loss``, the fake's. Returns (loss, r_out, r_aux,
+        f_out)."""
+        f_out, f_aux = self._d_apply(d_params, fake, y, aux=self.d_fake_aux)
+        r_out, r_aux = self._d_apply(d_params, x, y)
+        total = losses.d_real_loss(self.family, r_out) + losses.d_fake_loss(self.family, f_out)
+        if self.use_aux:
+            total = total + losses.aux_loss(self.arch, self.aux_type, self.aux_scalar,
+                                            r_aux, y, self.n_classes)
+            if self.d_fake_aux:
+                total = total + losses.aux_loss(self.arch, self.aux_type, self.aux_scalar,
+                                                f_aux, y, self.n_classes)
+        return total, r_out, r_aux, f_out
+
+    def _metrics_of(self, r_out, r_aux, f_out, y, pen_value):
+        return self._d_metrics(r_out.detach(), None if r_aux is None else r_aux.detach(),
+                               f_out.detach(), y, one_hot(y, self.n_classes),
+                               pen_value=pen_value)
+
+    def d_step_plain(self, state: TrainState, x, y, z, pen_x=None, pen_y=None,
+                     alphas: Optional[List[torch.Tensor]] = None):
+        """The non-private D update (JAX ``_d_step_plain``): the gradient of
+        the full-batch loss plus the penalty on (pen_x, pen_y) and the fakes,
+        then Adam. Returns (state, metrics)."""
+        fake, g_stats = self._step_fakes(state, z, y)
+        state = replace(state, g_batch_stats=g_stats)
+        p = {k: v.detach().requires_grad_(True) for k, v in state.d_params.items()}
+        pen_value = None
+        with torch.enable_grad():
+            total, r_out, r_aux, f_out = self._full_batch_loss(p, x, y, fake)
+            if self.penalty_types:
+                pen_value = penalty_mod.calc_penalty(
+                    lambda xx, yy: functional_call(self.D, p, (xx, yy)), self.penalty_types,
+                    pen_x, pen_y, fake, alphas, aux_penalty=self.aux_penalty,
+                    n_classes=self.n_classes)
+                total = total + pen_value
+            grads = torch.autograd.grad(total, [p[k] for k in self.d_leaves])
+        metrics = self._metrics_of(r_out, r_aux, f_out, y,
+                                   None if pen_value is None else pen_value.detach())
+        return self._apply_d(state, dict(zip(self.d_leaves, grads))), metrics
+
+    def sensitivity(self, g: List[torch.Tensor], x_in: torch.Tensor, scaling_vec):
+        """(sens, per-leaf stds) of the is step from its gradient ``g`` (with
+        its graph) and the input it was taken at: ||d ||g|| / dx|| (flat);
+        ||d s / dx|| with s = ||(||g_l|| / v_l)_l|| and stds sigma sens v
+        (scaling modes); or, per parameter, ||d ||g_l|| / dx|| for each leaf
+        in one batched backward (a one-hot cotangent per leaf)."""
+        norms = gops.per_leaf_norms(g)
+        n = len(g)
+        if self.is_per_param:
+            gx, = torch.autograd.grad(norms, x_in, torch.eye(n, device=x_in.device),
+                                      is_grads_batched=True)
+            sens = torch.sqrt(torch.sum(gx.reshape(n, -1).float() ** 2, dim=1))
+            return sens, self.sigma * sens
+        scaled = self.is_scaling_mode != "standard"
+        s = torch.sqrt(torch.sum((norms / scaling_vec) ** 2 if scaled else norms ** 2))
+        gx, = torch.autograd.grad(s, x_in)
+        sens = torch.sqrt(torch.sum(gx.float() ** 2))
+        return sens, self.sigma * sens * scaling_vec if scaled else (self.sigma * sens).expand(n)
+
+    def d_step_is(self, state: TrainState, x, y, z, eps: List[torch.Tensor],
+                  pen_x=None, pen_y=None, alphas: Optional[List[torch.Tensor]] = None):
+        """One immediate-sensitivity D update (JAX ``_d_step_is``); ``eps``
+        are N(0, 1) draws shaped like the leaves, in leaf order, scaled here
+        by the step's stds on the device. The penalty's inputs (mean samples
+        and the fakes) do not depend on x, so its gradient enters ||g|| as a
+        constant, taken without a graph: the same value as the JAX package's
+        one differentiated loss, without a third-order graph. Returns
+        (state, metrics) with ``is_sens`` a scalar, or [n_leaves] under
+        ``-ispp true``."""
+        fake, g_stats = self._step_fakes(state, z, y)
+        state = replace(state, g_batch_stats=g_stats)
+        leaves = self.d_leaves
+        pen_value = None
+        if self.penalty_types:
+            pen_value, pen_grads = self._penalty_grads(state.d_params, pen_x, pen_y, fake, alphas)
+        p = {k: v.detach().requires_grad_(True) for k, v in state.d_params.items()}
+        x_in = x.detach().requires_grad_(True)
+        with torch.enable_grad():
+            total, r_out, r_aux, f_out = self._full_batch_loss(p, x_in, y, fake)
+            g = list(torch.autograd.grad(total, [p[k] for k in leaves], create_graph=True))
+            if pen_value is not None:
+                g = [gi + pen_grads[k] for gi, k in zip(g, leaves)]
+            sens, stds = self.sensitivity(g, x_in, state.scaling_vec)
+        noised = gops.add_scaled_noise([gi.detach() for gi in g], eps, stds.detach())
+        new = self._apply_d(state, dict(zip(leaves, noised)))
+        if self.is_scaling_mode == "moving-avg-pl":
+            new = replace(new, scaling_vec=state.scaling_vec * self.moving_avg_beta
+                          + gops.per_leaf_norms(noised) * (1 - self.moving_avg_beta))
+        metrics = self._metrics_of(r_out, r_aux, f_out, y, pen_value)
+        metrics["is_sens"] = sens.detach()
+        return new, metrics
+
+    def d_step_tmsv(self, state: TrainState, x, y, z, noise: List[torch.Tensor],
+                    pen_x=None, pen_y=None, alphas: Optional[List[torch.Tensor]] = None):
+        """One trimmed-mean (``-dpm tm``) or sign-vote (``-dpm sv``) D update
+        (JAX ``_d_step_tmsv``): per-sample grads of real + fake, aggregated
+        per leaf with ``noise`` (Student-t(3) for tm, N(0, 1) for sv, leaf
+        order), plus the penalty's grads, then Adam. The metrics are of the
+        D before the update. Returns (state, metrics)."""
+        fake, g_stats = self._step_fakes(state, z, y)
+        state = replace(state, g_batch_stats=g_stats)
+        f, args = self.combined_ps_args(x, y, fake, self.row_weights(y))
+        ps = gops.per_sample_grads(f, state.d_params, *args, chunk=self.chunk)
+        grads = {}
+        for i, k in enumerate(self.d_leaves):
+            if self.dp_mode == "tm":
+                grads[k] = tmsv.trimmed_mean(ps[k], self.tm_m, self.tm_min_val, self.tm_max_val,
+                                             self.smooth_sens_t, self.rho_per_step,
+                                             noise=noise[i])
+            else:
+                grads[k] = tmsv.sign_vote(ps[k], self.rho_per_step, noise=noise[i])
+        del ps
+        pen_value = None
+        if self.penalty_types:
+            pen_value, pen_grads = self._penalty_grads(state.d_params, pen_x, pen_y, fake, alphas)
+            grads = {k: g + pen_grads[k] for k, g in grads.items()}
+        with torch.no_grad():
+            r_out, r_aux = self._d_apply(state.d_params, x, y)
+            f_out = self._d_apply(state.d_params, fake, y, aux=False)[0]
+        metrics = self._metrics_of(r_out, r_aux, f_out, y, pen_value)
+        return self._apply_d(state, grads), metrics
+
+    def d_core(self, state: TrainState, x, y, z, use_dp: bool, noise=None, fused=None,
+               pen_x=None, pen_y=None, alphas: Optional[List[torch.Tensor]] = None):
+        """The D update by ``dp_mode`` (JAX ``_d_core``). ``noise`` is what
+        the mode's step takes: per-leaf noise (gc), unit normals (is),
+        Student-t(3) or unit normals (tm / sv); ``fused`` the gc fused
+        route's. Without DP the vanilla model takes ``d_step`` (the plain
+        version of K1), the DCResNet ``d_step_plain``."""
+        pen = dict(pen_x=pen_x, pen_y=pen_y, alphas=alphas)
+        if use_dp and self.dp_mode == "gc":
+            return self.d_step_gc(state, x, y, z, noise=noise, fused=fused, **pen)
+        if use_dp and self.dp_mode == "is":
+            return self.d_step_is(state, x, y, z, noise, **pen)
+        if use_dp:
+            return self.d_step_tmsv(state, x, y, z, noise, **pen)
+        if self.family == "vanilla":
+            return self.d_step(state, x, y, one_hot(y, self.n_classes), z, None, False)
+        return self.d_step_plain(state, x, y, z, **pen)
+
     def g_step_dcresnet(self, state: TrainState, z, y):
         """G update against the current D: wgan adversarial loss + ACGAN aux
-        loss (JAX _g_step); the GroupNorm+ReLU backward runs K5."""
+        loss (JAX _g_step); the GroupNorm+ReLU backward runs K5. A BatchNorm
+        G trains on batch statistics and updates its running averages."""
         p = {k: v.detach().requires_grad_(True) for k, v in state.g_params.items()}
+        stats = {k: v.clone() for k, v in state.g_batch_stats.items()}
         with torch.enable_grad():
-            img = functional_call(self.G, p, (z, y))
+            img = functional_call(self.G, {**p, **stats}, (z, y))
             out, aux_o = functional_call(self.D, state.d_params, (img, y))
             adv = losses.g_adv_loss(self.family, out)
             loss = adv
@@ -506,4 +712,4 @@ class StepBuilder:
             m["g_aux_loss"] = aux.detach()
             m["g_aux_acc"] = 100.0 * (aux_o.detach().argmax(dim=1) == y).float().mean()
         return replace(state, g_params=g_params, g_mu=g_mu, g_nu=g_nu,
-                       g_count=state.g_count + 1), m
+                       g_count=state.g_count + 1, g_batch_stats=stats), m

@@ -11,6 +11,11 @@ package:
   and the accountant's dict round-trips;
 - the port writes the same bytes as the JAX package for the same state;
 - a save that does not fit the model raises.
+
+A third case is the DeepConvResNet pair under ``-dpm is -issm
+moving-avg-pl``: its D save carries the moving scaling vector and its G, the
+BatchNorm generator of the non-per-sample-grad modes, its running averages
+(``batch_stats``).
 """
 
 import dataclasses
@@ -41,7 +46,11 @@ DCRN = ["MNIST", "--model", "DeepConvResNet", "--conditional", "-dpm", "gc",
         "--mean_sample_size", "4", "-bs", str(BS), "-tss", "80",
         "--train_d_until_threshold", "1e18", "--manual_seed", "5",
         "-gcm", "constant-pl"]
-CASES = {"mnist": MNIST, "dcresnet-per-layer": DCRN}
+# -dpm is with the moving-average per-layer scaling, on the small DeepConvResNet.
+DCRN_IS = [a for a in DCRN if a not in ("-gcm", "constant-pl")]
+DCRN_IS[DCRN_IS.index("gc")] = "is"
+DCRN_IS += ["-issm", "moving-avg-pl", "--moving_avg_beta", "0.6"]
+CASES = {"mnist": MNIST, "dcresnet-per-layer": DCRN, "dcresnet-is-moving-avg": DCRN_IS}
 
 
 def _np(tree):
@@ -66,7 +75,10 @@ def case(request, tmp_path_factory):
     k = jax.random.split(jax.random.PRNGKey(3), 4)
     x = jax.random.uniform(k[0], (BS, 28, 28, 1))
     y = jax.random.randint(k[1], (BS,), 0, opt.n_classes)
-    state, _ = b.d_step_dp(state, x, y, x, y, x, y, k[2])
+    if opt.dp_mode == "is":
+        state, _ = b.d_step_dp(state, x, y, x, y, k[2])
+    else:
+        state, _ = b.d_step_dp(state, x, y, x, y, x, y, k[2])
     state, _ = b.g_step(state, k[3])
     topt = toptions.parse(args + ["--platform", "cpu", "-o", str(out / "port")])
     tG, tD = init_models(topt, torch.device("cpu"))
@@ -79,7 +91,8 @@ def case(request, tmp_path_factory):
 def _port_state(jax_state):
     return convert.train_state_from_jax(
         _np(jax_state.d_params), _np(jax_state.g_params), _adam(jax_state.d_opt_state),
-        _adam(jax_state.g_opt_state), np.asarray(jax_state.clipping))
+        _adam(jax_state.g_opt_state), np.asarray(jax_state.clipping),
+        scaling_vec=np.asarray(jax_state.scaling_vec), g_batch_stats=_np(jax_state.g_batch_stats))
 
 
 def _assert_states_equal(a, b):
@@ -89,6 +102,9 @@ def _assert_states_equal(a, b):
             assert sorted(x) == sorted(y), f.name
             for k in x:
                 assert x[k].dtype == y[k].dtype and torch.equal(x[k], y[k]), (f.name, k)
+        elif isinstance(x, torch.Tensor):
+            assert isinstance(y, torch.Tensor) and x.dtype == y.dtype and torch.equal(x, y), \
+                (f.name, x, y)
         else:
             assert x == y and type(x) is type(y), (f.name, x, y)
 
@@ -112,6 +128,13 @@ def test_jax_save_loads_in_the_port_exactly(case):
     assert (g_epoch, d_epoch, run_state) == (3, 3, None)
     _assert_states_equal(st, _port_state(jstate))
     assert isinstance(st.clipping, tuple) == (name == "dcresnet-per-layer")
+    # The moving scaling vector and the BatchNorm G's running averages came
+    # over, moved by the JAX step from their initial ones and 0.
+    assert isinstance(st.scaling_vec, torch.Tensor) == (name == "dcresnet-is-moving-avg")
+    assert bool(st.g_batch_stats) == (name == "dcresnet-is-moving-avg")
+    if st.g_batch_stats:
+        assert not torch.equal(st.scaling_vec, template.scaling_vec)
+        assert all(v.abs().max() > 0 for k, v in st.g_batch_stats.items() if k.endswith("mean"))
     assert acc_state == acc.state_dict()
     port_acc = accountant_from_state_dict(acc_state)
     assert port_acc.get_privacy_spent(1e-5) == acc.get_privacy_spent(1e-5)
@@ -136,6 +159,8 @@ def test_port_save_loads_in_jax_exactly(case):
         _assert_trees_equal(got[0].nu, nu)
         assert np.asarray(got[0].count).dtype == np.int32 and int(got[0].count) == count
     _assert_trees_equal(st.clipping, want["clipping"])
+    _assert_trees_equal(st.scaling_vec, want["scaling_vec"])
+    _assert_trees_equal(st.g_batch_stats, want["g_batch_stats"])
     _assert_trees_equal(st, jstate)         # the JAX state came back whole
     assert acc_state == port_acc.state_dict() == acc.state_dict()
     _, _, _, rs = checkpoint.load_d(str(out / "p2j" / "saves" / "D-5"), template)

@@ -122,7 +122,7 @@ def test_no_platform_without_cuda_raises(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,flag", [
-    (["-dpm", "is"], "--dp_mode"),
+    (["-dpm", "is", "--backprop_clip", "true"], "--backprop_clip"),
     (["--penalty", "WGAN-GP"], "--penalty"),
     (["--poisson", "true"], "--poisson"),
     (["-gcm", "adaptive"], "--grad_clip_mode"),
@@ -240,9 +240,9 @@ def test_not_ported_names_only_unported_flags():
     names = [flag for flag, _ in toptions._NOT_PORTED]
     for lifted in ("--pallas", "--per_sample_chunk", "--grad_clip_split", "--conv_ghost",
                    "--clipping_param_per_layer", "--n_d_steps", "--train_d_until_threshold",
-                   "--resume_path"):
+                   "--resume_path", "--dp_mode", "DeepConvResNet"):
         assert not any(lifted in n for n in names), lifted
-    for kept in ("--dp_mode", "--poisson", "adaptive", "-pupd", "DRAGAN", "--backprop_clip",
+    for kept in ("--poisson", "adaptive", "-pupd", "DRAGAN", "--backprop_clip",
                  "--weight_decay", "unconditional", "CGAN / WCGAN",
                  "--fsdp", "--tp", "--mesh_shape", "--multihost"):
         assert any(kept in n for n in names), kept
@@ -257,7 +257,7 @@ def test_celeba_raises(tmp_path):
     assert (opt.adam_b1, opt.adam_b2, opt.sigma, opt.clipping_param) == (0.0, 0.9, 0.5, 200)
     assert opt.train_d_until_threshold == 1e18 and opt.bf16
     for extra, flag in ((["-dpm", "gc"], "--conditional"),
-                        (["--conditional", "-dpm", "is"], "--dp_mode"),
+                        (["--conditional", "-dpm", "is", "--poisson", "true"], "--poisson"),
                         (["--conditional", "-dpm", "gc", "--conditional_arch", "WCGAN"],
                          "--conditional_arch"),
                         (["--conditional", "-dpm", "gc", "-nms", "1", "-pupd", "false"],
