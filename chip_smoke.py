@@ -5,6 +5,7 @@
     python3 chip_smoke.py --gn-plans   # steps 1-2, then K4/K5 over every plan
     python3 chip_smoke.py --saves      # steps 1-2, then step 5 alone
     python3 chip_smoke.py --dp-modes   # step 1, K4/K5's build, then step 7 alone
+    python3 chip_smoke.py --cond-archs # step 1, K2-K5's build, then step 8 alone
 
 From the root of a checkout, on a machine with one NVIDIA H100 and the CUDA
 toolkit, it:
@@ -120,10 +121,28 @@ toolkit, it:
      step through K4/K5 against the same steps with the plain versions, to
      3x a one-ulp witness, and prints where a per-parameter is D step's time
      goes (first-order pass, the batched second-order pass, the rest);
-  8. prints one JSON ``kernels`` line (K1-K6: launches on their main path,
+  8. the conditional variants (outputs under build/chip_smoke/cond_archs/).
+     Through the Trainer, 2 epochs each in one group, every kernel's
+     launches counted by its wrapper, then 10 steps under the profiler:
+     CelebA (the flagship's flags with ``-tss 1280``) as CGAN, WCGAN,
+     unconditional and ACGAN with ``--g_label_emb_mode embed``, where K2 and
+     K3 must launch 3 times a D step, all on the tensor cores, K4 9 times a
+     G forward (one a D step's fakes, one a G update), K5 9 times a G update,
+     K1 and K6 never, and conv1 (3 + n_classes input planes under CGAN and
+     WCGAN) must take the direct order; MNIST (``-dpm gc --sigma 10 -bs
+     600``, 100 steps an epoch) as unconditional, CGAN and WCGAN, which leave
+     K1 for the step runner: no kernel may launch. Each run checks finite
+     logs and parameters, the update counts and epsilon (the port's
+     accountant recomputed for the steps, plus the mean samples' cost) and
+     prints ms per D step (beside the ACGAN flagship's and the K1 path's of
+     the same run), the device-busy share and peak memory. Then one bf16
+     WCGAN and one CGAN D + G step (bs 8) through K2-K5 against the all-plain
+     step, held to 3x the one-ulp witness as the ACGAN step is;
+  9. prints one JSON ``kernels`` line (K1-K6: launches on their main path,
      max abs gap to the plain version, ms, plain ms, bound, library ms; K4/K5
-     also their launches on the CelebA tm path);
-  9. ends with ``{"ok": true, "device": {...}}`` as the last line.
+     also their launches on the CelebA tm path; every kernel its launches on
+     each path of step 8, ``cond_arch_launches``);
+ 10. ends with ``{"ok": true, "device": {...}}`` as the last line.
 Any failure raises or exits non-zero, and no result line is printed. It
 needs no network and imports nothing of JAX or of the JAX package.
 """
@@ -1116,8 +1135,9 @@ def gn_ulp_moved(shares, seed: int):
     return _swapped(((gn, "gn_relu_forward", fwd), (gn, "gn_relu_backward", bwd)))
 
 
-def celeba_step_check(dev, out_root, bf16=False):
-    """One full-width D step and one G step (bs 8; fp32 with TF32 off, or
+def celeba_step_check(dev, out_root, bf16=False, arch="ACGAN"):
+    """One full-width D step and one G step of the conditional arch `arch`
+    (bs 8; fp32 with TF32 off, or
     bf16 compute, where K2/K3 take their tensor-core variant; deterministic
     cuDNN), each from the initial state, on the card: through
     K2-K5 against the same steps through the plain versions, the D step on
@@ -1139,10 +1159,12 @@ def celeba_step_check(dev, out_root, bf16=False):
     from csl_gan_tpu_torch.training.steps import StepBuilder
 
     bs = 8
-    argv = ["CelebA", "--conditional", "-dpm", "gc", "-bs", str(bs), "-tss", "12800",
-            "-nms", "1", "--mean_sample_size", "8", "--sigma", "0", "-c", "1",
-            "--train_d_until_threshold", "1e18", "--manual_seed", "1", "--platform", "gpu",
-            "-o", str(out_root / ("celeba_step_bf16" if bf16 else "celeba_step"))]
+    tag = ("celeba_step_bf16" if bf16 else "celeba_step") + ("" if arch == "ACGAN" else
+                                                             f"_{arch}")
+    argv = ["CelebA", "--conditional", "--conditional_arch", arch, "-dpm", "gc", "-bs",
+            str(bs), "-tss", "12800", "-nms", "1", "--mean_sample_size", "8", "--sigma", "0",
+            "-c", "1", "--train_d_until_threshold", "1e18", "--manual_seed", "1",
+            "--platform", "gpu", "-o", str(out_root / tag)]
     argv += ["--bf16", "true"] if bf16 else []
     rng = np.random.default_rng(5)
     x = rng.uniform(-1, 1, (bs, 64, 64, 3)).astype(np.float32)
@@ -1225,8 +1247,8 @@ def celeba_step_check(dev, out_root, bf16=False):
 
     fmt = lambda r: ", ".join(f"{k} {v:.3e}" for k, v in r.items())  # noqa: E731
     gap, rep, wit = gaps(kern, plain), gaps(again, plain), gaps(nudged, own)
-    print(f"CelebA D step and G step (bs {bs}, {'bf16' if bf16 else 'fp32'}, full width) on the "
-          f"card, {'K2/K3' if bf16 else 'K2-K5'} vs plain: rel l2 {fmt(gap)} (bounds D "
+    print(f"CelebA {arch} D step and G step (bs {bs}, {'bf16' if bf16 else 'fp32'}, full width) "
+          f"on the card, {'K2/K3' if bf16 else 'K2-K5'} vs plain: rel l2 {fmt(gap)} (bounds D "
           f"{STEP_BOUND_D:g}, G "
           f"{STEP_BOUND_G:g}, metrics {STEP_BOUND_MET:g}); clipped "
           f"{float(kern[2]['frac_clipped'].mean()):.2f}; K2 + K3 launches on the tensor cores "
@@ -1255,15 +1277,15 @@ def celeba_step_check(dev, out_root, bf16=False):
               + ", ".join(f"{kind} {gap:.3e} <= {b:.3e}" for kind, gap, b in held16)
               + f" ({STEP_BF16_FACTOR:g}x the witness)")
         if not all(gap <= b for _, gap, b in held16):
-            fail("the bf16 CelebA steps through K2-K5 leave the all-plain steps by more than "
-                 f"{STEP_BF16_FACTOR:g}x the one-ulp witness")
+            fail(f"the bf16 CelebA {arch} steps through K2-K5 leave the all-plain steps by "
+                 f"more than {STEP_BF16_FACTOR:g}x the one-ulp witness")
     d_gap = max(v for k, v in gap.items() if k.startswith("D"))
     g_gap = max(v for k, v in gap.items() if k.startswith("G"))
     if max(rep.values()) != 0.0:
         fail("the plain CelebA steps do not repeat exactly on the card")
     if not (d_gap < STEP_BOUND_D and g_gap < STEP_BOUND_G and gap["metrics"] < STEP_BOUND_MET):
-        fail(f"the CelebA steps ({'bf16' if bf16 else 'fp32'}) through the kernels disagree "
-             f"with the plain steps on the card")
+        fail(f"the CelebA {arch} steps ({'bf16' if bf16 else 'fp32'}) through the kernels "
+             f"disagree with the plain steps on the card")
 
 
 def profile_step_runner(tr, label: str, need=()) -> None:
@@ -2303,6 +2325,161 @@ def dp_modes_phase(dev, out_root, smi, gc_step_ms=None):
     return tm_launches
 
 
+# Phase 8: the conditional variants. CelebA at the flagship's flags cut as
+# path 2 is (-tss 1280: 10 D steps and 2 G updates an epoch); MNIST at the
+# flagship's (bs 600, 100 steps an epoch), where these variants leave K1
+# (its gate takes conditional ACGAN only) for the step runner.
+COND_CELEBA = ["CelebA", "-dpm", "gc", "-bs", str(CB), "-tss", "1280", "-nms", "1",
+               "--mean_sample_size", "8", "--bf16", "true", "--train_d_until_threshold", "1e18"]
+COND_MNIST = ["MNIST", "-dpm", "gc", "--sigma", "10", "-bs", str(BS), "-tss", "60000"]
+COND_ARCHS = (("CGAN", ["--conditional", "--conditional_arch", "CGAN"]),
+              ("WCGAN", ["--conditional", "--conditional_arch", "WCGAN"]),
+              ("unconditional", []),
+              ("ACGAN embed", ["--conditional", "--g_label_emb_mode", "embed"]))
+COND_EPOCHS = 2
+# The G's norm layers, each one K4 launch a forward and one K5 launch a
+# backward (celeba_g64: two a residual block, one before the output conv).
+G_NORMS = 9
+
+
+def cond_arch_run(name, argv, out_root, smi, expect):
+    """COND_EPOCHS Trainer epochs of one variant in one group, every kernel's
+    launches counted by its wrapper and held to ``expect(D steps, G
+    updates)``, then DP_PROFILE_STEPS more steps under the profiler. Checks
+    finite logs and parameters, the update counts and epsilon against the
+    port's accountant recomputed for the same steps plus the mean samples'
+    cost. Returns (launches by kernel, ms per D step of the second epoch, the
+    Trainer)."""
+    import torch
+    from csl_gan_tpu_torch import options as toptions
+    from csl_gan_tpu_torch.ops import pallas_clip as pc
+    from csl_gan_tpu_torch.ops import pallas_conv_ghost as pcg
+    from csl_gan_tpu_torch.ops import pallas_epoch as pe
+    from csl_gan_tpu_torch.ops import pallas_groupnorm as gn
+    from csl_gan_tpu_torch.privacy import RdpAccountant
+    from csl_gan_tpu_torch.training.loop import Trainer
+    from csl_gan_tpu_torch.training.segment_runner import StepRunner
+
+    e = COND_EPOCHS
+    tss = int(argv[argv.index("-tss") + 1])
+    out = out_root / "cond_archs" / name.replace(" ", "_")
+    opt = toptions.parse(argv + ["-ne", str(e), "--log_every", str(tss * e), "--manual_seed",
+                                 "1", "-o", str(out)])
+    t_start = time.perf_counter()
+    tr = Trainer(opt)
+    if not isinstance(tr.runner, StepRunner):
+        fail(f"{name} does not take the step runner")
+    wrappers = {"K1": pe.epoch_kernel, "K2": pcg.ghost_sq_norms, "K3": pcg.weighted_kernel_grad,
+                "K4": gn.gn_relu_forward, "K5": gn.gn_relu_backward,
+                "K6": pc.leaf_weighted_sum_noise}
+    for w in wrappers.values():
+        w.launches = 0
+    pcg.ghost_sq_norms.launches_tc = pcg.weighted_kernel_grad.launches_tc = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    launches["K2 tc"], launches["K3 tc"] = (pcg.ghost_sq_norms.launches_tc,
+                                            pcg.weighted_kernel_grad.launches_tc)
+    n = tr.n_batches
+    ep_ms = [a.elapsed_time(b) for a, b in tr.runner.epoch_events]
+    with open(out / "log.csv") as fh:
+        row = list(csv.DictReader(fh))[-1]
+    logged = {k: [float(v) for v in row[k].strip("[]").split()] for k in row
+              if k not in ("Epoch", "Batch")}
+    if not all(math.isfinite(v) for vs in logged.values() for v in vs):
+        fail(f"{name}: non-finite log values {logged}")
+    if ("D Real Aux Loss" in row) != bool(opt.use_aux_loss):
+        fail(f"{name}: the log's aux columns do not follow use_aux_loss")
+    with open(out / "privacy_log.csv") as fh:
+        eps = [float(r["Epsilon"]) for r in csv.DictReader(fh)]
+    acc = RdpAccountant(opt.batch_size, tss, opt.sigma)
+    acc.step(e * n)
+    want_eps = acc.get_privacy_spent(opt.delta)[0] + tr.mean_sample_privacy_cost
+    if len(eps) != e or not math.isclose(eps[-1], want_eps, rel_tol=1e-12):
+        fail(f"{name}: epsilon {eps}, expected {want_eps} after {e * n} steps")
+    if not all(torch.isfinite(t).all() for p in (tr.state.d_params, tr.state.g_params)
+               for t in p.values()):
+        fail(f"non-finite params after {name}")
+    g_updates = e * -(-n // opt.n_d_steps)
+    if tr.state.d_count != e * n or tr.state.g_count != g_updates:
+        fail(f"D / G update counts {tr.state.d_count} / {tr.state.g_count} on {name}")
+    want = expect(e * n, g_updates)
+    if launches != want:
+        fail(f"{name}: kernel launches {launches}, expected {want}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step_ms = ep_ms[-1] / n
+    prof_n = tr.runner.n = min(n, DP_PROFILE_STEPS)
+    busy, span, _ = profile_step_runner(tr, name)
+    tr.runner.n = n
+    print(f"{name} [{smi}]: {e} epochs x {n} D steps ({g_updates} G updates), "
+          f"launches {launches}; ms per D step first epoch {ep_ms[0] / n:.3f}, second "
+          f"{step_ms:.3f} ({opt.batch_size * 1e3 / step_ms:.0f} samples/s); device busy "
+          f"{busy:.3f} ms of {span:.3f} ms over {prof_n} profiled D steps "
+          f"({100 * busy / span:.1f}%); wall of the Trainer epochs {wall:.2f} s "
+          f"(the run {time.perf_counter() - t_start:.2f} s); peak memory {peak:.2f} GiB; "
+          f"epsilon {eps[-1]:.6f}; logged "
+          + ", ".join(f"{k} {vs[0]:.4f}" for k, vs in logged.items() if len(vs) == 1))
+    return launches, step_ms, tr
+
+
+def cond_archs_phase(dev, out_root, smi, k1_step_ms=None, celeba_step_ms=None):
+    """The CGAN, WCGAN, unconditional and embedded-G variants through the
+    Trainer at full width: CelebA on the conv-ghost path (K2/K3 three times a
+    D step on the tensor cores, K4 nine times a G forward, K5 nine times a G
+    update, conv1 in the direct order), MNIST on the step runner (K1 never),
+    then one bf16 D + G step of CGAN and of WCGAN through K2-K5 against the
+    all-plain step, to STEP_BF16_FACTOR times the one-ulp witness. Returns
+    {path: launches by kernel}."""
+    import shutil
+
+    import torch
+    from csl_gan_tpu_torch.ops import conv_ghost
+
+    def celeba_launches(n_d, n_g):
+        """K2/K3 three times a D step on the tensor cores, K4 nine times a G
+        forward (a D step's fakes, a G update), K5 nine times a G update."""
+        return {"K1": 0, "K2": 3 * n_d, "K3": 3 * n_d, "K4": G_NORMS * (n_d + n_g),
+                "K5": G_NORMS * n_g, "K6": 0, "K2 tc": 3 * n_d, "K3 tc": 3 * n_d}
+
+    launches_keys = celeba_launches(0, 0)
+    t_phase = time.perf_counter()
+    shutil.rmtree(out_root / "cond_archs", ignore_errors=True)
+    by_path = {}
+    for arch, variant in COND_ARCHS:
+        name = f"CelebA {arch}"
+        launches, step_ms, tr = cond_arch_run(name, COND_CELEBA + variant, out_root, smi,
+                                              celeba_launches)
+        conv1 = tr.D.TorchConv_0.weight.shape
+        s, k, o = (tr.opt.im_size // 2) ** 2, conv1[1] * conv1[2] * conv1[3], conv1[0]
+        ghost = conv_ghost._ghost_order(s, k, o)
+        print(f"{name}: conv1 Cin {conv1[1]} (S {s}, K {k}, O {o}) takes the "
+              f"{'ghost' if ghost else 'direct'} order; ms per D step {step_ms:.3f}"
+              + (f", {step_ms / celeba_step_ms:.2f}x the ACGAN flagship's {celeba_step_ms:.3f} "
+                 "of this run" if celeba_step_ms else ""))
+        if ghost:
+            fail(f"{name}: conv1 took the ghost order")
+        by_path[name] = launches
+        del tr
+        torch.cuda.empty_cache()
+    for arch, variant in COND_ARCHS[:3]:
+        name = f"MNIST {arch}"
+        launches, step_ms, tr = cond_arch_run(name, COND_MNIST + variant, out_root, smi,
+                                              lambda n_d, n_g: dict.fromkeys(launches_keys, 0))
+        print(f"{name}: ms per D step {step_ms:.3f} on the step runner"
+              + (f", {step_ms / k1_step_ms:.2f}x the K1 path's {k1_step_ms:.3f} of this run"
+                 if k1_step_ms else " (the K1 path not timed in this run)"))
+        by_path[name] = launches
+        del tr
+    for arch in ("WCGAN", "CGAN"):
+        celeba_step_check(dev, out_root, bf16=True, arch=arch)
+    print(f"conditional variants phase [{smi}]: {time.perf_counter() - t_phase:.1f} s")
+    return by_path
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2330,6 +2507,10 @@ def main() -> int:
     if "--dp-modes" in sys.argv[1:]:
         _build.build_all(("gn_relu",))
         dp_modes_phase(dev, out_root, smi)
+        return 0
+    if "--cond-archs" in sys.argv[1:]:
+        _build.build_all(("conv_ghost", "gn_relu"))
+        cond_archs_phase(dev, out_root, smi)
         return 0
 
     # 2. Build.
@@ -2394,6 +2575,14 @@ def main() -> int:
     for entry in kernels:
         if entry["name"] in ("gn_relu_forward", "gn_relu_backward"):
             entry["celeba_tm_launches"] = tm_launches[entry["name"] == "gn_relu_backward"]
+
+    # 8. The conditional variants (CGAN, WCGAN, unconditional, embedded G).
+    cond = cond_archs_phase(dev, out_root, smi, k1_epoch_ms / (60000 // BS), celeba_step_ms)
+    keys = {"k1_epoch": "K1", "ghost_sq_norms": "K2", "weighted_kernel_grad": "K3",
+            "gn_relu_forward": "K4", "gn_relu_backward": "K5", "leaf_weighted_sum_noise": "K6"}
+    for entry in kernels:
+        entry["cond_arch_launches"] = {path: counts[keys[entry["name"]]]
+                                       for path, counts in cond.items()}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -6,6 +6,7 @@ state dicts. Per leaf:
   - Dense ``kernel`` [in, out]          <-> Linear ``weight`` [out, in]
   - Conv ``kernel`` [kh, kw, cin, cout] <-> Conv2d ``weight`` [cout, cin, kh, kw]
   - GroupNorm ``scale``                 <-> ``weight``; ``bias`` <-> ``bias``
+  - Embed ``embedding`` [n, d]          <-> Embedding ``weight`` [n, d]
 
 Module paths: the vanilla MNIST G's auto-named ``TorchDense_0`` /
 ``TorchDense_1`` are ``lin1`` / ``lin2`` in the port (like D's); the DCResNet
@@ -62,7 +63,7 @@ def params_from_jax(tree: Mapping, kind: str,
         if leaf == "kernel":
             a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
             name = "weight"
-        elif leaf == "scale":
+        elif leaf in ("scale", "embedding"):
             name = "weight"
         elif leaf == "bias":
             name = "bias"
@@ -84,7 +85,9 @@ def params_to_jax(sd: Mapping[str, torch.Tensor], kind: str) -> Dict:
             mods = [inv[m] for m in mods]
         if mods[-1].startswith("TorchConv_"):
             mods = mods + ["Conv_0"]
-        if leaf == "weight":
+        if leaf == "weight" and mods[-1].startswith("Embed_"):
+            leaf = "embedding"
+        elif leaf == "weight":
             if a.ndim == 4:
                 leaf, a = "kernel", a.transpose(2, 3, 1, 0)
             elif a.ndim == 2:

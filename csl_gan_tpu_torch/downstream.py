@@ -82,9 +82,12 @@ def main(argv=None):
         gen = torch.Generator(next(iter(state.g_params.values())).device).manual_seed(30)
         z = builder.gen_z(gen, n)
         y = torch.randint(0, 10, (n,), generator=gen, device=z.device)
+        # As in the JAX tool, an unconditional G samples without the labels
+        # it is scored against.
         images = np.concatenate([
             builder.sample_images(state, z[i:i + args.batch_size],
-                                  y[i:i + args.batch_size]).cpu().numpy()
+                                  y[i:i + args.batch_size] if train_opt.conditional else None
+                                  ).cpu().numpy()
             for i in range(0, n, args.batch_size)]).reshape(n, -1)
         labels = y.cpu().numpy()
         aurocs = []

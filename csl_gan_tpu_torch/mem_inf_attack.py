@@ -177,17 +177,20 @@ def main(argv=None):
         fake_dir = None
         if args.generate_samples or args.compute_fid:
             n = args.num_generated_samples
-            per = n // opt.n_classes + 1
-            y_all = np.concatenate([np.full(per, c) for c in range(opt.n_classes)])
+            y_all = None
+            if opt.conditional:
+                per = n // opt.n_classes + 1
+                y_all = np.concatenate([np.full(per, c) for c in range(opt.n_classes)])
+                n = len(y_all)
             dev = next(iter(state.g_params.values())).device
             gen = torch.Generator(dev).manual_seed(1)
             fake_dir = os.path.join(args.samples_dir, args.model_name, f"G-{ckpt}", run_id)
             os.makedirs(fake_dir, exist_ok=True)
             count = 0
-            for i in range(0, len(y_all), args.batch_size):
-                yi = torch.from_numpy(y_all[i:i + args.batch_size]).to(dev)
-                imgs = builder.sample_images(state, builder.gen_z(gen, len(yi)),
-                                             yi).cpu().numpy()
+            for i in range(0, n, args.batch_size):
+                bs = min(args.batch_size, n - i)
+                yi = None if y_all is None else torch.from_numpy(y_all[i:i + bs]).to(dev)
+                imgs = builder.sample_images(state, builder.gen_z(gen, bs), yi).cpu().numpy()
                 if opt.dataset == "CelebA":
                     imgs = denorm_celeba(imgs)
                 for img in imgs:

@@ -6,10 +6,15 @@ GroupNorm(32) when per-sample gradients are on (``-dpm gc / tm / sv``) and
 BatchNorm otherwise (``-dpm is`` and non-private runs; ``bn``), as the JAX
 package and the reference choose it (init_util.py: bn = not
 per_sample_grad). Discriminator: strided 5x5 convs with leaky-relu(0.2),
-flatten, linear critic head ``linOut`` and, for ACGAN, the auxiliary
-classifier head ``linOutAux``. family = "wgan".
+flatten, then the heads by conditional arch: ACGAN, the linear critic
+``linOut`` and the auxiliary classifier ``linOutAux``; CGAN, the one-hot
+label as n_classes constant input planes and ``linOut``; WCGAN, the planes
+and a per-class critic ``linOutAux`` whose label column is the critic's
+output (no ``linOut``); unconditional, ``linOut`` alone. The G takes the
+label as a one-hot concatenated to z (``concat``) or as z * Embed(y)
+(``embed``, ``Embed_0`` initialised from N(0, 1)). family = "wgan".
 
-Module names are the JAX package's (``TorchDense_0``, ``ResBlockUp_i``,
+Module names are the JAX package's (``Embed_0``, ``TorchDense_0``, ``ResBlockUp_i``,
 ``UpsampleConv_0/1``, ``GroupNorm_0/1`` or ``BatchNorm_0/1``, ``TorchConv_i``, ``linOut``,
 ``linOutAux``), so a state-dict key is the flax param path without its
 ``Conv_0`` level (convert.py). Activations are NHWC at every public function
@@ -31,8 +36,7 @@ Differences from the JAX modules, by design:
     (``mean``, ``var``: the flax ``batch_stats``); the G forward takes
     ``train``: batch statistics, with the running averages updated in place
     in the buffers it was given, or (eval) the running averages.
-  - Only the concat label embedding and the ACGAN / unconditional
-    discriminators are ported.
+  - The D's ``embed`` label mode is refused, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -160,14 +164,21 @@ class DCResNetGenerator(nn.Module):
 
     def __init__(self, channels: Sequence[int], first_filter_size: int,
                  z_dim: int = 128, out_ch: int = 3, n_classes: int = 0,
-                 dtype=None, bn: bool = False):
+                 emb_mode: str = "concat", dtype=None, bn: bool = False):
         super().__init__()
+        if emb_mode not in ("concat", "embed"):
+            raise ValueError(emb_mode)
         self.channels = list(channels)
         self.first_filter_size = first_filter_size
         self.n_classes = n_classes
+        self.emb_mode = emb_mode
         self.dtype = dtype
         f = first_filter_size
-        self.TorchDense_0 = nn.Linear(z_dim + n_classes, f * f * self.channels[0])
+        embed = emb_mode == "embed" and n_classes > 0
+        if embed:
+            self.Embed_0 = nn.Embedding(n_classes, z_dim)
+        self.TorchDense_0 = nn.Linear(z_dim + (0 if embed else n_classes),
+                                      f * f * self.channels[0])
         for i, (cin, ch) in enumerate(zip(self.channels[:-1], self.channels[1:])):
             setattr(self, f"ResBlockUp_{i}", ResBlockUp(cin, ch, 5, bn))
         self.n_blocks = len(self.channels) - 1
@@ -179,7 +190,10 @@ class DCResNetGenerator(nn.Module):
                 train: bool = True):
         x = z
         if y is not None and self.n_classes > 0:
-            x = torch.cat([z, one_hot(y, self.n_classes)], dim=1)
+            if self.emb_mode == "embed":
+                x = z * self.Embed_0.weight[y.long()]
+            else:
+                x = torch.cat([z, one_hot(y, self.n_classes)], dim=1)
         f = self.first_filter_size
         lin = self.TorchDense_0
         x = dense(x, lin.weight, lin.bias, self.dtype).view(z.shape[0], f, f, self.channels[0])
@@ -200,12 +214,18 @@ class DCResNetDiscriminator(nn.Module):
         self.n_classes = n_classes
         self.conditional_arch = conditional_arch
         self.dtype = dtype
-        for i, (cin, ch) in enumerate(zip(self.channels[:-1], self.channels[1:])):
+        # The JAX D's effective_emb_mode: ACGAN ignores its input labels;
+        # CGAN and WCGAN see them as constant one-hot planes.
+        self.planes = n_classes > 1 and conditional_arch != "ACGAN"
+        cins = [self.channels[0] + (n_classes if self.planes else 0)] + self.channels[1:-1]
+        for i, (cin, ch) in enumerate(zip(cins, self.channels[1:])):
             setattr(self, f"TorchConv_{i}", nn.Conv2d(cin, ch, 5, stride=2, padding=2))
         self.n_convs = len(self.channels) - 1
         flat = last_filter_size * last_filter_size * self.channels[-1]
-        self.linOut = nn.Linear(flat, 1, bias=False)
-        if n_classes > 1 and conditional_arch == "ACGAN":
+        self.wcgan = n_classes > 1 and conditional_arch == "WCGAN"
+        if not self.wcgan:
+            self.linOut = nn.Linear(flat, 1, bias=False)
+        if n_classes > 1 and conditional_arch in ("ACGAN", "WCGAN"):
             self.linOutAux = nn.Linear(flat, n_classes)
 
     def convs(self) -> List[nn.Conv2d]:
@@ -213,13 +233,20 @@ class DCResNetDiscriminator(nn.Module):
 
     def forward(self, x: torch.Tensor, y: Optional[torch.Tensor] = None,
                 aux: bool = True):
+        """(out, aux_out). A WCGAN's head is its critic: computed whatever
+        ``aux`` says, with out = aux_out[y]."""
         o = x
+        if self.planes and y is not None:
+            planes = one_hot(y, self.n_classes)[:, None, None, :]
+            o = torch.cat([o, planes.expand(x.shape[:3] + (self.n_classes,))], dim=-1)
         for conv in self.convs():
             o = F.leaky_relu(_conv(o, conv, self.dtype), 0.2)
         flat = o.reshape(x.shape[0], -1)
         aux_out = None
-        if aux and hasattr(self, "linOutAux"):
+        if hasattr(self, "linOutAux") and (aux or self.wcgan):
             aux_out = dense(flat, self.linOutAux.weight, self.linOutAux.bias, self.dtype)
+        if self.wcgan:
+            return torch.sum(aux_out * one_hot(y, self.n_classes), dim=1, keepdim=True), aux_out
         return dense(flat, self.linOut.weight, None, self.dtype), aux_out
 
 
@@ -229,7 +256,8 @@ def d_leaves(D: DCResNetDiscriminator) -> List[str]:
     names = []
     for i in range(D.n_convs):
         names += [f"TorchConv_{i}.bias", f"TorchConv_{i}.weight"]
-    names.append("linOut.weight")
+    if hasattr(D, "linOut"):
+        names.append("linOut.weight")
     if hasattr(D, "linOutAux"):
         names += ["linOutAux.bias", "linOutAux.weight"]
     return names

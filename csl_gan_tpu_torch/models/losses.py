@@ -1,5 +1,5 @@
 """GAN losses (reference models.py:20-67): the vanilla (BCE) and wgan
-families, and the ACGAN auxiliary losses.
+families, and the conditional auxiliary losses.
 
 Every loss supports ``reduction='mean' | 'sum' | 'none'``; ``'none'`` returns
 one value per sample (trailing dims averaged), as the JAX package's
@@ -62,14 +62,20 @@ def d_fake_loss(family: str, d_out, reduction="mean"):
 
 def aux_loss(conditional_arch: str, aux_loss_type: str, aux_loss_scalar: float,
              aux_out, labels, n_classes: int, reduction="mean"):
-    """ACGAN auxiliary loss (reference models.py:51-67).
+    """Conditional auxiliary loss (reference models.py:51-67).
 
-    cross_entropy: mean CE (nn.CrossEntropyLoss). wasserstein: the
-    class-balanced +-sigmoid *sum* (models.py:54) -- a sum-formulated loss,
-    so 'mean' returns the batch total and 'none' per-sample terms summing to
-    it; each row is divided by the count of its class in the batch."""
+    ACGAN cross_entropy: mean CE (nn.CrossEntropyLoss). ACGAN wasserstein:
+    the class-balanced +-sigmoid *sum* (models.py:54) -- a sum-formulated
+    loss, so 'mean' returns the batch total and 'none' per-sample terms
+    summing to it; each row is divided by the count of its class in the
+    batch. WCGAN, or a D without an aux head: zero (a WCGAN conditions in
+    its critic head, models.py:57-67)."""
+    if aux_out is None or conditional_arch == "WCGAN":
+        dev = labels.device
+        return torch.zeros(labels.shape[0], device=dev) if reduction == "none" else \
+            torch.zeros((), device=dev)
     if conditional_arch != "ACGAN":
-        raise NotImplementedError(f"aux loss of {conditional_arch} is not ported yet")
+        raise ValueError(conditional_arch)
     if aux_loss_type == "cross_entropy":
         return aux_loss_scalar * softmax_cross_entropy(aux_out, labels, reduction)
     onehot = torch.nn.functional.one_hot(labels.long(), n_classes).to(aux_out.dtype)

@@ -2,8 +2,10 @@
 
 Same widths and layer names as the JAX package's models/mnist.py: G
 z (+one-hot y) -> 128 -> 784 -> sigmoid; D flatten(x) (+one-hot y) ->
-128 -> {1, aux n_classes}. Images stay NHWC (B, 28, 28, 1) at the public
-functions, as in the JAX package.
+128 -> {1, aux n_classes}. The one-hot label is concatenated for every
+conditional arch; only ACGAN has the aux head (CGAN and WCGAN conditioning
+is the concat alone), and an unconditional pair takes no label. Images stay
+NHWC (B, 28, 28, 1) at the public functions, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -17,7 +19,8 @@ from csl_gan_tpu_torch.models.common import one_hot
 
 # Leaf order of the JAX package's flattened param trees (sorted keys: bias
 # before kernel in each module), in torch state-dict names. The epoch kernel,
-# the ghost clip stats and the DP noise all use this order.
+# the ghost clip stats and the DP noise all use this order; D_LEAVES is the
+# ACGAN D's (``d_leaves`` gives any D's).
 D_LEAVES = ("lin1.bias", "lin1.weight", "lin2.bias", "lin2.weight",
             "linOutAux.bias", "linOutAux.weight")
 G_LEAVES = ("lin1.bias", "lin1.weight", "lin2.bias", "lin2.weight")
@@ -44,11 +47,16 @@ class MNISTVanillaG(nn.Module):
 
 class MNISTVanillaD(nn.Module):
     """The vanilla D concatenates the label one-hot for any conditional arch,
-    ACGAN included (reference MNIST_models.py:41-46)."""
+    ACGAN included (reference MNIST_models.py:41-46). As in the JAX
+    package, a conditional vanilla D takes only the cross-entropy aux loss."""
     family = "vanilla"
 
-    def __init__(self, n_classes: int = 0, conditional_arch: str = "ACGAN"):
+    def __init__(self, n_classes: int = 0, conditional_arch: str = "ACGAN",
+                 aux_loss_type: str = "cross_entropy"):
         super().__init__()
+        if n_classes > 1 and aux_loss_type != "cross_entropy":
+            raise Exception("Cross entropy loss is the only aux loss supported for "
+                            "vanilla architecture.")
         self.n_classes = n_classes
         self.conditional_arch = conditional_arch
         self.lin1 = nn.Linear(784 + n_classes, 128)
@@ -67,3 +75,9 @@ class MNISTVanillaD(nn.Module):
         if aux and hasattr(self, "linOutAux"):
             aux_out = self.linOutAux(o)
         return out, aux_out
+
+
+def d_leaves(D: MNISTVanillaD):
+    """D's state-dict names in the JAX leaf order (D_LEAVES without the aux
+    head when D has none)."""
+    return D_LEAVES if hasattr(D, "linOutAux") else D_LEAVES[:4]

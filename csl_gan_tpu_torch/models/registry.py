@@ -3,7 +3,8 @@
 Weights come from a ``torch.Generator`` seeded with ``opt.weights_seed``
 (G first, then D; within a model, its Linear and Conv2d layers in module
 order), independent of the run's other randomness: U(+-1/sqrt(fan_in)) for
-weights and biases, GroupNorm scale 1 and bias 0. The values differ from the
+weights and biases, N(0, 1) for a label embedding (the G's ``Embed_0``),
+GroupNorm scale 1 and bias 0. The values differ from the
 JAX package's for the same seed (another generator); the distribution is the
 same.
 """
@@ -27,19 +28,21 @@ def _dcresnet_pair(opt):
 
 def init_models(opt, device: torch.device):
     """(G, D) per config, on `device`: the MNIST vanilla pair, or the DCResNet
-    pair, bf16 compute under --bf16, whose G has GroupNorm when per-sample
+    pair (the G's label mode and the D's conditional arch as configured),
+    bf16 compute under --bf16, whose G has GroupNorm when per-sample
     gradients are on (-dpm gc / tm / sv) and BatchNorm otherwise (the JAX
     package's ``bn = not per_sample_grad``)."""
     n_classes = opt.n_classes if opt.conditional else 0
     if opt.model == "Vanilla" and opt.dataset == "MNIST":
         G = mnist.MNISTVanillaG(z_dim=opt.g_latent_dim, n_classes=n_classes)
         D = mnist.MNISTVanillaD(n_classes=n_classes,
-                                conditional_arch=opt.conditional_arch)
+                                conditional_arch=opt.conditional_arch,
+                                aux_loss_type=opt.aux_loss_type)
     elif opt.model == "DeepConvResNet":
         g_ctor, d_ctor = _dcresnet_pair(opt)
         dtype = torch.bfloat16 if opt.bf16 else None
-        G = g_ctor(z_dim=opt.g_latent_dim, n_classes=n_classes, dtype=dtype,
-                   bn=not opt.per_sample_grad)
+        G = g_ctor(z_dim=opt.g_latent_dim, n_classes=n_classes,
+                   emb_mode=opt.g_label_emb_mode, dtype=dtype, bn=not opt.per_sample_grad)
         D = d_ctor(n_classes=n_classes, conditional_arch=opt.conditional_arch,
                    dtype=dtype)
     else:
@@ -49,4 +52,7 @@ def init_models(opt, device: torch.device):
         for layer in m.modules():
             if isinstance(layer, (nn.Linear, nn.Conv2d)):
                 torch_kernel_init(layer, gen)
+            elif isinstance(layer, nn.Embedding):
+                with torch.no_grad():
+                    layer.weight.copy_(torch.randn(layer.weight.shape, generator=gen))
     return G.to(device), D.to(device)

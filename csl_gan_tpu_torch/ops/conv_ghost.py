@@ -20,7 +20,12 @@ conv2, conv3 and conv4. The JAX package sends conv4 to XLA only because its
 13 MB fp32 accumulator exceeds the TPU kernel's 4 MB VMEM gate; here K2/K3
 serve every ghost-order layer, conv4 included.
 
-Dense heads use ||g_W(i)|| = ||a_i|| * ||c_i||. Under bf16 compute the
+Dense heads use ||g_W(i)|| = ||a_i|| * ||c_i||. The head cotangents follow
+the conditional arch: -1 on ``linOut`` (ACGAN, CGAN, unconditional); for
+ACGAN the aux loss's on ``linOutAux``; for WCGAN, whose critic is the
+label's column of ``linOutAux``, -onehot(y) there and no ``linOut``. CGAN
+and WCGAN see the label as constant one-hot input planes
+(``concat_planes``). Under bf16 compute the
 forward and the input backprop run in bf16, norms and sums accumulate in fp32,
 the weighted sums are fp32, and the clip norms carry ``_BF16_NORM_MARGIN``.
 The DP noise is pre-drawn and added by the caller (training/steps.py).
@@ -60,23 +65,27 @@ def dcresnet_real_ghost(d_params: Dict[str, torch.Tensor], x: torch.Tensor,
                         y: Optional[torch.Tensor], *, n_classes: int, arch: str,
                         aux_type: str, aux_scalar: float,
                         row_w: Optional[torch.Tensor], max_norm,
-                        per_layer: bool = False, stride: int = 2, pad: int = 2,
-                        compute_dtype=None):
+                        per_layer: bool = False, concat_planes: bool = False,
+                        stride: int = 2, pad: int = 2, compute_dtype=None):
     """Clipped summed gradient of the per-sample REAL wgan loss
-    loss_i = -out_i [+ ACGAN aux term of sample i].
+    loss_i = -out_i [+ ACGAN aux term of sample i], with out_i the WCGAN
+    head's column y_i.
 
     Returns (summed grads by param name, ClipStats in JAX leaf order,
     (out, aux_out))."""
-    if arch != "ACGAN":
-        raise NotImplementedError(f"conv ghost clipping for {arch} is not ported yet")
     b = x.shape[0]
     dt = compute_dtype
     n_convs = sum(1 for k in d_params if k.startswith("TorchConv_") and k.endswith(".weight"))
     conv_names = [f"TorchConv_{i}" for i in range(n_convs)]
     has_aux = "linOutAux.weight" in d_params
+    wcgan = has_aux and arch == "WCGAN"
 
     # ---- forward (DCResNetDiscriminator.forward) ----
-    o = x if dt is None else x.to(dt)
+    o = x
+    if concat_planes:
+        planes = one_hot(y, n_classes)[:, None, None, :]
+        o = torch.cat([o, planes.expand(x.shape[:3] + (n_classes,))], dim=-1)
+    o = o if dt is None else o.to(dt)
     acts = []
     for name in conv_names:
         z = conv_nhwc(o, d_params[f"{name}.weight"], d_params[f"{name}.bias"], stride, pad, dt)
@@ -87,12 +96,17 @@ def dcresnet_real_ghost(d_params: Dict[str, torch.Tensor], x: torch.Tensor,
     aux_out = None
     if has_aux:
         aux_out = dense(flat, d_params["linOutAux.weight"], d_params["linOutAux.bias"], dt)
-    out = dense(flat, d_params["linOut.weight"], None, dt)
+    if wcgan:
+        out = torch.sum(aux_out * one_hot(y, n_classes), dim=1, keepdim=True)
+    else:
+        out = dense(flat, d_params["linOut.weight"], None, dt)
 
     # ---- head cotangents (d per-sample loss / d pre-activation) ----
     c_out = -torch.ones_like(out)
     c_aux = None
-    if has_aux:
+    if wcgan:       # out_i = aux_i . onehot_i; the WCGAN aux loss is zero
+        c_aux = -one_hot(y, n_classes)
+    elif has_aux:
         onehot = one_hot(y, n_classes)
         if aux_type == "cross_entropy":
             c_aux = aux_scalar * (torch.softmax(aux_out, dim=-1) - onehot)
@@ -100,8 +114,8 @@ def dcresnet_real_ghost(d_params: Dict[str, torch.Tensor], x: torch.Tensor,
             w_row = row_w if row_w is not None else torch.ones(b, device=x.device)
             sig = torch.sigmoid(aux_out)
             c_aux = aux_scalar * w_row[:, None] * (onehot * -2.0 + 1.0) * sig * (1.0 - sig)
-    c_flat = c_out @ d_params["linOut.weight"]
-    if c_aux is not None:
+    c_flat = c_aux @ d_params["linOutAux.weight"] if wcgan else c_out @ d_params["linOut.weight"]
+    if c_aux is not None and not wcgan:
         c_flat = c_flat + c_aux @ d_params["linOutAux.weight"]
 
     # ---- input cotangents back through the conv stack ----
@@ -145,9 +159,11 @@ def dcresnet_real_ghost(d_params: Dict[str, torch.Tensor], x: torch.Tensor,
         wsum[f"{name}.bias"] = lambda f, g_b=g_b: (g_b * f[:, None]).sum(dim=0)
 
     sq_flat = flat32.square().sum(dim=1)
-    sq["linOut.weight"] = sq_flat * c_out.square().sum(dim=1)
-    wsum["linOut.weight"] = lambda f: torch.einsum("bi,bo->oi", flat32 * f[:, None], c_out)
-    leaves = [k for n in conv_names for k in (f"{n}.bias", f"{n}.weight")] + ["linOut.weight"]
+    leaves = [k for n in conv_names for k in (f"{n}.bias", f"{n}.weight")]
+    if not wcgan:
+        sq["linOut.weight"] = sq_flat * c_out.square().sum(dim=1)
+        wsum["linOut.weight"] = lambda f: torch.einsum("bi,bo->oi", flat32 * f[:, None], c_out)
+        leaves.append("linOut.weight")
     if c_aux is not None:
         sq_ca = c_aux.square().sum(dim=1)
         sq["linOutAux.bias"] = sq_ca

@@ -108,9 +108,9 @@ def epoch_plain(builder, rows, z_d, z_g, ohg, noise, C, t, params, mu, nu,
     state = state_from_leaves(params, mu, nu, C, t)
     met = torch.zeros(MET_SLOTS, dtype=torch.float32, device=z_d.device)
     for s in range(n):
-        x, y, oh = builder.split_rows(rows[s * bs:(s + 1) * bs])
+        x, y, _ = builder.split_rows(rows[s * bs:(s + 1) * bs])
         step_noise = [l[s] for l in noise] if use_dp else None
-        state, dm = builder.d_step(state, x, y, oh, z_d[s], step_noise, use_dp)
+        state, dm = builder.d_step(state, x, y, z_d[s], step_noise, use_dp)
         state, gm = builder.g_step(state, z_g[s], ohg[s])
         for slot, k in enumerate(_D_KEYS):
             met[slot] += dm[k]

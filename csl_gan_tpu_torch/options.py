@@ -266,6 +266,7 @@ def derive_and_validate(opt) -> None:
     opt.is_acgan = opt.conditional and opt.conditional_arch == "ACGAN"
     opt.use_aux_loss = opt.conditional and opt.conditional_arch in ["ACGAN", "WCGAN"]
     if opt.conditional_arch == "WCGAN" and opt.aux_penalty:
+        print("Setting aux_penalty to false due to using WCGAN.")
         opt.aux_penalty = False
     # The reference forces -1 for DP DeepConvResNet runs; like the JAX
     # package, only when the user set no value.
@@ -284,6 +285,8 @@ def derive_and_validate(opt) -> None:
             "Lower -bs or raise -tss.")
     if (opt.g_label_emb_mode != "concat" or opt.d_label_emb_mode != "concat") and opt.model == "Vanilla":
         raise Exception("Vanilla model with embedded labels not implemented")
+    if opt.conditional and opt.n_classes > 1 and opt.d_label_emb_mode == "embed":
+        raise Exception("Embed for D not implemented")
     if opt.imm_sens_per_param and opt.imm_sens_scaling_mode not in (None, "standard"):
         raise Exception("Calculating IS per parameter does not require per parameter scaling. "
                         "Scaling estimates per-parameter calculation.")
@@ -355,12 +358,8 @@ _NOT_PORTED = [
      "vanilla ACGAN epoch kernel)",
      lambda o: o.sample_every_epochs < 0 and _k1_path(o)),
     ("--stop_on_g_freeze", lambda o: o.stop_on_g_freeze > 0),
-    ("--g_label_emb_mode embed", lambda o: o.g_label_emb_mode != "concat"),
-    ("unconditional training (--conditional)", lambda o: not o.conditional),
-    ("--conditional_arch CGAN / WCGAN (only ACGAN is ported)",
-     lambda o: o.conditional_arch != "ACGAN"),
-    ("--aux_loss_type wasserstein on the vanilla model",
-     lambda o: o.aux_loss_type != "cross_entropy" and _vanilla(o)),
+    ("--aux_loss_type wasserstein on the conditional vanilla model",
+     lambda o: o.aux_loss_type != "cross_entropy" and _vanilla(o) and o.conditional),
     ("--n_classes outside 2..16", lambda o: not 2 <= o.n_classes <= 16),
     ("--batch_size not a multiple of 8", lambda o: o.batch_size % 8 != 0),
 ]

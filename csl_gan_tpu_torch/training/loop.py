@@ -2,7 +2,8 @@
 
 The port's counterpart of the JAX package's training/loop.py ``Trainer``.
 The dataset lives on the device: MNIST as one flat table ``[x | one-hot |
-label]`` (bf16 under ``--bf16_table``, the default), CelebA as the decoded
+label]`` (the one-hot of conditional runs only; bf16 under
+``--bf16_table``, the default), CelebA as the decoded
 uint8 images plus labels (normalised and randomly flipped after each
 gather). Groups of whole epochs run through a runner, chosen by config:
 
@@ -131,12 +132,16 @@ class Trainer:
 
         # The fixed sampling grid (reference train.py:256-261): z from the
         # seed alone, drawn on the CPU so both devices draw the same grid;
-        # the labels 0..n_classes-1 repeated, z trimmed to whole classes.
-        reps = max(1, opt.sample_num // opt.n_classes)
-        self.fixed_y = torch.arange(opt.n_classes).repeat(reps).to(self.device)
+        # conditional runs take the labels 0..n_classes-1 repeated, z trimmed
+        # to whole classes; unconditional runs no labels.
         z = torch.randn(opt.sample_num, opt.g_latent_dim,
                         generator=torch.Generator().manual_seed(seed))
-        self.fixed_z = z[: len(self.fixed_y)].to(self.device)
+        self.fixed_y = None
+        if opt.conditional:
+            reps = max(1, opt.sample_num // opt.n_classes)
+            self.fixed_y = torch.arange(opt.n_classes).repeat(reps).to(self.device)
+            z = z[: len(self.fixed_y)]
+        self.fixed_z = z.to(self.device)
 
         # A resumed run appends to its logs without a new header.
         self.logger = build_logger(opt, os.path.join(opt.output_dir, "log.csv"),
@@ -208,9 +213,10 @@ class Trainer:
 
     def _setup_device_data(self):
         """The dataset on the device. MNIST: the flat [x | one-hot | label]
-        table; bf16 rounds to nearest even, as JAX's astype does, so the
-        stored pixels equal the JAX package's table bit for bit. CelebA: the
-        uint8 images [N, H, W, 3] and the labels."""
+        table, the one-hot only for conditional runs with 2..64 classes (JAX
+        training/loop.py:349); bf16 rounds to nearest even, as JAX's astype
+        does, so the stored pixels equal the JAX package's table bit for bit.
+        CelebA: the uint8 images [N, H, W, 3] and the labels."""
         opt = self.opt
         self._dev_mean = None
         if self.mean_sampler is not None:
@@ -224,14 +230,15 @@ class Trainer:
             return
         imgs = np.asarray(self.dataset.images, np.float32)
         self.builder.img_shape = imgs.shape[1:]
-        flat = imgs.reshape(len(imgs), -1)
-        eye = np.eye(opt.n_classes, dtype=np.float32)
-        table = np.concatenate([flat, eye[labels],
-                                labels.astype(np.float32)[:, None]], axis=1)
-        t = torch.from_numpy(table).to(self.device)
+        cols = [imgs.reshape(len(imgs), -1)]
+        onehot = opt.conditional and 2 <= opt.n_classes <= 64
+        if onehot:
+            cols.append(np.eye(opt.n_classes, dtype=np.float32)[labels])
+        cols.append(labels.astype(np.float32)[:, None])
+        t = torch.from_numpy(np.concatenate(cols, axis=1)).to(self.device)
         self.table = t.to(torch.bfloat16) if opt.bf16_table else t
         self.builder.labels_in_table = True
-        self.builder.onehot_in_table = True
+        self.builder.onehot_in_table = onehot
 
     def _gather(self, idx: torch.Tensor):
         """(images, labels) of the rows idx of the device dataset."""
@@ -334,7 +341,8 @@ class Trainer:
 
     def sample(self, epoch: int, batch: int, state=None) -> None:
         """The fixed-z grid of G at `state` (the current one by default) as
-        samples/{epoch + 1}-{batch}.png, one class a column."""
+        samples/{epoch + 1}-{batch}.png, n_classes columns (one class a
+        column when conditional)."""
         st = self.state if state is None else state
         imgs = self.builder.sample_images(st, self.fixed_z, self.fixed_y).cpu().numpy()
         if self.opt.dataset == "CelebA":

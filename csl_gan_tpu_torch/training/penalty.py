@@ -24,7 +24,10 @@ def lipschitz_penalty_wrt(d_apply: Callable, inputs: torch.Tensor,
                           n_classes: int = 0, per_sample: bool = False):
     """((||d D(x)/d x||_2 - 1)_+)^2 per sample; with aux_penalty each aux-head
     column adds its own term (gradient_penalty.py:43-65). d_apply(x, y) ->
-    (out, aux_out) must depend on D's params with autograd on."""
+    (out, aux_out) must depend on D's params with autograd on; it passes the
+    labels to a D that conditions on them (CGAN, WCGAN). A WCGAN's head is
+    its critic, and options turn aux_penalty off there, as the JAX package
+    does, so its columns add no term."""
     inputs = inputs.detach().requires_grad_(True)
     out, aux_out = d_apply(inputs, input_labels)
 

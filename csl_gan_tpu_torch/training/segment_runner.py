@@ -109,7 +109,9 @@ class StepRunner:
 
     ``gather(idx) -> (x, y)`` returns a batch's images and labels from the
     device-resident dataset; with ``u8_images`` the images are uint8 and get
-    the JAX Trainer's ``/127.5 - 1`` and random flip after the gather.
+    the JAX Trainer's ``/127.5 - 1`` and random flip after the gather. An
+    unconditional run's steps take no labels (y None, the G step's too), and
+    its penalty batch none either (JAX segment_runner.py:208-234).
 
     With ``on_sample`` set, ``on_sample(state, j, i)`` is called after batch i
     of the run's epoch j whenever ``(i + 1) * batch_size`` is a multiple of
@@ -140,14 +142,16 @@ class StepRunner:
 
     def _batch(self, idx: torch.Tensor, gen: torch.Generator):
         x, y = self.gather(idx)
+        if not self.builder.conditional:
+            y = None
         if self.u8_images:
             flip = torch.rand(x.shape[0], generator=gen, device=x.device) < 0.5
             x = x.float() / 127.5 - 1.0
             x = torch.where(flip[:, None, None, None], x.flip(2), x)
         return x, y
 
-    def _penalty_inputs(self, gen: torch.Generator, x: torch.Tensor, y: torch.Tensor,
-                        bs: int):
+    def _penalty_inputs(self, gen: torch.Generator, x: torch.Tensor,
+                        y: Optional[torch.Tensor], bs: int):
         """The penalty's batch (the mean-sample surrogates, else the real
         batch, as the JAX runner picks it) and interpolation weights."""
         b = self.builder
@@ -156,7 +160,9 @@ class StepRunner:
         pen_x, pen_y = x, y
         if self.mean_sampler is not None:
             pen_x, pen_y = self.mean_sampler.device_sample(self.mean_samples, gen, y, bs)
-        alphas = [torch.rand((bs, 1, 1, 1), generator=gen, device=y.device)
+            if not b.conditional:
+                pen_y = None
+        alphas = [torch.rand((bs, 1, 1, 1), generator=gen, device=x.device)
                   for _ in b.penalty_types]
         return pen_x, pen_y, alphas
 
@@ -188,7 +194,7 @@ class StepRunner:
         b = self.builder
         z, y = b.gen_z(gen, bs), b.gen_y(gen, bs)
         if b.family == "vanilla":
-            return b.g_step(state, z, one_hot(y, b.n_classes))
+            return b.g_step(state, z, None if y is None else one_hot(y, b.n_classes))
         return b.g_step_dcresnet(state, z, y)
 
     def run(self, state: TrainState, gen_perm: torch.Generator,

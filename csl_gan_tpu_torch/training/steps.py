@@ -1,4 +1,5 @@
-"""Train-step math of the ported conditional ACGAN paths, in PyTorch.
+"""Train-step math of the port, in PyTorch: unconditional runs and the
+CGAN, ACGAN and WCGAN conditional variants.
 
 The port's counterparts of the JAX package's training/steps.py pieces:
 
@@ -37,8 +38,12 @@ The port's counterparts of the JAX package's training/steps.py pieces:
 All randomness is an explicit input (z, labels, per-leaf DP noise or the
 fused route's seeds and small-leaf normals, penalty interpolation weights,
 mean-sample surrogates), so the same inputs give the same values in both
-packages. Parameters are dicts of torch state-dict names;
-per-leaf lists follow the JAX leaf order (``StepBuilder.d_leaves``).
+packages. As in the JAX package, the D and G see labels only when the run
+is conditional (labels are None otherwise, ``_d_apply``); the ACGAN aux
+loss is the only one that is not zero (``_aux_batch``, ``_aux_single``),
+and the G step adds it for ACGAN alone. Parameters are dicts of torch
+state-dict names; per-leaf lists follow the JAX leaf order
+(``StepBuilder.d_leaves``).
 """
 
 from __future__ import annotations
@@ -54,7 +59,8 @@ from torch.func import functional_call
 from csl_gan_tpu_torch.models import losses
 from csl_gan_tpu_torch.models.common import one_hot
 from csl_gan_tpu_torch.models.dcresnet import DCResNetDiscriminator, d_leaves
-from csl_gan_tpu_torch.models.mnist import D_LEAVES, G_LEAVES, MNISTVanillaD
+from csl_gan_tpu_torch.models.mnist import G_LEAVES, MNISTVanillaD
+from csl_gan_tpu_torch.models.mnist import d_leaves as mnist_d_leaves
 from csl_gan_tpu_torch.ops import conv_ghost, ghost, tmsv
 from csl_gan_tpu_torch.ops import grads as gops
 from csl_gan_tpu_torch.training import param_order
@@ -188,7 +194,9 @@ class StepBuilder:
             not self.grad_clip_split
             or not (self.use_ghost or self.use_conv_ghost or self.use_two_pass))
         self.fused_route = self.use_pallas and self.materialized
-        self.d_leaves = tuple(d_leaves(D)) if dcresnet else D_LEAVES
+        self.d_leaves = tuple(d_leaves(D) if dcresnet else mnist_d_leaves(D))
+        # A CGAN or WCGAN DCResNet D sees the label as one-hot input planes.
+        self.concat_planes = dcresnet and D.planes
         self.g_leaves = tuple(n for n, _ in G.named_parameters()) if dcresnet else G_LEAVES
         self.g_stat_names = tuple(n for n, _ in G.named_buffers())
         self.g_has_bn = bool(self.g_stat_names)
@@ -249,7 +257,10 @@ class StepBuilder:
 
     def gen_y(self, gen: torch.Generator, size: int, lead: tuple = ()):
         """Class labels (reference train.py:153-161): Bernoulli(label1_prob)
-        for two classes, uniform otherwise (the JAX package's gen_y)."""
+        for two classes, uniform otherwise, None when unconditional (the JAX
+        package's gen_y)."""
+        if not self.conditional:
+            return None
         if self.n_classes == 2:
             u = torch.rand(lead + (size,), generator=gen, device=gen.device)
             return (u < self.label1_prob).to(torch.int64)
@@ -273,19 +284,23 @@ class StepBuilder:
 
     # ---------------- D steps ----------------
 
-    def _fake_sum_grads(self, d_params: Params, fake: torch.Tensor,
-                        y: torch.Tensor):
+    def _aux_batch(self, aux_out, y, fake: bool, reduction: str = "mean"):
+        """The aux loss of a batch (JAX steps.py ``_aux_batch``): zero
+        without an aux loss or head, and on a WCGAN's fakes."""
+        if not self.use_aux or aux_out is None or (fake and self.arch == "WCGAN"):
+            return 0.0
+        return losses.aux_loss(self.arch, self.aux_type, self.aux_scalar, aux_out, y,
+                               self.n_classes, reduction=reduction)
+
+    def _fake_sum_grads(self, d_params: Params, fake: torch.Tensor, y):
         """Summed grads of the clean fake pass (JAX steps.py fake_sum):
-        sum_i BCE(out_i, 0) [+ aux_scalar * CE_i when d_fake_aux]."""
+        sum_i loss(out_i, fake) [+ the aux terms when d_fake_aux]."""
         p = {k: v.detach().requires_grad_(True) for k, v in d_params.items()}
         with torch.enable_grad():
-            out, aux_o = functional_call(self.D, p, (fake, y),
-                                         {"aux": self.d_fake_aux})
+            out, aux_o = self._d_apply(p, fake, y, aux=self.d_fake_aux)
             loss = losses.d_fake_loss(self.family, out, "sum")
-            if self.d_fake_aux and self.use_aux:
-                loss = loss + losses.aux_loss(
-                    self.arch, self.aux_type, self.aux_scalar, aux_o, y,
-                    self.n_classes, reduction="sum")
+            if self.d_fake_aux:
+                loss = loss + self._aux_batch(aux_o, y, fake=True, reduction="sum")
             grads = torch.autograd.grad(loss, [p[k] for k in self.d_leaves])
         return dict(zip(self.d_leaves, grads)), out.detach()
 
@@ -293,14 +308,14 @@ class StepBuilder:
         """Plain summed grads of the per-sample real loss (non-private)."""
         p = {k: v.detach().requires_grad_(True) for k, v in d_params.items()}
         with torch.enable_grad():
-            out, aux_o = functional_call(self.D, p, (x, y))
-            loss = losses.d_real_loss(self.family, out, "sum") + losses.aux_loss(
-                self.arch, self.aux_type, self.aux_scalar, aux_o, y,
-                self.n_classes, reduction="sum")
+            out, aux_o = self._d_apply(p, x, y)
+            loss = losses.d_real_loss(self.family, out, "sum") + self._aux_batch(
+                aux_o, y, fake=False, reduction="sum")
             grads = torch.autograd.grad(loss, [p[k] for k in self.d_leaves])
-        return dict(zip(self.d_leaves, grads)), out.detach(), aux_o.detach()
+        return (dict(zip(self.d_leaves, grads)), out.detach(),
+                None if aux_o is None else aux_o.detach())
 
-    def d_step(self, state: TrainState, x, y, y_onehot, z,
+    def d_step(self, state: TrainState, x, y, z,
                noise: Optional[List[torch.Tensor]], use_dp: bool):
         """One D update of the vanilla model: the gc step (``d_step_gc``) or,
         without DP, plain summed grads; then /bs and Adam. Returns
@@ -312,8 +327,7 @@ class StepBuilder:
         summed, r_out, r_aux = self._real_sum_grads(state.d_params, x, y)
         fake_grads, f_out = self._fake_sum_grads(state.d_params, fake, y)
         grads = {k: (summed[k] + fake_grads[k]) / b for k in self.d_leaves}
-        return (self._apply_d(state, grads),
-                self._d_metrics(r_out, r_aux, f_out, y, y_onehot))
+        return self._apply_d(state, grads), self._d_metrics(r_out, r_aux, f_out, y)
 
     def _apply_d(self, state: TrainState, grads: Params) -> TrainState:
         d_params, d_mu, d_nu = _adam_all(
@@ -322,7 +336,10 @@ class StepBuilder:
         return replace(state, d_params=d_params, d_mu=d_mu, d_nu=d_nu,
                        d_count=state.d_count + 1)
 
-    def _d_metrics(self, r_out, r_aux, f_out, y, y_onehot, stats=None, pen_value=None):
+    def _d_metrics(self, r_out, r_aux, f_out, y, stats=None, pen_value=None):
+        """The D step's metrics (JAX steps.py ``_d_metrics``); the aux
+        columns exist exactly when the run has an aux loss (ACGAN, WCGAN),
+        the accuracy then being of the head's argmax (0 without a head)."""
         r_loss = losses.d_real_loss(self.family, r_out)
         f_loss = losses.d_fake_loss(self.family, f_out)
         m = {"d_adv_loss": r_loss + f_loss, "d_real_loss": r_loss,
@@ -330,9 +347,10 @@ class StepBuilder:
              "d_real_acc": 100.0 * (r_out > 0).to(torch.float32).mean(),
              "d_fake_acc": 100.0 * (f_out < 0).to(torch.float32).mean()}
         if self.use_aux:
-            m["d_real_aux_loss"] = losses.aux_loss(
-                self.arch, self.aux_type, self.aux_scalar, r_aux, y, self.n_classes)
-            m["d_real_aux_acc"] = 100.0 * _acc_vs_max(r_aux, y_onehot).mean()
+            m["d_real_aux_loss"] = torch.as_tensor(self._aux_batch(r_aux, y, fake=False),
+                                                   device=r_out.device)
+            m["d_real_aux_acc"] = torch.zeros((), device=r_out.device) if r_aux is None \
+                else 100.0 * _acc_vs_max(r_aux, one_hot(y, self.n_classes)).mean()
         if stats is not None:
             m.update(norm_mean=stats.norm_mean, norm_std=stats.norm_std,
                      norm_max=stats.norm_max, frac_clipped=stats.frac_clipped)
@@ -343,23 +361,28 @@ class StepBuilder:
     # ---------------- G step ----------------
 
     def g_step(self, state: TrainState, z, y_onehot):
-        """G update against the (already updated) D: mean BCE-vs-ones +
-        ACGAN aux CE (JAX _g_step). Returns (state, metrics)."""
-        y = torch.argmax(y_onehot, dim=1)
+        """G update of the vanilla model against the (already updated) D:
+        mean BCE-vs-ones [+ ACGAN aux CE] (JAX _g_step); ``y_onehot`` is
+        None when unconditional. Returns (state, metrics)."""
+        y = None if y_onehot is None else torch.argmax(y_onehot, dim=1)
         p = {k: v.detach().requires_grad_(True) for k, v in state.g_params.items()}
         with torch.enable_grad():
             img = functional_call(self.G, p, (z, y))
-            out, aux_o = functional_call(self.D, state.d_params, (img, y))
+            out, aux_o = self._d_apply(state.d_params, img, y)
             adv = losses.g_adv_loss(self.family, out)
-            aux = losses.aux_loss(self.arch, self.aux_type, self.aux_scalar,
-                                  aux_o, y, self.n_classes)
-            grads = torch.autograd.grad(adv + aux, [p[k] for k in G_LEAVES])
+            loss = adv
+            if self.is_acgan:
+                aux = self._aux_batch(aux_o, y, fake=False)
+                loss = adv + aux
+            grads = torch.autograd.grad(loss, [p[k] for k in G_LEAVES])
         grads = dict(zip(G_LEAVES, grads))
         g_params, g_mu, g_nu = _adam_all(
             state.g_params, grads, state.g_mu, state.g_nu, state.g_count + 1,
             self.opt.g_lr, self.opt.adam_b1, self.opt.adam_b2)
-        m = {"g_adv_loss": adv.detach(), "g_aux_loss": aux.detach(),
-             "g_aux_acc": 100.0 * _acc_vs_max(aux_o.detach(), y_onehot).mean()}
+        m = {"g_adv_loss": adv.detach()}
+        if self.is_acgan:
+            m["g_aux_loss"] = aux.detach()
+            m["g_aux_acc"] = 100.0 * _acc_vs_max(aux_o.detach(), y_onehot).mean()
         return replace(state, g_params=g_params, g_mu=g_mu, g_nu=g_nu,
                        g_count=state.g_count + 1), m
 
@@ -378,11 +401,9 @@ class StepBuilder:
         mean-sample batch (JAX steps.py _penalty_grads)."""
         p = {k: v.detach().requires_grad_(True) for k, v in d_params.items()}
         with torch.enable_grad():
-            def d_apply(xx, yy):
-                return functional_call(self.D, p, (xx, yy))
-
             val = penalty_mod.calc_penalty(
-                d_apply, self.penalty_types, pen_x, pen_y, fake, alphas,
+                lambda xx, yy: self._d_apply(p, xx, yy), self.penalty_types, pen_x, pen_y,
+                fake, alphas,
                 aux_penalty=self.aux_penalty, n_classes=self.n_classes)
             # The input gradient does not depend on the head biases: their
             # penalty gradient is zero.
@@ -421,13 +442,16 @@ class StepBuilder:
     # ---------------- the gc D step ----------------
 
     def _d_apply(self, d_params: Params, x, y, aux: bool = True):
-        return functional_call(self.D, d_params, (x, y), {"aux": aux})
+        """D's (out, aux_out) on x; the labels reach D only when the run is
+        conditional (JAX steps.py ``_d_apply``)."""
+        return functional_call(self.D, d_params, (x, y if self.conditional else None),
+                               {"aux": aux})
 
     def _aux_single(self, aux_row, yi, wi):
         """Aux loss of ONE sample (aux_row: [n_classes]), the per-sample form
         of models/losses.aux_loss (JAX steps.py ``_aux_single``); ``wi`` is the
-        sample's 1 / count of its class in the batch."""
-        if not self.use_aux or aux_row is None:
+        sample's 1 / count of its class in the batch. Zero for WCGAN."""
+        if not self.use_aux or aux_row is None or self.arch == "WCGAN":
             return 0.0
         onehot = one_hot(yi, self.n_classes)
         if self.aux_type == "cross_entropy":
@@ -438,7 +462,14 @@ class StepBuilder:
     def real_ps_args(self, x, y, row_w):
         """(loss_fn, batch args) of the per-sample REAL pass (JAX steps.py
         ``_real_ps_args``, without the per-sample penalty):
-        loss_fn(d_params, x_i, y_i, w_i) is the real loss of one sample."""
+        loss_fn(d_params, x_i, y_i, w_i) is the real loss of one sample, or
+        loss_fn(d_params, x_i) when unconditional."""
+        if not self.conditional:
+            def f_unc(d_params, xi):
+                out, _ = self._d_apply(d_params, xi[None], None)
+                return losses.d_real_loss(self.family, out, "none")[0]
+
+            return f_unc, (x,)
         w = row_w if row_w is not None else torch.ones(x.shape[0], device=x.device)
 
         def f(d_params, xi, yi, wi):
@@ -451,6 +482,14 @@ class StepBuilder:
     def combined_ps_args(self, x, y, fake, row_w):
         """(loss_fn, batch args) for real + fake clipped together
         (--grad_clip_split false; JAX steps.py ``_combined_ps_args``)."""
+        if not self.conditional:
+            def f_unc(d_params, xi, fi):
+                r_out, _ = self._d_apply(d_params, xi[None], None)
+                f_out, _ = self._d_apply(d_params, fi[None], None)
+                return losses.d_real_loss(self.family, r_out, "none")[0] \
+                    + losses.d_fake_loss(self.family, f_out, "none")[0]
+
+            return f_unc, (x, fake)
         w = row_w if row_w is not None else torch.ones(x.shape[0], device=x.device)
 
         def f(d_params, xi, yi, fi, wi):
@@ -489,15 +528,17 @@ class StepBuilder:
         if self.grad_clip_split:
             # Private real pass: per-sample clip; clean fake pass: summed grads.
             if self.use_ghost:
+                cond = self.conditional
                 summed, stats, ghost_outs = ghost.vanilla_real_ghost(
-                    d_params, x, one_hot(y, self.n_classes), y if self.use_aux else None,
+                    d_params, x, one_hot(y, self.n_classes) if cond else None,
+                    y if cond and self.use_aux else None,
                     self.aux_scalar, clipping, self.per_layer)
             elif self.use_conv_ghost:
                 summed, stats, ghost_outs = conv_ghost.dcresnet_real_ghost(
                     d_params, x, y, n_classes=self.n_classes, arch=self.arch,
                     aux_type=self.aux_type, aux_scalar=self.aux_scalar, row_w=row_w,
                     max_norm=clipping, per_layer=self.per_layer,
-                    compute_dtype=self.compute_dtype)
+                    concat_planes=self.concat_planes, compute_dtype=self.compute_dtype)
             elif self.use_two_pass:
                 f, args = self.real_ps_args(x, y, row_w)
                 summed, stats = gops.two_pass_clipped_grad_sum(
@@ -531,8 +572,7 @@ class StepBuilder:
         else:
             with torch.no_grad():
                 r_out, r_aux = self._d_apply(d_params, x, y)
-        metrics = self._d_metrics(r_out, r_aux, f_out, y, one_hot(y, self.n_classes),
-                                  stats, pen_value)
+        metrics = self._d_metrics(r_out, r_aux, f_out, y, stats, pen_value)
         return self._apply_d(state, grads), metrics
 
     def d_step_conv_ghost(self, state: TrainState, x, y, z,
@@ -552,18 +592,14 @@ class StepBuilder:
         f_out, f_aux = self._d_apply(d_params, fake, y, aux=self.d_fake_aux)
         r_out, r_aux = self._d_apply(d_params, x, y)
         total = losses.d_real_loss(self.family, r_out) + losses.d_fake_loss(self.family, f_out)
-        if self.use_aux:
-            total = total + losses.aux_loss(self.arch, self.aux_type, self.aux_scalar,
-                                            r_aux, y, self.n_classes)
-            if self.d_fake_aux:
-                total = total + losses.aux_loss(self.arch, self.aux_type, self.aux_scalar,
-                                                f_aux, y, self.n_classes)
+        total = total + self._aux_batch(r_aux, y, fake=False)
+        if self.d_fake_aux:
+            total = total + self._aux_batch(f_aux, y, fake=True)
         return total, r_out, r_aux, f_out
 
     def _metrics_of(self, r_out, r_aux, f_out, y, pen_value):
         return self._d_metrics(r_out.detach(), None if r_aux is None else r_aux.detach(),
-                               f_out.detach(), y, one_hot(y, self.n_classes),
-                               pen_value=pen_value)
+                               f_out.detach(), y, pen_value=pen_value)
 
     def d_step_plain(self, state: TrainState, x, y, z, pen_x=None, pen_y=None,
                      alphas: Optional[List[torch.Tensor]] = None):
@@ -578,7 +614,7 @@ class StepBuilder:
             total, r_out, r_aux, f_out = self._full_batch_loss(p, x, y, fake)
             if self.penalty_types:
                 pen_value = penalty_mod.calc_penalty(
-                    lambda xx, yy: functional_call(self.D, p, (xx, yy)), self.penalty_types,
+                    lambda xx, yy: self._d_apply(p, xx, yy), self.penalty_types,
                     pen_x, pen_y, fake, alphas, aux_penalty=self.aux_penalty,
                     n_classes=self.n_classes)
                 total = total + pen_value
@@ -684,23 +720,23 @@ class StepBuilder:
         if use_dp:
             return self.d_step_tmsv(state, x, y, z, noise, **pen)
         if self.family == "vanilla":
-            return self.d_step(state, x, y, one_hot(y, self.n_classes), z, None, False)
+            return self.d_step(state, x, y, z, None, False)
         return self.d_step_plain(state, x, y, z, **pen)
 
     def g_step_dcresnet(self, state: TrainState, z, y):
-        """G update against the current D: wgan adversarial loss + ACGAN aux
-        loss (JAX _g_step); the GroupNorm+ReLU backward runs K5. A BatchNorm
-        G trains on batch statistics and updates its running averages."""
+        """G update against the current D: wgan adversarial loss (a WCGAN
+        critic's column y of its head) + the ACGAN aux loss (JAX _g_step);
+        the GroupNorm+ReLU backward runs K5. A BatchNorm G trains on batch
+        statistics and updates its running averages."""
         p = {k: v.detach().requires_grad_(True) for k, v in state.g_params.items()}
         stats = {k: v.clone() for k, v in state.g_batch_stats.items()}
         with torch.enable_grad():
             img = functional_call(self.G, {**p, **stats}, (z, y))
-            out, aux_o = functional_call(self.D, state.d_params, (img, y))
+            out, aux_o = self._d_apply(state.d_params, img, y)
             adv = losses.g_adv_loss(self.family, out)
             loss = adv
             if self.is_acgan:
-                aux = losses.aux_loss(self.arch, self.aux_type, self.aux_scalar,
-                                      aux_o, y, self.n_classes)
+                aux = self._aux_batch(aux_o, y, fake=False)
                 loss = adv + aux
             grads = torch.autograd.grad(loss, [p[k] for k in self.g_leaves])
         g_params, g_mu, g_nu = _adam_all(

@@ -41,7 +41,7 @@ from csl_gan_tpu_torch.training.loop import Trainer
 from csl_gan_tpu_torch.training.segment_runner import StepRunner
 from csl_gan_tpu_torch.training.steps import StepBuilder
 
-# See tests/test_torch_trainer.py: create ./output before any worker parses.
+# See tests/test_torch_trainer_basics.py: create ./output before any worker parses.
 os.makedirs("output", exist_ok=True)
 
 
@@ -209,7 +209,8 @@ def test_moving_avg_pl_resumes_bitwise(tmp_path):
     (DCRN + ["-dpm", "is", "-pupd", "false"], "-pupd"),
     (DCRN + ["-dpm", "tm", "--penalty", "DRAGAN"], "DRAGAN"),
     (DCRN + ["-dpm", "is", "-gcm", "adaptive"], "--grad_clip_mode"),
-    (DCRN + ["-dpm", "is", "--conditional_arch", "WCGAN"], "--conditional_arch"),
+    (DCRN + ["-dpm", "is", "--conditional_arch", "WCGAN", "--ref_pixel_shuffle", "true"],
+     "--ref_pixel_shuffle"),
 ])
 def test_unported_combinations_raise(tmp_path, extra, flag):
     with pytest.raises(NotImplementedError, match=flag):
