@@ -6,6 +6,7 @@
     python3 chip_smoke.py --saves      # steps 1-2, then step 5 alone
     python3 chip_smoke.py --dp-modes   # step 1, K4/K5's build, then step 7 alone
     python3 chip_smoke.py --cond-archs # step 1, K2-K5's build, then step 8 alone
+    python3 chip_smoke.py --public-data # steps 1-2, then step 9 alone
 
 From the root of a checkout, on a machine with one NVIDIA H100 and the CUDA
 toolkit, it:
@@ -138,11 +139,37 @@ toolkit, it:
      the same run), the device-busy share and peak memory. Then one bf16
      WCGAN and one CGAN D + G step (bs 8) through K2-K5 against the all-plain
      step, held to 3x the one-ulp witness as the ACGAN step is;
-  9. prints one JSON ``kernels`` line (K1-K6: launches on their main path,
+  9. public data, warmup and adaptive clipping (outputs under
+     build/chip_smoke/public/). Through the Trainer, 2 epochs each after its
+     warmup, every kernel's launches counted by its wrapper: the MNIST
+     flagship with ``-nms 2 --mean_sample_size 10 -wi 2`` (the 2 warmup
+     steps on the step runner, then K1 once an epoch from the reset Adam
+     counts; the D save's Adam count 100 an epoch); CelebA (the flagship's
+     flags cut to ``-tss 1280``) with ``-pss 1280 -gcm adaptive -wi 2`` and
+     with ``-gcm adaptive-pl -nms 1 --mean_sample_size 8 -wi 2`` (K2 6 times
+     and K3 3 times a DP step, all on the tensor cores, K4 9 times a G
+     forward, K5 9 times a G update, K1 and K6 never; the saved thresholds
+     finite, positive and not the initial ones); path 1 with ``-tss 6000
+     -gcm adaptive -nms 1 --mean_sample_size 10`` (K6 once a D step); and a
+     batch of 50: CelebA ``-bs 50 -tss 500`` (K2-K5 on the tensor cores) and
+     MNIST ``-dpm gc --conditional -bs 50 -tss 5000`` (no kernel: K1 takes
+     batches that are multiples of 8). Each run checks finite logs and
+     parameters, the update counts and epsilon (no warmup step counted) and
+     prints ms per D step beside the flagship's of the same run, the
+     device-busy share of one more epoch, peak memory and the card. Then one
+     bf16 adaptive CelebA D + G step (bs 8) through K2-K5 against the
+     all-plain step (3x the one-ulp witness), one adaptive path-1 D step
+     through K6 against K6's plain version (same seeds, same adapted std),
+     and K2/K3 at conv2-conv4, K4/K5 at the G's five norm shapes and K6 at
+     [50, 101632], all at batch 50, against their plain versions to the
+     bounds of steps 4 and 6, timed beside them;
+ 10. prints one JSON ``kernels`` line (K1-K6: launches on their main path,
      max abs gap to the plain version, ms, plain ms, bound, library ms; K4/K5
      also their launches on the CelebA tm path; every kernel its launches on
-     each path of step 8, ``cond_arch_launches``);
- 10. ends with ``{"ok": true, "device": {...}}`` as the last line.
+     each path of step 8, ``cond_arch_launches``, and of step 9,
+     ``public_data_launches``, and K2-K6 their times at batch 50,
+     ``b50_ms`` / ``b50_plain_ms``);
+ 11. ends with ``{"ok": true, "device": {...}}`` as the last line.
 Any failure raises or exits non-zero, and no result line is printed. It
 needs no network and imports nothing of JAX or of the JAX package.
 """
@@ -681,6 +708,37 @@ def k2_ops(b: int, s: int, k: int, o: int) -> float:
     return min(grams, direct)
 
 
+def conv_operands(g, dev, b, h, cin, cout, dtype):
+    """Random K2 / K3 operands of a 5x5 stride-2 conv: (a, c, w, kernel shape)."""
+    import torch
+    ho = (h + 4 - 5) // 2 + 1
+    a = torch.randn(b, h, h, cin, generator=g, device=dev).to(dtype)
+    c = torch.randn(b, ho, ho, cout, generator=g, device=dev).to(dtype)
+    w = torch.rand(b, generator=g, device=dev) * 0.9 + 0.1
+    return a, c, w, (5, 5, cin, cout)
+
+
+def conv_held(tag, a, c, w, ks, want):
+    """K2 and K3 against their plain versions to CONV_BOUND; the variant they
+    took must be `want`. Returns (rel l2 K2, K3, max abs gap K2, K3)."""
+    import torch
+    from csl_gan_tpu_torch.ops import pallas_conv_ghost as pcg
+    before = (pcg.ghost_sq_norms.launches_tc, pcg.weighted_kernel_grad.launches_tc)
+    nk, npl = pcg.ghost_sq_norms(a, c, 5, 5, 2, 2), pcg.ghost_sq_norms_plain(a, c, 5, 5, 2, 2)
+    wk = pcg.weighted_kernel_grad(a, c, w, ks, 2, 2)
+    wp = pcg.weighted_kernel_grad_plain(a, c, w, ks, 2, 2)
+    torch.cuda.synchronize()
+    took = (pcg.ghost_sq_norms.launches_tc - before[0],
+            pcg.weighted_kernel_grad.launches_tc - before[1])
+    r2, r3 = rel_l2(nk, npl), rel_l2(wk, wp)
+    if took != ((1, 1) if want == "tc" else (0, 0)):
+        fail(f"K2/K3 did not take the {want} variant at {tag}")
+    if not (r2 < CONV_BOUND and r3 < CONV_BOUND):
+        fail(f"K2/K3 ({want}) disagree with their plain versions at {tag}: "
+             f"rel l2 {r2:.3e}, {r3:.3e}")
+    return r2, r3, float((nk - npl).abs().max()), float((wk - wp).abs().max())
+
+
 def conv_ghost_phase(dev, peak_bf16, peak_bytes):
     """K2 / K3 against their plain versions: the tensor-core variant at
     conv2-conv4 (bf16, B 128) and at a ragged bf16 geometry, the FFMA variant
@@ -691,28 +749,9 @@ def conv_ghost_phase(dev, peak_bf16, peak_bytes):
     g = torch.Generator(dev).manual_seed(21)
 
     def operands(b, h, cin, cout, dtype):
-        ho = (h + 4 - 5) // 2 + 1
-        a = torch.randn(b, h, h, cin, generator=g, device=dev).to(dtype)
-        c = torch.randn(b, ho, ho, cout, generator=g, device=dev).to(dtype)
-        w = torch.rand(b, generator=g, device=dev) * 0.9 + 0.1
-        return a, c, w, (5, 5, cin, cout)
+        return conv_operands(g, dev, b, h, cin, cout, dtype)
 
-    def held(tag, a, c, w, ks, want):
-        """Both kernels against plain; the variant they took must be `want`."""
-        before = (pcg.ghost_sq_norms.launches_tc, pcg.weighted_kernel_grad.launches_tc)
-        nk, npl = pcg.ghost_sq_norms(a, c, 5, 5, 2, 2), pcg.ghost_sq_norms_plain(a, c, 5, 5, 2, 2)
-        wk = pcg.weighted_kernel_grad(a, c, w, ks, 2, 2)
-        wp = pcg.weighted_kernel_grad_plain(a, c, w, ks, 2, 2)
-        torch.cuda.synchronize()
-        took = (pcg.ghost_sq_norms.launches_tc - before[0],
-                pcg.weighted_kernel_grad.launches_tc - before[1])
-        r2, r3 = rel_l2(nk, npl), rel_l2(wk, wp)
-        if took != ((1, 1) if want == "tc" else (0, 0)):
-            fail(f"K2/K3 did not take the {want} variant at {tag}")
-        if not (r2 < CONV_BOUND and r3 < CONV_BOUND):
-            fail(f"K2/K3 ({want}) disagree with their plain versions at {tag}: "
-                 f"rel l2 {r2:.3e}, {r3:.3e}")
-        return r2, r3, float((nk - npl).abs().max()), float((wk - wp).abs().max())
+    held = conv_held
 
     b, h, cin, cout = CONV_RAGGED
     r2, r3, _, _ = held("the ragged geometry", *operands(b, h, cin, cout, torch.bfloat16), "tc")
@@ -815,6 +854,78 @@ def bf16_ulp_counts(k, p):
     return (int((off & ~edge).sum()), int(((diff > 0) & ~off).sum()), int((off & edge).sum()))
 
 
+def gn_operands(g, dev, b, hw, c, dtype):
+    """Random K4 / K5 operands [B, HW, C]: (x, dy, scale, bias)."""
+    import torch
+    x = (torch.randn(b, hw, c, generator=g, device=dev) * 2 + 0.3).to(dtype)
+    dy = torch.randn(b, hw, c, generator=g, device=dev).to(dtype)
+    sc = torch.randn(c, generator=g, device=dev) * 0.2 + 1.0
+    bi = torch.randn(c, generator=g, device=dev) * 0.1
+    return x, dy, sc, bi
+
+
+def gn_held(x, dy, sc, bi):
+    """K4 and K5 against their plain versions (GN_BOUND, GN_PARAM_BOUND) and
+    against themselves; returns (plans, max abs gaps of K4 and K5)."""
+    import torch
+    from csl_gan_tpu_torch.ops import pallas_groupnorm as gn
+    b, hw, c = x.shape
+    tag = f"[{b}, {hw}, {c}] {str(x.dtype).replace('torch.', '')}"
+    (p4, occ4), (p5, occ5) = gn.occupancy(x, 32, False), gn.occupancy(x, 32, True)
+    if min(occ4, occ5) <= 0:
+        fail(f"a K4/K5 plan cannot be resident at {tag}: {p4} ({occ4}), {p5} ({occ5})")
+    _, _, a, d = gn._affine(x.float(), sc, bi, 32, 1e-5)
+    z = x.float() * a[:, None, :] + d[:, None, :]
+    edge = z.abs() <= GN_EDGE * z.pow(2).mean().sqrt()
+    raw = [gn.gn_relu_backward(x, dy, sc, bi, 32, 1e-5),
+           gn.gn_relu_bwd_plain(x, dy, sc, bi, 32, 1e-5)]
+    dy = torch.where(edge, torch.zeros_like(dy), dy)
+    del z, a, d
+    yk, yp = gn.gn_relu_forward(x, sc, bi, 32, 1e-5), gn.gn_relu_plain(x, sc, bi, 32, 1e-5)
+    bk = gn.gn_relu_backward(x, dy, sc, bi, 32, 1e-5)
+    bp = gn.gn_relu_bwd_plain(x, dy, sc, bi, 32, 1e-5)
+    y2 = gn.gn_relu_forward(x, sc, bi, 32, 1e-5)
+    b2 = gn.gn_relu_backward(x, dy, sc, bi, 32, 1e-5)
+    # K5's ReLU mask against K4's: with dy = 1, dbeta counts the elements
+    # K5 lets through, exactly in fp32, and y > 0 those K4 let through.
+    ones = gn.gn_relu_backward(x, torch.ones_like(dy), sc, bi, 32, 1e-5)[2]
+    mask_same = torch.equal(ones, (yk > 0).sum(dim=(0, 1)).float())
+    torch.cuda.synchronize()
+    r4 = rel_l2(yk.float(), yp.float())
+    r5 = rel_l2(bk[0].float(), bp[0].float())
+    rp = max(rel_l2(bk[1], bp[1]), rel_l2(bk[2], bp[2]))
+    r5_raw = rel_l2(raw[0][0].float(), raw[1][0].float())
+    rp_raw = max(rel_l2(raw[0][1], raw[1][1]), rel_l2(raw[0][2], raw[1][2]))
+    same = torch.equal(yk, y2) and all(torch.equal(u, v) for u, v in zip(bk, b2))
+    del raw
+    def kind(p):
+        return "one pass, cluster" if p[0] == gn.ONE_PASS else "two pass, chunk"
+    line = (f"groupnorm+relu {tag}: K4 rel l2 {r4:.3e}, K5 dx rel l2 {r5:.3e} (bound "
+            f"{GN_BOUND:g}), dgamma/dbeta {rp:.3e} (bound {GN_PARAM_BOUND:g}); twice "
+            f"{'bitwise equal' if same else 'DIFFERENT'}; K5's ReLU mask "
+            f"{'is' if mask_same else 'is NOT'} K4's; dy zeroed at {int(edge.sum())} "
+            f"ReLU-edge elements (raw: dx {r5_raw:.3e}, dgamma/dbeta {rp_raw:.3e}); plans "
+            f"(variant, n, rows, threads, smem) K4 {p4} {kind(p4)} {p4[1]}, resident "
+            f"{occ4}; K5 {p5} {kind(p5)} {p5[1]}, resident {occ5}")
+    if x.dtype == torch.bfloat16:
+        u4, u5 = bf16_ulp_counts(yk, yp), bf16_ulp_counts(bk[0], bp[0])
+        line += (f"; bf16 elements beyond one ulp (one ulp off; both within an ulp of 0, "
+                 f"left out): y {u4[0]} ({u4[1]}; {u4[2]}), dx {u5[0]} ({u5[1]}; {u5[2]}) "
+                 f"of {x.numel()}")
+        if u4[0] or u5[0]:
+            fail(f"K4/K5 outputs beyond one bf16 ulp of their plain versions at {tag}")
+    print(line)
+    if not (r4 < GN_BOUND and r5 < GN_BOUND and rp < GN_PARAM_BOUND):
+        fail(f"K4/K5 disagree with their plain versions at {tag}")
+    if not same:
+        fail(f"K4/K5 are not bitwise repeatable at {tag}")
+    if not mask_same:
+        fail(f"K5's ReLU mask is not the one K4 applied at {tag}")
+    e4 = float((yk.float() - yp.float()).abs().max())
+    e5 = max(float((u.float() - v.float()).abs().max()) for u, v in zip(bk, bp))
+    return p4, p5, e4, e5
+
+
 def groupnorm_phase(dev, peak_bytes):
     """K4 / K5 against their plain versions: bf16 at the G's norms (B 128,
     timed), fp32 at the same norms (B 8) and at the flagship's first norm
@@ -829,70 +940,9 @@ def groupnorm_phase(dev, peak_bytes):
     g = torch.Generator(dev).manual_seed(22)
 
     def operands(b, hw, c, dtype):
-        x = (torch.randn(b, hw, c, generator=g, device=dev) * 2 + 0.3).to(dtype)
-        dy = torch.randn(b, hw, c, generator=g, device=dev).to(dtype)
-        sc = torch.randn(c, generator=g, device=dev) * 0.2 + 1.0
-        bi = torch.randn(c, generator=g, device=dev) * 0.1
-        return x, dy, sc, bi
+        return gn_operands(g, dev, b, hw, c, dtype)
 
-    def held(x, dy, sc, bi):
-        """Both kernels against plain and against themselves; returns (plans,
-        max abs gaps of K4 and K5)."""
-        b, hw, c = x.shape
-        tag = f"[{b}, {hw}, {c}] {str(x.dtype).replace('torch.', '')}"
-        (p4, occ4), (p5, occ5) = gn.occupancy(x, 32, False), gn.occupancy(x, 32, True)
-        if min(occ4, occ5) <= 0:
-            fail(f"a K4/K5 plan cannot be resident at {tag}: {p4} ({occ4}), {p5} ({occ5})")
-        _, _, a, d = gn._affine(x.float(), sc, bi, 32, 1e-5)
-        z = x.float() * a[:, None, :] + d[:, None, :]
-        edge = z.abs() <= GN_EDGE * z.pow(2).mean().sqrt()
-        raw = [gn.gn_relu_backward(x, dy, sc, bi, 32, 1e-5),
-               gn.gn_relu_bwd_plain(x, dy, sc, bi, 32, 1e-5)]
-        dy = torch.where(edge, torch.zeros_like(dy), dy)
-        del z, a, d
-        yk, yp = gn.gn_relu_forward(x, sc, bi, 32, 1e-5), gn.gn_relu_plain(x, sc, bi, 32, 1e-5)
-        bk = gn.gn_relu_backward(x, dy, sc, bi, 32, 1e-5)
-        bp = gn.gn_relu_bwd_plain(x, dy, sc, bi, 32, 1e-5)
-        y2 = gn.gn_relu_forward(x, sc, bi, 32, 1e-5)
-        b2 = gn.gn_relu_backward(x, dy, sc, bi, 32, 1e-5)
-        # K5's ReLU mask against K4's: with dy = 1, dbeta counts the elements
-        # K5 lets through, exactly in fp32, and y > 0 those K4 let through.
-        ones = gn.gn_relu_backward(x, torch.ones_like(dy), sc, bi, 32, 1e-5)[2]
-        mask_same = torch.equal(ones, (yk > 0).sum(dim=(0, 1)).float())
-        torch.cuda.synchronize()
-        r4 = rel_l2(yk.float(), yp.float())
-        r5 = rel_l2(bk[0].float(), bp[0].float())
-        rp = max(rel_l2(bk[1], bp[1]), rel_l2(bk[2], bp[2]))
-        r5_raw = rel_l2(raw[0][0].float(), raw[1][0].float())
-        rp_raw = max(rel_l2(raw[0][1], raw[1][1]), rel_l2(raw[0][2], raw[1][2]))
-        same = torch.equal(yk, y2) and all(torch.equal(u, v) for u, v in zip(bk, b2))
-        del raw
-        def kind(p):
-            return "one pass, cluster" if p[0] == gn.ONE_PASS else "two pass, chunk"
-        line = (f"groupnorm+relu {tag}: K4 rel l2 {r4:.3e}, K5 dx rel l2 {r5:.3e} (bound "
-                f"{GN_BOUND:g}), dgamma/dbeta {rp:.3e} (bound {GN_PARAM_BOUND:g}); twice "
-                f"{'bitwise equal' if same else 'DIFFERENT'}; K5's ReLU mask "
-                f"{'is' if mask_same else 'is NOT'} K4's; dy zeroed at {int(edge.sum())} "
-                f"ReLU-edge elements (raw: dx {r5_raw:.3e}, dgamma/dbeta {rp_raw:.3e}); plans "
-                f"(variant, n, rows, threads, smem) K4 {p4} {kind(p4)} {p4[1]}, resident "
-                f"{occ4}; K5 {p5} {kind(p5)} {p5[1]}, resident {occ5}")
-        if x.dtype == torch.bfloat16:
-            u4, u5 = bf16_ulp_counts(yk, yp), bf16_ulp_counts(bk[0], bp[0])
-            line += (f"; bf16 elements beyond one ulp (one ulp off; both within an ulp of 0, "
-                     f"left out): y {u4[0]} ({u4[1]}; {u4[2]}), dx {u5[0]} ({u5[1]}; {u5[2]}) "
-                     f"of {x.numel()}")
-            if u4[0] or u5[0]:
-                fail(f"K4/K5 outputs beyond one bf16 ulp of their plain versions at {tag}")
-        print(line)
-        if not (r4 < GN_BOUND and r5 < GN_BOUND and rp < GN_PARAM_BOUND):
-            fail(f"K4/K5 disagree with their plain versions at {tag}")
-        if not same:
-            fail(f"K4/K5 are not bitwise repeatable at {tag}")
-        if not mask_same:
-            fail(f"K5's ReLU mask is not the one K4 applied at {tag}")
-        e4 = float((yk.float() - yp.float()).abs().max())
-        e5 = max(float((u.float() - v.float()).abs().max()) for u, v in zip(bk, bp))
-        return p4, p5, e4, e5
+    held = gn_held
 
     for b, hw, c in GN_RAGGED:
         for dtype in (torch.bfloat16, torch.float32):
@@ -1135,9 +1185,11 @@ def gn_ulp_moved(shares, seed: int):
     return _swapped(((gn, "gn_relu_forward", fwd), (gn, "gn_relu_backward", bwd)))
 
 
-def celeba_step_check(dev, out_root, bf16=False, arch="ACGAN"):
+def celeba_step_check(dev, out_root, bf16=False, arch="ACGAN", adaptive=False):
     """One full-width D step and one G step of the conditional arch `arch`
-    (bs 8; fp32 with TF32 off, or
+    (with ``adaptive``, a D step of ``-gcm adaptive`` that takes its
+    threshold from a mean-sample batch through K2 first; bs 8; fp32 with
+    TF32 off, or
     bf16 compute, where K2/K3 take their tensor-core variant; deterministic
     cuDNN), each from the initial state, on the card: through
     K2-K5 against the same steps through the plain versions, the D step on
@@ -1161,11 +1213,13 @@ def celeba_step_check(dev, out_root, bf16=False, arch="ACGAN"):
     bs = 8
     tag = ("celeba_step_bf16" if bf16 else "celeba_step") + ("" if arch == "ACGAN" else
                                                              f"_{arch}")
+    tag += "_adaptive" if adaptive else ""
     argv = ["CelebA", "--conditional", "--conditional_arch", arch, "-dpm", "gc", "-bs",
             str(bs), "-tss", "12800", "-nms", "1", "--mean_sample_size", "8", "--sigma", "0",
             "-c", "1", "--train_d_until_threshold", "1e18", "--manual_seed", "1",
             "--platform", "gpu", "-o", str(out_root / tag)]
     argv += ["--bf16", "true"] if bf16 else []
+    argv += ["-gcm", "adaptive"] if adaptive else []
     rng = np.random.default_rng(5)
     x = rng.uniform(-1, 1, (bs, 64, 64, 3)).astype(np.float32)
     y = rng.integers(0, 2, bs)
@@ -1174,12 +1228,15 @@ def celeba_step_check(dev, out_root, bf16=False, arch="ACGAN"):
     pen_x = rng.uniform(-1, 1, (bs, 64, 64, 3)).astype(np.float32)
     alpha = rng.uniform(0, 1, (bs, 1, 1, 1)).astype(np.float32)
     nudge = [1 + 1e-7 * rng.standard_normal(v.shape).astype(np.float32) for v in (z, zg)]
+    ax = rng.uniform(-1, 1, (bs, 64, 64, 3)).astype(np.float32)
+    ay = rng.integers(0, 2, bs)
     opt = toptions.parse(argv)
     G, D = init_models(opt, dev)
     b = StepBuilder(opt, G, D)
-    assert b.use_conv_ghost
+    assert b.use_conv_ghost and b.adaptive == adaptive
     st0 = b.init_state()
     t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    adapt = dict(ax=t(ax), ay=t(ay)) if adaptive else {}
     noise = [torch.zeros_like(st0.d_params[k]) for k in b.d_leaves]
 
     def steps(zd, zgen, fakes=None):
@@ -1192,8 +1249,8 @@ def celeba_step_check(dev, out_root, bf16=False, arch="ACGAN"):
             return used[-1]
         b.fakes = own_or_given
         try:
-            st_d, dm = b.d_step_conv_ghost(st0, t(x), t(y), t(zd), noise, t(pen_x), t(y),
-                                           [t(alpha)])
+            st_d, dm = b.d_step_gc(st0, t(x), t(y), t(zd), noise=noise, pen_x=t(pen_x),
+                                   pen_y=t(y), alphas=[t(alpha)], **adapt)
         finally:
             del b.fakes
         # The G step starts from the initial D too: after a first Adam step
@@ -1247,13 +1304,14 @@ def celeba_step_check(dev, out_root, bf16=False, arch="ACGAN"):
 
     fmt = lambda r: ", ".join(f"{k} {v:.3e}" for k, v in r.items())  # noqa: E731
     gap, rep, wit = gaps(kern, plain), gaps(again, plain), gaps(nudged, own)
-    print(f"CelebA {arch} D step and G step (bs {bs}, {'bf16' if bf16 else 'fp32'}, full width) "
+    print(f"CelebA {arch}{' adaptive' if adaptive else ''} D step and G step (bs {bs}, "
+          f"{'bf16' if bf16 else 'fp32'}, full width) "
           f"on the card, {'K2/K3' if bf16 else 'K2-K5'} vs plain: rel l2 {fmt(gap)} (bounds D "
           f"{STEP_BOUND_D:g}, G "
           f"{STEP_BOUND_G:g}, metrics {STEP_BOUND_MET:g}); clipped "
           f"{float(kern[2]['frac_clipped'].mean()):.2f}; K2 + K3 launches on the tensor cores "
           f"{took_tc}")
-    if took_tc != (2 * len(CONV_LAYERS) if bf16 else 0):
+    if took_tc != ((3 if adaptive else 2) * len(CONV_LAYERS) if bf16 else 0):
         fail(f"K2/K3 took the tensor-core variant {took_tc} times in the "
              f"{'bf16' if bf16 else 'fp32'} step")
     fakes_gap, fakes_wit = rel_l2(kern[4], own[4]), rel_l2(nudged[4], own[4])
@@ -1411,6 +1469,52 @@ def _step_builder(argv, dev, out_dir):
     return opt, StepBuilder(opt, G, D)
 
 
+def k6_held(g, dev, b, p, tag, peak_bytes):
+    """K6 against its plain version at [b, p] (the sum at std 0 to
+    K6_SUM_BOUND, sum and noise with one seed to K6_NOISE_BOUND * std), run
+    twice (bitwise), with another seed (a new draw) and the noise's moments,
+    timed beside its plain version and ``w @ g`` + ``randn``. Returns (times
+    and bytes bound, max abs gap)."""
+    import torch
+    from csl_gan_tpu_torch.ops import pallas_clip as pc
+    std = torch.tensor(K6_STD, device=dev)
+    zero = torch.tensor(0.0, device=dev)
+    x = torch.randn(b, p, generator=g, device=dev)
+    w = torch.rand(b, generator=g, device=dev) * 0.9 + 0.1
+    seed = torch.randint(0, 2 ** 63 - 1, (), generator=g, device=dev)
+    k0, p0 = pc.leaf_weighted_sum_noise(x, w, seed, zero), \
+        pc.weighted_sum_noise_plain(x, w, seed, zero)
+    k1, p1 = pc.leaf_weighted_sum_noise(x, w, seed, std), \
+        pc.weighted_sum_noise_plain(x, w, seed, std)
+    again = pc.leaf_weighted_sum_noise(x, w, seed, std)
+    other = pc.leaf_weighted_sum_noise(x, w, seed + 1, std)
+    torch.cuda.synchronize()
+    r0 = rel_l2(k0, p0)
+    gap = float((k1 - p1).abs().max())
+    err = max(gap, float((k0 - p0).abs().max()))
+    z = (k1 - k0) / K6_STD
+    mean, sd = float(z.mean()), float(z.std())
+    t = {"ms": cuda_ms(lambda: pc.leaf_weighted_sum_noise(x, w, seed, std), 20),
+         "plain_ms": cuda_ms(lambda: pc.weighted_sum_noise_plain(x, w, seed, std), 3),
+         "library_ms": cuda_ms(lambda: w @ x + std * torch.randn(p, device=dev), 20),
+         "bytes": 4.0 * (b * p + b + p) + 12}
+    t["bound_ms"] = t["bytes"] / peak_bytes * 1e3
+    print(f"K6 [{b}, {p}] ({tag}): std 0 rel l2 {r0:.3e} (bound {K6_SUM_BOUND:g}); std "
+          f"{K6_STD} same seed max abs gap {gap:.3e} (bound {K6_NOISE_BOUND * K6_STD:g}); "
+          f"noise mean {mean:+.4f} std {sd:.4f}; K6 {t['ms']:.4f} ms, plain "
+          f"{t['plain_ms']:.4f}, w @ g + randn {t['library_ms']:.4f}, bound "
+          f"{t['bound_ms']:.4f} ({100 * t['bound_ms'] / t['ms']:.1f}% of the memory rate)")
+    if not (r0 <= K6_SUM_BOUND and gap <= K6_NOISE_BOUND * K6_STD):
+        fail(f"K6 disagrees with its plain version at [{b}, {p}]")
+    if not torch.equal(k1, again):
+        fail(f"K6 is not bitwise reproducible at [{b}, {p}]")
+    if not float((k1 - other).abs().max()) > 0.1 * K6_STD:
+        fail(f"K6's noise does not depend on the seed at [{b}, {p}]")
+    if p >= 1 << 17 and not (abs(mean) < 0.05 and abs(sd - 1.0) < 0.02):
+        fail(f"K6's noise moments are off at [{b}, {p}]: mean {mean}, std {sd}")
+    return t, err
+
+
 def clip_kernel_phase(dev, peak_bytes, large_leaves):
     """K6 against its plain version and timed: at path 1's leaf, at every
     large leaf of celeba_d64 (B 128), at an odd P and at the gate's P.
@@ -1422,45 +1526,11 @@ def clip_kernel_phase(dev, peak_bytes, large_leaves):
     path2 = sorted({n for _, n in large_leaves})
     shapes = [(BS, (F + NC) * H, "path 1")] + [(CB, n, "path 2") for n in path2]
     shapes += [(CB, n, "extra") for n in (33300, pc.MIN_PALLAS_ELEMS) if n not in path2]
-    std = torch.tensor(K6_STD, device=dev)
-    zero = torch.tensor(0.0, device=dev)
     rows, err = {}, 0.0
     for b, p, tag in shapes:
-        x = torch.randn(b, p, generator=g, device=dev)
-        w = torch.rand(b, generator=g, device=dev) * 0.9 + 0.1
-        seed = torch.randint(0, 2 ** 63 - 1, (), generator=g, device=dev)
-        k0, p0 = pc.leaf_weighted_sum_noise(x, w, seed, zero), \
-            pc.weighted_sum_noise_plain(x, w, seed, zero)
-        k1, p1 = pc.leaf_weighted_sum_noise(x, w, seed, std), \
-            pc.weighted_sum_noise_plain(x, w, seed, std)
-        again = pc.leaf_weighted_sum_noise(x, w, seed, std)
-        other = pc.leaf_weighted_sum_noise(x, w, seed + 1, std)
-        torch.cuda.synchronize()
-        r0 = rel_l2(k0, p0)
-        gap = float((k1 - p1).abs().max())
-        err = max(err, gap, float((k0 - p0).abs().max()))
-        z = (k1 - k0) / K6_STD
-        mean, sd = float(z.mean()), float(z.std())
-        t = {"ms": cuda_ms(lambda: pc.leaf_weighted_sum_noise(x, w, seed, std), 20),
-             "plain_ms": cuda_ms(lambda: pc.weighted_sum_noise_plain(x, w, seed, std), 3),
-             "library_ms": cuda_ms(lambda: w @ x + std * torch.randn(p, device=dev), 20),
-             "bytes": 4.0 * (b * p + b + p) + 12}
-        t["bound_ms"] = t["bytes"] / peak_bytes * 1e3
+        t, e = k6_held(g, dev, b, p, tag, peak_bytes)
         rows[(b, p)] = (tag, t)
-        print(f"K6 [{b}, {p}] ({tag}): std 0 rel l2 {r0:.3e} (bound {K6_SUM_BOUND:g}); std "
-              f"{K6_STD} same seed max abs gap {gap:.3e} (bound {K6_NOISE_BOUND * K6_STD:g}); "
-              f"noise mean {mean:+.4f} std {sd:.4f}; K6 {t['ms']:.4f} ms, plain "
-              f"{t['plain_ms']:.4f}, w @ g + randn {t['library_ms']:.4f}, bound "
-              f"{t['bound_ms']:.4f} ({100 * t['bound_ms'] / t['ms']:.1f}% of the memory rate)")
-        if not (r0 <= K6_SUM_BOUND and gap <= K6_NOISE_BOUND * K6_STD):
-            fail(f"K6 disagrees with its plain version at [{b}, {p}]")
-        if not torch.equal(k1, again):
-            fail(f"K6 is not bitwise reproducible at [{b}, {p}]")
-        if not float((k1 - other).abs().max()) > 0.1 * K6_STD:
-            fail(f"K6's noise does not depend on the seed at [{b}, {p}]")
-        if p >= 1 << 17 and not (abs(mean) < 0.05 and abs(sd - 1.0) < 0.02):
-            fail(f"K6's noise moments are off at [{b}, {p}]: mean {mean}, std {sd}")
-        del x, k0, p0, k1, p1, again, other, z
+        err = max(err, e)
     one = rows[(BS, (F + NC) * H)][1]
     two = {key: sum(rows[(CB, n)][1][key] for _, n in large_leaves)
            for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
@@ -1505,7 +1575,8 @@ def ghost_vs_materialized(dev, out_root):
 
 def clip_step_check(dev, out_root, name, argv, batch):
     """One full-width D step through K6 against the same step through K6's
-    plain version: same state, inputs and seeds, both on the card."""
+    plain version: same state, inputs and seeds, both on the card. Under
+    adaptive clipping both take their std from the same public batch."""
     import torch
     from csl_gan_tpu_torch.ops import grads as gops
 
@@ -1517,12 +1588,14 @@ def clip_step_check(dev, out_root, name, argv, batch):
     x, y = batch(g, bs)
     z = b.gen_z(g, bs)
     leaves = [st0.d_params[k] for k in b.d_leaves]
-    stds = torch.tensor(gops.noise_stds(len(leaves), b.sigma, st0.clipping, b.per_layer),
-                        device=dev)
+    stds = None if b.adaptive else torch.tensor(
+        gops.noise_stds(len(leaves), b.sigma, st0.clipping, b.per_layer), device=dev)
     fused = gops.draw_fused_noise(g, leaves, stds)
     pen = {}
+    if b.adaptive:
+        pen = dict(zip(("ax", "ay"), batch(g, bs)))
     if b.penalty_types:
-        pen = dict(pen_x=torch.rand(x.shape, generator=g, device=dev) * 2 - 1, pen_y=y,
+        pen.update(pen_x=torch.rand(x.shape, generator=g, device=dev) * 2 - 1, pen_y=y,
                    alphas=[torch.rand((bs, 1, 1, 1), generator=g, device=dev)])
 
     def step():
@@ -1544,6 +1617,12 @@ def clip_step_check(dev, out_root, name, argv, batch):
             "D mu": rel_l2(cat(sk.d_mu), cat(sp.d_mu)), "D nu": rel_l2(cat(sk.d_nu), cat(sp.d_nu))}
     met = max(float((mk[k] - mp[k]).abs().max() / max(float(mp[k].abs().max()), 1e-2))
               for k in mk if "acc" not in k and k != "frac_clipped")
+    if b.adaptive:
+        std = sk.clipping * b.sigma
+        if not torch.equal(sk.clipping, sp.clipping):
+            fail(f"the {name} adaptive steps took different thresholds")
+        print(f"{name} adaptive D step: threshold {float(sk.clipping):.6f}, std "
+              f"{float(std):.6f} on both sides (the initial {b.opt.clipping_param:g})")
     print(f"{name} D step (bs {bs}, full width, sigma {b.sigma:g}) on the card, K6 vs plain: "
           f"rel l2 " + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
           + f", metrics {met:.3e} (bound {K6_STEP_BOUND:g}); clipped "
@@ -2480,6 +2559,250 @@ def cond_archs_phase(dev, out_root, smi, k1_step_ms=None, celeba_step_ms=None):
     return by_path
 
 
+# Phase 9: public data, warmup and adaptive clipping. Each run trains
+# PUBLIC_EPOCHS epochs through the Trainer after its warmup: the MNIST
+# flagship with mean samples and a warmup (the warmup on the step runner,
+# then K1); the CelebA flagship's flags cut as path 2 is (-tss 1280) with a
+# public split of 1280 rows and adaptive clipping, and with per-layer
+# adaptive clipping on mean samples; path 1 with adaptive clipping, cut to
+# -tss 6000 (10 D steps an epoch); and a batch of 50, which K1 does not take.
+PUBLIC_EPOCHS = 2
+PUBLIC_MNIST = ["MNIST", "--conditional", "-dpm", "gc", "--sigma", "10", "-bs", str(BS),
+                "-tss", "60000"]
+PUBLIC_CELEBA = ["CelebA", "--conditional", "-dpm", "gc", "-bs", str(CB), "-tss", "1280",
+                 "--bf16", "true", "--train_d_until_threshold", "1e18"]
+B50 = 50
+PUBLIC_RUNS = (
+    ("MNIST warmup", PUBLIC_MNIST + ["-nms", "2", "--mean_sample_size", "10", "-wi", "2"]),
+    ("CelebA public adaptive", PUBLIC_CELEBA + ["-pss", "1280", "-gcm", "adaptive", "-wi", "2"]),
+    ("CelebA mean-sample adaptive-pl", PUBLIC_CELEBA + ["-gcm", "adaptive-pl", "-nms", "1",
+                                                        "--mean_sample_size", "8", "-wi", "2"]),
+    ("path 1 adaptive", PATH1[:PATH1.index("-tss")] + ["-tss", "6000"]
+     + PATH1[PATH1.index("-tss") + 2:] + ["-gcm", "adaptive", "-nms", "1",
+                                           "--mean_sample_size", "10"]),
+    ("CelebA B 50", FLAGSHIP[:FLAGSHIP.index("-bs")] + ["-bs", str(B50), "-tss", "500"]
+     + FLAGSHIP[FLAGSHIP.index("-tss") + 2:]),
+    ("MNIST B 50", ["MNIST", "--conditional", "-dpm", "gc", "--sigma", "10", "-bs", str(B50),
+                    "-tss", "5000"]),
+)
+
+
+def public_expect(name, n_dp, n_warm, g_train, g_warm):
+    """The launches of each kernel on a phase-9 run: (D steps with DP, warmup
+    D steps, G updates after the warmup, warmup G updates) -> {kernel: n}."""
+    out = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6", "K2 tc", "K3 tc"), 0)
+    if name.startswith("MNIST warmup"):
+        out["K1"] = PUBLIC_EPOCHS
+    elif name.startswith("CelebA"):
+        # Adaptive runs add one norms-only K2 pass a DP step; every D step
+        # (the warmup's too) makes its fakes through K4, every G update
+        # runs K4 and K5.
+        k2 = (6 if "adaptive" in name else 3) * n_dp
+        out.update({"K2": k2, "K3": 3 * n_dp, "K2 tc": k2, "K3 tc": 3 * n_dp,
+                    "K4": G_NORMS * (n_dp + n_warm + g_train + g_warm),
+                    "K5": G_NORMS * (g_train + g_warm)})
+    elif name.startswith("path 1"):
+        out["K6"] = n_dp
+    return out
+
+
+def public_run(name, argv, out_root, smi, ref_ms):
+    """PUBLIC_EPOCHS Trainer epochs of one phase-9 run in one group after its
+    warmup, every kernel's launches counted by its wrapper and held to
+    ``public_expect``; the step runner's D steps counted (the warmup's
+    only, on the K1 path). Checks finite logs and parameters, the update
+    counts (the warmup's Adam counts reset), the D save's Adam count,
+    epsilon (the accountant for the DP steps, plus the mean samples' cost)
+    and, under adaptive clipping, the saved thresholds (finite, positive,
+    not the initial ones). Prints ms per D step beside ``ref_ms``, the
+    device-busy share of one more epoch (torch.profiler; on the step runner
+    cut to DP_PROFILE_STEPS D steps), peak memory and
+    the card. Returns (launches by kernel, ms per D step)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from csl_gan_tpu_torch import options as toptions
+    from csl_gan_tpu_torch.ops import pallas_clip as pc
+    from csl_gan_tpu_torch.ops import pallas_conv_ghost as pcg
+    from csl_gan_tpu_torch.ops import pallas_epoch as pe
+    from csl_gan_tpu_torch.ops import pallas_groupnorm as gn
+    from csl_gan_tpu_torch.privacy import make_accountant
+    from csl_gan_tpu_torch.training import checkpoint
+    from csl_gan_tpu_torch.training.loop import Trainer
+    from csl_gan_tpu_torch.training.segment_runner import EpochsRunner
+
+    e = PUBLIC_EPOCHS
+    tss = int(argv[argv.index("-tss") + 1])
+    out = out_root / "public" / name.replace(" ", "_")
+    opt = toptions.parse(argv + ["-ne", str(e), "--log_every", str(tss * e), "--manual_seed",
+                                 "1", "-o", str(out)])
+    t_start = time.perf_counter()
+    tr = Trainer(opt)
+    on_k1 = isinstance(tr.runner, EpochsRunner)
+    if on_k1 != name.startswith("MNIST warmup"):
+        fail(f"{name}: K1's runner taken {on_k1}")
+    wrappers = {"K1": pe.epoch_kernel, "K2": pcg.ghost_sq_norms, "K3": pcg.weighted_kernel_grad,
+                "K4": gn.gn_relu_forward, "K5": gn.gn_relu_backward,
+                "K6": pc.leaf_weighted_sum_noise}
+    for w in wrappers.values():
+        w.launches = 0
+    pcg.ghost_sq_norms.launches_tc = pcg.weighted_kernel_grad.launches_tc = 0
+    step_runner_steps = [0]
+    d_step = tr.step_runner._d_step
+
+    def counted(*a, **k):
+        step_runner_steps[0] += 1
+        return d_step(*a, **k)
+    tr.step_runner._d_step = counted
+    init_clip = tr.state.clipping
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    del tr.step_runner._d_step
+    launches = {k: w.launches for k, w in wrappers.items()}
+    launches["K2 tc"], launches["K3 tc"] = (pcg.ghost_sq_norms.launches_tc,
+                                            pcg.weighted_kernel_grad.launches_tc)
+    n, wi = tr.n_batches, int(opt.warmup_iter)
+    n_d = 1 if on_k1 else max(1, opt.n_d_steps)
+    g_train, g_warm = e * -(-n // n_d), -(-wi // n_d)
+    want = public_expect(name, e * n, wi, g_train, g_warm)
+    if launches != want:
+        fail(f"{name}: kernel launches {launches}, expected {want}")
+    if step_runner_steps[0] != wi + (0 if on_k1 else e * n):
+        fail(f"{name}: the step runner ran {step_runner_steps[0]} D steps")
+    with open(out / "log.csv") as fh:
+        row = list(csv.DictReader(fh))[-1]
+    logged = {k: [float(v) for v in row[k].strip("[]").split()] for k in row
+              if k not in ("Epoch", "Batch")}
+    if not all(math.isfinite(v) for vs in logged.values() for v in vs):
+        fail(f"{name}: non-finite log values {logged}")
+    with open(out / "privacy_log.csv") as fh:
+        eps = [float(r["Epsilon"]) for r in csv.DictReader(fh)]
+    acc = make_accountant(opt)
+    acc.step(e * n)
+    want_eps = acc.get_privacy_spent(opt.delta)[0] + tr.mean_sample_privacy_cost
+    if len(eps) != e or not math.isclose(eps[-1], want_eps, rel_tol=1e-12):
+        fail(f"{name}: epsilon {eps}, expected {want_eps} after {e * n} DP steps")
+    if not all(torch.isfinite(t).all() for p in (tr.state.d_params, tr.state.g_params)
+               for t in p.values()):
+        fail(f"non-finite params after {name}")
+    if tr.state.d_count != e * n or tr.state.g_count != g_train:
+        fail(f"{name}: D / G Adam counts {tr.state.d_count} / {tr.state.g_count}, expected "
+             f"{e * n} / {g_train} (reset after the warmup)")
+    saved, _, _, _ = checkpoint.load_d(str(out / "saves" / f"D-{e}"), tr.state)
+    if saved.d_count != e * n:
+        fail(f"{name}: the D save's Adam count is {saved.d_count}, expected {e * n}")
+    clip_note = ""
+    if tr.builder.adaptive:
+        c, c0 = saved.clipping, init_clip
+        if not (bool(torch.isfinite(c).all()) and bool((c > 0).all())
+                and not torch.equal(c, c0)):
+            fail(f"{name}: saved thresholds {c.tolist()} (initial {c0.tolist()})")
+        clip_note = (f"; saved thresholds {[round(v, 4) for v in c.reshape(-1).tolist()]} "
+                     f"(initial {[round(v, 4) for v in c0.reshape(-1).tolist()]})")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ep_ms = [a.elapsed_time(b) for a, b in tr.runner.epoch_events]
+    step_ms = ep_ms[-1] / n
+    # The step runner's profiled epoch is cut to DP_PROFILE_STEPS D steps.
+    prof_n = tr.runner.n = tr.runner.n if on_k1 else min(n, DP_PROFILE_STEPS)
+    s0, s1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        s0.record()
+        tr._run_group(e, 1)
+        s1.record()
+        torch.cuda.synchronize()
+    tr.runner.n = n
+    span = s0.elapsed_time(s1)
+    rows = device_ms_by_kernel(prof)
+    busy = sum(r[0] for r in rows)
+    ref = (f", {step_ms / ref_ms:.2f}x the flagship's {ref_ms:.3f} of this run"
+           if ref_ms else "")
+    print(f"{name} [{smi}]: {wi} warmup + {e} x {n} D steps ({g_warm} + {g_train} G updates), "
+          f"launches {launches}; step runner D steps {step_runner_steps[0]}; ms per D step "
+          f"first epoch {ep_ms[0] / n:.3f}, second {step_ms:.3f}{ref} "
+          f"({opt.batch_size * 1e3 / step_ms:.0f} samples/s); device busy {busy:.3f} ms of "
+          f"{span:.3f} ms over {prof_n} more D steps ({100 * busy / span:.1f}%); wall of the "
+          f"Trainer "
+          f"{wall:.2f} s (the run {time.perf_counter() - t_start:.2f} s); peak memory "
+          f"{peak:.2f} GiB; epsilon {eps[-1]:.6f}{clip_note}; by kernel (ms, launches): "
+          + "; ".join(f"{key[:48]} {t:.3f} {cnt}" for t, cnt, key in rows[:6]))
+    return launches, step_ms
+
+
+def b50_kernel_checks(dev, peak_bf16, peak_bytes, smi):
+    """K2/K3 at conv2-conv4 (bf16, tensor cores), K4/K5 at the G's five norm
+    shapes (bf16) and K6 at path 1's leaf, all at batch 50, against their
+    plain versions to the bounds of steps 4 and 6; each timed beside its
+    plain version. Returns {kernel: (ms, plain ms)} per D step / G pass /
+    launch."""
+    import torch
+    from csl_gan_tpu_torch.ops import pallas_conv_ghost as pcg
+    from csl_gan_tpu_torch.ops import pallas_groupnorm as gn
+
+    g = torch.Generator(dev).manual_seed(24)
+    t = {k: [0.0, 0.0] for k in ("K2", "K3", "K4", "K5")}
+    for h, cin, cout in CONV_LAYERS:
+        a, c, w, ks = conv_operands(g, dev, B50, h, cin, cout, torch.bfloat16)
+        r2, r3, _, _ = conv_held(f"conv {h}x{h}x{cin}->{cout} B {B50}", a, c, w, ks, "tc")
+        for key, fk, fp in (("K2", lambda: pcg.ghost_sq_norms(a, c, 5, 5, 2, 2),
+                             lambda: pcg.ghost_sq_norms_plain(a, c, 5, 5, 2, 2)),
+                            ("K3", lambda: pcg.weighted_kernel_grad(a, c, w, ks, 2, 2),
+                             lambda: pcg.weighted_kernel_grad_plain(a, c, w, ks, 2, 2))):
+            t[key][0] += cuda_ms(fk, 10)
+            t[key][1] += cuda_ms(fp, 5)
+        print(f"conv {h}x{h}x{cin}->{cout} bf16 (B {B50}), tensor cores: K2 rel l2 {r2:.3e}, "
+              f"K3 rel l2 {r3:.3e} (bound {CONV_BOUND:g})")
+    for hw, c, mult in GN_SHAPES:
+        x, dy, sc, bi = gn_operands(g, dev, B50, hw, c, torch.bfloat16)
+        gn_held(x, dy, sc, bi)
+        t["K4"][0] += mult * cuda_ms(lambda: gn.gn_relu_forward(x, sc, bi, 32, 1e-5), 20)
+        t["K4"][1] += mult * cuda_ms(lambda: gn.gn_relu_plain(x, sc, bi, 32, 1e-5), 5)
+        t["K5"][0] += mult * cuda_ms(lambda: gn.gn_relu_backward(x, dy, sc, bi, 32, 1e-5), 20)
+        t["K5"][1] += mult * cuda_ms(lambda: gn.gn_relu_bwd_plain(x, dy, sc, bi, 32, 1e-5), 5)
+    k6, _ = k6_held(g, dev, B50, (F + NC) * H, f"B {B50}", peak_bytes)
+    t["K6"] = [k6["ms"], k6["plain_ms"]]
+    print(f"kernels at B {B50} [{smi}], ms by CUDA events (kernel, plain): K2 per D step "
+          f"{t['K2'][0]:.4f}, {t['K2'][1]:.3f}; K3 per D step {t['K3'][0]:.4f}, {t['K3'][1]:.3f}; "
+          f"K4 per G forward {t['K4'][0]:.4f}, {t['K4'][1]:.3f}; K5 per G backward "
+          f"{t['K5'][0]:.4f}, {t['K5'][1]:.3f}; K6 at [{B50}, {(F + NC) * H}] {t['K6'][0]:.4f}, "
+          f"{t['K6'][1]:.4f}")
+    return t
+
+
+def public_data_phase(dev, out_root, smi, peak_bf16, peak_bytes, k1_step_ms=None,
+                      celeba_step_ms=None):
+    """The phase-9 runs through the Trainer, then one bf16 CelebA adaptive
+    D + G step (bs 8) through K2-K5 against the all-plain step (3x the
+    one-ulp witness), one adaptive path-1 D step through K6 against K6's
+    plain version (same seeds, same adapted std), and K2-K6 at batch 50
+    against their plain versions. Returns ({run: launches by kernel}, the
+    B 50 times)."""
+    import shutil
+
+    import torch
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(out_root / "public", ignore_errors=True)
+    by_run = {}
+    for name, argv in PUBLIC_RUNS:
+        ref = celeba_step_ms if name.startswith("CelebA") else k1_step_ms
+        by_run[name], _ = public_run(name, argv, out_root, smi, ref)
+        torch.cuda.empty_cache()
+    celeba_step_check(dev, out_root / "public", bf16=True, adaptive=True)
+
+    def batch(g, bs):
+        return (torch.rand(bs, 28, 28, 1, generator=g, device=dev),
+                torch.randint(0, NC, (bs,), generator=g, device=dev))
+    clip_step_check(dev, out_root / "public", "path 1 adaptive", PUBLIC_RUNS[3][1], batch)
+    torch.cuda.empty_cache()
+    b50 = b50_kernel_checks(dev, peak_bf16, peak_bytes, smi)
+    print(f"public data, warmup and adaptive clipping phase [{smi}]: "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return by_run, b50
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2554,6 +2877,9 @@ def main() -> int:
     if "--saves" in sys.argv[1:]:
         saves_phase(out_root, smi)
         return 0
+    if "--public-data" in sys.argv[1:]:
+        public_data_phase(dev, out_root, smi, peak_bf16, peak_bytes)
+        return 0
 
     # 3. The MNIST path (K1): kernel vs plain, the Trainer, K1's timing.
     max_abs = k1_check_phase(dev, out_root)
@@ -2583,6 +2909,17 @@ def main() -> int:
     for entry in kernels:
         entry["cond_arch_launches"] = {path: counts[keys[entry["name"]]]
                                        for path, counts in cond.items()}
+
+    # 9. Public data, warmup and adaptive clipping; every kernel at batch 50.
+    public, b50 = public_data_phase(dev, out_root, smi, peak_bf16, peak_bytes,
+                                    k1_epoch_ms / (60000 // BS), celeba_step_ms)
+    for entry in kernels:
+        k = keys[entry["name"]]
+        entry["public_data_launches"] = {run: counts[k] for run, counts in public.items()}
+        if k in b50:
+            entry["b50_ms"], entry["b50_plain_ms"] = b50[k]
+
+    # 10. The kernels line; 11. the result line.
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

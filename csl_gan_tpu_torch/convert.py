@@ -101,11 +101,22 @@ def params_to_jax(sd: Mapping[str, torch.Tensor], kind: str) -> Dict:
     return out
 
 
-def clipping_from_jax(clipping):
+def clipping_from_jax(clipping, like=None):
     """The JAX TrainState's clipping (fp32 scalar, or per-leaf vector) as the
-    port's float or tuple of floats."""
+    port's float or tuple of floats; as an fp32 tensor on ``like``'s device
+    when ``like``, the state's clipping, is a tensor (adaptive clipping)."""
     c = np.asarray(clipping, np.float32)
+    if isinstance(like, torch.Tensor):
+        return torch.tensor(c, device=like.device)
     return float(c) if c.ndim == 0 else tuple(float(v) for v in c)
+
+
+def clipping_to_jax(clipping) -> np.ndarray:
+    """The port's clipping (float, tuple or tensor) as the JAX TrainState's
+    fp32 scalar or per-leaf vector."""
+    if isinstance(clipping, torch.Tensor):
+        return clipping.detach().cpu().numpy().astype(np.float32)
+    return np.asarray(clipping, np.float32)
 
 
 def stats_from_jax(tree: Mapping, device: Optional[torch.device] = None
@@ -172,7 +183,7 @@ def train_state_to_jax(state: TrainState) -> dict:
                    state.d_count),
         "g_adam": (params_to_jax(state.g_mu, "G"), params_to_jax(state.g_nu, "G"),
                    state.g_count),
-        "clipping": np.asarray(state.clipping, np.float32),
+        "clipping": clipping_to_jax(state.clipping),
         "scaling_vec": scaling_vec_to_jax(state.scaling_vec),
         "g_batch_stats": stats_to_jax(state.g_batch_stats),
     }

@@ -47,19 +47,11 @@ def attack(attack_values_train, attack_values_nontrain, data_prop=0.1,
 
 
 def _datasets(opt):
-    """((train images, labels), (nontrain images, labels)): MNIST float in
-    [0, 1], CelebA uint8."""
-    train = init_data(opt)
-    if opt.dataset == "MNIST":
-        from csl_gan_tpu_torch.data import mnist
-
-        return (train.images, train.labels), mnist.load_mnist(opt.data_path, train=False)
-    from csl_gan_tpu_torch.data import celeba
-
-    pub = celeba.CelebADataset(opt.data_path, im_size=opt.im_size,
-                               length=opt.public_set_size, offset=opt.train_set_size,
-                               attr_file=opt.label_path, attr=opt.label_attr)
-    return (train.images, train.labels), pub.decoded_cache()
+    """((train images, labels), (nontrain images, labels)): the training set
+    and the public split of ``init_data``; MNIST float in [0, 1], CelebA
+    uint8."""
+    train, public = init_data(opt)
+    return (train.images, train.labels), (public.images, public.labels)
 
 
 def apply_discriminator(opt, builder, state, images, labels, batch_size):

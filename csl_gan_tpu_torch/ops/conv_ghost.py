@@ -66,13 +66,16 @@ def dcresnet_real_ghost(d_params: Dict[str, torch.Tensor], x: torch.Tensor,
                         aux_type: str, aux_scalar: float,
                         row_w: Optional[torch.Tensor], max_norm,
                         per_layer: bool = False, concat_planes: bool = False,
-                        stride: int = 2, pad: int = 2, compute_dtype=None):
+                        stride: int = 2, pad: int = 2, compute_dtype=None,
+                        norms_only: bool = False):
     """Clipped summed gradient of the per-sample REAL wgan loss
     loss_i = -out_i [+ ACGAN aux term of sample i], with out_i the WCGAN
     head's column y_i.
 
     Returns (summed grads by param name, ClipStats in JAX leaf order,
-    (out, aux_out))."""
+    (out, aux_out)); with ``norms_only``, just the per-sample leaf norms
+    [n_leaves, B] in JAX leaf order (the adaptive clipping statistic: K2
+    for the ghost-order layers, no weighted sum, ``max_norm`` unused)."""
     b = x.shape[0]
     dt = compute_dtype
     n_convs = sum(1 for k in d_params if k.startswith("TorchConv_") and k.endswith(".weight"))
@@ -173,6 +176,8 @@ def dcresnet_real_ghost(d_params: Dict[str, torch.Tensor], x: torch.Tensor,
         leaves += ["linOutAux.bias", "linOutAux.weight"]
 
     leaf_norms = torch.stack([torch.sqrt(torch.clamp(sq[k], min=0.0)) for k in leaves])
+    if norms_only:
+        return leaf_norms
     clip_norms = leaf_norms * _BF16_NORM_MARGIN if dt is not None else leaf_norms
     factors = clip_factors(clip_norms, max_norm, per_layer)
     summed = {k: wsum[k](factors[i]) for i, k in enumerate(leaves)}

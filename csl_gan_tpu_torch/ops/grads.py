@@ -14,7 +14,8 @@ package's ops/grads.py.
   - ``add_gaussian_noise``: std sigma * C (flat) or sigma * C_l per leaf, which
     keeps the effective noise multiplier exactly sigma in both modes.
   - ``unit_normals`` / ``add_scaled_noise``: the noise of a step whose per-leaf
-    stds are data-dependent (immediate sensitivity): one N(0, 1) draw sliced
+    stds are data-dependent (immediate sensitivity; gc under adaptive
+    clipping, sigma times each step's thresholds): one N(0, 1) draw sliced
     per leaf, scaled on the device by an fp32 ``[n_leaves]`` tensor of stds,
     with no read to the host.
   - ``per_leaf_norms`` / ``global_norm`` of one (unbatched) gradient.
@@ -37,7 +38,7 @@ from torch.func import grad, vmap
 from csl_gan_tpu_torch.ops import pallas_clip
 
 Params = Dict[str, torch.Tensor]
-MaxNorm = Union[float, Sequence[float]]
+MaxNorm = Union[float, Sequence[float], torch.Tensor]
 
 # One flat normal draw for the small leaves only up to this many elements
 # (the JAX package's ops/grads.py:286); past it, one draw per leaf.
@@ -71,13 +72,16 @@ def leaf_norms(grads_ps: Params) -> torch.Tensor:
 def clip_factors(leaf_norms: torch.Tensor, max_norm: MaxNorm,
                  per_layer: bool) -> torch.Tensor:
     """Clipping factors per (leaf, sample), shape [n_leaves, batch]: one
-    flat norm per sample (flat mode) or one threshold per leaf."""
+    flat norm per sample (flat mode) or one threshold per leaf. The
+    thresholds may be host floats or, under adaptive clipping, an fp32
+    device tensor, which is never read back to the host."""
     if per_layer:
         thr = torch.as_tensor(max_norm, dtype=torch.float32,
                               device=leaf_norms.device)[:, None]
         return torch.clamp(thr / (leaf_norms + 1e-12), max=1.0)
     flat = torch.sqrt(torch.sum(leaf_norms ** 2, dim=0, keepdim=True))
-    factor = torch.clamp(float(max_norm) / (flat + 1e-12), max=1.0)
+    c = max_norm if isinstance(max_norm, torch.Tensor) else float(max_norm)
+    factor = torch.clamp(c / (flat + 1e-12), max=1.0)
     return factor.expand(leaf_norms.shape)
 
 

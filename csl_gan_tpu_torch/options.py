@@ -293,23 +293,35 @@ def derive_and_validate(opt) -> None:
 
 
 def validate_public_data(opt) -> None:
-    """The JAX package's rules on mean samples and public data
-    (options.py:542-563)."""
+    """The JAX package's rules on mean samples, public data and adaptive
+    clipping (options.py:542-591)."""
     if opt.num_mean_samples > 0 and opt.mean_sample_size > opt.train_set_size:
         raise Exception(
             f"mean_sample_size ({opt.mean_sample_size}) exceeds "
             f"train_set_size ({opt.train_set_size}): the mean-sampler "
             "subsampling rate would exceed 1. Lower --mean_sample_size or "
             "raise -tss.")
+    if opt.public_set_size > 0 and opt.num_mean_samples > 0:
+        raise Exception("Both public data partition and mean samples were configured, "
+                        "please select only one.")
     if len(opt.penalty) > 0 and opt.use_dp and opt.penalty_use_public_data \
             and opt.public_set_size < 1 and opt.num_mean_samples < 1:
         raise Exception("In order to enable gradient penalty using public data, "
                         "please enable mean sampling by setting num_mean_samples "
                         "or public data by setting public_set_size.")
+    if opt.use_dp and _adaptive(opt) and opt.public_set_size < 1 \
+            and opt.num_mean_samples < 1:
+        raise Exception("Adaptive clipping derives its thresholds from "
+                        "public data: set public_set_size or "
+                        "num_mean_samples.")
 
 
 def _vanilla(o) -> bool:
     return o.model == "Vanilla"
+
+
+def _adaptive(o) -> bool:
+    return (o.grad_clip_mode or "standard").startswith("adaptive")
 
 
 def _k1_path(o) -> bool:
@@ -321,8 +333,10 @@ def _k1_path(o) -> bool:
                 and not o.penalty and not o.backprop_clip
                 and o.per_sample_chunk is None and o.n_d_steps <= 1
                 and float(o.train_d_until_threshold) >= 1e10
+                and o.batch_size % 8 == 0
                 and (o.dp_mode is None or (o.dp_mode == "gc" and o.grad_clip_split
-                                           and not o.use_grad_clip_per_layer)))
+                                           and not o.use_grad_clip_per_layer
+                                           and not _adaptive(o))))
 
 
 # (flag, test on the parsed opt) for every option whose path is not ported.
@@ -334,18 +348,14 @@ _NOT_PORTED = [
     ("-pupd false (the per-sample penalty)",
      lambda o: bool(o.penalty) and o.use_dp and not o.penalty_use_public_data),
     ("--poisson", lambda o: o.poisson),
-    ("--grad_clip_mode adaptive / adaptive-pl (adaptive clipping)",
-     lambda o: (o.grad_clip_mode or "standard").startswith("adaptive")),
+    ("--grad_clip_mode adaptive / adaptive-pl outside -dpm gc (the JAX package "
+     "ignores it there)", lambda o: _adaptive(o) and o.dp_mode != "gc"),
     ("--weight_decay", lambda o: (o.weight_decay or 0) != 0),
     ("--fsdp", lambda o: o.fsdp),
     ("--tp", lambda o: o.tp != 1),
     ("--mesh_shape", lambda o: (o.mesh_shape or 1) != 1),
     ("--multihost", lambda o: o.multihost),
     ("--backprop_clip", lambda o: o.backprop_clip),
-    ("--num_mean_samples on the vanilla model",
-     lambda o: o.num_mean_samples > 0 and _vanilla(o)),
-    ("--public_set_size", lambda o: o.public_set_size > 0),
-    ("--warmup_iter", lambda o: o.warmup_iter > 0),
     ("--host_loop", lambda o: o.host_loop),
     ("--bf16 on the vanilla model", lambda o: o.bf16 and _vanilla(o)),
     ("--u8_table", lambda o: o.u8_table),
@@ -357,11 +367,9 @@ _NOT_PORTED = [
     ("--sample_every below one epoch of samples on the K1 path (the MNIST "
      "vanilla ACGAN epoch kernel)",
      lambda o: o.sample_every_epochs < 0 and _k1_path(o)),
-    ("--stop_on_g_freeze", lambda o: o.stop_on_g_freeze > 0),
     ("--aux_loss_type wasserstein on the conditional vanilla model",
      lambda o: o.aux_loss_type != "cross_entropy" and _vanilla(o) and o.conditional),
     ("--n_classes outside 2..16", lambda o: not 2 <= o.n_classes <= 16),
-    ("--batch_size not a multiple of 8", lambda o: o.batch_size % 8 != 0),
 ]
 
 

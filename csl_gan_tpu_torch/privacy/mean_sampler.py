@@ -92,8 +92,9 @@ class MeanSampler:
                       labels: Optional[torch.Tensor], size: int):
         """The counterpart of device_sample_fn (mean_sampler.py:117-138) on
         device-resident mean samples [n_classes, num_samples, H, W, C]:
-        labels drawn uniformly when None, sample indices with replacement.
-        Returns (images, labels)."""
+        labels drawn uniformly when None (the adaptive clipping and warmup
+        batches; all 0 for the one class of an unconditional run), sample
+        indices with replacement. Returns (images, labels)."""
         dev = samples.device
         if labels is None:
             labels = torch.randint(0, self.n_classes, (size,), generator=gen, device=dev)

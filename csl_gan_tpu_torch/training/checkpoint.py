@@ -10,7 +10,8 @@ does), so a save of either package loads in the other.
   "nu"}, "1": {}}`` with ``count`` an int32 scalar.
 - G: ``batch_stats``, a BatchNorm G's running averages (``{}`` for the
   other generators). D: ``clipping`` (an fp32 scalar, or the
-  per-leaf vector in leaf order), ``scaling_vec`` (the IS scaling, an fp32
+  per-leaf vector in leaf order; under adaptive clipping the last step's
+  thresholds), ``scaling_vec`` (the IS scaling, an fp32
   per-leaf vector in leaf order, or the fp32 ``0.0`` placeholder),
   ``accountant`` (the accountant's state dict, ``{}`` without DP).
 - ``epoch`` and ``loss``.
@@ -77,7 +78,7 @@ def save_d(path: str, epoch: int, state: TrainState,
         "epoch": int(epoch),
         "model_state_dict": convert.params_to_jax(state.d_params, "D"),
         "optimizer_state_dict": _adam(state.d_mu, state.d_nu, state.d_count, "D"),
-        "clipping": np.asarray(state.clipping, np.float32),
+        "clipping": convert.clipping_to_jax(state.clipping),
         "scaling_vec": convert.scaling_vec_to_jax(state.scaling_vec),
         "accountant": accountant_state or {},
         "loss": float(loss),
@@ -159,8 +160,8 @@ def load_d(path: str, state: TrainState
     mu, nu, count = _opt_state(p, "D", state.d_params, path)
     clipping = state.clipping
     if p.get("clipping") is not None:
-        clipping = convert.clipping_from_jax(p["clipping"])
-        if np.shape(clipping) != np.shape(state.clipping):
+        clipping = convert.clipping_from_jax(p["clipping"], like=state.clipping)
+        if np.shape(p["clipping"]) != convert.clipping_to_jax(state.clipping).shape:
             raise ValueError(f"{path}: clipping {clipping} does not fit this "
                              f"configuration's {state.clipping}")
     scaling_vec = state.scaling_vec

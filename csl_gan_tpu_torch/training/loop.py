@@ -14,8 +14,16 @@ gather). Groups of whole epochs run through a runner, chosen by config:
     conv ghost through K2/K3, two-pass, or materialized per-sample gradients,
     fused through K6 under ``--pallas true``; immediate sensitivity; trimmed
     mean or sign vote; the non-private step without it), with the DCResNet G
-    forward and backward through K4/K5 and WGAN-GP on mean samples.
+    forward and backward through K4/K5 and WGAN-GP on mean samples or
+    class-matched public rows; under adaptive clipping each gc step takes
+    its thresholds from a public or mean-sample batch.
 Options outside the ported slice are refused by ``options.check_ported``.
+With ``-pss`` the public split lives on the device beside the dataset.
+``-wi`` runs that many non-private D steps (with their G steps) on public
+rows or mean samples before the first epoch, on the step runner whatever
+runner trains, then resets both Adam states; they land in the first log
+row and the accountant counts none of them. A resumed run does not repeat
+the warmup.
 
 Between groups the host steps the accountant (RDP; zCDP for tm / sv) and
 writes ``log.csv`` (under ``-dpm is`` with the interval's mean, least and
@@ -25,8 +33,10 @@ fixed-z sample grids ``samples/{epoch}-{batch}.png`` on the sample cadence
 (a sub-epoch cadence from inside the step runner) and the
 ``saves/{G,D}-{epoch}`` checkpoints on the save cadence and at the end
 (training/checkpoint.py). Save and sample epochs end a group, as log epochs
-do. ``--resume_path`` continues a run of either package from its saves: a
-save of the port carries the Trainer's generator states, so the resumed run
+do. ``--stop_on_g_freeze N`` stops after the group that ends N log
+intervals in a row without a G update (JAX training/loop.py:871-884).
+``--resume_path`` continues a run of either package from its saves: a save
+of the port carries the Trainer's generator states, so the resumed run
 equals the uninterrupted one; a JAX save does not, and the generators are
 then seeded from (seed, resume epoch). SIGTERM lets the current group
 finish, then saves and returns (JAX training/loop.py:937-1039).
@@ -51,7 +61,7 @@ from csl_gan_tpu_torch.ops import pallas_epoch as pe
 from csl_gan_tpu_torch.privacy import MeanSampler, accountant_from_state_dict, make_accountant
 from csl_gan_tpu_torch.training import checkpoint
 from csl_gan_tpu_torch.training.logger import build_logger
-from csl_gan_tpu_torch.training.segment_runner import EpochsRunner, StepRunner
+from csl_gan_tpu_torch.training.segment_runner import EpochsRunner, PublicRows, StepRunner
 from csl_gan_tpu_torch.training.steps import StepBuilder
 from csl_gan_tpu_torch.utils.images import denorm_celeba, save_image_grid
 
@@ -98,7 +108,7 @@ class Trainer:
         if fresh:
             snapshot_code(opt.output_dir)
         self.G, self.D = init_models(opt, self.device)
-        self.dataset = init_data(opt)
+        self.dataset, self.public_dataset = init_data(opt)
         self.n_batches = n_batches(self.dataset, opt.batch_size)
         label1_prob = 0.5
         if opt.dataset == "CelebA" and opt.conditional and \
@@ -108,12 +118,14 @@ class Trainer:
         self.state = self.builder.init_state()
         self._setup_mean_samples()
         self._setup_device_data()
+        # The step runner trains every configuration off K1 and runs the
+        # warmup of every configuration.
+        self.step_runner = StepRunner(self.builder, self.n_batches, len(self.dataset),
+                                      self._gather, self._u8_images, self.mean_sampler,
+                                      self._dev_mean, self.public)
+        self.runner = self.step_runner
         if opt.pallas_epoch and pe.supports(self.builder, opt.use_dp, 1):
             self.runner = EpochsRunner(self.builder, self.n_batches, opt.use_dp)
-        else:
-            self.runner = StepRunner(self.builder, self.n_batches, len(self.dataset),
-                                     self._gather, self._u8_images,
-                                     self.mean_sampler, self._dev_mean)
         # D leaves in torch parameter order (weight before bias) as indices
         # into the JAX leaf order: the per-layer log columns.
         leaves = list(self.builder.d_leaves)
@@ -121,6 +133,9 @@ class Trainer:
         self.accountant = make_accountant(opt) if opt.use_dp else None
         # The is sensitivity's extremes over the log interval (numpy).
         self._is_min = self._is_max = None
+        # --stop_on_g_freeze: log intervals in a row without a G update.
+        self._g_freeze_streak = 0
+        self._g_freeze_stop = False
         seed = int(opt.manual_seed)
         self.gen_perm = torch.Generator(self.device).manual_seed(seed * 2 + 1)
         self.gen = torch.Generator(self.device).manual_seed(seed * 2)
@@ -168,8 +183,8 @@ class Trainer:
         if run_state is not None and run_state.get("device") == self.device.type:
             checkpoint.set_generator_state(self.gen, run_state["gen"])
             checkpoint.set_generator_state(self.gen_perm, run_state["gen_perm"])
-            if run_state.get("d_acc") is not None and isinstance(self.runner, StepRunner):
-                self.runner.d_acc = torch.tensor(run_state["d_acc"], device=self.device)
+            if run_state.get("d_acc") is not None:
+                self.step_runner.d_acc = torch.tensor(run_state["d_acc"], device=self.device)
             return
         why = ("holds no generator states (a save of the JAX package)" if run_state is None
                else f"holds generator states of a {run_state.get('device')} run")
@@ -216,11 +231,19 @@ class Trainer:
         table, the one-hot only for conditional runs with 2..64 classes (JAX
         training/loop.py:349); bf16 rounds to nearest even, as JAX's astype
         does, so the stored pixels equal the JAX package's table bit for bit.
-        CelebA: the uint8 images [N, H, W, 3] and the labels."""
+        CelebA: the uint8 images [N, H, W, 3] and the labels. The public
+        split (``PublicRows``): MNIST fp32 images, CelebA uint8 ones."""
         opt = self.opt
         self._dev_mean = None
         if self.mean_sampler is not None:
             self._dev_mean = torch.from_numpy(self.mean_sampler.mean_samples).to(self.device)
+        self.public = None
+        if self.public_dataset is not None:
+            pub = self.public_dataset
+            self.public = PublicRows(
+                torch.from_numpy(np.ascontiguousarray(pub.images)).to(self.device),
+                torch.from_numpy(np.asarray(pub.labels, np.int64)).to(self.device),
+                opt.n_classes if opt.conditional else 1)
         labels = np.asarray(self.dataset.labels, np.int64)
         self._u8_images = self.dataset.images.dtype == np.uint8
         if self._u8_images:
@@ -281,7 +304,6 @@ class Trainer:
         """Epochs epoch..epoch+k-1 through the runner, then their metric sums
         (one host read per group) into the logger stats."""
         self._group_start = epoch
-        s = self.logger.stats
         if isinstance(self.runner, EpochsRunner):
             self.state, met = self.runner.run(self.state, self.table,
                                               self.gen_perm, self.gen, k)
@@ -302,6 +324,15 @@ class Trainer:
                                                             self.gen, k)
             d_sums = {key: v.cpu().numpy() for key, v in d_t.items()}
             g_sums = {key: v.cpu().numpy() for key, v in g_t.items()}
+        if self.opt.dp_mode == "gc" and "clipping" not in d_sums:
+            # K1: constant flat clipping, one value a step.
+            d_sums["clipping"] = self.n_batches * k * np.float32(self.state.clipping)
+        self._add_sums(d_sums, g_sums, g_count)
+
+    def _add_sums(self, d_sums, g_sums, g_count: int) -> None:
+        """Metric sums (numpy) into the logger stats; the norm and clipping
+        columns in torch parameter order (JAX training/loop.py:540-578)."""
+        s = self.logger.stats
         for key, name in _D_STATS:
             if key in d_sums and name in s:
                 s[name] = s[name] + d_sums[key]
@@ -313,14 +344,26 @@ class Trainer:
             lo, hi = d_sums["is_sens_min"], d_sums["is_sens_max"]
             self._is_min = lo if self._is_min is None else np.minimum(self._is_min, lo)
             self._is_max = hi if self._is_max is None else np.maximum(self._is_max, hi)
-        if self.opt.dp_mode == "gc":
+        if "Clipping Params" in s and "norm_mean" in d_sums:
             for key, name in _NORM_STATS:
                 s[name] = s[name] + d_sums[key][self._torch_idx]
-            clip = np.asarray(self.state.clipping, np.float32)
-            if clip.ndim:       # per-layer thresholds: a torch-order column
-                clip = clip[self._torch_idx]
-            s["Clipping Params"] = s["Clipping Params"] + self.n_batches * k * clip
+            clip = d_sums["clipping"]
+            s["Clipping Params"] = s["Clipping Params"] + (
+                clip[self._torch_idx] if np.ndim(clip) else clip)
         self.logger.log_g_iter += g_count
+
+    def _warmup(self) -> None:
+        """``-wi`` non-private D steps (and their G steps) on public rows or
+        mean samples, then fresh Adam states for G and D (JAX
+        training/loop.py:903-915): their metrics go into the current log
+        interval, and the accountant counts none of them."""
+        n = int(self.opt.warmup_iter or 0)
+        if n <= 0:
+            return
+        self.state, d_t, g_t, g_count = self.step_runner.warmup(self.state, self.gen, n)
+        self._add_sums({key: v.cpu().numpy() for key, v in d_t.items()},
+                       {key: v.cpu().numpy() for key, v in g_t.items()}, g_count)
+        self.state = self.builder.reset_optimizers(self.state)
 
     def _flush_log(self, epoch: int) -> None:
         lg = self.logger
@@ -333,6 +376,14 @@ class Trainer:
         scale = 0 if lg.log_g_iter == 0 else lg.interval / lg.log_g_iter
         for stat in [k for k in lg.stats if k.startswith("G ")]:
             lg.stats[stat] = np.asarray(lg.stats[stat]) * scale
+        n_freeze = int(self.opt.stop_on_g_freeze or 0)
+        if n_freeze > 0:
+            self._g_freeze_streak = self._g_freeze_streak + 1 if lg.log_g_iter == 0 else 0
+            if self._g_freeze_streak >= n_freeze and not self._g_freeze_stop:
+                self._g_freeze_stop = True
+                print(f"G frozen for {self._g_freeze_streak} consecutive logging intervals "
+                      "(zero G updates; train_d_until_threshold gating) — stopping after "
+                      f"this epoch group (--stop_on_g_freeze {n_freeze}).", flush=True)
         lg.log_g_iter = 0
         lg.log(epoch, 100)
         if self.accountant is not None and self.accountant.steps > 0:
@@ -358,9 +409,8 @@ class Trainer:
         run_state = {"device": self.device.type,
                      "gen": checkpoint.generator_state(self.gen),
                      "gen_perm": checkpoint.generator_state(self.gen_perm)}
-        d_acc = getattr(self.runner, "d_acc", None)
-        if d_acc is not None:
-            run_state["d_acc"] = d_acc.cpu().numpy()
+        if self.step_runner.d_acc is not None:
+            run_state["d_acc"] = self.step_runner.d_acc.cpu().numpy()
         checkpoint.save_pair(self.opt.output_dir, epoch_label, epoch, self.state,
                              self.accountant.state_dict() if self.accountant else None,
                              run_state)
@@ -377,6 +427,8 @@ class Trainer:
         opt = self.opt
         print("\nStarting training...\n")
         self.logger.reset_stats()
+        if self.start_epoch == 0:
+            self._warmup()
         preempted = threading.Event()
         prev = None
         installed = threading.current_thread() is threading.main_thread()
@@ -406,6 +458,7 @@ class Trainer:
                         self.privacy_writer.writerow([e, eps + self.mean_sample_privacy_cost])
                         self.privacy_log.flush()
                         stop = opt.epsilon_budget is not None and eps > opt.epsilon_budget
+                    stop = stop or self._g_freeze_stop
                     if (e + 1) % opt.save_every == 0:
                         self._save(e + 1, e)
                     epoch = e

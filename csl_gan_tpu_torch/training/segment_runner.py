@@ -1,7 +1,8 @@
 """The runners that drive whole epochs: ``EpochsRunner`` (the MNIST vanilla
 path, one K1 launch per epoch) and ``StepRunner`` (every other ported
 configuration of either model, one D step at a time with a G update on the
-n_d_steps cadence).
+n_d_steps cadence, and the non-private warmup of every configuration), and
+``PublicRows``, the public split on the device.
 
 EpochsRunner:
 
@@ -18,7 +19,7 @@ seed; value parity is tested with injected draws (tests/test_torch_epoch.py).
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List, Optional
+from typing import Callable, List, Optional
 
 import torch
 
@@ -83,6 +84,57 @@ class EpochsRunner:
         return pallas_epoch.state_from_leaves(params, mu, nu, state.clipping, t), met
 
 
+class PublicRows:
+    """The public split on the device (the JAX Trainer's ``_dev_public``,
+    training/loop.py:404-414): images (uint8 CelebA rows, normalised to
+    [-1, 1] and randomly flipped after each gather as the training rows are,
+    or fp32 MNIST rows) and labels, and per class the rows of that class as
+    an index table [n_classes, largest class] (padded with the class's first
+    row) with the class counts, from which class-matched rows are drawn on
+    the device."""
+
+    def __init__(self, images: torch.Tensor, labels: torch.Tensor, n_classes: int):
+        self.images = images
+        self.labels = labels
+        self.n = images.shape[0]
+        self.u8 = images.dtype == torch.uint8
+        lab = labels.cpu()
+        rows = [torch.nonzero(lab == c).flatten() for c in range(max(1, n_classes))]
+        self.counts = torch.tensor([len(r) for r in rows], device=labels.device)
+        width = max(len(r) for r in rows)
+        self.by_class = torch.stack(
+            [torch.cat([r, r[:1].expand(width - len(r))]) if len(r) else
+             torch.zeros(width, dtype=torch.int64) for r in rows]).to(labels.device)
+        self.empty = [c for c, r in enumerate(rows) if not len(r)]
+
+    def gather(self, idx: torch.Tensor, gen: torch.Generator):
+        """(images [B, H, W, C] fp32, labels) of the rows idx; uint8 rows
+        draw their horizontal flips from gen."""
+        x = self.images[idx]
+        if self.u8:
+            flip = torch.rand(x.shape[0], generator=gen, device=x.device) < 0.5
+            x = x.float() / 127.5 - 1.0
+            x = torch.where(flip[:, None, None, None], x.flip(2), x)
+        return x, self.labels[idx]
+
+    def batch(self, gen: torch.Generator, size: int):
+        """The first ``size`` rows of a fresh permutation (JAX
+        ``_adaptive_data`` and the public loader's ``one_batch``)."""
+        perm = torch.randperm(self.n, generator=gen, device=self.images.device)
+        return self.gather(perm[:size], gen)
+
+    def class_matched(self, gen: torch.Generator, y: torch.Tensor):
+        """For each label of y a row of that class, uniformly at random (JAX
+        ``_penalty_data``, which draws them on the host)."""
+        if self.empty:
+            raise ValueError(f"the public split holds no row of class {self.empty[0]}, "
+                             "which a class-matched penalty batch needs")
+        u = torch.rand(y.shape[0], generator=gen, device=y.device)
+        cnt = self.counts[y]
+        j = torch.minimum((u * cnt).long(), cnt - 1)
+        return self.gather(self.by_class[y, j], gen)
+
+
 class StepRunner:
     """k whole epochs, one D step at a time (the JAX package's
     segment_runner.py _build_run, written as a Python loop over steps): the
@@ -107,6 +159,19 @@ class StepRunner:
     ``is_sens`` (``is_sens_min`` / ``is_sens_max``, from +inf / -inf, kept
     on the device).
 
+    Under adaptive clipping each gc D step also draws its clipping batch,
+    after the penalty's draws: ``bs`` public rows (``PublicRows.batch``), or
+    ``bs`` mean samples with uniform labels (``MeanSampler.device_sample``).
+    With a public split the penalty batch is class-matched public rows
+    (``PublicRows.class_matched``; unconditional runs: the first ``bs`` of a
+    permutation), else the mean-sample surrogates, else the real batch.
+    Each gc step's thresholds are summed into ``d_sums["clipping"]`` on the
+    device.
+
+    ``warmup`` runs ``-wi`` non-private D steps on public rows or mean
+    samples (the JAX Trainer's ``warmup``), each followed by a G step on the
+    same cadence and gate as training, and counts none of them for privacy.
+
     ``gather(idx) -> (x, y)`` returns a batch's images and labels from the
     device-resident dataset; with ``u8_images`` the images are uint8 and get
     the JAX Trainer's ``/127.5 - 1`` and random flip after the gather. An
@@ -121,7 +186,8 @@ class StepRunner:
     def __init__(self, builder: StepBuilder, n_batches: int, n_rows: int,
                  gather: Callable, u8_images: bool,
                  mean_sampler: Optional[MeanSampler] = None,
-                 mean_samples: Optional[torch.Tensor] = None):
+                 mean_samples: Optional[torch.Tensor] = None,
+                 public: Optional[PublicRows] = None):
         self.builder = builder
         self.n = n_batches
         self.n_rows = n_rows
@@ -129,8 +195,10 @@ class StepRunner:
         self.u8_images = u8_images
         self.mean_sampler = mean_sampler
         self.mean_samples = mean_samples
+        self.public = public
         opt = builder.opt
         self.use_dp = bool(opt.use_dp)
+        self.adaptive = builder.adaptive and builder.dp_mode == "gc" and self.use_dp
         self.n_d = max(1, int(opt.n_d_steps))
         self.threshold = float(opt.train_d_until_threshold)
         # Running D adversarial-loss sum since the last cadence point; it
@@ -150,15 +218,29 @@ class StepRunner:
             x = torch.where(flip[:, None, None, None], x.flip(2), x)
         return x, y
 
+    def _surrogate_batch(self, gen: torch.Generator, bs: int):
+        """``bs`` public rows, else ``bs`` mean samples with uniform labels:
+        the adaptive clipping and warmup batches (labels None when
+        unconditional)."""
+        if self.public is not None:
+            x, y = self.public.batch(gen, bs)
+        else:
+            x, y = self.mean_sampler.device_sample(self.mean_samples, gen, None, bs)
+        return x, (y if self.builder.conditional else None)
+
     def _penalty_inputs(self, gen: torch.Generator, x: torch.Tensor,
                         y: Optional[torch.Tensor], bs: int):
-        """The penalty's batch (the mean-sample surrogates, else the real
-        batch, as the JAX runner picks it) and interpolation weights."""
+        """The penalty's batch (class-matched public rows, else the
+        mean-sample surrogates, else the real batch, as the JAX Trainer
+        picks it) and interpolation weights."""
         b = self.builder
         if not b.penalty_types:
             return None, None, None
         pen_x, pen_y = x, y
-        if self.mean_sampler is not None:
+        if self.public is not None:
+            pen_x, pen_y = (self.public.batch(gen, bs)[0], None) if y is None else \
+                self.public.class_matched(gen, y)
+        elif self.mean_sampler is not None:
             pen_x, pen_y = self.mean_sampler.device_sample(self.mean_samples, gen, y, bs)
             if not b.conditional:
                 pen_y = None
@@ -167,11 +249,15 @@ class StepRunner:
         return pen_x, pen_y, alphas
 
     def _noise(self, gen: torch.Generator, leaves, stds):
-        """(noise, fused) of one DP step, as the mode's D step takes them."""
+        """(noise, fused) of one DP step, as the mode's D step takes them;
+        under adaptive clipping (stds None) unit normals, which the step
+        scales by its own stds."""
         b = self.builder
         if b.dp_mode == "gc":
             if b.fused_route:
                 return None, gops.draw_fused_noise(gen, leaves, stds)
+            if stds is None:
+                return gops.unit_normals(gen, leaves), None
             return gops.noise_like(gen, leaves, stds), None
         if b.dp_mode == "is":
             return gops.unit_normals(gen, leaves), None
@@ -179,16 +265,19 @@ class StepRunner:
             return [tmsv.student_t3(gen, l.shape) for l in leaves], None
         return [torch.randn(l.shape, generator=gen, device=gen.device) for l in leaves], None
 
-    def _d_step(self, state: TrainState, x, y, gen: torch.Generator, stds):
+    def _d_step(self, state: TrainState, x, y, gen: torch.Generator, stds, use_dp: bool):
         b = self.builder
         bs = x.shape[0]
         z = b.gen_z(gen, bs)
         noise = fused = None
-        if self.use_dp:
+        if use_dp:
             noise, fused = self._noise(gen, [state.d_params[n] for n in b.d_leaves], stds)
         pen_x, pen_y, alphas = self._penalty_inputs(gen, x, y, bs)
-        return b.d_core(state, x, y, z, self.use_dp, noise=noise, fused=fused, pen_x=pen_x,
-                        pen_y=pen_y, alphas=alphas)
+        ax = ay = None
+        if use_dp and self.adaptive:
+            ax, ay = self._surrogate_batch(gen, bs)
+        return b.d_core(state, x, y, z, use_dp, noise=noise, fused=fused, pen_x=pen_x,
+                        pen_y=pen_y, alphas=alphas, ax=ax, ay=ay)
 
     def _g_step(self, state: TrainState, gen: torch.Generator, bs: int):
         b = self.builder
@@ -197,6 +286,48 @@ class StepRunner:
             return b.g_step(state, z, None if y is None else one_hot(y, b.n_classes))
         return b.g_step_dcresnet(state, z, y)
 
+    def _train_batch(self, state: TrainState, x, y, gen: torch.Generator, stds, i: int,
+                     use_dp: bool, sums):
+        """D step i of an epoch (or of the warmup) and, on the cadence, the
+        gated G step; metrics summed into ``sums`` = [d_sums, g_sums, g_count].
+        Returns the state."""
+        d_sums, g_sums = sums[0], sums[1]
+        state, dm = self._d_step(state, x, y, gen, stds, use_dp)
+        for key, v in dm.items():
+            d_sums[key] = d_sums[key] + v if key in d_sums else v
+        if "is_sens" in dm:
+            sens = dm["is_sens"]
+            if "is_sens_min" not in d_sums:
+                d_sums["is_sens_min"] = torch.full_like(sens, math.inf)
+                d_sums["is_sens_max"] = torch.full_like(sens, -math.inf)
+            d_sums["is_sens_min"] = torch.minimum(d_sums["is_sens_min"], sens)
+            d_sums["is_sens_max"] = torch.maximum(d_sums["is_sens_max"], sens)
+        self.d_acc = self.d_acc + dm["d_adv_loss"]
+        if i % self.n_d == 0:
+            g_on = (self.threshold >= 1e10
+                    or float(self.d_acc) / self.n_d < self.threshold)
+            if g_on:
+                state, gm = self._g_step(state, gen, x.shape[0])
+                for key, v in gm.items():
+                    g_sums[key] = g_sums[key] + v if key in g_sums else v
+                sums[2] += 1
+            self.d_acc = torch.zeros((), device=gen.device)
+        return state
+
+    def warmup(self, state: TrainState, gen: torch.Generator, n_iter: int):
+        """``n_iter`` non-private D steps on surrogate batches (public rows,
+        else mean samples with uniform labels), each followed by a G step on
+        the n_d_steps cadence (JAX training/loop.py:903-915, without its
+        optimizer reset, which the caller makes). Returns (state, D metric
+        sums, G metric sums, number of G updates)."""
+        if self.d_acc is None:
+            self.d_acc = torch.zeros((), device=gen.device)
+        sums = [{}, {}, 0]
+        for i in range(n_iter):
+            x, y = self._surrogate_batch(gen, self.builder.opt.batch_size)
+            state = self._train_batch(state, x, y, gen, None, i, False, sums)
+        return (state, *sums)
+
     def run(self, state: TrainState, gen_perm: torch.Generator,
             gen: torch.Generator, k: int):
         """k epochs from `state`. Returns (state, D metric sums, G metric
@@ -204,15 +335,13 @@ class StepRunner:
         b = self.builder
         bs = b.opt.batch_size
         dev = gen.device
-        d_sums: Dict[str, torch.Tensor] = {}
-        g_sums: Dict[str, torch.Tensor] = {}
-        g_count = 0
+        sums = [{}, {}, 0]
         if self.d_acc is None:
             self.d_acc = torch.zeros((), device=dev)
         timed = dev.type == "cuda"
         self.epoch_events = []
         stds = None
-        if self.use_dp and b.dp_mode == "gc":
+        if self.use_dp and b.dp_mode == "gc" and not self.adaptive:
             stds = gops.noise_stds(len(b.d_leaves), b.sigma, state.clipping, b.per_layer)
             if b.fused_route:    # K6 reads each leaf's std from device memory
                 stds = torch.tensor(stds, dtype=torch.float32, device=dev)
@@ -224,29 +353,10 @@ class StepRunner:
             perm = torch.randperm(self.n_rows, generator=gen_perm, device=dev)
             for i in range(self.n):
                 x, y = self._batch(perm[i * bs:(i + 1) * bs], gen)
-                state, dm = self._d_step(state, x, y, gen, stds)
-                for key, v in dm.items():
-                    d_sums[key] = d_sums[key] + v if key in d_sums else v
-                if "is_sens" in dm:
-                    sens = dm["is_sens"]
-                    if "is_sens_min" not in d_sums:
-                        d_sums["is_sens_min"] = torch.full_like(sens, math.inf)
-                        d_sums["is_sens_max"] = torch.full_like(sens, -math.inf)
-                    d_sums["is_sens_min"] = torch.minimum(d_sums["is_sens_min"], sens)
-                    d_sums["is_sens_max"] = torch.maximum(d_sums["is_sens_max"], sens)
-                self.d_acc = self.d_acc + dm["d_adv_loss"]
-                if i % self.n_d == 0:
-                    g_on = (self.threshold >= 1e10
-                            or float(self.d_acc) / self.n_d < self.threshold)
-                    if g_on:
-                        state, gm = self._g_step(state, gen, bs)
-                        for key, v in gm.items():
-                            g_sums[key] = g_sums[key] + v if key in g_sums else v
-                        g_count += 1
-                    self.d_acc = torch.zeros((), device=dev)
+                state = self._train_batch(state, x, y, gen, stds, i, self.use_dp, sums)
                 if self.on_sample is not None and (i + 1) * bs % self.sample_every == 0:
                     self.on_sample(state, j, i)
             if timed:
                 ev[1].record()
                 self.epoch_events.append(ev)
-        return state, d_sums, g_sums, g_count
+        return (state, *sums)

@@ -12,9 +12,12 @@ The port's counterparts of the JAX package's training/steps.py pieces:
   per-sample-gradient route (``ops/grads.clipped_grad_sum`` over
   ``real_ps_args``). Without the split, real and fake are clipped together
   over ``combined_ps_args``, always materialized. Then the WGAN-GP penalty
-  on mean samples scaled by the batch size, the noise and Adam. Under
-  ``--pallas true`` the materialized route's sum and noise are fused (K6,
-  ops/pallas_clip.py).
+  on mean samples or public rows scaled by the batch size, the noise and
+  Adam. Under ``--pallas true`` the materialized route's sum and noise are
+  fused (K6, ops/pallas_clip.py). Under ``-gcm adaptive`` / ``adaptive-pl``
+  each step first takes its thresholds from the per-sample norms of a
+  public or mean-sample batch (``adaptive_clipping``) and keeps them, a
+  device tensor, in the state.
 - ``d_step_is``: the immediate-sensitivity D step (JAX ``_d_step_is``): the
   full-batch gradient g of the D loss, the sensitivity as the norm of the
   input gradient of ||g|| (flat), of ||(||g_l|| / v_l)_l|| (``-issm
@@ -33,7 +36,8 @@ The port's counterparts of the JAX package's training/steps.py pieces:
   (ops/pallas_epoch.py ``epoch_plain``).
 - DCResNet: ``g_step_dcresnet``, the G step through the K4/K5 GroupNorm+ReLU
   layers.
-- optax's Adam.
+- optax's Adam, and ``reset_optimizers`` (fresh Adam states after a
+  warmup).
 
 All randomness is an explicit input (z, labels, per-leaf DP noise or the
 fused route's seeds and small-leaf normals, penalty interpolation weights,
@@ -79,8 +83,10 @@ class TrainState:
     g_nu: Params
     d_count: int          # optax ScaleByAdamState.count of D
     g_count: int
-    # C of flat clipping, or the per-leaf thresholds in leaf order.
-    clipping: Union[float, Tuple[float, ...]]
+    # C of flat clipping, or the per-leaf thresholds in leaf order: host
+    # floats, or under adaptive clipping an fp32 tensor (0-d, or
+    # [n_leaves]) on the params' device that each gc D step replaces.
+    clipping: Union[float, Tuple[float, ...], torch.Tensor]
     # The IS scaling v: an fp32 [n_leaves] tensor in leaf order on the
     # params' device (-issm constant-pl / moving-avg-pl), else the 0.0
     # placeholder of the JAX TrainState.
@@ -144,6 +150,11 @@ class StepBuilder:
         self.per_layer = bool(opt.use_grad_clip_per_layer)
         self.grad_clip_split = bool(opt.grad_clip_split)
         self.adaptive = (opt.grad_clip_mode or "standard").startswith("adaptive")
+        self.adaptive_stat = opt.adaptive_stat
+        self.adaptive_scalar = float(opt.adaptive_scalar)
+        # Device copies of constant clipping thresholds, for the per-step
+        # "clipping" metric: (value, device) -> fp32 tensor.
+        self._clip_consts: Dict[tuple, torch.Tensor] = {}
         self.poisson = bool(opt.poisson)
         self.penalty_types = list(opt.penalty or [])
         self.use_bpc = bool(opt.backprop_clip)
@@ -221,6 +232,9 @@ class StepBuilder:
             clipping = tuple(float(np.float32(c)) for c in self._per_layer_vector(
                 "clipping_param_per_layer", "-cpl", "cpl_user_set",
                 param_order.default_clipping_per_layer))
+        if self.adaptive and self.dp_mode == "gc":
+            clipping = torch.tensor(clipping, dtype=torch.float32,
+                                    device=d[self.d_leaves[0]].device)
         scaling_vec = 0.0
         if self.is_scaling_mode != "standard":
             scaling_vec = torch.tensor(
@@ -229,6 +243,14 @@ class StepBuilder:
                 dtype=torch.float32, device=d[self.d_leaves[0]].device)
         return TrainState(d, g, zeros(d), zeros(d), zeros(g), zeros(g), 0, 0, clipping,
                           scaling_vec, stats)
+
+    def reset_optimizers(self, state: TrainState) -> TrainState:
+        """Fresh Adam moments and counts for G and D, as after a warmup (JAX
+        steps.py:320-324; reference train.py:572)."""
+        zeros = lambda t: {k: torch.zeros_like(v) for k, v in t.items()}  # noqa: E731
+        return replace(state, d_mu=zeros(state.d_mu), d_nu=zeros(state.d_nu),
+                       g_mu=zeros(state.g_mu), g_nu=zeros(state.g_nu), d_count=0,
+                       g_count=0)
 
     def _per_layer_vector(self, flag: str, cli: str, user_set: str,
                           default_builder) -> List[float]:
@@ -504,24 +526,70 @@ class StepBuilder:
 
         return f, (x, y, fake, w)
 
+    def adaptive_clipping(self, d_params: Params, ax, ay) -> torch.Tensor:
+        """New clipping thresholds from the per-sample gradient norms of the
+        real loss on the public or mean-sample batch (ax, ay) (JAX
+        ``_adaptive_clipping``, steps.py:690-716): the conv-ghost norms of
+        the DCResNet D (K2 on the card for its ghost-order layers), else the
+        norms of the materialized per-sample gradients. Their mean or max
+        over the batch (``--adaptive_stat``) times ``--adaptive_scalar``: an
+        fp32 [n_leaves] tensor per layer, the l2 of that vector otherwise."""
+        row_w = self.row_weights(ay) if self.conditional else None
+        if self.use_conv_ghost:
+            norms = conv_ghost.dcresnet_real_ghost(
+                d_params, ax, ay, n_classes=self.n_classes, arch=self.arch,
+                aux_type=self.aux_type, aux_scalar=self.aux_scalar, row_w=row_w,
+                max_norm=1.0, per_layer=self.per_layer, concat_planes=self.concat_planes,
+                compute_dtype=self.compute_dtype, norms_only=True)
+        else:
+            f, args = self.real_ps_args(ax, ay, row_w)
+            norms = gops.leaf_norms(gops.per_sample_grads(f, d_params, *args,
+                                                          chunk=self.chunk))
+        stat = norms.mean(dim=1) if self.adaptive_stat == "mean" else norms.amax(dim=1)
+        if self.per_layer:
+            return stat * self.adaptive_scalar
+        return torch.sqrt(torch.sum(stat ** 2)) * self.adaptive_scalar
+
+    def clipping_tensor(self, clipping, device: torch.device) -> torch.Tensor:
+        """``clipping`` as an fp32 tensor on ``device``; constant thresholds
+        are copied to the device once."""
+        if isinstance(clipping, torch.Tensor):
+            return clipping
+        key = (clipping, str(device))
+        if key not in self._clip_consts:
+            self._clip_consts[key] = torch.tensor(clipping, dtype=torch.float32, device=device)
+        return self._clip_consts[key]
+
     def d_step_gc(self, state: TrainState, x, y, z,
                   noise: Optional[List[torch.Tensor]] = None,
                   fused: Optional[gops.FusedNoise] = None,
                   pen_x=None, pen_y=None,
-                  alphas: Optional[List[torch.Tensor]] = None):
-        """One gc D update (JAX ``_d_step_gc``): the clipped private pass by
-        the route the config selects (see the module docstring), the clean
-        fake pass [+ b * penalty grads], the DP noise, then /b and Adam.
+                  alphas: Optional[List[torch.Tensor]] = None, ax=None, ay=None):
+        """One gc D update (JAX ``_d_step_gc``): under adaptive clipping the
+        step's thresholds from (ax, ay) (``adaptive_clipping``), then the
+        clipped private pass by the route the config selects (see the module
+        docstring), the clean fake pass [+ b * penalty grads], the DP noise,
+        then /b and Adam.
 
         The noise is either ``noise``, per-leaf draws in leaf order that are
         added to the sum, or, on the fused route (``self.fused_route``),
         ``fused``: per-leaf seeds for K6 and normals for the small leaves.
-        Returns (state, metrics)."""
+        Under adaptive clipping ``noise`` holds N(0, 1) draws, and both kinds
+        are scaled on the device by this step's stds sigma * C (``fused.stds``
+        is replaced). Returns (state, metrics); the metrics' ``clipping`` is
+        the step's thresholds as a device tensor, and an adaptive step puts
+        them into the new state."""
         if (fused is None) == (noise is None) or (fused is not None) != self.fused_route:
             raise ValueError("d_step_gc takes per-leaf noise, or fused noise exactly "
                              "on the fused route (--pallas true, materialized)")
         b = x.shape[0]
         d_params, clipping = state.d_params, state.clipping
+        stds = None
+        if self.adaptive:
+            clipping = self.adaptive_clipping(d_params, ax, ay)
+            stds = (clipping * self.sigma).expand(len(self.d_leaves))
+            if fused is not None:
+                fused = fused._replace(stds=stds.contiguous())
         fake = self.fakes(state.g_params, z, y)
         row_w = self.row_weights(y)
         ghost_outs = None
@@ -557,7 +625,10 @@ class StepBuilder:
             fake_grads = None
             with torch.no_grad():
                 f_out = self._d_apply(d_params, fake, y, aux=False)[0]
-        if noise is not None:
+        if noise is not None and stds is not None:
+            summed = dict(zip(self.d_leaves, gops.add_scaled_noise(
+                [summed[k] for k in self.d_leaves], noise, stds)))
+        elif noise is not None:
             summed = {k: summed[k] + noise[i] for i, k in enumerate(self.d_leaves)}
         total = summed if fake_grads is None else \
             {k: summed[k] + fake_grads[k] for k in self.d_leaves}
@@ -573,7 +644,11 @@ class StepBuilder:
             with torch.no_grad():
                 r_out, r_aux = self._d_apply(d_params, x, y)
         metrics = self._d_metrics(r_out, r_aux, f_out, y, stats, pen_value)
-        return self._apply_d(state, grads), metrics
+        metrics["clipping"] = self.clipping_tensor(clipping, x.device)
+        new = self._apply_d(state, grads)
+        if self.adaptive:
+            new = replace(new, clipping=clipping)
+        return new, metrics
 
     def d_step_conv_ghost(self, state: TrainState, x, y, z,
                           noise: List[torch.Tensor], pen_x=None, pen_y=None,
@@ -706,15 +781,18 @@ class StepBuilder:
         return self._apply_d(state, grads), metrics
 
     def d_core(self, state: TrainState, x, y, z, use_dp: bool, noise=None, fused=None,
-               pen_x=None, pen_y=None, alphas: Optional[List[torch.Tensor]] = None):
+               pen_x=None, pen_y=None, alphas: Optional[List[torch.Tensor]] = None,
+               ax=None, ay=None):
         """The D update by ``dp_mode`` (JAX ``_d_core``). ``noise`` is what
-        the mode's step takes: per-leaf noise (gc), unit normals (is),
-        Student-t(3) or unit normals (tm / sv); ``fused`` the gc fused
-        route's. Without DP the vanilla model takes ``d_step`` (the plain
-        version of K1), the DCResNet ``d_step_plain``."""
+        the mode's step takes: per-leaf noise (gc; unit normals under
+        adaptive clipping), unit normals (is), Student-t(3) or unit normals
+        (tm / sv); ``fused`` the gc fused route's; (ax, ay) the adaptive
+        clipping batch. Without DP the vanilla model takes ``d_step`` (the
+        plain version of K1), the DCResNet ``d_step_plain``."""
         pen = dict(pen_x=pen_x, pen_y=pen_y, alphas=alphas)
         if use_dp and self.dp_mode == "gc":
-            return self.d_step_gc(state, x, y, z, noise=noise, fused=fused, **pen)
+            return self.d_step_gc(state, x, y, z, noise=noise, fused=fused, ax=ax, ay=ay,
+                                  **pen)
         if use_dp and self.dp_mode == "is":
             return self.d_step_is(state, x, y, z, noise, **pen)
         if use_dp:
