@@ -7,6 +7,7 @@
     python3 chip_smoke.py --dp-modes   # step 1, K4/K5's build, then step 7 alone
     python3 chip_smoke.py --cond-archs # step 1, K2-K5's build, then step 8 alone
     python3 chip_smoke.py --public-data # steps 1-2, then step 9 alone
+    python3 chip_smoke.py --dp-surface  # steps 1-2, then step 10 alone
 
 From the root of a checkout, on a machine with one NVIDIA H100 and the CUDA
 toolkit, it:
@@ -163,13 +164,40 @@ toolkit, it:
      and K2/K3 at conv2-conv4, K4/K5 at the G's five norm shapes and K6 at
      [50, 101632], all at batch 50, against their plain versions to the
      bounds of steps 4 and 6, timed beside them;
- 10. prints one JSON ``kernels`` line (K1-K6: launches on their main path,
+ 10. the rest of the DP training surface (outputs under
+     build/chip_smoke/dp_surface/). Through the Trainer, 2 epochs each, every
+     kernel's launches counted by its wrapper and held to the count the
+     code gives: CelebA (the flagship's flags cut to ``-tss 1280``) with
+     ``--poisson true`` (219-row buffers for batch 128: K2/K3 3 times a D
+     step on the tensor cores, K4 on each D step's fakes and G update, K5
+     on each G update), with ``-pupd false --pallas true`` and no mean
+     samples (the per-sample penalty on the materialized route: K6 4 times
+     a D step, no K2/K3) and with ``--penalty DRAGAN`` on mean samples; the
+     MNIST flagship with ``--poisson true`` (796-row buffers, the step
+     runner, no kernel); MNIST cut to ``-tss 6000`` with ``--penalty
+     DRAGAN1 -pupd false --pallas true`` and with ``--backprop_clip true
+     --pallas true`` (K6 once a D step), and with ``-dpm is --backprop_clip
+     true`` (no kernel); K1 never. Each run checks finite logs and
+     parameters, the update counts and epsilon, and prints ms per D step
+     beside the flagship's of the same run, the device-busy share of 10
+     profiled steps and peak memory. Then K2/K3 at conv2-conv4 and K4/K5 at
+     the G's five norm shapes at 219 rows (bf16) against their plain
+     versions to the bounds of step 4, with the last 91 rows' cotangents
+     zero (their K2 norms must be exactly 0, and the K2/K3 results equal
+     those of the 128 valid rows alone), each timed; one full-width CelebA
+     ``-pupd false`` D step through K6 against K6's plain version (same
+     seeds); and, at sigma 0, the per-sample-penalty clipped sum's norm
+     within B * C (1 + 1e-5) at C 0.05 (MNIST DRAGAN bs 600, CelebA
+     WGAN-GP bs 128, through K6 at std 0) and no sample clipped under
+     backprop clipping at the derived bounds (MNIST rows, and rows x 100);
+ 11. prints one JSON ``kernels`` line (K1-K6: launches on their main path,
      max abs gap to the plain version, ms, plain ms, bound, library ms; K4/K5
      also their launches on the CelebA tm path; every kernel its launches on
-     each path of step 8, ``cond_arch_launches``, and of step 9,
-     ``public_data_launches``, and K2-K6 their times at batch 50,
-     ``b50_ms`` / ``b50_plain_ms``);
- 11. ends with ``{"ok": true, "device": {...}}`` as the last line.
+     each path of step 8, ``cond_arch_launches``, of step 9,
+     ``public_data_launches``, and of step 10, ``dp_surface_launches``;
+     K2-K6 their times at batch 50, ``b50_ms`` / ``b50_plain_ms``, and K2-K5
+     at the 219-row Poisson buffer, ``b219_ms`` / ``b219_plain_ms``);
+ 12. ends with ``{"ok": true, "device": {...}}`` as the last line.
 Any failure raises or exits non-zero, and no result line is printed. It
 needs no network and imports nothing of JAX or of the JAX package.
 """
@@ -1579,8 +1607,9 @@ def clip_step_check(dev, out_root, name, argv, batch):
     adaptive clipping both take their std from the same public batch."""
     import torch
     from csl_gan_tpu_torch.ops import grads as gops
+    from csl_gan_tpu_torch.training.penalty import draw_shape
 
-    opt, b = _step_builder(argv, dev, out_root / f"{name}_step")
+    opt, b = _step_builder(argv, dev, out_root / f"{name.replace(' ', '_')}_step")
     assert b.fused_route
     st0 = b.init_state()
     bs = opt.batch_size
@@ -1595,8 +1624,14 @@ def clip_step_check(dev, out_root, name, argv, batch):
     if b.adaptive:
         pen = dict(zip(("ax", "ay"), batch(g, bs)))
     if b.penalty_types:
-        pen.update(pen_x=torch.rand(x.shape, generator=g, device=dev) * 2 - 1, pen_y=y,
-                   alphas=[torch.rand((bs, 1, 1, 1), generator=g, device=dev)])
+        # The per-sample penalty (-pupd false) is on the real batch, and its
+        # samples and its logged value take the same draws (as the runner).
+        pen_x = x if b.ps_pen else torch.rand(x.shape, generator=g, device=dev) * 2 - 1
+        pen.update(pen_x=pen_x, pen_y=y, alphas=[
+            torch.rand(draw_shape(t, pen_x.shape), generator=g, device=dev)
+            for t in b.penalty_types])
+        if b.ps_pen:
+            pen["ps_draws"] = pen["alphas"]
 
     def step():
         out = b.d_step_gc(st0, x, y, z, fused=fused, **pen)
@@ -2421,8 +2456,9 @@ COND_EPOCHS = 2
 G_NORMS = 9
 
 
-def cond_arch_run(name, argv, out_root, smi, expect):
-    """COND_EPOCHS Trainer epochs of one variant in one group, every kernel's
+def cond_arch_run(name, argv, out_root, smi, expect, sub="cond_archs"):
+    """COND_EPOCHS Trainer epochs of one variant (phase 8; phase 10's runs,
+    outputs under ``sub``) in one group, every kernel's
     launches counted by its wrapper and held to ``expect(D steps, G
     updates)``, then DP_PROFILE_STEPS more steps under the profiler. Checks
     finite logs and parameters, the update counts and epsilon against the
@@ -2441,7 +2477,7 @@ def cond_arch_run(name, argv, out_root, smi, expect):
 
     e = COND_EPOCHS
     tss = int(argv[argv.index("-tss") + 1])
-    out = out_root / "cond_archs" / name.replace(" ", "_")
+    out = out_root / sub / name.replace(" ", "_")
     opt = toptions.parse(argv + ["-ne", str(e), "--log_every", str(tss * e), "--manual_seed",
                                  "1", "-o", str(out)])
     t_start = time.perf_counter()
@@ -2803,6 +2839,216 @@ def public_data_phase(dev, out_root, smi, peak_bf16, peak_bytes, k1_step_ms=None
     return by_run, b50
 
 
+# Phase 10, the rest of the DP training surface: each run 2 epochs through
+# the Trainer. CelebA cut as path 2 is (-tss 1280, 10 D steps an epoch); the
+# MNIST Poisson run at the flagship's size (100 D steps an epoch, 796-row
+# buffers); the other MNIST runs cut to -tss 6000 (10 D steps an epoch).
+SURFACE_MNIST = PUBLIC_MNIST[:PUBLIC_MNIST.index("-tss")] + ["-tss", "6000"]
+CAP = CB + math.ceil(8 * math.sqrt(CB))     # the Poisson buffer of batch 128: 219 rows
+
+
+def _conv_launches(n_d, n_g):
+    """K2 and K3 three times a D step (tensor cores), K4 on each D step's
+    fakes and G update, K5 on each G update."""
+    return {"K2": 3 * n_d, "K3": 3 * n_d, "K2 tc": 3 * n_d, "K3 tc": 3 * n_d,
+            "K4": G_NORMS * (n_d + n_g), "K5": G_NORMS * n_g}
+
+
+def _surface_expect(counts):
+    """``counts(D steps, G updates)`` over zero launches of every kernel."""
+    def expect(n_d, n_g):
+        out = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6", "K2 tc", "K3 tc"), 0)
+        out.update(counts(n_d, n_g))
+        return out
+    return expect
+
+
+SURFACE_RUNS = (
+    ("CelebA Poisson", PUBLIC_CELEBA + ["-nms", "1", "--mean_sample_size", "8", "--poisson",
+                                        "true"], _conv_launches),
+    ("MNIST Poisson", PUBLIC_MNIST + ["--poisson", "true"], lambda n_d, n_g: {}),
+    ("CelebA per-sample penalty", PUBLIC_CELEBA + ["-pupd", "false", "--pallas", "true"],
+     lambda n_d, n_g: {"K6": 4 * n_d, "K4": G_NORMS * (n_d + n_g), "K5": G_NORMS * n_g}),
+    ("MNIST per-sample DRAGAN", SURFACE_MNIST + ["--penalty", "DRAGAN1", "-pupd", "false",
+                                                 "--pallas", "true"],
+     lambda n_d, n_g: {"K6": n_d}),
+    ("CelebA DRAGAN", PUBLIC_CELEBA + ["-nms", "1", "--mean_sample_size", "8", "--penalty",
+                                       "DRAGAN"], _conv_launches),
+    ("MNIST bpc", SURFACE_MNIST + ["--backprop_clip", "true", "--pallas", "true"],
+     lambda n_d, n_g: {"K6": n_d}),
+    ("MNIST is bpc", SURFACE_MNIST + ["-dpm", "is", "--backprop_clip", "true"],
+     lambda n_d, n_g: {}),
+)
+
+
+def cap_kernel_checks(dev, smi):
+    """K2/K3 at conv2-conv4 (bf16, tensor cores) and K4/K5 at the G's five
+    norm shapes (bf16), at the Poisson buffer of batch 128 (CAP rows): each
+    against its plain version to the bounds of step 4. K2/K3 with the last
+    CAP - 128 rows' cotangents zero, as the mask leaves them: those rows' K2
+    norms must be exactly 0, and the K3 sum and the other norms must equal
+    K2/K3 over the 128 valid rows alone (to CONV_BOUND). Each timed beside
+    its plain version. Returns {kernel: (ms, plain ms)}."""
+    import torch
+    from csl_gan_tpu_torch.ops import pallas_conv_ghost as pcg
+    from csl_gan_tpu_torch.ops import pallas_groupnorm as gn
+
+    g = torch.Generator(dev).manual_seed(26)
+    t = {k: [0.0, 0.0] for k in ("K2", "K3", "K4", "K5")}
+    for h, cin, cout in CONV_LAYERS:
+        a, c, w, ks = conv_operands(g, dev, CAP, h, cin, cout, torch.bfloat16)
+        c[CB:] = 0
+        tag = f"conv {h}x{h}x{cin}->{cout} B {CAP} ({CAP - CB} rows masked)"
+        r2, r3, _, _ = conv_held(tag, a, c, w, ks, "tc")
+        nk = pcg.ghost_sq_norms(a, c, 5, 5, 2, 2)
+        wk = pcg.weighted_kernel_grad(a, c, w, ks, 2, 2)
+        nv = pcg.ghost_sq_norms(a[:CB], c[:CB], 5, 5, 2, 2)
+        wv = pcg.weighted_kernel_grad(a[:CB], c[:CB], w[:CB], ks, 2, 2)
+        torch.cuda.synchronize()
+        nonzero = int(torch.count_nonzero(nk[CB:]))
+        rn, rw = rel_l2(nk[:CB], nv), rel_l2(wk, wv)
+        print(f"{tag}, tensor cores: K2 rel l2 {r2:.3e}, K3 rel l2 {r3:.3e} against plain "
+              f"(bound {CONV_BOUND:g}); masked rows' K2 norms non-zero: {nonzero}; against "
+              f"the {CB} valid rows alone: K2 {rn:.3e}, K3 {rw:.3e}")
+        if nonzero or not (rn < CONV_BOUND and rw < CONV_BOUND):
+            fail(f"K2/K3 at {tag}: masked rows are not zero or the valid rows' sums moved")
+        for key, fk, fp in (("K2", lambda: pcg.ghost_sq_norms(a, c, 5, 5, 2, 2),
+                             lambda: pcg.ghost_sq_norms_plain(a, c, 5, 5, 2, 2)),
+                            ("K3", lambda: pcg.weighted_kernel_grad(a, c, w, ks, 2, 2),
+                             lambda: pcg.weighted_kernel_grad_plain(a, c, w, ks, 2, 2))):
+            t[key][0] += cuda_ms(fk, 10)
+            t[key][1] += cuda_ms(fp, 3)
+        del a, c, w
+    for hw, c, mult in GN_SHAPES:
+        x, dy, sc, bi = gn_operands(g, dev, CAP, hw, c, torch.bfloat16)
+        gn_held(x, dy, sc, bi)
+        t["K4"][0] += mult * cuda_ms(lambda: gn.gn_relu_forward(x, sc, bi, 32, 1e-5), 10)
+        t["K4"][1] += mult * cuda_ms(lambda: gn.gn_relu_plain(x, sc, bi, 32, 1e-5), 3)
+        t["K5"][0] += mult * cuda_ms(lambda: gn.gn_relu_backward(x, dy, sc, bi, 32, 1e-5), 10)
+        t["K5"][1] += mult * cuda_ms(lambda: gn.gn_relu_bwd_plain(x, dy, sc, bi, 32, 1e-5), 3)
+        del x, dy
+    print(f"kernels at B {CAP} [{smi}], ms by CUDA events (kernel, plain): K2 per D step "
+          f"{t['K2'][0]:.4f}, {t['K2'][1]:.3f}; K3 per D step {t['K3'][0]:.4f}, "
+          f"{t['K3'][1]:.3f}; K4 per G forward {t['K4'][0]:.4f}, {t['K4'][1]:.3f}; K5 per G "
+          f"backward {t['K5'][0]:.4f}, {t['K5'][1]:.3f}")
+    return t
+
+
+def surface_bound_checks(dev, out_root, smi):
+    """On the card, at sigma 0: the per-sample-penalty clipped sum (through
+    K6 at std 0) has norm at most B * C (1 + 1e-5) at C 0.05, where the
+    samples are clipped, on the MNIST flagship (DRAGAN, bs 600) and on
+    CelebA (WGAN-GP, bs 128), with the penalty in the per-sample norms (JAX
+    tests/test_steps.py:197-240); and under backprop clipping at the
+    derived bounds (the Trainer's clipping) no sample is clipped, on MNIST
+    rows and on rows scaled by 100 (JAX tests/test_backprop_clip.py:57-87)."""
+    import torch
+    from csl_gan_tpu_torch import options as toptions
+    from csl_gan_tpu_torch.data.mnist import synthetic_mnist
+    from csl_gan_tpu_torch.ops import grads as gops
+    from csl_gan_tpu_torch.training.loop import Trainer
+    from csl_gan_tpu_torch.training.penalty import draw_shape
+
+    def mnist_batch(g, bs):
+        imgs, labels = synthetic_mnist(bs, seed=15)
+        return torch.from_numpy(imgs).to(dev), torch.from_numpy(labels).to(dev)
+
+    def celeba_batch(g, bs):
+        return (torch.rand(bs, 64, 64, 3, generator=g, device=dev) * 2 - 1,
+                torch.randint(0, 2, (bs,), generator=g, device=dev))
+
+    g = torch.Generator(dev).manual_seed(33)
+    # Two-sided penalties: a one-sided one (DRAGAN1) is 0 at the initial D,
+    # whose input gradients are shorter than 1, and would not show.
+    mnist = [a if a != "DRAGAN1" else "DRAGAN" for a in SURFACE_RUNS[3][1]]
+    for name, argv, batch in (("MNIST", mnist, mnist_batch),
+                              ("CelebA", SURFACE_RUNS[2][1], celeba_batch)):
+        opt, b = _step_builder(argv + ["--sigma", "0", "-c", "0.05"], dev,
+                               out_root / f"bound_{name}")
+        assert b.ps_pen and b.fused_route
+        st = b.init_state()
+        bs, c = opt.batch_size, float(opt.clipping_param)
+        x, y = batch(g, bs)
+        fake = b.fakes(st.g_params, b.gen_z(g, bs), y)
+        draws = [torch.rand(draw_shape(t, x.shape), generator=g, device=dev)
+                 for t in b.penalty_types]
+        leaves = [st.d_params[k] for k in b.d_leaves]
+        fused = gops.draw_fused_noise(g, leaves, torch.zeros(len(leaves), device=dev))
+        f, args = b.real_ps_args(x, y, b.row_weights(y), fake, draws)
+        summed, stats = gops.clipped_grad_sum(f, st.d_params, *args, max_norm=c,
+                                              fused_noise=fused)
+        f0, args0 = b.real_ps_args(x, y, b.row_weights(y))
+        _, stats0 = gops.clipped_grad_sum(f0, st.d_params, *args0, max_norm=c)
+        norm = float(gops.global_norm(list(summed.values())))
+        bound = bs * c * (1 + 1e-5)
+        with_pen, without = float(stats.norm_mean.sum()), float(stats0.norm_mean.sum())
+        print(f"{name} per-sample penalty ({', '.join(b.penalty_types)}; bs {bs}, C {c:g}, "
+              f"sigma 0, through K6) [{smi}]: clipped sum norm {norm:.4f} <= {bound:.4f}; "
+              f"clipped {float(stats.frac_clipped.mean()):.2f}; summed per-leaf norm means "
+              f"with the penalty {with_pen:.4f}, without {without:.4f}")
+        if not (norm <= bound and with_pen != without):
+            fail(f"the {name} per-sample penalty is not inside the clip bound")
+        del b, st, summed, f, args
+        torch.cuda.empty_cache()
+    opt = toptions.parse(SURFACE_RUNS[5][1] + ["--sigma", "0", "-ne", "1", "--manual_seed",
+                                               "1", "-o", str(out_root / "bpc_bounds")])
+    tr = Trainer(opt)
+    b, st = tr.builder, tr.state
+    leaves = [st.d_params[k] for k in b.d_leaves]
+    fused = gops.draw_fused_noise(g, leaves, torch.zeros(len(leaves), device=dev))
+    x, y = mnist_batch(g, opt.batch_size)
+    for scale in (1.0, 100.0):
+        _, m = b.d_step_gc(st, x * scale, y, b.gen_z(g, opt.batch_size), fused=fused)
+        frac = m["frac_clipped"].tolist()
+        print(f"MNIST bpc gc D step at the derived bounds (clipping {float(st.clipping):.6f}, "
+              f"sigma 0, rows x {scale:g}) [{smi}]: clipped {frac}, norm max "
+              f"{[round(v, 6) for v in m['norm_max'].tolist()]}")
+        if any(v != 0.0 for v in frac):
+            fail(f"backprop clipping at the derived bounds clipped samples: {frac}")
+    tr.close()
+
+
+def dp_surface_phase(dev, out_root, smi, k1_step_ms=None, celeba_step_ms=None):
+    """The phase-10 runs through the Trainer (``cond_arch_run``: launches by
+    kernel held to their expected counts, finite logs and parameters, update
+    counts, epsilon, ms per D step, device-busy share, peak memory), then
+    K2-K5 at the Poisson buffer of batch 128, one CelebA per-sample-penalty
+    D step through K6 against K6's plain version, and the sigma-0 bound
+    checks. Returns ({run: launches by kernel}, the B CAP times)."""
+    import shutil
+
+    import torch
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(out_root / "dp_surface", ignore_errors=True)
+    by_run = {}
+    for name, argv, counts in SURFACE_RUNS:
+        launches, step_ms, tr = cond_arch_run(name, argv, out_root, smi,
+                                              _surface_expect(counts), sub="dp_surface")
+        ref, what = (celeba_step_ms, "the CelebA flagship's") if name.startswith("CelebA") \
+            else (k1_step_ms, "the K1 path's")
+        if ref:
+            print(f"{name}: {step_ms:.3f} ms per D step, {step_ms / ref:.2f}x {what} "
+                  f"{ref:.3f} of this run")
+        if tr.builder.poisson:
+            print(f"{name}: Poisson buffer of {tr.builder.poisson_cap} rows for batch "
+                  f"{tr.opt.batch_size} (q {tr.builder.poisson_q:g})")
+        by_run[name] = launches
+        del tr
+        torch.cuda.empty_cache()
+    cap_ms = cap_kernel_checks(dev, smi)
+
+    def celeba_batch(g, bs):
+        return (torch.rand(bs, 64, 64, 3, generator=g, device=dev) * 2 - 1,
+                torch.randint(0, 2, (bs,), generator=g, device=dev))
+    clip_step_check(dev, out_root / "dp_surface", "CelebA per-sample penalty",
+                    SURFACE_RUNS[2][1], celeba_batch)
+    torch.cuda.empty_cache()
+    surface_bound_checks(dev, out_root / "dp_surface", smi)
+    print(f"DP surface phase [{smi}]: {time.perf_counter() - t_phase:.1f} s")
+    return by_run, cap_ms
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2880,6 +3126,9 @@ def main() -> int:
     if "--public-data" in sys.argv[1:]:
         public_data_phase(dev, out_root, smi, peak_bf16, peak_bytes)
         return 0
+    if "--dp-surface" in sys.argv[1:]:
+        dp_surface_phase(dev, out_root, smi)
+        return 0
 
     # 3. The MNIST path (K1): kernel vs plain, the Trainer, K1's timing.
     max_abs = k1_check_phase(dev, out_root)
@@ -2919,7 +3168,17 @@ def main() -> int:
         if k in b50:
             entry["b50_ms"], entry["b50_plain_ms"] = b50[k]
 
-    # 10. The kernels line; 11. the result line.
+    # 10. The rest of the DP surface: Poisson, the per-sample and DRAGAN
+    # penalties, backprop clipping; K2-K5 at the Poisson buffer.
+    surface, cap_ms = dp_surface_phase(dev, out_root, smi, k1_epoch_ms / (60000 // BS),
+                                       celeba_step_ms)
+    for entry in kernels:
+        k = keys[entry["name"]]
+        entry["dp_surface_launches"] = {run: counts[k] for run, counts in surface.items()}
+        if k in cap_ms:
+            entry[f"b{CAP}_ms"], entry[f"b{CAP}_plain_ms"] = cap_ms[k]
+
+    # 11. The kernels line; 12. the result line.
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

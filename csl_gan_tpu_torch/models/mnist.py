@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from csl_gan_tpu_torch.models.common import one_hot
+from csl_gan_tpu_torch.ops import backprop_clip
 
 # Leaf order of the JAX package's flattened param trees (sorted keys: bias
 # before kernel in each module), in torch state-dict names. The epoch kernel,
@@ -48,32 +49,44 @@ class MNISTVanillaG(nn.Module):
 class MNISTVanillaD(nn.Module):
     """The vanilla D concatenates the label one-hot for any conditional arch,
     ACGAN included (reference MNIST_models.py:41-46). As in the JAX
-    package, a conditional vanilla D takes only the cross-entropy aux loss."""
+    package, a conditional vanilla D takes only the cross-entropy aux loss.
+
+    With ``bpc_fwd`` / ``bpc_back`` (per-layer clip levels) set and
+    ``bpc=True`` passed, each layer's input activations are L2-clipped in the
+    forward pass and its output cotangent in the backward pass: the
+    backprop clipping of reference backprop_clip.py (ops/backprop_clip.py)."""
     family = "vanilla"
 
     def __init__(self, n_classes: int = 0, conditional_arch: str = "ACGAN",
-                 aux_loss_type: str = "cross_entropy"):
+                 aux_loss_type: str = "cross_entropy", bpc_fwd=None, bpc_back=None):
         super().__init__()
         if n_classes > 1 and aux_loss_type != "cross_entropy":
             raise Exception("Cross entropy loss is the only aux loss supported for "
                             "vanilla architecture.")
         self.n_classes = n_classes
         self.conditional_arch = conditional_arch
+        self.bpc_fwd, self.bpc_back = bpc_fwd, bpc_back
         self.lin1 = nn.Linear(784 + n_classes, 128)
         self.lin2 = nn.Linear(128, 1)
         if n_classes > 1 and conditional_arch == "ACGAN":
             self.linOutAux = nn.Linear(128, n_classes)
 
+    def _layer(self, idx: int, fn, o, bpc: bool):
+        if bpc and self.bpc_fwd is not None:
+            return backprop_clip.cotangent_clip(
+                fn(backprop_clip.l2_clip(o, self.bpc_fwd[idx])), self.bpc_back[idx])
+        return fn(o)
+
     def forward(self, x: torch.Tensor, y: Optional[torch.Tensor] = None,
-                aux: bool = True):
+                aux: bool = True, bpc: bool = False):
         o = x.reshape(x.shape[0], -1)
         if y is not None:
             o = torch.cat([o, one_hot(y, self.n_classes)], dim=1)
-        o = torch.relu(self.lin1(o))
-        out = self.lin2(o)
+        o = torch.relu(self._layer(0, self.lin1, o, bpc))
+        out = self._layer(1, self.lin2, o, bpc)
         aux_out = None
         if aux and hasattr(self, "linOutAux"):
-            aux_out = self.linOutAux(o)
+            aux_out = self._layer(2, self.linOutAux, o, bpc)
         return out, aux_out
 
 

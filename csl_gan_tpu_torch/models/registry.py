@@ -16,6 +16,7 @@ from torch import nn
 
 from csl_gan_tpu_torch.models import dcresnet, mnist
 from csl_gan_tpu_torch.models.common import torch_kernel_init
+from csl_gan_tpu_torch.ops.backprop_clip import bpc_config_for
 
 
 def _dcresnet_pair(opt):
@@ -31,14 +32,23 @@ def init_models(opt, device: torch.device):
     pair (the G's label mode and the D's conditional arch as configured),
     bf16 compute under --bf16, whose G has GroupNorm when per-sample
     gradients are on (-dpm gc / tm / sv) and BatchNorm otherwise (the JAX
-    package's ``bn = not per_sample_grad``)."""
+    package's ``bn = not per_sample_grad``). Under ``--backprop_clip`` the
+    vanilla D gets its per-layer clip levels (``bpc_config_for``, which
+    refuses any other model with the JAX package's message)."""
     n_classes = opt.n_classes if opt.conditional else 0
     if opt.model == "Vanilla" and opt.dataset == "MNIST":
         G = mnist.MNISTVanillaG(z_dim=opt.g_latent_dim, n_classes=n_classes)
+        bpc = {}
+        if opt.backprop_clip:
+            cfg = bpc_config_for(opt)
+            bpc = {"bpc_fwd": tuple(cfg.input_clip_params),
+                   "bpc_back": tuple(cfg.back_clip_params)}
         D = mnist.MNISTVanillaD(n_classes=n_classes,
                                 conditional_arch=opt.conditional_arch,
-                                aux_loss_type=opt.aux_loss_type)
+                                aux_loss_type=opt.aux_loss_type, **bpc)
     elif opt.model == "DeepConvResNet":
+        if opt.backprop_clip:
+            bpc_config_for(opt)     # raises: the MNIST vanilla D only
         g_ctor, d_ctor = _dcresnet_pair(opt)
         dtype = torch.bfloat16 if opt.bf16 else None
         G = g_ctor(z_dim=opt.g_latent_dim, n_classes=n_classes,

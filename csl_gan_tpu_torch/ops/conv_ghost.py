@@ -67,7 +67,7 @@ def dcresnet_real_ghost(d_params: Dict[str, torch.Tensor], x: torch.Tensor,
                         row_w: Optional[torch.Tensor], max_norm,
                         per_layer: bool = False, concat_planes: bool = False,
                         stride: int = 2, pad: int = 2, compute_dtype=None,
-                        norms_only: bool = False):
+                        norms_only: bool = False, valid: Optional[torch.Tensor] = None):
     """Clipped summed gradient of the per-sample REAL wgan loss
     loss_i = -out_i [+ ACGAN aux term of sample i], with out_i the WCGAN
     head's column y_i.
@@ -75,7 +75,11 @@ def dcresnet_real_ghost(d_params: Dict[str, torch.Tensor], x: torch.Tensor,
     Returns (summed grads by param name, ClipStats in JAX leaf order,
     (out, aux_out)); with ``norms_only``, just the per-sample leaf norms
     [n_leaves, B] in JAX leaf order (the adaptive clipping statistic: K2
-    for the ghost-order layers, no weighted sum, ``max_norm`` unused)."""
+    for the ghost-order layers, no weighted sum, ``max_norm`` unused).
+
+    ``valid`` (the Poisson row mask, [B] fp32) scales the head cotangents
+    before K2 and K3 see them, so a masked row has gradient and norm 0
+    (factor 1, contribution 0); the kernels take no mask."""
     b = x.shape[0]
     dt = compute_dtype
     n_convs = sum(1 for k in d_params if k.startswith("TorchConv_") and k.endswith(".weight"))
@@ -117,6 +121,10 @@ def dcresnet_real_ghost(d_params: Dict[str, torch.Tensor], x: torch.Tensor,
             w_row = row_w if row_w is not None else torch.ones(b, device=x.device)
             sig = torch.sigmoid(aux_out)
             c_aux = aux_scalar * w_row[:, None] * (onehot * -2.0 + 1.0) * sig * (1.0 - sig)
+    if valid is not None:
+        c_out = c_out * valid[:, None]
+        if c_aux is not None:
+            c_aux = c_aux * valid[:, None]
     c_flat = c_aux @ d_params["linOutAux.weight"] if wcgan else c_out @ d_params["linOut.weight"]
     if c_aux is not None and not wcgan:
         c_flat = c_flat + c_aux @ d_params["linOutAux.weight"]

@@ -26,10 +26,12 @@ def vanilla_real_ghost(d_params: Dict[str, torch.Tensor], x: torch.Tensor,
                        y_onehot: Optional[torch.Tensor],
                        aux_labels: Optional[torch.Tensor],
                        aux_scalar: float, max_norm: float,
-                       per_layer: bool = False):
+                       per_layer: bool = False, valid: Optional[torch.Tensor] = None):
     """Clipped summed gradient of the per-sample real loss BCE(out_i, 1)
     [+ aux_scalar * CE_i]. The DP noise is pre-drawn and added by the caller
-    (training/steps.py), as the epoch kernel consumes it.
+    (training/steps.py), as the epoch kernel consumes it. ``valid`` (the
+    Poisson row mask, [B] fp32) scales the head cotangents, so a masked row
+    has gradient and norm 0 (factor 1, contribution 0).
 
     Returns (summed grads by param name, ClipStats, (out, aux_out))."""
     b = x.shape[0]
@@ -44,15 +46,17 @@ def vanilla_real_ghost(d_params: Dict[str, torch.Tensor], x: torch.Tensor,
     c_out = torch.sigmoid(out) - 1.0
 
     use_aux = aux_labels is not None and "linOutAux.weight" in d_params
+    aux = c_aux = None
     if use_aux:
         wa, ba = d_params["linOutAux.weight"], d_params["linOutAux.bias"]
         aux = h @ wa.T + ba
         c_aux = aux_scalar * (torch.softmax(aux, dim=-1)
                               - one_hot(aux_labels, aux.shape[1]))
-        c_h = c_out @ w2 + c_aux @ wa
-    else:
-        aux = c_aux = None
-        c_h = c_out @ w2
+    if valid is not None:
+        c_out = c_out * valid[:, None]
+        if c_aux is not None:
+            c_aux = c_aux * valid[:, None]
+    c_h = c_out @ w2 + c_aux @ wa if use_aux else c_out @ w2
     c_z1 = c_h * (z1 > 0)
 
     sq_a0 = torch.sum(a0 ** 2, dim=1)

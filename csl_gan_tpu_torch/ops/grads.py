@@ -19,6 +19,8 @@ package's ops/grads.py.
     per leaf, scaled on the device by an fp32 ``[n_leaves]`` tensor of stds,
     with no read to the host.
   - ``per_leaf_norms`` / ``global_norm`` of one (unbatched) gradient.
+  - ``mask_loss``: a per-sample loss times the row's validity (Poisson
+    subsampling), so masked rows add nothing to the clipped sum.
 
 Params are dicts of torch state-dict names; per-sample gradients are dicts of
 the same names with a leading [batch] axis. Per-leaf vectors (norms, factors,
@@ -195,6 +197,20 @@ def weighted_sum_fused_noise(grads_ps: Params, factors: torch.Tensor,
             s = (factors[i] @ g.reshape(g.shape[0], -1)).reshape(g.shape[1:])
             out[k] = s + fused.stds[i] * fused.eps[i]
     return out
+
+
+def mask_loss(loss_fn: Callable, batch: tuple, valid: Optional[torch.Tensor]):
+    """(loss_fn, batch) with each sample's loss multiplied by its validity
+    weight ``valid`` [B] (the JAX package's ``_mask_loss``, steps.py:678-688):
+    masked rows get gradient exactly zero, so the clipped sum runs over the
+    valid rows only. Unchanged when ``valid`` is None."""
+    if valid is None:
+        return loss_fn, batch
+
+    def masked(params, vi, *example):
+        return vi * loss_fn(params, *example)
+
+    return masked, (valid,) + tuple(batch)
 
 
 def two_pass_clipped_grad_sum(loss_fn: Callable, params: Params, *batch: torch.Tensor,

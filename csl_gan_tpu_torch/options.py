@@ -277,6 +277,8 @@ def derive_and_validate(opt) -> None:
         print("Setting train_d_until_threshold to -1, which is generally "
               "recommended for WGAN using DP")
         opt.train_d_until_threshold = -1
+    if opt.backprop_clip:
+        print("Backpropagation clipping implementation is experimental.")
     if opt.batch_size > opt.train_set_size:
         raise Exception(
             f"batch_size ({opt.batch_size}) exceeds train_set_size "
@@ -293,8 +295,9 @@ def derive_and_validate(opt) -> None:
 
 
 def validate_public_data(opt) -> None:
-    """The JAX package's rules on mean samples, public data and adaptive
-    clipping (options.py:542-591)."""
+    """The JAX package's rules on mean samples, public data, the per-sample
+    penalty, Poisson subsampling and adaptive clipping (options.py:542-591),
+    with its messages."""
     if opt.num_mean_samples > 0 and opt.mean_sample_size > opt.train_set_size:
         raise Exception(
             f"mean_sample_size ({opt.mean_sample_size}) exceeds "
@@ -309,6 +312,15 @@ def validate_public_data(opt) -> None:
         raise Exception("In order to enable gradient penalty using public data, "
                         "please enable mean sampling by setting num_mean_samples "
                         "or public data by setting public_set_size.")
+    if len(opt.penalty) > 0 and opt.use_dp and opt.public_set_size < 1 \
+            and opt.num_mean_samples < 1:
+        print("Currently configured to calculate penalty per-sample. It is strongly recommended "
+              "that you use public data or mean samples for gradient penalties when using grad "
+              "clipping.")
+    if opt.poisson and opt.dp_mode != "gc":
+        raise Exception("--poisson (exact Poisson subsampling) is only "
+                        "implemented for the gradient-clipping DP mode "
+                        "(-dpm gc).")
     if opt.use_dp and _adaptive(opt) and opt.public_set_size < 1 \
             and opt.num_mean_samples < 1:
         raise Exception("Adaptive clipping derives its thresholds from "
@@ -330,7 +342,7 @@ def _k1_path(o) -> bool:
     return bool(o.pallas_epoch and _vanilla(o) and o.dataset == "MNIST"
                 and o.conditional and o.conditional_arch == "ACGAN"
                 and o.aux_loss_type == "cross_entropy" and o.n_classes >= 2
-                and not o.penalty and not o.backprop_clip
+                and not o.penalty and not o.backprop_clip and not o.poisson
                 and o.per_sample_chunk is None and o.n_d_steps <= 1
                 and float(o.train_d_until_threshold) >= 1e10
                 and o.batch_size % 8 == 0
@@ -343,11 +355,6 @@ def _k1_path(o) -> bool:
 # The vanilla MNIST flagship runs on the epoch kernel K1, every other ported
 # configuration on the step runner (training/loop.py).
 _NOT_PORTED = [
-    ("--penalty on the vanilla model", lambda o: bool(o.penalty) and _vanilla(o)),
-    ("--penalty DRAGAN", lambda o: any(p.startswith("DRAGAN") for p in o.penalty)),
-    ("-pupd false (the per-sample penalty)",
-     lambda o: bool(o.penalty) and o.use_dp and not o.penalty_use_public_data),
-    ("--poisson", lambda o: o.poisson),
     ("--grad_clip_mode adaptive / adaptive-pl outside -dpm gc (the JAX package "
      "ignores it there)", lambda o: _adaptive(o) and o.dp_mode != "gc"),
     ("--weight_decay", lambda o: (o.weight_decay or 0) != 0),
@@ -355,7 +362,6 @@ _NOT_PORTED = [
     ("--tp", lambda o: o.tp != 1),
     ("--mesh_shape", lambda o: (o.mesh_shape or 1) != 1),
     ("--multihost", lambda o: o.multihost),
-    ("--backprop_clip", lambda o: o.backprop_clip),
     ("--host_loop", lambda o: o.host_loop),
     ("--bf16 on the vanilla model", lambda o: o.bf16 and _vanilla(o)),
     ("--u8_table", lambda o: o.u8_table),

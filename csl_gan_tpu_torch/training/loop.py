@@ -16,7 +16,13 @@ gather). Groups of whole epochs run through a runner, chosen by config:
     mean or sign vote; the non-private step without it), with the DCResNet G
     forward and backward through K4/K5 and WGAN-GP on mean samples or
     class-matched public rows; under adaptive clipping each gc step takes
-    its thresholds from a public or mean-sample batch.
+    its thresholds from a public or mean-sample batch; under ``--poisson``
+    each DP step's batch is an exact Poisson draw over the device dataset
+    (``StepBuilder.poisson_draw``), the epoch keeping its number of steps;
+    under ``-pupd false`` the penalty is taken per sample on the real batch,
+    inside each sample's clipped loss; under ``--backprop_clip`` (the
+    vanilla model) the D clips its activations and cotangents and the
+    derived bounds become the clipping vector.
 Options outside the ported slice are refused by ``options.check_ported``.
 With ``-pss`` the public split lives on the device beside the dataset.
 ``-wi`` runs that many non-private D steps (with their G steps) on public
@@ -57,6 +63,7 @@ import torch
 from csl_gan_tpu_torch import options as options_mod
 from csl_gan_tpu_torch.data import Loader, init_data, n_batches
 from csl_gan_tpu_torch.models.registry import init_models
+from csl_gan_tpu_torch.ops.backprop_clip import bpc_config_for
 from csl_gan_tpu_torch.ops import pallas_epoch as pe
 from csl_gan_tpu_torch.privacy import MeanSampler, accountant_from_state_dict, make_accountant
 from csl_gan_tpu_torch.training import checkpoint
@@ -107,6 +114,19 @@ class Trainer:
         fresh = opt.resume_path is None
         if fresh:
             snapshot_code(opt.output_dir)
+        if opt.backprop_clip:
+            # The derived per-parameter bounds, times the batch size (the
+            # summed per-sample grads are held to them), become the clipping
+            # vector, applied verbatim, and its norm the flat threshold (JAX
+            # training/loop.py:63-81, reference train.py:84-92); opt.txt keeps
+            # the flags as given.
+            cfg = bpc_config_for(opt)
+            opt.clipping_param_per_layer = [c * opt.batch_size for c in cfg.grad_l2_bounds]
+            opt.cpl_user_set = True
+            opt.clipping_param = float(np.linalg.norm(opt.clipping_param_per_layer))
+            print("BPC L2 Bounds:", cfg.grad_l2_bounds)
+            print("BPC Backprop Clipping Params:", cfg.back_clip_params)
+            print("BPC Forward Clipping Params:", cfg.input_clip_params)
         self.G, self.D = init_models(opt, self.device)
         self.dataset, self.public_dataset = init_data(opt)
         self.n_batches = n_batches(self.dataset, opt.batch_size)

@@ -1,12 +1,19 @@
-"""Gradient penalties (WGAN-GP) as double-backward functions: the port's copy
-of the JAX package's training/penalty.py.
+"""Gradient penalties (WGAN-GP, DRAGAN) as double-backward functions: the
+port's copy of the JAX package's training/penalty.py.
 
-The input gradient of sum_i D(x)_i is taken with
-``torch.autograd.grad(..., create_graph=True)``, so the penalty's gradient
-w.r.t. D's params is a double backward through D's convs (D has no norm
-layer). Penalty weight 10, several penalties averaged (reference
-gradient_penalty.py:4-65). The interpolation weights are an explicit input.
-DRAGAN is not ported.
+The input gradient of sum_i D(x)_i is taken by ``torch.func.vjp`` of the D
+forward, so the penalty's gradient w.r.t. D's params is a double backward
+through D's layers (D has no norm layer), and the same code runs as one
+sample's term inside ``torch.func.vmap(grad(...))`` (the per-sample penalty of
+``-pupd false``). Penalty weight 10, several penalties averaged (reference
+gradient_penalty.py:4-65). The draws are explicit inputs, one per penalty:
+the interpolation weights alpha [B, 1, 1, 1] of WGAN-GP, the U(0, 1) noise
+[B, ...] of DRAGAN.
+
+DRAGAN perturbs the real data by std(real) * U(0, 1), the intended noise of
+the reference (its ``random_(0, 1)`` draws zeros; the JAX package's note);
+the std is the population std over the whole batch, or over the one row of a
+per-sample term.
 """
 
 from __future__ import annotations
@@ -14,6 +21,7 @@ from __future__ import annotations
 from typing import Callable, Optional, Sequence
 
 import torch
+from torch.func import vjp
 
 PENALTY_WEIGHT = 10.0
 
@@ -24,24 +32,34 @@ def lipschitz_penalty_wrt(d_apply: Callable, inputs: torch.Tensor,
                           n_classes: int = 0, per_sample: bool = False):
     """((||d D(x)/d x||_2 - 1)_+)^2 per sample; with aux_penalty each aux-head
     column adds its own term (gradient_penalty.py:43-65). d_apply(x, y) ->
-    (out, aux_out) must depend on D's params with autograd on; it passes the
-    labels to a D that conditions on them (CGAN, WCGAN). A WCGAN's head is
-    its critic, and options turn aux_penalty off there, as the JAX package
-    does, so its columns add no term."""
-    inputs = inputs.detach().requires_grad_(True)
-    out, aux_out = d_apply(inputs, input_labels)
+    (out, aux_out) must depend on D's params with autograd on (or be a
+    function of params under ``torch.func``); it passes the labels to a D
+    that conditions on them (CGAN, WCGAN). A WCGAN's head is its critic, and
+    options turn aux_penalty off there, as the JAX package does, so its
+    columns add no term."""
+    inputs = inputs.detach()
 
-    def penalty_of(scalar):
-        g, = torch.autograd.grad(scalar, inputs, create_graph=True)
+    def fwd(x):
+        out, aux_out = d_apply(x, input_labels)
+        return (out,) if aux_out is None else (out, aux_out)
+
+    outs, pullback = vjp(fwd, inputs)
+
+    def penalty_of(cotangents):
+        g, = pullback(cotangents)
         norms = torch.sqrt(g.reshape(g.shape[0], -1).square().sum(dim=1) + 1e-12)
         if one_sided:
             return torch.clamp(norms - 1.0, min=0.0).square()
         return (norms - 1.0).square()
 
-    gp = penalty_of(out.sum())
-    if aux_penalty and n_classes > 1 and aux_out is not None:
+    zeros = tuple(torch.zeros_like(o) for o in outs)
+    gp = penalty_of((torch.ones_like(outs[0]),) + zeros[1:])
+    if aux_penalty and n_classes > 1 and len(outs) > 1:
+        aux_out = outs[1]
+        cols = torch.arange(aux_out.shape[-1], device=aux_out.device)
         for col in range(n_classes):
-            gp = gp + penalty_of(aux_out[:, col].sum())
+            col_ct = (cols == col).to(aux_out.dtype).expand_as(aux_out)
+            gp = gp + penalty_of((zeros[0], col_ct))
     return gp if per_sample else gp.mean()
 
 
@@ -56,21 +74,42 @@ def wgan_gp_penalty(d_apply, real_data, real_labels, fake_data, alpha,
         aux_penalty=aux_penalty, n_classes=n_classes, per_sample=per_sample)
 
 
+def dragan_penalty(d_apply, real_data, real_labels, u, one_sided=False,
+                   aux_penalty=False, n_classes: int = 0, per_sample: bool = False,
+                   weight: float = PENALTY_WEIGHT):
+    """Penalty around real + std(real) * u, u ~ U(0, 1) shaped like the real
+    data (gradient_penalty.py:20-29 with the intended noise)."""
+    noise = torch.std(real_data, correction=0) * u
+    return weight * lipschitz_penalty_wrt(
+        d_apply, real_data + noise, real_labels, one_sided=one_sided,
+        aux_penalty=aux_penalty, n_classes=n_classes, per_sample=per_sample)
+
+
+def draw_shape(ptype: str, data_shape) -> tuple:
+    """The shape of one penalty's draw for a batch of ``data_shape``: WGAN-GP
+    alpha [B, 1, ...], DRAGAN's noise the data's own shape."""
+    if ptype.startswith("DRAGAN"):
+        return tuple(data_shape)
+    return (data_shape[0],) + (1,) * (len(data_shape) - 1)
+
+
 def calc_penalty(d_apply, penalty_types: Sequence[str], real_data, real_labels,
-                 fake_data, alphas: Sequence[torch.Tensor], aux_penalty=False,
+                 fake_data, draws: Sequence[torch.Tensor], aux_penalty=False,
                  n_classes: int = 0, per_sample: bool = False):
     """Mean over the configured penalties (gradient_penalty.py:4-18);
-    ``alphas[i]`` is the i-th penalty's interpolation weight draw."""
+    ``draws[i]`` is the i-th penalty's draw (``draw_shape``)."""
     if not penalty_types:
         return torch.zeros((), device=real_data.device)
     total = 0.0
     w = 1.0 / len(penalty_types)
-    for ptype, alpha in zip(penalty_types, alphas):
-        if not ptype.startswith("WGAN-GP"):
-            raise NotImplementedError(f"penalty {ptype} is not ported yet")
-        p = wgan_gp_penalty(d_apply, real_data, real_labels, fake_data, alpha,
-                            one_sided=ptype.endswith("1"),
-                            aux_penalty=aux_penalty, n_classes=n_classes,
-                            per_sample=per_sample)
+    for ptype, draw in zip(penalty_types, draws):
+        kw = dict(one_sided=ptype.endswith("1"), aux_penalty=aux_penalty,
+                  n_classes=n_classes, per_sample=per_sample)
+        if ptype.startswith("DRAGAN"):
+            p = dragan_penalty(d_apply, real_data, real_labels, draw, **kw)
+        elif ptype.startswith("WGAN-GP"):
+            p = wgan_gp_penalty(d_apply, real_data, real_labels, fake_data, draw, **kw)
+        else:
+            raise Exception("Unknown penalty type: " + ptype)
         total = total + w * p
     return total

@@ -28,6 +28,7 @@ from csl_gan_tpu_torch.models.mnist import D_LEAVES
 from csl_gan_tpu_torch.ops import grads as gops
 from csl_gan_tpu_torch.ops import pallas_epoch, tmsv
 from csl_gan_tpu_torch.privacy.mean_sampler import MeanSampler
+from csl_gan_tpu_torch.training import penalty as penalty_mod
 from csl_gan_tpu_torch.training.steps import StepBuilder, TrainState
 
 
@@ -142,16 +143,24 @@ class StepRunner:
     the route the config selects, is, tm / sv, or without DP the model's
     plain D step); the G step of the model family.
 
-    Per epoch it draws the row permutation from ``gen_perm``; per step, from
-    ``gen`` and in this order: the horizontal flips (uint8 image tables),
+    Per epoch it draws the row permutation from ``gen_perm`` (none for DP
+    runs under ``--poisson``); per step, from
+    ``gen`` and in this order: under DP with ``--poisson`` the step's
+    Poisson inclusion (``StepBuilder.poisson_draw``: a [cap] batch with a
+    validity mask, in place of the permutation's slice; JAX
+    segment_runner.py:204-210), the horizontal flips (uint8 image tables),
     z_d, the DP noise (gc: per-leaf normals times the stds, or on the fused
     route the per-leaf seeds and then the small leaves' normals,
     ``ops/grads.draw_fused_noise``; is: one N(0, 1) draw sliced per leaf,
     which the step scales by its own stds on the device; tm: Student-t(3)
     per leaf; sv: N(0, 1) per leaf), the penalty batch (the mean-sample
-    surrogates, or the real batch without mean samples) and the penalty's
-    interpolation weights; on a G update, z_g and y_g. The G update follows
-    the D steps i with i % n_d_steps == 0, gated while
+    surrogates, or the real batch without mean samples or under ``-pupd
+    false``) and each penalty's draw, one row per sample (WGAN-GP's
+    interpolation weights, DRAGAN's U(0, 1) noise shaped like the batch;
+    under the gc per-sample penalty the same draws serve its samples and
+    its logged batch value); on a G update, z_g and y_g. An epoch keeps its
+    ``n_batches`` steps under ``--poisson``; G updates take ``--batch_size``
+    rows. The G update follows the D steps i with i % n_d_steps == 0, gated while
     train_d_until_threshold < 1e10 by the mean D adversarial loss since the
     last cadence point (one host read per cadence point; none without
     gating). Metric sums stay on the device; the caller reads them once per
@@ -230,23 +239,25 @@ class StepRunner:
 
     def _penalty_inputs(self, gen: torch.Generator, x: torch.Tensor,
                         y: Optional[torch.Tensor], bs: int):
-        """The penalty's batch (class-matched public rows, else the
-        mean-sample surrogates, else the real batch, as the JAX Trainer
-        picks it) and interpolation weights."""
+        """The penalty's batch (under ``-pupd false`` the real batch, else
+        class-matched public rows, else the mean-sample surrogates, else the
+        real batch, as the JAX Trainer's ``_penalty_data`` picks it) and each
+        penalty's draw (``penalty.draw_shape``)."""
         b = self.builder
         if not b.penalty_types:
             return None, None, None
         pen_x, pen_y = x, y
-        if self.public is not None:
+        surrogate = b.opt.penalty_use_public_data
+        if surrogate and self.public is not None:
             pen_x, pen_y = (self.public.batch(gen, bs)[0], None) if y is None else \
                 self.public.class_matched(gen, y)
-        elif self.mean_sampler is not None:
+        elif surrogate and self.mean_sampler is not None:
             pen_x, pen_y = self.mean_sampler.device_sample(self.mean_samples, gen, y, bs)
             if not b.conditional:
                 pen_y = None
-        alphas = [torch.rand((bs, 1, 1, 1), generator=gen, device=x.device)
-                  for _ in b.penalty_types]
-        return pen_x, pen_y, alphas
+        draws = [torch.rand(penalty_mod.draw_shape(t, pen_x.shape), generator=gen,
+                            device=x.device) for t in b.penalty_types]
+        return pen_x, pen_y, draws
 
     def _noise(self, gen: torch.Generator, leaves, stds):
         """(noise, fused) of one DP step, as the mode's D step takes them;
@@ -265,7 +276,8 @@ class StepRunner:
             return [tmsv.student_t3(gen, l.shape) for l in leaves], None
         return [torch.randn(l.shape, generator=gen, device=gen.device) for l in leaves], None
 
-    def _d_step(self, state: TrainState, x, y, gen: torch.Generator, stds, use_dp: bool):
+    def _d_step(self, state: TrainState, x, y, gen: torch.Generator, stds, use_dp: bool,
+                valid=None):
         b = self.builder
         bs = x.shape[0]
         z = b.gen_z(gen, bs)
@@ -275,24 +287,25 @@ class StepRunner:
         pen_x, pen_y, alphas = self._penalty_inputs(gen, x, y, bs)
         ax = ay = None
         if use_dp and self.adaptive:
-            ax, ay = self._surrogate_batch(gen, bs)
+            ax, ay = self._surrogate_batch(gen, b.opt.batch_size)
         return b.d_core(state, x, y, z, use_dp, noise=noise, fused=fused, pen_x=pen_x,
-                        pen_y=pen_y, alphas=alphas, ax=ax, ay=ay)
+                        pen_y=pen_y, alphas=alphas, ax=ax, ay=ay, valid=valid)
 
-    def _g_step(self, state: TrainState, gen: torch.Generator, bs: int):
+    def _g_step(self, state: TrainState, gen: torch.Generator):
         b = self.builder
+        bs = b.opt.batch_size
         z, y = b.gen_z(gen, bs), b.gen_y(gen, bs)
         if b.family == "vanilla":
             return b.g_step(state, z, None if y is None else one_hot(y, b.n_classes))
         return b.g_step_dcresnet(state, z, y)
 
     def _train_batch(self, state: TrainState, x, y, gen: torch.Generator, stds, i: int,
-                     use_dp: bool, sums):
+                     use_dp: bool, sums, valid=None):
         """D step i of an epoch (or of the warmup) and, on the cadence, the
         gated G step; metrics summed into ``sums`` = [d_sums, g_sums, g_count].
         Returns the state."""
         d_sums, g_sums = sums[0], sums[1]
-        state, dm = self._d_step(state, x, y, gen, stds, use_dp)
+        state, dm = self._d_step(state, x, y, gen, stds, use_dp, valid)
         for key, v in dm.items():
             d_sums[key] = d_sums[key] + v if key in d_sums else v
         if "is_sens" in dm:
@@ -307,7 +320,7 @@ class StepRunner:
             g_on = (self.threshold >= 1e10
                     or float(self.d_acc) / self.n_d < self.threshold)
             if g_on:
-                state, gm = self._g_step(state, gen, x.shape[0])
+                state, gm = self._g_step(state, gen)
                 for key, v in gm.items():
                     g_sums[key] = g_sums[key] + v if key in g_sums else v
                 sums[2] += 1
@@ -340,6 +353,7 @@ class StepRunner:
             self.d_acc = torch.zeros((), device=dev)
         timed = dev.type == "cuda"
         self.epoch_events = []
+        poisson = self.use_dp and b.poisson
         stds = None
         if self.use_dp and b.dp_mode == "gc" and not self.adaptive:
             stds = gops.noise_stds(len(b.d_leaves), b.sigma, state.clipping, b.per_layer)
@@ -350,10 +364,16 @@ class StepRunner:
                 ev = (torch.cuda.Event(enable_timing=True),
                       torch.cuda.Event(enable_timing=True))
                 ev[0].record()
-            perm = torch.randperm(self.n_rows, generator=gen_perm, device=dev)
+            perm = None if poisson else torch.randperm(self.n_rows, generator=gen_perm,
+                                                       device=dev)
             for i in range(self.n):
-                x, y = self._batch(perm[i * bs:(i + 1) * bs], gen)
-                state = self._train_batch(state, x, y, gen, stds, i, self.use_dp, sums)
+                valid = None
+                if poisson:
+                    idx, valid = b.poisson_draw(gen, self.n_rows)
+                else:
+                    idx = perm[i * bs:(i + 1) * bs]
+                x, y = self._batch(idx, gen)
+                state = self._train_batch(state, x, y, gen, stds, i, self.use_dp, sums, valid)
                 if self.on_sample is not None and (i + 1) * bs % self.sample_every == 0:
                     self.on_sample(state, j, i)
             if timed:

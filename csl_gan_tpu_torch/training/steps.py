@@ -17,7 +17,15 @@ The port's counterparts of the JAX package's training/steps.py pieces:
   fused (K6, ops/pallas_clip.py). Under ``-gcm adaptive`` / ``adaptive-pl``
   each step first takes its thresholds from the per-sample norms of a
   public or mean-sample batch (``adaptive_clipping``) and keeps them, a
-  device tensor, in the state.
+  device tensor, in the state. Under ``--poisson`` the batch is a [cap]
+  buffer with a validity mask (``poisson_draw``): masked rows have zero
+  cotangents on the ghost routes and a zero-weighted loss on the others
+  (``ops/grads.mask_loss``), and the step divides by the expected batch.
+  Under ``-pupd false`` each sample's penalty (WGAN-GP or DRAGAN, on its
+  real row and fake) is a term of its clipped loss, which takes the
+  materialized route. Under ``--backprop_clip`` the vanilla D clips its
+  activations and cotangents in every clipped pass (``_d_apply(...,
+  bpc=True)``).
 - ``d_step_is``: the immediate-sensitivity D step (JAX ``_d_step_is``): the
   full-batch gradient g of the D loss, the sensitivity as the norm of the
   input gradient of ||g|| (flat), of ||(||g_l|| / v_l)_l|| (``-issm
@@ -40,8 +48,9 @@ The port's counterparts of the JAX package's training/steps.py pieces:
   warmup).
 
 All randomness is an explicit input (z, labels, per-leaf DP noise or the
-fused route's seeds and small-leaf normals, penalty interpolation weights,
-mean-sample surrogates), so the same inputs give the same values in both
+fused route's seeds and small-leaf normals, the penalties' draws: WGAN-GP's
+interpolation weights, DRAGAN's U(0, 1) noise; mean-sample surrogates, the
+Poisson inclusion), so the same inputs give the same values in both
 packages. As in the JAX package, the D and G see labels only when the run
 is conditional (labels are None otherwise, ``_d_apply``); the ACGAN aux
 loss is the only one that is not zero (``_aux_batch``, ``_aux_single``),
@@ -155,9 +164,22 @@ class StepBuilder:
         # Device copies of constant clipping thresholds, for the per-step
         # "clipping" metric: (value, device) -> fp32 tensor.
         self._clip_consts: Dict[tuple, torch.Tensor] = {}
+        # Exact Poisson subsampling (--poisson, gc): each DP step includes
+        # every row with probability q = B / N, packed into a [cap] buffer
+        # with a validity mask; cap = B + ceil(8 sqrt(B)) (overflow ~1e-15),
+        # never more than the dataset (JAX steps.py:122-136).
         self.poisson = bool(opt.poisson)
+        if self.poisson:
+            self.poisson_q = opt.batch_size / opt.train_set_size
+            self.poisson_cap = min(opt.batch_size + math.ceil(8.0 * math.sqrt(opt.batch_size)),
+                                   opt.train_set_size)
         self.penalty_types = list(opt.penalty or [])
+        # -pupd false under gc: each sample's penalty on its own real row
+        # (and fake) is folded into its clipped loss (JAX steps.py:746).
+        self.ps_pen = (self.dp_mode == "gc" and bool(self.penalty_types)
+                       and not opt.penalty_use_public_data)
         self.use_bpc = bool(opt.backprop_clip)
+        self.bpc_g = bool(opt.bpc_during_g_train)
         self.chunk = opt.per_sample_chunk
         self.is_acgan = bool(opt.is_acgan)
         self.aux_penalty = bool(opt.aux_penalty)
@@ -196,13 +218,15 @@ class StepBuilder:
                              and not self.per_layer and self.chunk is None
                              and not self.use_bpc and self.compute_dtype is None)
         # The gc D step materializes per-sample gradients when real and fake
-        # are clipped together or no cheaper route serves the real pass; under
+        # are clipped together, the per-sample penalty is on (it turns the
+        # ghost, conv-ghost and two-pass routes off, as the JAX step does per
+        # call) or no cheaper route serves the real pass; under
         # --pallas its weighted sum and noise are fused (K6). In the JAX
         # package the fused route runs only on its accelerator; here it runs
         # wherever the step does, on K6 for CUDA tensors and on K6's plain
         # version for CPU tensors.
         self.materialized = self.dp_mode == "gc" and (
-            not self.grad_clip_split
+            not self.grad_clip_split or self.ps_pen
             or not (self.use_ghost or self.use_conv_ghost or self.use_two_pass))
         self.fused_route = self.use_pallas and self.materialized
         self.d_leaves = tuple(d_leaves(D) if dcresnet else mnist_d_leaves(D))
@@ -314,15 +338,18 @@ class StepBuilder:
         return losses.aux_loss(self.arch, self.aux_type, self.aux_scalar, aux_out, y,
                                self.n_classes, reduction=reduction)
 
-    def _fake_sum_grads(self, d_params: Params, fake: torch.Tensor, y):
+    def _fake_sum_grads(self, d_params: Params, fake: torch.Tensor, y, valid=None,
+                        bpc: bool = False):
         """Summed grads of the clean fake pass (JAX steps.py fake_sum):
-        sum_i loss(out_i, fake) [+ the aux terms when d_fake_aux]."""
+        sum_i valid_i loss(out_i, fake) [+ the aux terms when d_fake_aux];
+        through the backprop-clipped D with ``bpc``."""
         p = {k: v.detach().requires_grad_(True) for k, v in d_params.items()}
         with torch.enable_grad():
-            out, aux_o = self._d_apply(p, fake, y, aux=self.d_fake_aux)
-            loss = losses.d_fake_loss(self.family, out, "sum")
+            out, aux_o = self._d_apply(p, fake, y, aux=self.d_fake_aux, bpc=bpc)
+            per = losses.d_fake_loss(self.family, out, "none")
             if self.d_fake_aux:
-                loss = loss + self._aux_batch(aux_o, y, fake=True, reduction="sum")
+                per = per + self._aux_batch(aux_o, y, fake=True, reduction="none")
+            loss = torch.sum(per if valid is None else per * valid)
             grads = torch.autograd.grad(loss, [p[k] for k in self.d_leaves])
         return dict(zip(self.d_leaves, grads)), out.detach()
 
@@ -358,21 +385,39 @@ class StepBuilder:
         return replace(state, d_params=d_params, d_mu=d_mu, d_nu=d_nu,
                        d_count=state.d_count + 1)
 
-    def _d_metrics(self, r_out, r_aux, f_out, y, stats=None, pen_value=None):
+    def _d_metrics(self, r_out, r_aux, f_out, y, stats=None, pen_value=None, valid=None):
         """The D step's metrics (JAX steps.py ``_d_metrics``); the aux
         columns exist exactly when the run has an aux loss (ACGAN, WCGAN),
-        the accuracy then being of the head's argmax (0 without a head)."""
-        r_loss = losses.d_real_loss(self.family, r_out)
-        f_loss = losses.d_fake_loss(self.family, f_out)
+        the accuracy then being of the head's argmax (0 without a head).
+        With a Poisson mask ``valid`` the losses and accuracies are means
+        over the valid rows (JAX steps.py:450-460, 848-863)."""
+        if valid is None:
+            r_loss = losses.d_real_loss(self.family, r_out)
+            f_loss = losses.d_fake_loss(self.family, f_out)
+
+            def vmean(t):
+                return t.to(torch.float32).mean()
+        else:
+            count = torch.clamp(valid.sum(), min=1.0)
+
+            def vmean(t):
+                return torch.sum(valid * t.reshape(valid.shape[0], -1).to(torch.float32)
+                                 .mean(dim=-1)) / count
+            r_loss = vmean(losses.d_real_loss(self.family, r_out, "none"))
+            f_loss = vmean(losses.d_fake_loss(self.family, f_out, "none"))
         m = {"d_adv_loss": r_loss + f_loss, "d_real_loss": r_loss,
              "d_fake_loss": f_loss,
-             "d_real_acc": 100.0 * (r_out > 0).to(torch.float32).mean(),
-             "d_fake_acc": 100.0 * (f_out < 0).to(torch.float32).mean()}
+             "d_real_acc": 100.0 * vmean(r_out > 0),
+             "d_fake_acc": 100.0 * vmean(f_out < 0)}
         if self.use_aux:
-            m["d_real_aux_loss"] = torch.as_tensor(self._aux_batch(r_aux, y, fake=False),
-                                                   device=r_out.device)
+            if valid is None:
+                aux_loss = self._aux_batch(r_aux, y, fake=False)
+            else:
+                pa = self._aux_batch(r_aux, y, fake=False, reduction="none")
+                aux_loss = vmean(pa) if isinstance(pa, torch.Tensor) else 0.0
+            m["d_real_aux_loss"] = torch.as_tensor(aux_loss, device=r_out.device)
             m["d_real_aux_acc"] = torch.zeros((), device=r_out.device) if r_aux is None \
-                else 100.0 * _acc_vs_max(r_aux, one_hot(y, self.n_classes)).mean()
+                else 100.0 * vmean(_acc_vs_max(r_aux, one_hot(y, self.n_classes)))
         if stats is not None:
             m.update(norm_mean=stats.norm_mean, norm_std=stats.norm_std,
                      norm_max=stats.norm_max, frac_clipped=stats.frac_clipped)
@@ -385,12 +430,14 @@ class StepBuilder:
     def g_step(self, state: TrainState, z, y_onehot):
         """G update of the vanilla model against the (already updated) D:
         mean BCE-vs-ones [+ ACGAN aux CE] (JAX _g_step); ``y_onehot`` is
-        None when unconditional. Returns (state, metrics)."""
+        None when unconditional. Under DP with ``--backprop_clip`` (and
+        ``--bpc_during_g_train``, the default) D runs clipped here too.
+        Returns (state, metrics)."""
         y = None if y_onehot is None else torch.argmax(y_onehot, dim=1)
         p = {k: v.detach().requires_grad_(True) for k, v in state.g_params.items()}
         with torch.enable_grad():
             img = functional_call(self.G, p, (z, y))
-            out, aux_o = self._d_apply(state.d_params, img, y)
+            out, aux_o = self._d_apply(state.d_params, img, y, bpc=self.bpc_g and self.opt.use_dp)
             adv = losses.g_adv_loss(self.family, out)
             loss = adv
             if self.is_acgan:
@@ -410,17 +457,22 @@ class StepBuilder:
 
     # ---------------- penalty and fakes ----------------
 
-    def row_weights(self, y: torch.Tensor) -> Optional[torch.Tensor]:
+    def row_weights(self, y: torch.Tensor, valid=None) -> Optional[torch.Tensor]:
         """Per-row 1 / count of the row's class in the batch, for the ACGAN
-        wasserstein aux loss (JAX steps.py _row_weights)."""
+        wasserstein aux loss (JAX steps.py _row_weights); with a Poisson
+        mask the counts run over the valid rows only."""
         if not (self.use_aux and self.aux_type == "wasserstein"):
             return None
         onehot = torch.nn.functional.one_hot(y.long(), self.n_classes).float()
+        if valid is not None:
+            onehot = onehot * valid[:, None]
         return 1.0 / torch.clamp(onehot @ onehot.sum(dim=0), min=1.0)
 
     def _penalty_grads(self, d_params: Params, pen_x, pen_y, fake, alphas):
         """(value, grads by name) of the gradient penalty on the public /
-        mean-sample batch (JAX steps.py _penalty_grads)."""
+        mean-sample batch, or the real batch under ``-pupd false`` outside
+        gc (JAX steps.py _penalty_grads); ``alphas`` holds each penalty's
+        draw (``penalty.draw_shape``)."""
         p = {k: v.detach().requires_grad_(True) for k, v in d_params.items()}
         with torch.enable_grad():
             val = penalty_mod.calc_penalty(
@@ -463,11 +515,14 @@ class StepBuilder:
 
     # ---------------- the gc D step ----------------
 
-    def _d_apply(self, d_params: Params, x, y, aux: bool = True):
+    def _d_apply(self, d_params: Params, x, y, aux: bool = True, bpc: bool = False):
         """D's (out, aux_out) on x; the labels reach D only when the run is
-        conditional (JAX steps.py ``_d_apply``)."""
-        return functional_call(self.D, d_params, (x, y if self.conditional else None),
-                               {"aux": aux})
+        conditional, and ``bpc`` only under ``--backprop_clip`` (JAX
+        steps.py ``_d_apply``)."""
+        kw = {"aux": aux}
+        if self.use_bpc:
+            kw["bpc"] = bpc
+        return functional_call(self.D, d_params, (x, y if self.conditional else None), kw)
 
     def _aux_single(self, aux_row, yi, wi):
         """Aux loss of ONE sample (aux_row: [n_classes]), the per-sample form
@@ -481,50 +536,98 @@ class StepBuilder:
         sign = onehot * -2.0 + 1.0
         return self.aux_scalar * torch.sum(sign * torch.sigmoid(aux_row)) * wi
 
-    def real_ps_args(self, x, y, row_w):
-        """(loss_fn, batch args) of the per-sample REAL pass (JAX steps.py
-        ``_real_ps_args``, without the per-sample penalty):
-        loss_fn(d_params, x_i, y_i, w_i) is the real loss of one sample, or
-        loss_fn(d_params, x_i) when unconditional."""
-        if not self.conditional:
-            def f_unc(d_params, xi):
-                out, _ = self._d_apply(d_params, xi[None], None)
-                return losses.d_real_loss(self.family, out, "none")[0]
+    def _ps_penalty_one(self, d_params: Params, xi, yi, fi, draws_i):
+        """The penalty of ONE (real, fake) pair, a term of that sample's
+        clipped loss under ``-pupd false`` (JAX ``_ps_penalty_one``; reference
+        train.py:438-450): calc_penalty on the one-row batch, each penalty's
+        draw the sample's row of it, DRAGAN's std that of the row."""
+        yy = None if yi is None else yi[None]
+        return penalty_mod.calc_penalty(
+            lambda xx, yl: self._d_apply(d_params, xx, yl), self.penalty_types, xi[None], yy,
+            fi[None], [d[None] for d in draws_i], aux_penalty=self.aux_penalty,
+            n_classes=self.n_classes)
 
-            return f_unc, (x,)
+    def real_ps_args(self, x, y, row_w, fake=None, ps_draws=None):
+        """(loss_fn, batch args) of the per-sample REAL pass through the
+        backprop-clipped D under ``--backprop_clip`` (JAX steps.py
+        ``_real_ps_args``): loss_fn(d_params, x_i, y_i, w_i) is the real
+        loss of one sample, or loss_fn(d_params, x_i) when unconditional.
+        With ``ps_draws`` (the per-sample penalty: one [B, ...] draw per
+        penalty) each sample's loss adds its penalty on (x_i, fake_i), and
+        the batch args end with the fakes and the draws."""
+        pen = () if ps_draws is None else (fake,) + tuple(ps_draws)
+
+        def with_pen(loss, d_params, xi, yi, rest):
+            return loss + self._ps_penalty_one(d_params, xi, yi, rest[0], rest[1:]) \
+                if rest else loss
+
+        if not self.conditional:
+            def f_unc(d_params, xi, *rest):
+                out, _ = self._d_apply(d_params, xi[None], None, bpc=True)
+                return with_pen(losses.d_real_loss(self.family, out, "none")[0], d_params,
+                                xi, None, rest)
+
+            return f_unc, (x,) + pen
         w = row_w if row_w is not None else torch.ones(x.shape[0], device=x.device)
 
-        def f(d_params, xi, yi, wi):
-            out, aux_o = self._d_apply(d_params, xi[None], yi[None])
+        def f(d_params, xi, yi, wi, *rest):
+            out, aux_o = self._d_apply(d_params, xi[None], yi[None], bpc=True)
             loss = losses.d_real_loss(self.family, out, "none")[0]
-            return loss + self._aux_single(None if aux_o is None else aux_o[0], yi, wi)
+            loss = loss + self._aux_single(None if aux_o is None else aux_o[0], yi, wi)
+            return with_pen(loss, d_params, xi, yi, rest)
 
-        return f, (x, y, w)
+        return f, (x, y, w) + pen
 
-    def combined_ps_args(self, x, y, fake, row_w):
+    def combined_ps_args(self, x, y, fake, row_w, ps_draws=None):
         """(loss_fn, batch args) for real + fake clipped together
-        (--grad_clip_split false; JAX steps.py ``_combined_ps_args``)."""
+        (--grad_clip_split false, and tm / sv; JAX steps.py
+        ``_combined_ps_args``), through the backprop-clipped D under
+        ``--backprop_clip``; with ``ps_draws`` each sample's loss adds its
+        penalty, and the batch args end with the draws."""
+        pen = () if ps_draws is None else tuple(ps_draws)
         if not self.conditional:
-            def f_unc(d_params, xi, fi):
-                r_out, _ = self._d_apply(d_params, xi[None], None)
-                f_out, _ = self._d_apply(d_params, fi[None], None)
-                return losses.d_real_loss(self.family, r_out, "none")[0] \
+            def f_unc(d_params, xi, fi, *draws):
+                r_out, _ = self._d_apply(d_params, xi[None], None, bpc=True)
+                f_out, _ = self._d_apply(d_params, fi[None], None, bpc=True)
+                loss = losses.d_real_loss(self.family, r_out, "none")[0] \
                     + losses.d_fake_loss(self.family, f_out, "none")[0]
+                if draws:
+                    loss = loss + self._ps_penalty_one(d_params, xi, None, fi, draws)
+                return loss
 
-            return f_unc, (x, fake)
+            return f_unc, (x, fake) + pen
         w = row_w if row_w is not None else torch.ones(x.shape[0], device=x.device)
 
-        def f(d_params, xi, yi, fi, wi):
-            r_out, r_aux = self._d_apply(d_params, xi[None], yi[None])
-            f_out, f_aux = self._d_apply(d_params, fi[None], yi[None], aux=self.d_fake_aux)
+        def f(d_params, xi, yi, fi, wi, *draws):
+            r_out, r_aux = self._d_apply(d_params, xi[None], yi[None], bpc=True)
+            f_out, f_aux = self._d_apply(d_params, fi[None], yi[None], aux=self.d_fake_aux,
+                                         bpc=True)
             loss = losses.d_real_loss(self.family, r_out, "none")[0] \
                 + losses.d_fake_loss(self.family, f_out, "none")[0]
             loss = loss + self._aux_single(None if r_aux is None else r_aux[0], yi, wi)
             if self.d_fake_aux:
                 loss = loss + self._aux_single(None if f_aux is None else f_aux[0], yi, wi)
+            if draws:
+                loss = loss + self._ps_penalty_one(d_params, xi, yi, fi, draws)
             return loss
 
-        return f, (x, y, fake, w)
+        return f, (x, y, fake, w) + pen
+
+    def poisson_pack(self, incl: torch.Tensor):
+        """(row indices [cap], validity mask [cap] fp32) of one Poisson draw
+        from its inclusion vector [N] bool: the included rows first, each
+        part in row order (a stable sort), the mask 1 on the included ones
+        (JAX ``poisson_draw``, steps.py:615-627)."""
+        order = torch.argsort((~incl).to(torch.int32), stable=True)
+        count = incl.sum()
+        valid = (torch.arange(self.poisson_cap, device=incl.device) < count).to(torch.float32)
+        return order[:self.poisson_cap], valid
+
+    def poisson_draw(self, gen: torch.Generator, n_rows: int):
+        """One exact Poisson draw over ``n_rows`` rows: Bernoulli(B / N)
+        inclusion from ``gen`` on its device, packed by ``poisson_pack``."""
+        incl = torch.rand(n_rows, generator=gen, device=gen.device) < self.poisson_q
+        return self.poisson_pack(incl)
 
     def adaptive_clipping(self, d_params: Params, ax, ay) -> torch.Tensor:
         """New clipping thresholds from the per-sample gradient norms of the
@@ -564,12 +667,22 @@ class StepBuilder:
                   noise: Optional[List[torch.Tensor]] = None,
                   fused: Optional[gops.FusedNoise] = None,
                   pen_x=None, pen_y=None,
-                  alphas: Optional[List[torch.Tensor]] = None, ax=None, ay=None):
+                  alphas: Optional[List[torch.Tensor]] = None, ax=None, ay=None,
+                  valid: Optional[torch.Tensor] = None,
+                  ps_draws: Optional[List[torch.Tensor]] = None):
         """One gc D update (JAX ``_d_step_gc``): under adaptive clipping the
         step's thresholds from (ax, ay) (``adaptive_clipping``), then the
         clipped private pass by the route the config selects (see the module
         docstring), the clean fake pass [+ b * penalty grads], the DP noise,
         then /b and Adam.
+
+        With a Poisson mask ``valid`` ([b] fp32) masked rows add nothing to
+        either pass or to the metrics, and the division and the penalty's
+        scale are by the expected batch ``--batch_size``. Under the per-sample
+        penalty (``self.ps_pen``) ``ps_draws`` holds each penalty's [b, ...]
+        draw: each sample's penalty is inside its clipped loss, and the batch
+        penalty on (pen_x, pen_y) with ``alphas`` is computed for the log
+        only.
 
         The noise is either ``noise``, per-leaf draws in leaf order that are
         added to the sum, or, on the fused route (``self.fused_route``),
@@ -582,7 +695,10 @@ class StepBuilder:
         if (fused is None) == (noise is None) or (fused is not None) != self.fused_route:
             raise ValueError("d_step_gc takes per-leaf noise, or fused noise exactly "
                              "on the fused route (--pallas true, materialized)")
+        if self.ps_pen and ps_draws is None:
+            raise ValueError("the per-sample penalty (-pupd false) takes ps_draws")
         b = x.shape[0]
+        b_eff = self.opt.batch_size if valid is not None else b
         d_params, clipping = state.d_params, state.clipping
         stds = None
         if self.adaptive:
@@ -591,34 +707,35 @@ class StepBuilder:
             if fused is not None:
                 fused = fused._replace(stds=stds.contiguous())
         fake = self.fakes(state.g_params, z, y)
-        row_w = self.row_weights(y)
+        row_w = self.row_weights(y, valid)
         ghost_outs = None
         if self.grad_clip_split:
             # Private real pass: per-sample clip; clean fake pass: summed grads.
-            if self.use_ghost:
+            if self.use_ghost and not self.ps_pen:
                 cond = self.conditional
                 summed, stats, ghost_outs = ghost.vanilla_real_ghost(
                     d_params, x, one_hot(y, self.n_classes) if cond else None,
                     y if cond and self.use_aux else None,
-                    self.aux_scalar, clipping, self.per_layer)
-            elif self.use_conv_ghost:
+                    self.aux_scalar, clipping, self.per_layer, valid=valid)
+            elif self.use_conv_ghost and not self.ps_pen:
                 summed, stats, ghost_outs = conv_ghost.dcresnet_real_ghost(
                     d_params, x, y, n_classes=self.n_classes, arch=self.arch,
                     aux_type=self.aux_type, aux_scalar=self.aux_scalar, row_w=row_w,
                     max_norm=clipping, per_layer=self.per_layer,
-                    concat_planes=self.concat_planes, compute_dtype=self.compute_dtype)
-            elif self.use_two_pass:
-                f, args = self.real_ps_args(x, y, row_w)
+                    concat_planes=self.concat_planes, compute_dtype=self.compute_dtype,
+                    valid=valid)
+            elif self.use_two_pass and not self.ps_pen:
+                f, args = gops.mask_loss(*self.real_ps_args(x, y, row_w), valid)
                 summed, stats = gops.two_pass_clipped_grad_sum(
                     f, d_params, *args, max_norm=clipping, per_layer=False)
             else:
-                f, args = self.real_ps_args(x, y, row_w)
+                f, args = gops.mask_loss(*self.real_ps_args(x, y, row_w, fake, ps_draws), valid)
                 summed, stats = gops.clipped_grad_sum(
                     f, d_params, *args, max_norm=clipping, per_layer=self.per_layer,
                     chunk=self.chunk, fused_noise=fused)
-            fake_grads, f_out = self._fake_sum_grads(d_params, fake, y)
+            fake_grads, f_out = self._fake_sum_grads(d_params, fake, y, valid, bpc=True)
         else:
-            f, args = self.combined_ps_args(x, y, fake, row_w)
+            f, args = gops.mask_loss(*self.combined_ps_args(x, y, fake, row_w, ps_draws), valid)
             summed, stats = gops.clipped_grad_sum(
                 f, d_params, *args, max_norm=clipping, per_layer=self.per_layer,
                 chunk=self.chunk, fused_noise=fused)
@@ -633,17 +750,25 @@ class StepBuilder:
         total = summed if fake_grads is None else \
             {k: summed[k] + fake_grads[k] for k in self.d_leaves}
         pen_value = None
-        if self.penalty_types:
+        if self.ps_pen:
+            # Clipped inside the per-sample losses; the batch value is
+            # recomputed for the log only.
+            with torch.no_grad():
+                pen_value = penalty_mod.calc_penalty(
+                    lambda xx, yy: self._d_apply(d_params, xx, yy), self.penalty_types,
+                    pen_x, pen_y, fake, alphas, aux_penalty=self.aux_penalty,
+                    n_classes=self.n_classes)
+        elif self.penalty_types:
             pen_value, pen_grads = self._penalty_grads(d_params, pen_x, pen_y, fake, alphas)
-            total = {k: t + pen_grads[k] * b for k, t in total.items()}
-        grads = {k: t / b for k, t in total.items()}
+            total = {k: t + pen_grads[k] * b_eff for k, t in total.items()}
+        grads = {k: t / b_eff for k, t in total.items()}
 
         if ghost_outs is not None:
             r_out, r_aux = ghost_outs
         else:
             with torch.no_grad():
                 r_out, r_aux = self._d_apply(d_params, x, y)
-        metrics = self._d_metrics(r_out, r_aux, f_out, y, stats, pen_value)
+        metrics = self._d_metrics(r_out, r_aux, f_out, y, stats, pen_value, valid)
         metrics["clipping"] = self.clipping_tensor(clipping, x.device)
         new = self._apply_d(state, grads)
         if self.adaptive:
@@ -659,13 +784,13 @@ class StepBuilder:
 
     # ---------------- the is, tm/sv and non-private D steps ----------------
 
-    def _full_batch_loss(self, d_params: Params, x, y, fake):
+    def _full_batch_loss(self, d_params: Params, x, y, fake, bpc: bool = False):
         """The full-batch D loss of JAX ``_d_step_plain`` / ``_d_step_is``
         without the penalty: mean real and fake losses, the real aux loss and,
-        with ``--d_fake_aux_loss``, the fake's. Returns (loss, r_out, r_aux,
-        f_out)."""
-        f_out, f_aux = self._d_apply(d_params, fake, y, aux=self.d_fake_aux)
-        r_out, r_aux = self._d_apply(d_params, x, y)
+        with ``--d_fake_aux_loss``, the fake's; through the backprop-clipped
+        D with ``bpc`` (the is step). Returns (loss, r_out, r_aux, f_out)."""
+        f_out, f_aux = self._d_apply(d_params, fake, y, aux=self.d_fake_aux, bpc=bpc)
+        r_out, r_aux = self._d_apply(d_params, x, y, bpc=bpc)
         total = losses.d_real_loss(self.family, r_out) + losses.d_fake_loss(self.family, f_out)
         total = total + self._aux_batch(r_aux, y, fake=False)
         if self.d_fake_aux:
@@ -703,16 +828,20 @@ class StepBuilder:
         its graph) and the input it was taken at: ||d ||g|| / dx|| (flat);
         ||d s / dx|| with s = ||(||g_l|| / v_l)_l|| and stds sigma sens v
         (scaling modes); or, per parameter, ||d ||g_l|| / dx|| for each leaf
-        in one batched backward (a one-hot cotangent per leaf)."""
-        norms = gops.per_leaf_norms(g)
+        in one batched backward (a one-hot cotangent per leaf). The flat norm
+        is the global norm of g, as in the JAX step: a leaf whose gradient is
+        exactly 0 (lin2.bias under backprop clipping, when the clipped real
+        and fake cotangents cancel) then has no square root to differentiate
+        at 0."""
         n = len(g)
         if self.is_per_param:
-            gx, = torch.autograd.grad(norms, x_in, torch.eye(n, device=x_in.device),
-                                      is_grads_batched=True)
+            gx, = torch.autograd.grad(gops.per_leaf_norms(g), x_in,
+                                      torch.eye(n, device=x_in.device), is_grads_batched=True)
             sens = torch.sqrt(torch.sum(gx.reshape(n, -1).float() ** 2, dim=1))
             return sens, self.sigma * sens
         scaled = self.is_scaling_mode != "standard"
-        s = torch.sqrt(torch.sum((norms / scaling_vec) ** 2 if scaled else norms ** 2))
+        s = torch.sqrt(torch.sum((gops.per_leaf_norms(g) / scaling_vec) ** 2)) if scaled \
+            else gops.global_norm(g)
         gx, = torch.autograd.grad(s, x_in)
         sens = torch.sqrt(torch.sum(gx.float() ** 2))
         return sens, self.sigma * sens * scaling_vec if scaled else (self.sigma * sens).expand(n)
@@ -721,12 +850,17 @@ class StepBuilder:
                   pen_x=None, pen_y=None, alphas: Optional[List[torch.Tensor]] = None):
         """One immediate-sensitivity D update (JAX ``_d_step_is``); ``eps``
         are N(0, 1) draws shaped like the leaves, in leaf order, scaled here
-        by the step's stds on the device. The penalty's inputs (mean samples
-        and the fakes) do not depend on x, so its gradient enters ||g|| as a
-        constant, taken without a graph: the same value as the JAX package's
-        one differentiated loss, without a third-order graph. Returns
-        (state, metrics) with ``is_sens`` a scalar, or [n_leaves] under
-        ``-ispp true``."""
+        by the step's stds on the device. The penalty's gradient enters ||g||
+        as a constant, taken without a graph. Its inputs are mean samples or
+        public rows and the fakes, or under ``-pupd false`` the real batch
+        itself: the JAX package's step also closes over that batch as a
+        constant (its ``pen_x``, not the differentiated ``x_in``), so the
+        sensitivity leaves out the penalty's dependence on the private batch
+        in both packages (ROADMAP Queue 3). The same value as the JAX
+        package's one differentiated loss, without a third-order graph. Under
+        ``--backprop_clip`` D runs clipped in the loss and its
+        second-order pass. Returns (state, metrics) with ``is_sens`` a
+        scalar, or [n_leaves] under ``-ispp true``."""
         fake, g_stats = self._step_fakes(state, z, y)
         state = replace(state, g_batch_stats=g_stats)
         leaves = self.d_leaves
@@ -736,7 +870,7 @@ class StepBuilder:
         p = {k: v.detach().requires_grad_(True) for k, v in state.d_params.items()}
         x_in = x.detach().requires_grad_(True)
         with torch.enable_grad():
-            total, r_out, r_aux, f_out = self._full_batch_loss(p, x_in, y, fake)
+            total, r_out, r_aux, f_out = self._full_batch_loss(p, x_in, y, fake, bpc=True)
             g = list(torch.autograd.grad(total, [p[k] for k in leaves], create_graph=True))
             if pen_value is not None:
                 g = [gi + pen_grads[k] for gi, k in zip(g, leaves)]
@@ -782,22 +916,26 @@ class StepBuilder:
 
     def d_core(self, state: TrainState, x, y, z, use_dp: bool, noise=None, fused=None,
                pen_x=None, pen_y=None, alphas: Optional[List[torch.Tensor]] = None,
-               ax=None, ay=None):
+               ax=None, ay=None, valid=None):
         """The D update by ``dp_mode`` (JAX ``_d_core``). ``noise`` is what
         the mode's step takes: per-leaf noise (gc; unit normals under
         adaptive clipping), unit normals (is), Student-t(3) or unit normals
         (tm / sv); ``fused`` the gc fused route's; (ax, ay) the adaptive
-        clipping batch. Without DP the vanilla model takes ``d_step`` (the
-        plain version of K1), the DCResNet ``d_step_plain``."""
+        clipping batch; ``valid`` the gc step's Poisson mask. Under the
+        per-sample penalty the gc step takes the penalty's draws ``alphas``
+        for its samples and for the logged batch value alike. Without DP the
+        vanilla model takes ``d_step`` (the plain version of K1) unless it
+        has a penalty, the DCResNet ``d_step_plain``."""
         pen = dict(pen_x=pen_x, pen_y=pen_y, alphas=alphas)
         if use_dp and self.dp_mode == "gc":
             return self.d_step_gc(state, x, y, z, noise=noise, fused=fused, ax=ax, ay=ay,
+                                  valid=valid, ps_draws=alphas if self.ps_pen else None,
                                   **pen)
         if use_dp and self.dp_mode == "is":
             return self.d_step_is(state, x, y, z, noise, **pen)
         if use_dp:
             return self.d_step_tmsv(state, x, y, z, noise, **pen)
-        if self.family == "vanilla":
+        if self.family == "vanilla" and not self.penalty_types:
             return self.d_step(state, x, y, z, None, False)
         return self.d_step_plain(state, x, y, z, **pen)
 

@@ -144,6 +144,8 @@ def test_new_option_rules_raise_the_jax_messages(tmp_path, argv, message):
     (MNIST + ["-gcm", "adaptive-pl", "-nms", "1", "--mean_sample_size", "4"], False),
     (MNIST + ["-nms", "2", "--mean_sample_size", "4", "-wi", "2"], True),
     (MNIST + ["-pss", "20"], True),
+    (MNIST + ["--poisson", "true"], False),
+    (MNIST + ["--backprop_clip", "true"], False),
 ])
 def test_k1_path_equals_supports(tmp_path, argv, on_k1):
     opt = toptions.parse(argv + ["--platform", "cpu", "-o", str(tmp_path)])

@@ -148,8 +148,9 @@ def test_unported_flags_raise(tmp_path, extra, flag):
     ported keep their cases, which now hold the lifted behaviour: on this
     config adaptive clipping (no public data, no mean samples) and mean
     samples (the default mean size exceeds -tss) raise the JAX package's
-    config error on the same argv, and the others parse, a batch of 20 off
-    K1's path."""
+    config error on the same argv, and so does a penalty under DP without
+    either (the JAX rule of ``-pupd true``), and the others parse, a batch
+    of 20, Poisson subsampling and backprop clipping off K1's path."""
     argv = TINY + extra + ["--platform", "cpu", "-o", str(tmp_path)]
     if flag not in LIFTED:
         with pytest.raises(NotImplementedError, match=flag):
@@ -163,14 +164,18 @@ def test_unported_flags_raise(tmp_path, extra, flag):
                 parse(args)
         return
     opt = toptions.parse(argv)
-    assert toptions._k1_path(opt) == (flag != "--batch_size")
+    assert toptions._k1_path(opt) == (flag not in OFF_K1)
 
 
 # Flags of test_unported_flags_raise that later slices ported, each with the
 # JAX package's config error on its case, or None where the case parses.
 LIFTED = {"--grad_clip_mode": "Adaptive clipping derives its thresholds",
           "--num_mean_samples": r"mean_sample_size \(5000\) exceeds", "--public_set_size": None,
-          "--warmup_iter": None, "--stop_on_g_freeze": None, "--batch_size": None}
+          "--warmup_iter": None, "--stop_on_g_freeze": None, "--batch_size": None,
+          "--penalty": "In order to enable gradient penalty using public data",
+          "--poisson": None, "--backprop_clip": None}
+# The lifted cases that parse but leave K1's gate.
+OFF_K1 = ("--batch_size", "--poisson", "--backprop_clip")
 
 
 def test_pallas_true_on_the_cpu_is_reproducible(tmp_path):
@@ -199,16 +204,19 @@ def test_not_ported_names_only_unported_flags():
     for lifted in ("--public_set_size", "--warmup_iter", "--stop_on_g_freeze",
                    "--batch_size", "--num_mean_samples"):
         assert not any(lifted in n for n in names), lifted
-    for kept in ("--poisson", "adaptive", "-pupd", "DRAGAN", "--backprop_clip",
-                 "--weight_decay", "--ref_pixel_shuffle", "--group_fakes",
-                 "--fsdp", "--tp", "--mesh_shape", "--multihost"):
+    for lifted in ("--poisson", "-pupd", "DRAGAN", "--backprop_clip", "--penalty"):
+        assert not any(lifted in n for n in names), lifted
+    for kept in ("adaptive", "--weight_decay", "--ref_pixel_shuffle", "--group_fakes",
+                 "--fsdp", "--tp", "--mesh_shape", "--multihost", "--u8_table"):
         assert any(kept in n for n in names), kept
 
 
 def test_celeba_raises(tmp_path):
     """The CelebA flagship parses with the CelebA defaults, and so do its
     unconditional, CGAN, WCGAN and embedded-G variants; CelebA
-    configurations outside the ported slice raise naming the flag."""
+    configurations outside the ported slice raise naming the flag, and
+    ``--poisson`` outside gc raises the JAX package's config error in both
+    packages."""
     opt = toptions.parse(FLAGSHIP + ["-o", str(tmp_path / "ok")])
     assert (opt.model, opt.n_d_steps, opt.penalty, opt.aux_loss_type) == \
         ("DeepConvResNet", 5, ["WGAN-GP"], "wasserstein")
@@ -220,15 +228,21 @@ def test_celeba_raises(tmp_path):
         toptions.parse(["CelebA", "-tss", "12800", "-dpm", "gc", "-nms", "1"] + variant
                        + ["-o", str(tmp_path / "ok")])
     for extra, flag in ((["-dpm", "gc", "--ref_pixel_shuffle", "true"], "--ref_pixel_shuffle"),
-                        (["--conditional", "-dpm", "is", "--poisson", "true"], "--poisson"),
-                        (["--conditional", "-dpm", "gc", "--conditional_arch", "WCGAN",
-                          "--poisson", "true"], "--poisson"),
-                        (["--conditional", "-dpm", "gc", "-nms", "1", "-pupd", "false"],
-                         "-pupd"),
+                        (["--conditional", "-dpm", "gc", "-nms", "1", "--conditional_arch",
+                          "WCGAN", "--u8_table", "true"], "--u8_table"),
+                        (["--conditional", "-dpm", "gc", "-nms", "1", "-wd", "0.1"],
+                         "--weight_decay"),
                         (["--conditional", "-dpm", "gc", "-nms", "1", "--group_fakes", "true"],
                          "--group_fakes")):
         with pytest.raises(NotImplementedError, match=flag):
             toptions.parse(["CelebA", "-tss", "12800"] + extra + ["-o", str(tmp_path / "no")])
+    from csl_gan_tpu import options as joptions
+    argv = ["CelebA", "-tss", "12800", "--conditional", "-dpm", "is", "-nms", "1",
+            "--poisson", "true", "-o", str(tmp_path / "no")]
+    for parse in (joptions.parse, toptions.parse):
+        with pytest.raises(Exception, match="--poisson") as err:
+            parse(argv)
+        assert not isinstance(err.value, NotImplementedError)
 
 
 def test_mean_samples_match_jax(tmp_path):
