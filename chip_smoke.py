@@ -8,6 +8,7 @@
     python3 chip_smoke.py --cond-archs # step 1, K2-K5's build, then step 8 alone
     python3 chip_smoke.py --public-data # steps 1-2, then step 9 alone
     python3 chip_smoke.py --dp-surface  # steps 1-2, then step 10 alone
+    python3 chip_smoke.py --interop     # steps 1-2, then step 11 alone
 
 From the root of a checkout, on a machine with one NVIDIA H100 and the CUDA
 toolkit, it:
@@ -78,7 +79,8 @@ toolkit, it:
      through K4: each K4 call against its plain version (the groupnorm
      phase's bound), the images against the plain G forward to 3x a witness
      (K4's outputs moved one ulp on the share each call moved), K4's CUDA
-     launches counted in a profiler trace. Sends SIGTERM to the port's CLI
+     launches counted where gn_relu.cu issues them (a profiler trace of the
+     same call may read no more). Sends SIGTERM to the port's CLI
      (a subprocess on the MNIST flagship) after its first privacy_log.csv
      row: it must exit 0, print "Preempted after epoch" and leave its
      saves; 1 more epoch resumed from them must continue epsilon. Runs
@@ -108,7 +110,7 @@ toolkit, it:
      device time by CUDA kernel of one more epoch;
   7. the D-step engines beside gc (outputs under build/chip_smoke/dp_modes/).
      Through the Trainer, one epoch each, one more timed by CUDA events
-     and 10 steps under the profiler: MNIST (``MNIST --conditional --sigma 10
+     and 5 steps under the profiler: MNIST (``MNIST --conditional --sigma 10
      -bs 600 -tss 60000``) with ``-dpm is``, ``-dpm is -ispp true``, ``-dpm is
      -issm moving-avg-pl`` (at ``--sigma 0.01``: at 10 its scaling vector
      overflows, in the JAX package too), ``-dpm tm`` and ``-dpm sv``; CelebA (the
@@ -125,7 +127,7 @@ toolkit, it:
      goes (first-order pass, the batched second-order pass, the rest);
   8. the conditional variants (outputs under build/chip_smoke/cond_archs/).
      Through the Trainer, 2 epochs each in one group, every kernel's
-     launches counted by its wrapper, then 10 steps under the profiler:
+     launches counted by its wrapper, then 5 steps under the profiler:
      CelebA (the flagship's flags with ``-tss 1280``) as CGAN, WCGAN,
      unconditional and ACGAN with ``--g_label_emb_mode embed``, where K2 and
      K3 must launch 3 times a D step, all on the tensor cores, K4 9 times a
@@ -179,7 +181,7 @@ toolkit, it:
      --pallas true`` (K6 once a D step), and with ``-dpm is --backprop_clip
      true`` (no kernel); K1 never. Each run checks finite logs and
      parameters, the update counts and epsilon, and prints ms per D step
-     beside the flagship's of the same run, the device-busy share of 10
+     beside the flagship's of the same run, the device-busy share of 5
      profiled steps and peak memory. Then K2/K3 at conv2-conv4 and K4/K5 at
      the G's five norm shapes at 219 rows (bf16) against their plain
      versions to the bounds of step 4, with the last 91 rows' cotangents
@@ -190,14 +192,38 @@ toolkit, it:
      within B * C (1 + 1e-5) at C 0.05 (MNIST DRAGAN bs 600, CelebA
      WGAN-GP bs 128, through K6 at std 0) and no sample clipped under
      backprop clipping at the derived bounds (MNIST rows, and rows x 100);
- 11. prints one JSON ``kernels`` line (K1-K6: launches on their main path,
+ 11. interop with the reference (outputs under build/chip_smoke/interop/).
+     Writes a run directory as the reference writes it: the opt.txt of
+     ``CelebA --conditional -dpm gc -bs 128 -tss 1280 -nms 1
+     --mean_sample_size 8`` at fp32 without the JAX package's extension
+     flags, saves/G-1 and D-1 as torch pickles with the upstream key names,
+     seeded weights and Adam's state after one step (full celeba_g64 /
+     celeba_d64 widths); converts it with the port's
+     ``convert_reference_checkpoint`` (timed); holds ``sample_images`` of the
+     converted pixel-shuffle G at B 50 through K4 as step 5 does (each K4
+     call against its plain version, the images to 3x a one-ulp witness, 9
+     K4 calls and 9 CUDA launches); runs the port's
+     ``mem_inf_attack --compute_fid --num_generated_samples 2048`` on the
+     card with ``$FID_INCEPTION_WEIGHTS`` at an npz of
+     ``inception.random_params(0)`` (random weights: not a comparable FID)
+     and prints the seconds of sampling, of the Inception features and in
+     all, images/s and TFLOP/s through Inception at 299x299; holds the
+     features of 100 images on the card against the CPU (relative l2 within
+     INCEPTION_BOUND), on ``random_params(0)`` and on fan-in-scaled weights;
+     resumes the converted run for 1 epoch (``-rp``, 10 D steps, 2 G
+     updates) and requires K2/K3 30 (none of them tensor-core), K4 108 and
+     K5 18 launches, the update counts, finite logs and parameters and
+     epsilon; holds K2/K3 (FFMA) and K4/K5 against their plain versions at
+     every fp32 B 128 shape the resume gave them;
+ 12. prints one JSON ``kernels`` line (K1-K6: launches on their main path,
      max abs gap to the plain version, ms, plain ms, bound, library ms; K4/K5
      also their launches on the CelebA tm path; every kernel its launches on
      each path of step 8, ``cond_arch_launches``, of step 9,
-     ``public_data_launches``, and of step 10, ``dp_surface_launches``;
-     K2-K6 their times at batch 50, ``b50_ms`` / ``b50_plain_ms``, and K2-K5
-     at the 219-row Poisson buffer, ``b219_ms`` / ``b219_plain_ms``);
- 12. ends with ``{"ok": true, "device": {...}}`` as the last line.
+     ``public_data_launches``, of step 10, ``dp_surface_launches``, and of
+     step 11, ``interop_launches``; K2-K6 their times at batch 50, ``b50_ms`` /
+     ``b50_plain_ms``, and K2-K5 at the 219-row Poisson buffer, ``b219_ms`` /
+     ``b219_plain_ms``);
+ 13. ends with ``{"ok": true, "device": {...}}`` as the last line.
 Any failure raises or exits non-zero, and no result line is printed. It
 needs no network and imports nothing of JAX or of the JAX package.
 """
@@ -1934,70 +1960,85 @@ def checkpoint_io(name, tr, root, smi) -> None:
           f"D {mb['D']:.2f} MB), load_g + load_d {load_ms:.1f} ms")
 
 
-def k4_launches_traced(fn) -> int:
-    """K4's CUDA launches in a profiler trace of one call of fn (after a
-    warm-up call; a trace now and then comes back empty, so up to 5 tries)."""
+def k4_launches(fn):
+    """K4's CUDA launches in one call of fn (after a warm-up call): counted by
+    gn_relu.cu where each is issued, and read in a profiler trace of the same
+    call. A trace can drop events, never add any: it fails if it reads more
+    than the count. Returns (counted, traced)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from csl_gan_tpu_torch.ops import pallas_groupnorm as gn
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(5):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        n = sum(cnt for _, cnt, key in device_ms_by_kernel(prof)
-                if any(k in key for k in K4_FWD_KERNELS))
-        if n:
-            return n
-    fail("torch.profiler recorded no K4 launch in 5 traces")
+    before = gn.cuda_launches()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counted = gn.cuda_launches() - before
+    traced = sum(cnt for _, cnt, key in device_ms_by_kernel(prof)
+                 if any(k in key for k in K4_FWD_KERNELS))
+    if traced > counted:
+        fail(f"a profiler trace read {traced} K4 launches where {counted} were issued")
+    return counted, traced
 
 
 def sample_check(tr, smi) -> None:
     """sample_images through K4 at the CelebA grid (B 24) and at gensamples'
     batch (B 50): each K4 call against its plain version on the same inputs
-    (the groupnorm phase's bound), K4's CUDA launches counted in a profiler
-    trace, and the images against the plain G forward on the card, to
-    STEP_BF16_FACTOR times a witness: the plain G forward with each K4
+    (the groupnorm phase's bound), K4's CUDA launches counted as
+    ``k4_launches`` says, and the images against the plain G forward on the
+    card, to STEP_BF16_FACTOR times a witness: the plain G forward with each K4
     output moved one ulp on the share of elements that K4 call moved."""
     import torch
-    from csl_gan_tpu_torch.ops import pallas_groupnorm as gn
 
     b = tr.builder
     g = torch.Generator(tr.device).manual_seed(50)
     for tag, z, y in (("grid", tr.fixed_z, tr.fixed_y),
                       ("gensamples batch", b.gen_z(g, 50), b.gen_y(g, 50))):
-        n = z.shape[0]
-        gn.gn_relu_forward.launches = 0
-        k = b.sample_images(tr.state, z, y)
-        calls = gn.gn_relu_forward.launches
-        shares = {"fwd": [], "bwd": [], "fwd_gap": []}
-        with gn_recorded(shares):
-            again = b.sample_images(tr.state, z, y)
-        with plain_versions():
-            p = b.sample_images(tr.state, z, y)
-        with gn_ulp_moved(shares, seed=7):
-            w = b.sample_images(tr.state, z, y)
-        gap, witness, per_call = rel_l2(k, p), rel_l2(w, p), max(shares["fwd_gap"])
-        traced = k4_launches_traced(lambda: b.sample_images(tr.state, z, y))
-        want = sum(m * (1 if gn.launch_plan(n, hw, c, 32, torch.float32 if i == 0
-                                            else torch.bfloat16, False)[0] == gn.ONE_PASS
-                        else 3) for i, (hw, c, m) in enumerate(GN_SHAPES))
-        print(f"sample_images at B {n} ({tag}) [{smi}]: each K4 call against its plain "
-              f"version at most {per_call:.3e} relative l2 (bound {GN_BOUND:g}; "
-              f"{100 * sum(shares['fwd']) / len(shares['fwd']):.2f}% of y's elements "
-              f"moved on average); the images against the plain G forward {gap:.3e} "
-              f"(witness, K4's outputs moved one ulp on those shares: {witness:.3e}; "
-              f"bound {STEP_BF16_FACTOR:g}x it); K4 calls {calls}, CUDA launches {traced} "
-              f"(traced; the plans' {want}); images {tuple(k.shape)} in "
-              f"[{float(k.min()):.3f}, {float(k.max()):.3f}]")
-        if not (per_call < GN_BOUND and gap <= STEP_BF16_FACTOR * witness
-                and torch.equal(k, again)):
-            fail(f"sample_images at B {n} is not held through K4")
-        if calls != 9 or traced != want:
-            fail(f"sample_images at B {n}: {calls} K4 calls, {traced} CUDA launches")
-        if tuple(k.shape) != (n, 64, 64, 3) or not bool(torch.isfinite(k).all()):
-            fail(f"bad sample_images output {tuple(k.shape)}")
+        held_samples(b, tr.state, z, y, tag, smi)
+
+
+def held_samples(b, state, z, y, tag, smi, bf16=True):
+    """sample_images of a CelebA 64 G through K4 held as ``sample_check``
+    says; ``bf16``: the G computes in bf16 (its norms after the first take
+    bf16 inputs). Returns (images, K4 calls)."""
+    import torch
+    from csl_gan_tpu_torch.ops import pallas_groupnorm as gn
+
+    n = z.shape[0]
+    gn.gn_relu_forward.launches = 0
+    k = b.sample_images(state, z, y)
+    calls = gn.gn_relu_forward.launches
+    shares = {"fwd": [], "bwd": [], "fwd_gap": []}
+    with gn_recorded(shares):
+        again = b.sample_images(state, z, y)
+    with plain_versions():
+        p = b.sample_images(state, z, y)
+    with gn_ulp_moved(shares, seed=7):
+        w = b.sample_images(state, z, y)
+    gap, witness, per_call = rel_l2(k, p), rel_l2(w, p), max(shares["fwd_gap"])
+    want = sum(m * (1 if gn.launch_plan(n, hw, c, 32, torch.bfloat16 if bf16 and i > 0
+                                        else torch.float32, False)[0] == gn.ONE_PASS
+                    else 3) for i, (hw, c, m) in enumerate(GN_SHAPES))
+    counted, traced = k4_launches(lambda: b.sample_images(state, z, y))
+    print(f"sample_images at B {n} ({tag}) [{smi}]: each K4 call against its plain "
+          f"version at most {per_call:.3e} relative l2 (bound {GN_BOUND:g}; "
+          f"{100 * sum(shares['fwd']) / len(shares['fwd']):.2f}% of y's elements "
+          f"moved on average); the images against the plain G forward {gap:.3e} "
+          f"(witness, K4's outputs moved one ulp on those shares: {witness:.3e}; "
+          f"bound {STEP_BF16_FACTOR:g}x it); K4 calls {calls}, CUDA launches {counted} "
+          f"(counted where issued; the plans' {want}; a profiler trace read {traced}); "
+          f"images {tuple(k.shape)} in "
+          f"[{float(k.min()):.3f}, {float(k.max()):.3f}]")
+    if not (per_call < GN_BOUND and gap <= STEP_BF16_FACTOR * witness
+            and torch.equal(k, again)):
+        fail(f"sample_images at B {n} ({tag}) is not held through K4")
+    if calls != 9 or counted != want:
+        fail(f"sample_images at B {n} ({tag}): {calls} K4 calls, {counted} CUDA launches")
+    if tuple(k.shape) != (n, 64, 64, 3) or not bool(torch.isfinite(k).all()):
+        fail(f"bad sample_images output {tuple(k.shape)}")
+    return k, calls
 
 
 def grid_names(tr) -> list:
@@ -2179,7 +2220,7 @@ DP_MNIST_MODES = (("is", ["-dpm", "is"]), ("is per-param", ["-dpm", "is", "-ispp
 DP_CELEBA = ["CelebA", "--conditional", "-bs", str(CB), "-tss", "1280", "-nms", "1",
              "--mean_sample_size", "8", "--bf16", "true", "--train_d_until_threshold", "1e18"]
 DP_CELEBA_MODES = (("is", ["-dpm", "is"]), ("tm", ["-dpm", "tm"]), ("no DP", []))
-DP_PROFILE_STEPS = 10
+DP_PROFILE_STEPS = 5
 K5_BWD_KERNELS = tuple(k for k in GN_KERNELS if k not in K4_FWD_KERNELS)
 
 
@@ -3049,6 +3090,301 @@ def dp_surface_phase(dev, out_root, smi, k1_step_ms=None, celeba_step_ms=None):
     return by_run, cap_ms
 
 
+# ---------------- interop: reference checkpoints, Inception FID ----------------
+
+# The CelebA flagship at fp32, cut to 10 D steps and 2 G updates an epoch and
+# logged every epoch, as a run of the reference would have written it.
+INTEROP_ARGV = ["CelebA", "--conditional", "-dpm", "gc", "-bs", "128", "-tss", "1280", "-nms",
+                "1", "--mean_sample_size", "8", "--bf16", "false",
+                "--train_d_until_threshold", "1e18", "--log_every", "1280", "--manual_seed", "1"]
+INTEROP_FID_SAMPLES = 2048
+# Inception features on the card against the CPU: fp32 convolutions (TF32
+# off) in other algorithms and summation orders on the two devices, ~1e-7
+# relative an op over 94 convolutions and 11 concatenated blocks.
+INCEPTION_BOUND = 1e-4
+
+
+def write_reference_run(root):
+    """A reference-format run directory under root/ref: the opt.txt of
+    INTEROP_ARGV without the JAX package's extension flags (the reference has
+    none of them), and saves/G-1 and D-1 as the reference writes them
+    (``torch.save({epoch, model_state_dict, optimizer_state_dict, loss})``)
+    with its key names: weights seeded U(+-1/sqrt(fan_in)), biases U(+-0.1),
+    GroupNorm scales 1 + U(+-0.1), and Adam's state after one step."""
+    import torch
+    from csl_gan_tpu_torch import options as toptions
+    from csl_gan_tpu_torch.models.registry import init_models
+    from csl_gan_tpu_torch.training import ref_convert
+
+    opt = toptions.parse(INTEROP_ARGV + ["-o", str(root / "parsed")])
+    names = [a.dest for a in toptions.build_parser()._actions]
+    extensions = set(names[names.index("mesh_shape"):])
+    ref = root / "ref"
+    (ref / "saves").mkdir(parents=True)
+    with open(ref / "opt.txt", "w") as f:
+        json.dump({k: v for k, v in vars(opt).items() if k not in extensions}, f)
+    G, D = init_models(opt, torch.device("cpu"))
+    gen = torch.Generator().manual_seed(11)
+
+    def uniform(shape, bound):
+        return (torch.rand(shape, generator=gen) * 2 - 1) * bound
+
+    for name, model, key_map in (("G", G, ref_convert.g_key_map(opt, G)),
+                                 ("D", D, ref_convert.d_key_map(opt, D))):
+        like = model.state_dict()
+        sd, adam = {}, {}
+        for i, (src, dst, _) in enumerate(key_map):
+            shape = like[dst].shape
+            if len(shape) > 1:
+                sd[src] = uniform(shape, shape[1:].numel() ** -0.5)
+            else:
+                sd[src] = uniform(shape, 0.1) + (1.0 if "Norm" in dst and
+                                                 dst.endswith("weight") else 0.0)
+            g = torch.randn(shape, generator=gen) * 1e-2
+            adam[i] = {"step": torch.tensor(1.0), "exp_avg": (1 - opt.adam_b1) * g,
+                       "exp_avg_sq": (1 - opt.adam_b2) * g * g}
+        groups = [{"lr": opt.g_lr if name == "G" else opt.d_lr,
+                   "betas": (opt.adam_b1, opt.adam_b2), "eps": 1e-8, "weight_decay": 0,
+                   "amsgrad": False, "params": list(range(len(key_map)))}]
+        torch.save({"epoch": 0, "model_state_dict": sd,
+                    "optimizer_state_dict": {"state": adam, "param_groups": groups},
+                    "loss": 0.0}, ref / "saves" / f"{name}-1")
+    return ref, opt
+
+
+@contextlib.contextmanager
+def shapes_taken(seen):
+    """K2-K5's wrappers replaced by spies that add (kernel, operand shapes,
+    dtype) of each call to the set `seen` and call the wrapper; yields the
+    spies (K2, K3, K4, K5). A wrapper adds to its counts through its module
+    name, so while they stand in, the counts (``launches``, ``launches_tc``)
+    move on the spies."""
+    from csl_gan_tpu_torch.ops import pallas_conv_ghost as pcg
+    from csl_gan_tpu_torch.ops import pallas_groupnorm as gn
+
+    def spy(key, fn):
+        def run(*args, **kw):
+            ops = args[:2] if key in ("K2", "K3") else args[:1]
+            seen.add((key, tuple(tuple(t.shape) for t in ops), args[0].dtype))
+            return fn(*args, **kw)
+        run.launches = run.launches_tc = 0
+        return run
+    swaps = tuple((mod, name, spy(key, getattr(mod, name))) for key, mod, name in (
+        ("K2", pcg, "ghost_sq_norms"), ("K3", pcg, "weighted_kernel_grad"),
+        ("K4", gn, "gn_relu_forward"), ("K5", gn, "gn_relu_backward")))
+    with _swapped(swaps):
+        yield [fn for _, _, fn in swaps]
+
+
+def _timed(acc, key, fn):
+    """fn, with its seconds (the card synchronized) added to acc[key] and the
+    images it took to acc["n_" + key]."""
+    import torch
+
+    def run(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        acc[key] += time.perf_counter() - t0
+        acc["n_" + key] += len(out)
+        return out
+    return run
+
+
+def conv_flops(net, dev) -> float:
+    """Operations of one image through the Inception network's convolutions
+    (2 x MACs, from the output shapes of a forward at 299x299)."""
+    import torch
+
+    total = 0.0
+
+    def count(mod, inp, out):
+        nonlocal total
+        kh, kw = mod.kernel_size
+        total += 2.0 * out[0].numel() * mod.in_channels * kh * kw / mod.groups
+
+    hooks = [m.register_forward_hook(count) for m in net.modules()
+             if isinstance(m, torch.nn.Conv2d)]
+    with torch.no_grad():
+        net(torch.zeros(1, 299, 299, 3, device=dev))
+    for h in hooks:
+        h.remove()
+    return total
+
+
+def interop_phase(dev, out_root, smi, peak_flops):
+    """Phase 11: a reference run converted, sampled, scored and resumed
+    (outputs under build/chip_smoke/interop/). Returns K2-K5's launches by
+    run."""
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+    from csl_gan_tpu_torch import convert_reference_checkpoint, mem_inf_attack
+    from csl_gan_tpu_torch.ops import pallas_groupnorm as gn
+    from csl_gan_tpu_torch.privacy import RdpAccountant
+    from csl_gan_tpu_torch.tools import fid as fid_mod
+    from csl_gan_tpu_torch.tools import inception
+    from csl_gan_tpu_torch.tools.saved_run import load_run
+    from csl_gan_tpu_torch.training.steps import StepBuilder
+
+    t_phase = time.perf_counter()
+    root = out_root / "interop"
+    shutil.rmtree(root, ignore_errors=True)
+    ref, ref_opt = write_reference_run(root)
+    conv = root / "converted"
+    t0 = time.perf_counter()
+    convert_reference_checkpoint.main([str(ref), "-o", str(conv)])
+    print(f"interop [{smi}]: a reference CelebA run (celeba_g64 / celeba_d64, fp32, "
+          f"upstream keys, Adam after one step) converted in {time.perf_counter() - t0:.2f} s")
+
+    # Sampling at gensamples' batch through K4.
+    opt, builder, state, _ = load_run(str(conv), 1)
+    if not (opt.ref_pixel_shuffle and all(
+            getattr(builder.G, f"ResBlockUp_{i}").UpsampleConv_0.ref_ps
+            for i in range(builder.G.n_blocks))):
+        fail("the converted run's G does not take the reference's pixel shuffle")
+    g = torch.Generator(dev).manual_seed(50)
+    _, k4_sample = held_samples(builder, state, builder.gen_z(g, 50), builder.gen_y(g, 50),
+                                "converted reference G, pixel shuffle, fp32", smi, bf16=False)
+
+    # mem_inf_attack --compute_fid with Inception features on the card.
+    wpath = root / "inception_random_params_0.npz"
+    params = inception.random_params(0)
+    np.savez(wpath, **params)
+    mia = root / "mia"
+    acc = {"sample": 0.0, "n_sample": 0, "features": 0.0, "n_features": 0}
+    old_env = os.environ.get("FID_INCEPTION_WEIGHTS")
+    os.environ["FID_INCEPTION_WEIGHTS"] = str(wpath)
+    gn.gn_relu_forward.launches = 0
+    try:
+        with _swapped(((StepBuilder, "sample_images",
+                        _timed(acc, "sample", StepBuilder.sample_images)),
+                       (fid_mod, "features_from_images",
+                        _timed(acc, "features", fid_mod.features_from_images)))):
+            t0 = time.perf_counter()
+            mem_inf_attack.main([
+                "--model_dir", str(root), "--model_name", "converted", "--checkpoints", "1",
+                "--asr_iters", "200", "--compute_fid", "--num_generated_samples",
+                str(INTEROP_FID_SAMPLES), "--public_set_size", "1280",
+                "--tmp_dir", f"{mia}/tmp/", "--samples_dir", f"{mia}/samples/",
+                "--values_dir", f"{mia}/values/", "--outputs_dir", f"{mia}/outputs/", "--save"])
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+    finally:
+        if old_env is None:
+            os.environ.pop("FID_INCEPTION_WEIGHTS", None)
+        else:
+            os.environ["FID_INCEPTION_WEIGHTS"] = old_env
+    k4_mia = gn.gn_relu_forward.launches
+    with open(mia / "outputs" / "converted.json") as fh:
+        stats = json.load(fh)["1"]
+    net = inception.build(params, dev)
+    flops = conv_flops(net, dev) * acc["n_features"]
+    print(f"mem_inf_attack --compute_fid on the converted run [{smi}]: sampling "
+          f"{acc['sample']:.2f} s ({acc['n_sample']} images, K4 calls {k4_mia}), Inception "
+          f"features {acc['features']:.2f} s for {acc['n_features']} images "
+          f"({acc['n_features'] / acc['features']:.1f} images/s at 299x299, fp32, TF32 off; "
+          f"{flops / 1e12:.2f} TFLOP of convolutions, {flops / acc['features'] / 1e12:.2f} "
+          f"TFLOP/s, {100 * flops / acc['features'] / peak_flops:.1f}% of the fp32 peak, "
+          f"bound {1e3 * flops / peak_flops:.1f} ms), total {total:.2f} s; fid "
+          f"{stats.get('fid')} (random weights: not a comparable FID); ASR {stats.get('asr')}")
+    if "fid" not in stats or not math.isfinite(stats["fid"]) or not 0 <= stats["asr"] <= 1:
+        fail(f"mem_inf_attack stats {stats}")
+    if acc["n_features"] < INTEROP_FID_SAMPLES or k4_mia == 0:
+        fail(f"mem_inf_attack took {acc['n_features']} images through Inception, "
+             f"K4 {k4_mia} times")
+
+    # Inception features of 100 images on the card against the CPU: on the
+    # tool's random_params(0) (features up to ~1e11) and on fan-in-scaled
+    # weights, whose activations stay O(1) as real weights keep them.
+    z, y = builder.gen_z(g, 100), builder.gen_y(g, 100)
+    imgs = ((builder.sample_images(state, z, y) + 1) / 2).cpu().numpy()
+    for label, p in (("random_params(0)", params),
+                     ("scaled_random_params(7), fan-in scaled",
+                      inception.scaled_random_params(7))):
+        on_card = inception.features(inception.build(p, dev), imgs)
+        t0 = time.perf_counter()
+        on_cpu = inception.features(inception.build(p, torch.device("cpu")), imgs)
+        cpu_s = time.perf_counter() - t0
+        gap = rel_l2(torch.from_numpy(on_card), torch.from_numpy(on_cpu))
+        print(f"Inception features of 100 images on {label} [{smi}]: card against CPU "
+              f"{gap:.3e} relative l2 (bound {INCEPTION_BOUND:g}), max abs gap "
+              f"{float(np.abs(on_card - on_cpu).max()):.3e}; |features| up to "
+              f"{float(np.abs(on_cpu).max()):.3e}; the CPU took {cpu_s:.2f} s")
+        if not (gap <= INCEPTION_BOUND and np.isfinite(on_card).all()):
+            fail(f"Inception features on {label} on the card do not hold to the CPU's")
+
+    # The converted run resumed for one epoch through K2-K5.
+    issued = (gn.cuda_launches(False), gn.cuda_launches(True))
+    seen = set()
+    with shapes_taken(seen) as wrappers:
+        tr, t_init, first_ms, counts = train_run(
+            ["CelebA", "-rp", str(conv), "-re", "1", "-ne", "2", "-ka", "n_epochs"], wrappers)
+    tc = (wrappers[0].launches_tc, wrappers[1].launches_tc)
+    issued = (gn.cuda_launches(False) - issued[0], gn.cuda_launches(True) - issued[1])
+    n = tr.n_batches
+    g_updates = -(-n // tr.opt.n_d_steps)
+    want = [3 * n, 3 * n, 9 * (n + g_updates), 9 * g_updates]
+    with open(conv / "log.csv") as fh:
+        row = list(csv.reader(fh))[-1]
+    logged = [float(v) for f in row[2:] for v in f.strip("[]").split()]
+    with open(conv / "privacy_log.csv") as fh:
+        eps = float(list(csv.reader(fh))[-1][1])
+    acct = RdpAccountant(ref_opt.batch_size, ref_opt.train_set_size, ref_opt.sigma)
+    acct.step(2 * n)
+    want_eps = acct.get_privacy_spent(ref_opt.delta)[0] + tr.mean_sample_privacy_cost
+    print(f"converted run resumed for 1 epoch [{smi}]: {n} D steps, {g_updates} G updates, "
+          f"K2/K3/K4/K5 launches {counts} (expected {want}); Trainer with its loads "
+          f"{t_init:.2f} s, the epoch {first_ms:.3f} ms ({first_ms / n:.3f} ms per D step); "
+          f"epsilon {eps:.6f} (an accountant of {2 * n} steps plus the mean samples: "
+          f"{want_eps:.6f}); logged {row}")
+    if counts != want:
+        fail(f"the resumed run's launches {counts}, expected {want}")
+    if (tr.state.d_count, tr.state.g_count) != (1 + n, 1 + g_updates):
+        fail(f"D / G counts {tr.state.d_count} / {tr.state.g_count} after the resume")
+    if not (all(math.isfinite(v) for v in logged) and math.isclose(eps, want_eps,
+                                                                  rel_tol=1e-12)):
+        fail(f"the resumed run logged {row}, epsilon {eps}")
+    if not all(torch.isfinite(t).all() for p in (tr.state.d_params, tr.state.g_params)
+               for t in p.values()):
+        fail("non-finite params after the resume")
+    # K2-K5 held against their plain versions at the shapes the resume gave
+    # them: fp32 operands at B 128, so K2/K3 in their FFMA variant.
+    f32 = torch.float32
+    shapes = ({(k, ((CB, h, h, cin), (CB, h // 2, h // 2, cout)), f32)
+               for k in ("K2", "K3") for h, cin, cout in CONV_LAYERS}
+              | {(k, ((CB, hw, c),), f32) for k in ("K4", "K5") for hw, c, _ in GN_SHAPES})
+    if seen != shapes:
+        fail(f"the resumed run gave K2-K5 {sorted(seen, key=str)}, expected "
+             f"{sorted(shapes, key=str)}")
+    if tc != (0, 0):
+        fail(f"K2/K3 took the tensor-core variant {tc} times on the fp32 resume")
+    # CUDA launches a G pass by the plans: a K4 call one (one pass) or three,
+    # a K5 call two or six.
+    per_g = [(2 if bw else 1) * sum(
+        m * (1 if gn.launch_plan(CB, hw, c, 32, f32, bw)[0] == gn.ONE_PASS else 3)
+        for hw, c, m in GN_SHAPES) for bw in (False, True)]
+    want_issued = (counts[2] // G_NORMS * per_g[0], counts[3] // G_NORMS * per_g[1])
+    print(f"the resume's K4 / K5 CUDA launches {issued} (counted where issued; the plans' "
+          f"{want_issued}); K2/K3 tensor-core launches {tc}")
+    if issued != want_issued:
+        fail(f"the resume issued K4 / K5 CUDA launches {issued}, expected {want_issued}")
+    gk = torch.Generator(dev).manual_seed(24)
+    for h, cin, cout in CONV_LAYERS:
+        r2, r3, _, _ = conv_held(f"fp32 conv {h}x{h}x{cin}->{cout} (B {CB})",
+                                 *conv_operands(gk, dev, CB, h, cin, cout, f32), "ffma")
+        print(f"conv {h}x{h}x{cin}->{cout} fp32 (B {CB}, the resume's shape), FFMA: K2 rel l2 "
+              f"{r2:.3e}, K3 rel l2 {r3:.3e} (bound {CONV_BOUND:g})")
+    for hw, c, _ in GN_SHAPES:
+        gn_held(*gn_operands(gk, dev, CB, hw, c, f32))
+    print(f"interop phase [{smi}]: {time.perf_counter() - t_phase:.1f} s")
+    return {"sample_b50": {"K4": k4_sample}, "mem_inf_attack": {"K4": k4_mia},
+            "resume": dict(zip(("K2", "K3", "K4", "K5"), counts))}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3129,6 +3465,9 @@ def main() -> int:
     if "--dp-surface" in sys.argv[1:]:
         dp_surface_phase(dev, out_root, smi)
         return 0
+    if "--interop" in sys.argv[1:]:
+        interop_phase(dev, out_root, smi, peak_flops)
+        return 0
 
     # 3. The MNIST path (K1): kernel vs plain, the Trainer, K1's timing.
     max_abs = k1_check_phase(dev, out_root)
@@ -3178,7 +3517,14 @@ def main() -> int:
         if k in cap_ms:
             entry[f"b{CAP}_ms"], entry[f"b{CAP}_plain_ms"] = cap_ms[k]
 
-    # 11. The kernels line; 12. the result line.
+    # 11. Interop: a reference run converted, sampled, scored with Inception
+    # FID and resumed.
+    interop = interop_phase(dev, out_root, smi, peak_flops)
+    for entry in kernels:
+        k = keys[entry["name"]]
+        entry["interop_launches"] = {run: counts.get(k, 0) for run, counts in interop.items()}
+
+    # 12. The kernels line; 13. the result line.
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

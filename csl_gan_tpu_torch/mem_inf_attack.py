@@ -6,10 +6,13 @@ package (the port's counterpart of the root tool mem_inf_attack.py):
 
 Per checkpoint: the Hayes et al. 2018 sort-by-discriminator-value attack
 (ASR over random train/nontrain subsets), optional sample generation to
-PNGs, optional FID between real training data and generated samples (pixel
-features: Inception FID is not ported, tools/fid.py), and a JSON stats
-dump. The nontrain set is the MNIST test set, or the CelebA images after the
-training set (--public_set_size of them).
+PNGs, optional FID between real training data and generated samples
+(InceptionV3 features on the tool's device when ``$FID_INCEPTION_WEIGHTS``
+names the weights' npz, else pixel features; tools/fid.py), and a JSON stats
+dump. A directory converted from the reference's saves
+(``convert_reference_checkpoint``) loads like a run's. The nontrain set is
+the MNIST test set, or the CelebA images after the training set
+(--public_set_size of them).
 """
 
 import argparse
@@ -191,7 +194,8 @@ def main(argv=None):
             print(f"Generated {count} samples.")
 
         if args.compute_fid:
-            fid, label = fid_mod.calculate_fid_given_paths((real_dir, fake_dir), 50)
+            fid, label = fid_mod.calculate_fid_given_paths((real_dir, fake_dir), 50,
+                                                           device=args.device)
             checkpoint_stats[ckpt][label] = fid
             print(f"Computed {label}: {fid:.2f}")
             fid_filedir = os.path.join(args.values_dir, args.fid_dir, args.model_name,

@@ -1,5 +1,6 @@
 """Shared building blocks: torch-default Linear / Conv2d init from an explicit
-generator, one_hot, nearest 2x upsampling.
+generator, one_hot, nearest 2x upsampling and the reference's pixel-shuffle
+upsampling.
 
 ``torch_kernel_init`` draws U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for weight
 and bias, the distribution the JAX package's TorchDense / TorchConv use (its
@@ -10,6 +11,7 @@ models/common.py torch_kernel_init), from a caller-supplied
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -39,3 +41,14 @@ def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
     models/common.py upsample_nearest_2x)."""
     b, h, w, c = x.shape
     return x[:, :, None, :, None, :].expand(b, h, 2, w, 2, c).reshape(b, 2 * h, 2 * w, c)
+
+
+def ref_pixel_shuffle_upsample_2x(x: torch.Tensor) -> torch.Tensor:
+    """The reference UpsampleConv's upsampling of NHWC x, exactly:
+    ``torch.cat([x] * 4, 1)`` + ``F.pixel_shuffle(2)`` on the NCHW view
+    (reference DCResNet_models.py:13-17; the JAX package's models/common.py
+    ref_pixel_shuffle_upsample_2x). A phase-dependent channel permutation,
+    out[2i+a, 2j+b, c] = x[i, j, (4c + 2a + b) mod C], which the conv weights
+    of a reference checkpoint expect."""
+    up = F.pixel_shuffle(torch.cat([x.permute(0, 3, 1, 2)] * 4, dim=1), 2)
+    return up.permute(0, 2, 3, 1)

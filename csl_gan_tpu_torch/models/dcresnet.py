@@ -25,6 +25,12 @@ bf16 inputs and weights and give bf16 outputs (flax nn.Conv), dense layers take
 bf16-rounded inputs and weights with an fp32 product and output (TorchDense's
 preferred_element_type), and tanh runs in fp32.
 
+``ref_ps`` (``--ref_pixel_shuffle``, set for checkpoints converted from the
+reference, training/ref_convert.py) swaps every upsample, the 1x1 shortcut's
+included, for the reference's channel-scrambling pixel shuffle
+(``common.ref_pixel_shuffle_upsample_2x``), ahead of the conv; the state dict
+is the same.
+
 Differences from the JAX modules, by design:
   - The upsample-then-5x5-conv is computed the plain way (upsample, then
     ``F.conv2d``). The JAX package's phase form (``_PhaseConv``,
@@ -47,7 +53,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from csl_gan_tpu_torch.models.common import one_hot, upsample_nearest_2x
+from csl_gan_tpu_torch.models.common import (one_hot, ref_pixel_shuffle_upsample_2x,
+                                             upsample_nearest_2x)
 from csl_gan_tpu_torch.ops.pallas_groupnorm import group_norm_relu
 
 
@@ -121,16 +128,23 @@ def norm_relu(x: torch.Tensor, norm: nn.Module, train: bool) -> torch.Tensor:
 
 
 class UpsampleConv(nn.Module):
-    """Nearest 2x upsample + same-padded conv; the 1x1 shortcut runs the conv
-    first (it commutes with the upsample)."""
+    """2x upsample + same-padded conv. Nearest-neighbour upsampling, where the
+    1x1 shortcut runs the conv first (it commutes with a nearest upsample);
+    or, with ``ref_ps``, the reference's pixel-shuffle upsampling first for
+    every kernel size (its channel scramble does not commute with the 1x1
+    conv)."""
 
-    def __init__(self, cin: int, features: int, kernel_size: int, bias: bool = True):
+    def __init__(self, cin: int, features: int, kernel_size: int, bias: bool = True,
+                 ref_ps: bool = False):
         super().__init__()
         self.kernel_size = kernel_size
+        self.ref_ps = ref_ps
         self.TorchConv_0 = nn.Conv2d(cin, features, kernel_size,
                                      padding=(kernel_size - 1) // 2, bias=bias)
 
     def forward(self, x, dtype=None):
+        if self.ref_ps:
+            return _conv(ref_pixel_shuffle_upsample_2x(x), self.TorchConv_0, dtype)
         if self.kernel_size == 1:
             return upsample_nearest_2x(_conv(x, self.TorchConv_0, dtype))
         return _conv(upsample_nearest_2x(x), self.TorchConv_0, dtype)
@@ -139,12 +153,14 @@ class UpsampleConv(nn.Module):
 class ResBlockUp(nn.Module):
     """Upsampling residual block (reference DCResNet_models.py:19-38)."""
 
-    def __init__(self, cin: int, features: int, kernel_size: int = 5, bn: bool = False):
+    def __init__(self, cin: int, features: int, kernel_size: int = 5, bn: bool = False,
+                 ref_ps: bool = False):
         super().__init__()
         norm = "BatchNorm" if bn else "GroupNorm"
-        self.UpsampleConv_0 = UpsampleConv(cin, features, 1)
+        self.UpsampleConv_0 = UpsampleConv(cin, features, 1, ref_ps=ref_ps)
         setattr(self, f"{norm}_0", _norm(cin, bn))
-        self.UpsampleConv_1 = UpsampleConv(cin, features, kernel_size, bias=False)
+        self.UpsampleConv_1 = UpsampleConv(cin, features, kernel_size, bias=False,
+                                           ref_ps=ref_ps)
         setattr(self, f"{norm}_1", _norm(features, bn))
         self.TorchConv_0 = nn.Conv2d(features, features, kernel_size,
                                      padding=(kernel_size - 1) // 2)
@@ -164,7 +180,8 @@ class DCResNetGenerator(nn.Module):
 
     def __init__(self, channels: Sequence[int], first_filter_size: int,
                  z_dim: int = 128, out_ch: int = 3, n_classes: int = 0,
-                 emb_mode: str = "concat", dtype=None, bn: bool = False):
+                 emb_mode: str = "concat", dtype=None, bn: bool = False,
+                 ref_ps: bool = False):
         super().__init__()
         if emb_mode not in ("concat", "embed"):
             raise ValueError(emb_mode)
@@ -180,7 +197,7 @@ class DCResNetGenerator(nn.Module):
         self.TorchDense_0 = nn.Linear(z_dim + (0 if embed else n_classes),
                                       f * f * self.channels[0])
         for i, (cin, ch) in enumerate(zip(self.channels[:-1], self.channels[1:])):
-            setattr(self, f"ResBlockUp_{i}", ResBlockUp(cin, ch, 5, bn))
+            setattr(self, f"ResBlockUp_{i}", ResBlockUp(cin, ch, 5, bn, ref_ps))
         self.n_blocks = len(self.channels) - 1
         self.norm = "BatchNorm_0" if bn else "GroupNorm_0"
         setattr(self, self.norm, _norm(self.channels[-1], bn))
@@ -211,6 +228,7 @@ class DCResNetDiscriminator(nn.Module):
                  n_classes: int = 0, conditional_arch: str = "ACGAN", dtype=None):
         super().__init__()
         self.channels = list(channels)
+        self.last_filter_size = last_filter_size
         self.n_classes = n_classes
         self.conditional_arch = conditional_arch
         self.dtype = dtype

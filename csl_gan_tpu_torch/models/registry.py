@@ -32,9 +32,12 @@ def init_models(opt, device: torch.device):
     pair (the G's label mode and the D's conditional arch as configured),
     bf16 compute under --bf16, whose G has GroupNorm when per-sample
     gradients are on (-dpm gc / tm / sv) and BatchNorm otherwise (the JAX
-    package's ``bn = not per_sample_grad``). Under ``--backprop_clip`` the
-    vanilla D gets its per-layer clip levels (``bpc_config_for``, which
-    refuses any other model with the JAX package's message)."""
+    package's ``bn = not per_sample_grad``) and, under
+    ``--ref_pixel_shuffle``, the reference's pixel-shuffle upsampling (the
+    flag has no effect on the vanilla model, as in the JAX package). Under
+    ``--backprop_clip`` the vanilla D gets its per-layer clip levels
+    (``bpc_config_for``, which refuses any other model with the JAX
+    package's message)."""
     n_classes = opt.n_classes if opt.conditional else 0
     if opt.model == "Vanilla" and opt.dataset == "MNIST":
         G = mnist.MNISTVanillaG(z_dim=opt.g_latent_dim, n_classes=n_classes)
@@ -52,7 +55,8 @@ def init_models(opt, device: torch.device):
         g_ctor, d_ctor = _dcresnet_pair(opt)
         dtype = torch.bfloat16 if opt.bf16 else None
         G = g_ctor(z_dim=opt.g_latent_dim, n_classes=n_classes,
-                   emb_mode=opt.g_label_emb_mode, dtype=dtype, bn=not opt.per_sample_grad)
+                   emb_mode=opt.g_label_emb_mode, dtype=dtype, bn=not opt.per_sample_grad,
+                   ref_ps=bool(opt.ref_pixel_shuffle))
         D = d_ctor(n_classes=n_classes, conditional_arch=opt.conditional_arch,
                    dtype=dtype)
     else:

@@ -103,6 +103,8 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.gn_relu_bwd.restype = I
         lib.gn_relu_occupancy.argtypes = [IA, IA, I, I]
         lib.gn_relu_occupancy.restype = I
+        lib.gn_relu_launches.argtypes = [I]
+        lib.gn_relu_launches.restype = ctypes.c_longlong
         lib.gn_error_string.argtypes = [I]
         lib.gn_error_string.restype = ctypes.c_char_p
     elif name == "clip_noise":

@@ -58,6 +58,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <mutex>
 
 namespace coop = cooperative_groups;
@@ -799,8 +800,12 @@ cudaError_t prepare() {
   return err[device];
 }
 
+// CUDA launches issued without error by gn_relu_fwd ([0]) and gn_relu_bwd
+// ([1]) in this process (read by gn_relu_launches).
+std::atomic<long long> launched[2];
+
 template <typename... Exp, typename... Act>
-int launch(void (*kern)(Exp...), dim3 grid, int threads, int smem, int cluster,
+int launch(int dir, void (*kern)(Exp...), dim3 grid, int threads, int smem, int cluster,
            cudaStream_t st, Act... args) {
   cudaError_t e = prepare();
   if (e != cudaSuccess) return (int)e;
@@ -820,6 +825,7 @@ int launch(void (*kern)(Exp...), dim3 grid, int threads, int smem, int cluster,
   }
   e = cudaLaunchKernelEx(&cfg, kern, args...);
   if (e != cudaSuccess) return (int)e;
+  launched[dir]++;
   return (int)cudaGetLastError();
 }
 
@@ -827,24 +833,26 @@ int param_grads(const float* psum, const Geo& g, float* dgamma, float* dbeta,
                 cudaStream_t st) {
   dim3 block(32, kParamLanes);
   gn_param_grads<<<(g.c + 31) / 32, block, 0, st>>>(psum, g.b, g.c, dgamma, dbeta);
-  return (int)cudaGetLastError();
+  cudaError_t e = cudaGetLastError();
+  if (e == cudaSuccess) launched[1]++;
+  return (int)e;
 }
 
 template <typename T>
 int fwd(const T* x, const float* gamma, const float* beta, T* y, float* scratch,
         const Geo& g, cudaStream_t st) {
   if (g.variant == kOnePass)
-    return launch(gn_fwd_cluster<T>, dim3(g.b * g.n), g.threads, g.smem, g.n, st,
+    return launch(0, gn_fwd_cluster<T>, dim3(g.b * g.n), g.threads, g.smem, g.n, st,
                   x, gamma, beta, y, g);
   float* ps = scratch;
   float* stats = scratch + (size_t)g.b * g.chunks * 2 * g.c;
   const dim3 grid(g.chunks, g.b);
-  int rc = launch(gn_chunk_stats<T>, grid, g.threads, g.smem, 0, st, x, ps, g);
+  int rc = launch(0, gn_chunk_stats<T>, grid, g.threads, g.smem, 0, st, x, ps, g);
   if (rc) return rc;
-  rc = launch(gn_sample_stats, dim3(g.b), g.threads, g.smem, 0, st,
+  rc = launch(0, gn_sample_stats, dim3(g.b), g.threads, g.smem, 0, st,
               (const float*)ps, stats, g);
   if (rc) return rc;
-  return launch(gn_apply<T>, grid, g.threads, 0, 0, st, x, (const float*)stats, gamma,
+  return launch(0, gn_apply<T>, grid, g.threads, 0, 0, st, x, (const float*)stats, gamma,
                 beta, y, g);
 }
 
@@ -854,25 +862,25 @@ int bwd(const T* x, const T* dy, const float* gamma, const float* beta, T* dx,
   float* psum = scratch;                                   // [B, 2, C]
   int rc;
   if (g.variant == kOnePass) {
-    rc = launch(gn_bwd_cluster<T>, dim3(g.b * g.n), g.threads, g.smem, g.n, st,
+    rc = launch(1, gn_bwd_cluster<T>, dim3(g.b * g.n), g.threads, g.smem, g.n, st,
                 x, dy, gamma, beta, dx, psum, g);
   } else {
     float* part = psum + (size_t)g.b * 2 * g.c;              // [B, chunks, 2, C]
     float* stats = part + (size_t)g.b * g.chunks * 2 * g.c;  // [B, 2, groups]
     float* gm = stats + (size_t)g.b * 2 * g.groups;          // [B, 2, groups]
     const dim3 grid(g.chunks, g.b);
-    rc = launch(gn_chunk_stats<T>, grid, g.threads, g.smem, 0, st, x, part, g);
+    rc = launch(1, gn_chunk_stats<T>, grid, g.threads, g.smem, 0, st, x, part, g);
     if (rc) return rc;
-    rc = launch(gn_sample_stats, dim3(g.b), g.threads, g.smem, 0, st,
+    rc = launch(1, gn_sample_stats, dim3(g.b), g.threads, g.smem, 0, st,
                 (const float*)part, stats, g);
     if (rc) return rc;
-    rc = launch(gn_bwd_chunk<T>, grid, g.threads, g.smem, 0, st, x, dy,
+    rc = launch(1, gn_bwd_chunk<T>, grid, g.threads, g.smem, 0, st, x, dy,
                 (const float*)stats, gamma, beta, part, g);
     if (rc) return rc;
-    rc = launch(gn_bwd_sample, dim3(g.b), g.threads, g.smem, 0, st,
+    rc = launch(1, gn_bwd_sample, dim3(g.b), g.threads, g.smem, 0, st,
                 (const float*)part, gamma, psum, gm, g);
     if (rc) return rc;
-    rc = launch(gn_bwd_dx<T>, grid, g.threads, 0, 0, st, x, dy, (const float*)stats,
+    rc = launch(1, gn_bwd_dx<T>, grid, g.threads, 0, 0, st, x, dy, (const float*)stats,
                 (const float*)gm, gamma, beta, dx, g);
   }
   if (rc) return rc;
@@ -963,6 +971,12 @@ extern "C" int gn_relu_occupancy(const int* geo, const int* plan, int dtype, int
   e = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
   return e == cudaSuccess ? clusters : -(int)e;
 }
+
+// CUDA launches issued so far by gn_relu_fwd (backward = 0) or gn_relu_bwd
+// (1): one (one pass) or three (two pass) a forward, two or six a backward.
+// A count kept where each launch is issued, which a profiler trace can be
+// held to (a trace can drop events).
+extern "C" long long gn_relu_launches(int backward) { return launched[backward ? 1 : 0]; }
 
 extern "C" const char* gn_error_string(int rc) {
   if (rc == kErrDtype) return "unsupported dtype";

@@ -202,6 +202,16 @@ def occupancy(x3: torch.Tensor, groups: int, backward: bool):
                                                                int(backward))
 
 
+def cuda_launches(backward: bool = False) -> int:
+    """CUDA kernel launches that K4's (``backward``: K5's) C entry point has
+    issued in this process, counted in gn_relu.cu where each is issued: one
+    (one pass) or three (two pass) a K4 call, two or six a K5 call. A count
+    that cannot drop events, beside the wrapper's count of calls."""
+    from csl_gan_tpu_torch.ops import _build
+
+    return int(_build.load("gn_relu").gn_relu_launches(int(backward)))
+
+
 def _check_cuda(name, t, dev, dtype=None, shape=None):
     if t.device != dev:
         raise ValueError(f"{name} is on {t.device}, expected {dev}")

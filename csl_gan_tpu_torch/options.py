@@ -366,7 +366,6 @@ _NOT_PORTED = [
     ("--bf16 on the vanilla model", lambda o: o.bf16 and _vanilla(o)),
     ("--u8_table", lambda o: o.u8_table),
     ("--group_fakes", lambda o: o.group_fakes),
-    ("--ref_pixel_shuffle", lambda o: o.ref_pixel_shuffle),
     ("--profile_training", lambda o: o.profile_training),
     ("--download_mnist", lambda o: o.download_mnist),
     ("--log_every below one epoch of samples", lambda o: o.log_every_epochs < 0),
@@ -431,8 +430,21 @@ def save_opt(opt, path) -> None:
 
 
 def load_opt(path) -> Namespace:
-    """A saved opt.txt of either package (reference options.py:283-287)."""
+    """A saved opt.txt of either package or of the reference (reference
+    options.py:283-287). A flag the file lacks (the reference's has none of
+    the JAX package's extensions) takes this parser's default. A per-layer
+    vector without its ``*_user_set`` mark, which only the two packages
+    write, counts as set by the user unless it is the CelebA default (the
+    JAX package's rule for such files, steps.py ``_per_layer_vector``)."""
     opt = Namespace()
     with open(path) as f:
         opt.__dict__ = json.load(f)
+    for action in build_parser()._actions:
+        if action.dest != "help" and not hasattr(opt, action.dest):
+            setattr(opt, action.dest, action.default)
+    for flag, mark in (("clipping_param_per_layer", "cpl_user_set"),
+                       ("imm_sens_scaling_vec", "issv_user_set")):
+        if not hasattr(opt, mark):
+            vec = getattr(opt, flag)
+            setattr(opt, mark, vec is not None and list(vec) != CELEBA_DEFAULTS[flag])
     return opt

@@ -2,14 +2,16 @@
 package's tools/fid.py).
 
 The pytorch_fid protocol of the reference (mem_inf_attack.py:416: batches of
-50, the Frechet distance of feature statistics) with one feature extractor:
+50, the Frechet distance of feature statistics) with a choice of features:
 
+  - "inception": InceptionV3 pool3 features (tools/inception.py) with the
+    weights of the npz that ``$FID_INCEPTION_WEIGHTS`` names, labelled
+    ``fid``; on the card unless the CPU is asked for. Without the file it
+    raises ``FileNotFoundError``.
   - "pixel": flattened 16x16 area-downsampled grey pixels. Numbers are NOT
     comparable to Inception-FID and are labelled ``pixel_fid``.
-  - "inception" (InceptionV3 pool3 features, the JAX package's
-    tools/inception.py) is not ported: asking for it, or setting
-    ``$FID_INCEPTION_WEIGHTS``, raises ``NotImplementedError``. "auto" takes
-    pixel features only when no Inception weights are set, and says so.
+  - "auto" (the default): Inception when the weights file exists, else
+    pixel features, and it says so.
 """
 
 from __future__ import annotations
@@ -57,17 +59,25 @@ def pixel_features(images: np.ndarray, res: int = 16) -> np.ndarray:
     return x.reshape(n, -1)
 
 
-def make_feature_fn(kind: str = "auto") -> Tuple[Callable, str]:
-    """(feature_fn(images) -> [N, D], label)."""
+def inception_weights_path() -> Optional[str]:
+    p = os.environ.get("FID_INCEPTION_WEIGHTS")
+    return p if p and os.path.exists(p) else None
+
+
+def make_feature_fn(kind: str = "auto", device=None) -> Tuple[Callable, str]:
+    """(feature_fn(images) -> [N, D], label); Inception features on
+    `device` (the card unless "cpu")."""
     if kind not in ("auto", "pixel", "inception"):
         raise ValueError(f"unknown FID feature kind {kind!r}")
-    if kind == "inception" or (kind == "auto" and os.environ.get("FID_INCEPTION_WEIGHTS")):
-        raise NotImplementedError(
-            "Inception FID (InceptionV3 features, the JAX package's "
-            "tools/inception.py) is not ported; unset FID_INCEPTION_WEIGHTS "
-            "for pixel FID")
-    if kind == "auto":
-        print("FID: pixel features (16x16 grey); Inception FID is not ported.")
+    if kind in ("auto", "inception"):
+        wpath = inception_weights_path()
+        if wpath is not None:
+            from csl_gan_tpu_torch.tools.inception import make_inception_features
+            return make_inception_features(wpath, device), "fid"
+        if kind == "inception":
+            raise FileNotFoundError(
+                "Inception FID weights not found; set FID_INCEPTION_WEIGHTS")
+        print("FID: pixel features (16x16 grey); FID_INCEPTION_WEIGHTS names no file.")
     return pixel_features, "pixel_fid"
 
 
@@ -89,17 +99,17 @@ def load_images_from_dir(path: str, limit: Optional[int] = None) -> np.ndarray:
     return np.stack(imgs)
 
 
-def calculate_fid(images1: np.ndarray, images2: np.ndarray,
-                  batch_size: int = 50, kind: str = "auto") -> Tuple[float, str]:
+def calculate_fid(images1: np.ndarray, images2: np.ndarray, batch_size: int = 50,
+                  kind: str = "auto", device=None) -> Tuple[float, str]:
     """(distance, label)."""
-    feature_fn, label = make_feature_fn(kind)
+    feature_fn, label = make_feature_fn(kind, device)
     mu1, s1 = activation_statistics(features_from_images(images1, feature_fn, batch_size))
     mu2, s2 = activation_statistics(features_from_images(images2, feature_fn, batch_size))
     return frechet_distance(mu1, s1, mu2, s2), label
 
 
-def calculate_fid_given_paths(paths, batch_size: int = 50,
-                              kind: str = "auto") -> Tuple[float, str]:
+def calculate_fid_given_paths(paths, batch_size: int = 50, kind: str = "auto",
+                              device=None) -> Tuple[float, str]:
     """The pytorch_fid entry point's shape (mem_inf_attack.py:416)."""
     return calculate_fid(load_images_from_dir(paths[0]), load_images_from_dir(paths[1]),
-                         batch_size, kind)
+                         batch_size, kind, device)

@@ -1,6 +1,8 @@
 """A run directory's saves as the evaluation tools read them: the options
 of ``opt.txt`` and the state of ``saves/{G,D}-N``, written by either
-package."""
+package or converted from the reference's (``convert_reference_checkpoint``:
+its ``opt.txt`` sets ``ref_pixel_shuffle``, so the G upsamples as the
+reference's does)."""
 
 from __future__ import annotations
 

@@ -214,7 +214,22 @@ def test_moving_avg_pl_resumes_bitwise(tmp_path):
 ])
 def test_unported_combinations_raise(tmp_path, extra, flag):
     """Flags outside the port raise naming themselves; ``--poisson`` outside
-    gc is the JAX package's config error, in both packages."""
+    gc is the JAX package's config error, in both packages. The reference's
+    pixel shuffle, ported since, parses and trains: the WCGAN is run's
+    BatchNorm G upsamples so in every block, and its steps differ from the
+    same run's without it."""
+    if flag == "--ref_pixel_shuffle":
+        runs = []
+        for tag, args in (("with", extra), ("without", extra[:-2])):
+            tr = Trainer(toptions.parse(args + ["-ne", "1", "--platform", "cpu",
+                                                "-o", str(tmp_path / tag)]))
+            assert tr.builder.G.ResBlockUp_1.UpsampleConv_0.ref_ps == (tag == "with")
+            tr.run()
+            assert tr.state.g_count > 0
+            assert all(bool(torch.isfinite(v).all()) for v in tr.state.g_params.values())
+            runs.append(tr.state.g_params)
+        assert any(not torch.equal(runs[0][k], runs[1][k]) for k in runs[0])
+        return
     if flag == "--poisson":
         for parse, argv in ((options.parse, extra),
                             (toptions.parse, extra + ["--platform", "cpu"])):

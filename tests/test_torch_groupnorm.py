@@ -251,7 +251,7 @@ def test_build_declares_the_gn_relu_entry_points():
     src = (Path(tgn.__file__).parent / "csrc" / "gn_relu.cu").read_text()
     entries = _c_entry_points(src)
     assert set(entries) == {"gn_relu_scratch", "gn_relu_fwd", "gn_relu_bwd",
-                            "gn_relu_occupancy", "gn_error_string"}
+                            "gn_relu_occupancy", "gn_relu_launches", "gn_error_string"}
 
     class Lib:
         def __getattr__(self, name):

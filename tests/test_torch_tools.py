@@ -119,14 +119,20 @@ def test_attack_matches_jax():
 
 
 def test_inception_fid_is_refused(monkeypatch):
+    """Inception FID without a weights file raises FileNotFoundError in both
+    packages; "auto" then takes pixel features, also when
+    $FID_INCEPTION_WEIGHTS names no file (the Inception path with weights:
+    tests/test_torch_inception.py)."""
     x = np.zeros((4, 16, 16, 1), np.float32)
-    with pytest.raises(NotImplementedError, match="Inception"):
-        fid.calculate_fid(x, x, kind="inception")
+    monkeypatch.delenv("FID_INCEPTION_WEIGHTS", raising=False)
+    for calc in (fid.calculate_fid, jfid.calculate_fid):
+        with pytest.raises(FileNotFoundError, match="FID_INCEPTION_WEIGHTS"):
+            calc(x, x, kind="inception")
     monkeypatch.setenv("FID_INCEPTION_WEIGHTS", "/some/weights.npz")
-    with pytest.raises(NotImplementedError, match="Inception"):
-        fid.calculate_fid(x, x)
-    with pytest.raises(NotImplementedError, match="Inception"):
-        fid.make_feature_fn("auto")
+    with pytest.raises(FileNotFoundError, match="FID_INCEPTION_WEIGHTS"):
+        fid.make_feature_fn("inception")
+    assert fid.make_feature_fn("auto")[1] == jfid.make_feature_fn("auto")[1] == "pixel_fid"
+    assert fid.calculate_fid(x, x)[1] == "pixel_fid"
 
 
 @pytest.mark.parametrize("which", ["port", "jax", "dcresnet"])

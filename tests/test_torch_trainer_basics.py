@@ -16,6 +16,7 @@ import torch
 
 from csl_gan_tpu.privacy import RdpAccountant as JaxRdpAccountant
 from csl_gan_tpu_torch import options as toptions
+from csl_gan_tpu_torch.models.registry import init_models
 from csl_gan_tpu_torch.ops import pallas_epoch
 from csl_gan_tpu_torch.training.loop import Trainer
 from torch_trainer_cases import DCRN, FLAGSHIP, STEP_RUNNER_FLAGS, TINY
@@ -150,7 +151,9 @@ def test_unported_flags_raise(tmp_path, extra, flag):
     samples (the default mean size exceeds -tss) raise the JAX package's
     config error on the same argv, and so does a penalty under DP without
     either (the JAX rule of ``-pupd true``), and the others parse, a batch
-    of 20, Poisson subsampling and backprop clipping off K1's path."""
+    of 20, Poisson subsampling and backprop clipping off K1's path, and the
+    reference's pixel shuffle, which has no effect on the vanilla model: one
+    step with it gives the params of one step without it, bit for bit."""
     argv = TINY + extra + ["--platform", "cpu", "-o", str(tmp_path)]
     if flag not in LIFTED:
         with pytest.raises(NotImplementedError, match=flag):
@@ -165,6 +168,17 @@ def test_unported_flags_raise(tmp_path, extra, flag):
         return
     opt = toptions.parse(argv)
     assert toptions._k1_path(opt) == (flag not in OFF_K1)
+    if flag == "--ref_pixel_shuffle":
+        states = []
+        for tag, args in (("with", argv), ("without", TINY + ["--platform", "cpu"])):
+            tr = Trainer(toptions.parse(args + ["-tss", "64", "-ne", "1",
+                                                "-o", str(tmp_path / tag)]))
+            tr.run()
+            assert tr.state.d_count == tr.state.g_count == 1
+            states.append(tr.state)
+        for a, b in ((states[0].d_params, states[1].d_params),
+                     (states[0].g_params, states[1].g_params)):
+            assert all(torch.equal(a[k], b[k]) for k in b)
 
 
 # Flags of test_unported_flags_raise that later slices ported, each with the
@@ -173,7 +187,7 @@ LIFTED = {"--grad_clip_mode": "Adaptive clipping derives its thresholds",
           "--num_mean_samples": r"mean_sample_size \(5000\) exceeds", "--public_set_size": None,
           "--warmup_iter": None, "--stop_on_g_freeze": None, "--batch_size": None,
           "--penalty": "In order to enable gradient penalty using public data",
-          "--poisson": None, "--backprop_clip": None}
+          "--poisson": None, "--backprop_clip": None, "--ref_pixel_shuffle": None}
 # The lifted cases that parse but leave K1's gate.
 OFF_K1 = ("--batch_size", "--poisson", "--backprop_clip")
 
@@ -204,16 +218,18 @@ def test_not_ported_names_only_unported_flags():
     for lifted in ("--public_set_size", "--warmup_iter", "--stop_on_g_freeze",
                    "--batch_size", "--num_mean_samples"):
         assert not any(lifted in n for n in names), lifted
-    for lifted in ("--poisson", "-pupd", "DRAGAN", "--backprop_clip", "--penalty"):
+    for lifted in ("--poisson", "-pupd", "DRAGAN", "--backprop_clip", "--penalty",
+                   "--ref_pixel_shuffle"):
         assert not any(lifted in n for n in names), lifted
-    for kept in ("adaptive", "--weight_decay", "--ref_pixel_shuffle", "--group_fakes",
+    for kept in ("adaptive", "--weight_decay", "--group_fakes",
                  "--fsdp", "--tp", "--mesh_shape", "--multihost", "--u8_table"):
         assert any(kept in n for n in names), kept
 
 
 def test_celeba_raises(tmp_path):
     """The CelebA flagship parses with the CelebA defaults, and so do its
-    unconditional, CGAN, WCGAN and embedded-G variants; CelebA
+    unconditional, CGAN, WCGAN and embedded-G variants and the reference's
+    pixel shuffle (its G upsamples so in every block); CelebA
     configurations outside the ported slice raise naming the flag, and
     ``--poisson`` outside gc raises the JAX package's config error in both
     packages."""
@@ -227,8 +243,11 @@ def test_celeba_raises(tmp_path):
                     ["--conditional", "--g_label_emb_mode", "embed"]):
         toptions.parse(["CelebA", "-tss", "12800", "-dpm", "gc", "-nms", "1"] + variant
                        + ["-o", str(tmp_path / "ok")])
-    for extra, flag in ((["-dpm", "gc", "--ref_pixel_shuffle", "true"], "--ref_pixel_shuffle"),
-                        (["--conditional", "-dpm", "gc", "-nms", "1", "--conditional_arch",
+    opt = toptions.parse(["CelebA", "-tss", "12800", "--conditional", "-dpm", "gc", "-nms", "1",
+                          "--ref_pixel_shuffle", "true", "-o", str(tmp_path / "ok")])
+    G, _ = init_models(opt, torch.device("cpu"))
+    assert all(getattr(G, f"ResBlockUp_{i}").UpsampleConv_0.ref_ps for i in range(G.n_blocks))
+    for extra, flag in ((["--conditional", "-dpm", "gc", "-nms", "1", "--conditional_arch",
                           "WCGAN", "--u8_table", "true"], "--u8_table"),
                         (["--conditional", "-dpm", "gc", "-nms", "1", "-wd", "0.1"],
                          "--weight_decay"),
