@@ -9,6 +9,7 @@
     python3 chip_smoke.py --public-data # steps 1-2, then step 9 alone
     python3 chip_smoke.py --dp-surface  # steps 1-2, then step 10 alone
     python3 chip_smoke.py --interop     # steps 1-2, then step 11 alone
+    python3 chip_smoke.py --surface     # steps 1-2, then step 12 alone
 
 From the root of a checkout, on a machine with one NVIDIA H100 and the CUDA
 toolkit, it:
@@ -215,15 +216,43 @@ toolkit, it:
      K5 18 launches, the update counts, finite logs and parameters and
      epsilon; holds K2/K3 (FFMA) and K4/K5 against their plain versions at
      every fp32 B 128 shape the resume gave them;
- 12. prints one JSON ``kernels`` line (K1-K6: launches on their main path,
+ 12. the rest of the single-device surface (outputs under
+     build/chip_smoke/surface/). Through the Trainer, one epoch each, every
+     kernel's launches counted by its wrapper (K4's also by batch) and held
+     to the count the code gives, finite logs and parameters, the update
+     counts and epsilon: the MNIST flagship (``-tss 60000``, K1 once) and the
+     CelebA flagship's flags cut to ``-tss 1280`` (10 D steps, 2 G updates;
+     K2/K3 30 on the tensor cores, K4 108, K5 18), each after a warm-up run,
+     as the phase's references;
+     MNIST with ``-wd 1e-4``, ``--u8_table true`` (the gathered batch on the
+     card within one ulp of its stored pixels / 255) and ``--bf16 true``, all
+     three off K1 (the step runner); MNIST with ``--log_every 12000
+     --sample_every 12000`` (K1 once for each of the epoch's 5 segments; the
+     log rows' epoch progress and the grids the JAX Trainer's cadence gives);
+     CelebA with ``--group_fakes true`` (K4 9 times a G forward, at B 128 for
+     the head step and the G updates, 640 for the cadence group, 512 for the
+     tail), its end state held to 3x the gap of the per-batch epoch (same
+     seed) with each D step's fakes moved as the 640-row forward moves them
+     (two per-batch runs are bitwise equal), then K4/K5 at B 640 at the
+     G's five norm shapes against their plain versions (step 4's bounds,
+     twice bitwise equal), K4 timed; 1280 real-format JPEGs (178x218, with a
+     list_attr_celeba.txt) decoded into the cache by the native decoder
+     (which must run), memory-mapped on the second call and decoded by PIL
+     alone, each timed, then the CelebA flagship's flags trained from the
+     cache and with ``--host_loop true`` on the same files (K2-K5 as the
+     reference); and CelebA with ``-p`` (the trace under ``profile/``, the
+     key-averages table and the sections' summary printed). Prints each
+     run's ms per D step beside its flagship's;
+ 13. prints one JSON ``kernels`` line (K1-K6: launches on their main path,
      max abs gap to the plain version, ms, plain ms, bound, library ms; K4/K5
      also their launches on the CelebA tm path; every kernel its launches on
      each path of step 8, ``cond_arch_launches``, of step 9,
-     ``public_data_launches``, of step 10, ``dp_surface_launches``, and of
-     step 11, ``interop_launches``; K2-K6 their times at batch 50, ``b50_ms`` /
-     ``b50_plain_ms``, and K2-K5 at the 219-row Poisson buffer, ``b219_ms`` /
-     ``b219_plain_ms``);
- 13. ends with ``{"ok": true, "device": {...}}`` as the last line.
+     ``public_data_launches``, of step 10, ``dp_surface_launches``, of step
+     11, ``interop_launches``, and of step 12, ``surface_launches``; K2-K6
+     their times at batch 50, ``b50_ms`` / ``b50_plain_ms``, K2-K5 at the
+     219-row Poisson buffer, ``b219_ms`` / ``b219_plain_ms``, and K4 at the
+     grouped batch, ``b640_ms`` / ``b640_plain_ms``);
+ 14. ends with ``{"ok": true, "device": {...}}`` as the last line.
 Any failure raises or exits non-zero, and no result line is printed. It
 needs no network and imports nothing of JAX or of the JAX package.
 """
@@ -2724,12 +2753,12 @@ def public_run(name, argv, out_root, smi, ref_ms):
         w.launches = 0
     pcg.ghost_sq_norms.launches_tc = pcg.weighted_kernel_grad.launches_tc = 0
     step_runner_steps = [0]
-    d_step = tr.step_runner._d_step
+    train_batch = tr.step_runner._train_batch
 
     def counted(*a, **k):
         step_runner_steps[0] += 1
-        return d_step(*a, **k)
-    tr.step_runner._d_step = counted
+        return train_batch(*a, **k)
+    tr.step_runner._train_batch = counted
     init_clip = tr.state.clipping
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
@@ -2737,7 +2766,7 @@ def public_run(name, argv, out_root, smi, ref_ms):
     tr.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    del tr.step_runner._d_step
+    del tr.step_runner._train_batch
     launches = {k: w.launches for k, w in wrappers.items()}
     launches["K2 tc"], launches["K3 tc"] = (pcg.ghost_sq_norms.launches_tc,
                                             pcg.weighted_kernel_grad.launches_tc)
@@ -3385,6 +3414,393 @@ def interop_phase(dev, out_root, smi, peak_flops):
             "resume": dict(zip(("K2", "K3", "K4", "K5"), counts))}
 
 
+# ---------------- the rest of the single-device surface ----------------
+
+# Phase 12: each run one epoch through the Trainer. MNIST at the flagship's
+# flags (bs 600, 100 steps an epoch, nothing cut); CelebA at the flagship's
+# flags cut as path 2 is (-tss 1280: 10 D steps, 2 G updates an epoch). The
+# two flagships run first, as the references of the phase's ms per D step.
+SURF_MNIST = ["MNIST", "--conditional", "-dpm", "gc", "--sigma", "10", "-bs", str(BS),
+              "-tss", "60000", "--log_every", "60000"]
+SURF_CELEBA = PUBLIC_CELEBA + ["-nms", "1", "--mean_sample_size", "8", "--log_every", "1280"]
+SURF_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K2 tc", "K3 tc")
+# The sub-epoch cadence: a log row and a grid every 20 of the 100 steps.
+SURF_CADENCE = 12000
+# The grouped CelebA epoch against the per-batch one. Two per-batch runs of
+# one seed are bitwise equal on the card (default or deterministic cuDNN
+# alike), so the witness is the per-batch epoch with each D step's fakes
+# moved as the batched forward moves them: on the share of elements where
+# the 640-row forward's fakes differ from the per-step forwards' (measured
+# on the same G and z), by their median relative gap, with a random sign.
+# The grouped epoch is held to 3x that witness's gap.
+SURF_GROUP_FACTOR = 3.0
+# Real-format CelebA: JPEGs of the aligned set's size, and threads of the
+# native decoder (-nw, the Trainer's default).
+SURF_JPEGS, SURF_JPEG_SIZE, SURF_THREADS = 1280, (178, 218), 8
+
+
+def _mnist_expect(k1):
+    return lambda n_d, n_g: {"K1": k1}
+
+
+def _celeba_expect(n_d, n_g, fakes=None):
+    out = _conv_launches(n_d, n_g)
+    if fakes is not None:
+        out["K4"] = G_NORMS * (fakes + n_g)
+    return out
+
+
+@contextlib.contextmanager
+def k4_batches(counter):
+    """K4's wrapper replaced by a spy that counts its launches by batch in
+    ``counter`` and delegates; the wrapper's count moves on the spy."""
+    from csl_gan_tpu_torch.ops import pallas_groupnorm as gn
+    fn = gn.gn_relu_forward
+
+    def spy(x3, *args, **kw):
+        before = spy.launches
+        out = fn(x3, *args, **kw)
+        if spy.launches > before:
+            counter[x3.shape[0]] += 1
+        return out
+    spy.launches = 0
+    with _swapped(((gn, "gn_relu_forward", spy),)):
+        yield spy
+
+
+def surface_run(name, argv, root, smi, expect, capture=False, setup=None):
+    """One epoch of ``argv`` through the Trainer, every kernel's launches
+    counted (K4's also by batch) and held to ``expect(D steps, G updates)``;
+    finite logs and parameters, the update counts and epsilon against the
+    port's accountant recomputed for the steps plus the mean samples' cost.
+    Returns a dict: launches, ms per D step (CUDA events over the epoch),
+    the Trainer, its output directory, K4's launches by batch and, with
+    ``capture``, what the run printed. ``setup(trainer)`` runs before the
+    epoch."""
+    import collections
+    import io
+
+    import torch
+    from csl_gan_tpu_torch import options as toptions
+    from csl_gan_tpu_torch.ops import pallas_clip as pc
+    from csl_gan_tpu_torch.ops import pallas_conv_ghost as pcg
+    from csl_gan_tpu_torch.ops import pallas_epoch as pe
+    from csl_gan_tpu_torch.ops import pallas_groupnorm as gn
+    from csl_gan_tpu_torch.privacy import RdpAccountant
+    from csl_gan_tpu_torch.training.loop import Trainer
+
+    out = root / name.replace(" ", "_").replace("-", "")
+    opt = toptions.parse(argv + ["-ne", "1", "--manual_seed", "1", "-o", str(out)])
+    t0 = time.perf_counter()
+    tr = Trainer(opt)
+    t_init = time.perf_counter() - t0
+    if setup is not None:
+        setup(tr)
+    by_batch = collections.Counter()
+    printed = io.StringIO()
+    with k4_batches(by_batch) as k4:
+        wrappers = {"K1": pe.epoch_kernel, "K2": pcg.ghost_sq_norms,
+                    "K3": pcg.weighted_kernel_grad, "K4": k4, "K5": gn.gn_relu_backward,
+                    "K6": pc.leaf_weighted_sum_noise}
+        for w in wrappers.values():
+            w.launches = 0
+        pcg.ghost_sq_norms.launches_tc = pcg.weighted_kernel_grad.launches_tc = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed) if capture else contextlib.nullcontext():
+            tr.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: w.launches for k, w in wrappers.items()}
+    launches["K2 tc"], launches["K3 tc"] = (pcg.ghost_sq_norms.launches_tc,
+                                            pcg.weighted_kernel_grad.launches_tc)
+    n = tr.n_batches
+    ms = sum(a.elapsed_time(b) for a, b in tr.runner.epoch_events) / n
+    with open(out / "log.csv") as fh:
+        rows = list(csv.DictReader(fh))
+    vals = [float(x) for r in rows for key, cell in r.items()
+            if key not in ("Epoch", "Batch") for x in cell.strip("[]").split()]
+    if not rows or not all(math.isfinite(v) for v in vals):
+        fail(f"{name}: no log row or non-finite log values")
+    with open(out / "privacy_log.csv") as fh:
+        eps = [float(r["Epsilon"]) for r in csv.DictReader(fh)]
+    acc = RdpAccountant(opt.batch_size, opt.train_set_size, opt.sigma)
+    acc.step(n)
+    want_eps = acc.get_privacy_spent(opt.delta)[0] + tr.mean_sample_privacy_cost
+    if len(eps) != 1 or not math.isclose(eps[-1], want_eps, rel_tol=1e-12):
+        fail(f"{name}: epsilon {eps}, expected {want_eps} after {n} steps")
+    if not all(torch.isfinite(t).all() for p in (tr.state.d_params, tr.state.g_params)
+               for t in p.values()):
+        fail(f"non-finite params after {name}")
+    g_updates = -(-n // opt.n_d_steps)
+    if tr.state.d_count != n or tr.state.g_count != g_updates:
+        fail(f"{name}: D / G update counts {tr.state.d_count} / {tr.state.g_count}")
+    want = dict.fromkeys(SURF_KERNELS, 0)
+    want.update(expect(n, g_updates))
+    want["K2 tc"], want["K3 tc"] = want["K2"], want["K3"]
+    if launches != want:
+        fail(f"{name}: kernel launches {launches}, expected {want}")
+    print(f"{name} [{smi}]: 1 epoch of {n} D steps ({g_updates} G updates) on the "
+          f"{type(tr.runner).__name__}, launches {launches}"
+          + (f", K4 by batch {dict(sorted(by_batch.items()))}" if by_batch else "")
+          + f"; {ms:.3f} ms per D step; epsilon {eps[-1]:.6f}; {len(rows)} log row(s), "
+          f"last D Adv Loss {float(rows[-1]['D Adv Loss']):.4f}; Trainer built in "
+          f"{t_init:.2f} s, run {wall:.2f} s")
+    return {"launches": launches, "ms": ms, "tr": tr, "out": out, "k4_batches": by_batch,
+            "printed": printed.getvalue()}
+
+
+def _state_gap(a, b) -> float:
+    """The largest relative l2 gap over the parameter and Adam groups of two
+    TrainStates."""
+    import torch
+    worst = 0.0
+    for group in ("d_params", "d_mu", "d_nu", "g_params", "g_mu", "g_nu"):
+        u, v = getattr(a, group), getattr(b, group)
+        worst = max(worst, rel_l2(torch.cat([u[k].float().reshape(-1) for k in v]),
+                                  torch.cat([v[k].float().reshape(-1) for k in v])))
+    return worst
+
+
+def write_celeba_jpegs(root):
+    """SURF_JPEGS numbered JPEGs of SURF_JPEG_SIZE and a list_attr_celeba.txt
+    with all 40 columns, in the layout data/celeba.py reads (the fixture of
+    JAX tests/test_real_celeba.py:25-47). Returns (image dir, attr file)."""
+    import numpy as np
+    from PIL import Image
+    from csl_gan_tpu_torch.data.celeba import CELEBA_ATTR
+
+    img = root / "img_align_celeba"
+    img.mkdir(parents=True)
+    rng = np.random.default_rng(12)
+    w, h = SURF_JPEG_SIZE
+    for i in range(SURF_JPEGS):
+        base = rng.integers(0, 256, (1, 1, 3)) + rng.integers(-40, 40, (h, w, 3))
+        Image.fromarray(np.clip(base, 0, 255).astype(np.uint8)).save(
+            img / f"{i + 1:06d}.jpg", quality=90)
+    attrs = CELEBA_ATTR[1:]
+    male = attrs.index("Male")
+    attr_file = root / "list_attr_celeba.txt"
+    with open(attr_file, "w") as f:
+        f.write(f"{SURF_JPEGS}\n" + " ".join(attrs) + "\n")
+        for i in range(SURF_JPEGS):
+            row = [-1] * len(attrs)
+            row[male] = 1 if i % 3 == 0 else -1
+            f.write(f"{i + 1:06d}.jpg " + " ".join(map(str, row)) + "\n")
+    return img, attr_file
+
+
+def surface_decode(root, smi):
+    """The real-format files decoded into the cache twice, cold (the native
+    decoder, which must run) and memory-mapped, and once by PIL alone (into
+    another cache), each timed. Returns (image dir, attr file, images/s:
+    native, PIL)."""
+    import numpy as np
+    from csl_gan_tpu_torch.data import celeba, native
+
+    t0 = time.perf_counter()
+    img, attr = write_celeba_jpegs(root)
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if not native.available():
+        fail(f"the native decoder did not build: {native.why_unavailable}")
+    t_build = time.perf_counter() - t0
+    ds = celeba.CelebADataset(str(img), 64, length=SURF_JPEGS, attr_file=str(attr),
+                              attr="Male")
+    cold, labels = ds.decoded_cache(n_threads=SURF_THREADS)
+    st = dict(ds.decode_stats)
+    if not st["decoder"].startswith("native") or st["pil"]:
+        fail(f"the native decoder did not decode the cache ({st}; {native.why_unavailable})")
+    warm, _ = ds.decoded_cache()
+    mm = dict(ds.decode_stats)
+    if mm["decoder"] != "cache" or not isinstance(warm, np.memmap):
+        fail(f"the second decode did not memory-map the cache ({mm})")
+    with _swapped(((native, "available", lambda: False),)):
+        pds = celeba.CelebADataset(str(img), 64, length=SURF_JPEGS, attr_file=str(attr),
+                                   attr="Male")
+        pil, _ = pds.decoded_cache(cache_dir=str(root / "pil_cache"))
+    pst = pds.decode_stats
+    gap = int(np.abs(pil.astype(np.int16) - np.asarray(cold, np.int16)).max())
+    nat_ips, pil_ips = SURF_JPEGS / st["seconds"], SURF_JPEGS / pst["seconds"]
+    print(f"CelebA decode-once cache [{smi}]: {SURF_JPEGS} JPEGs of {SURF_JPEG_SIZE[0]}x"
+          f"{SURF_JPEG_SIZE[1]} written in {t_write:.2f} s; the decoder built and loaded "
+          f"in {t_build:.2f} s; decoded to 64x64 by the "
+          f"{st['decoder']} decoder (libjpeg: {native.link}) in {st['seconds']:.3f} s, "
+          f"{nat_ips:.0f} images/s; again memory-mapped in {mm['seconds'] * 1e3:.2f} ms; "
+          f"by PIL alone in {pst['seconds']:.3f} s, {pil_ips:.0f} images/s "
+          f"({nat_ips / pil_ips:.1f}x); native against PIL max {gap} LSB; labels Male "
+          f"{int(labels.sum())} of {SURF_JPEGS}")
+    if gap > 1:
+        fail(f"the native decode is {gap} LSB from PIL's")
+    return img, attr, nat_ips, pil_ips
+
+
+def surface_phase(dev, out_root, smi):
+    """Phase 12 (outputs under build/chip_smoke/surface/): the single-device
+    flags through the Trainer, K4 at the grouped batch against its plain
+    version, the decode-once cache on real-format files. Returns ({run:
+    launches by kernel}, {"K4": (ms, plain ms) at B 640}, decode images/s)."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from csl_gan_tpu_torch.ops import pallas_groupnorm as gn
+
+    t_phase = time.perf_counter()
+    root = out_root / "surface"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    runs = {}
+
+    def run(name, argv, expect, **kw):
+        r = surface_run(name, argv, root, smi, expect, **kw)
+        runs[name] = r["launches"]
+        return r
+
+    # Each flagship once to warm the process (cuDNN, the kernels' first
+    # calls), then the measured reference.
+    surface_run("MNIST warm-up", SURF_MNIST, root, smi, _mnist_expect(1))
+    mnist = run("MNIST flagship", SURF_MNIST, _mnist_expect(1))
+    surface_run("CelebA warm-up", SURF_CELEBA, root, smi, _celeba_expect)
+    celeba = run("CelebA flagship", SURF_CELEBA, _celeba_expect)
+    ref = {"MNIST": mnist["ms"], "CelebA": celeba["ms"]}
+
+    def beside(r, model):
+        print(f"  {r['ms']:.3f} ms per D step, {r['ms'] / ref[model]:.2f}x the {model} "
+              f"flagship's {ref[model]:.3f} of this run")
+
+    for name, extra in (("MNIST -wd", ["-wd", "1e-4"]), ("MNIST u8 table", ["--u8_table", "true"]),
+                        ("MNIST bf16", ["--bf16", "true"])):
+        r = run(name, SURF_MNIST + extra, _mnist_expect(0))
+        beside(r, "MNIST")
+        if name == "MNIST u8 table":
+            tr = r["tr"]
+            if tr.table.dtype != torch.uint8 or tr.builder.onehot_in_table:
+                fail("--u8_table did not store the uint8 [x * 255 | label] table")
+            idx = torch.arange(BS, device=dev)
+            x, _ = tr._gather(idx)
+            torch.cuda.synchronize()
+            u8 = tr.table[:BS, :F].cpu().numpy()
+            want = (u8.astype(np.float64) / 255.0).astype(np.float32).reshape(x.shape)
+            ulp = int(np.max(np.abs(x.cpu().numpy().view(np.int32).astype(np.int64)
+                                    - want.view(np.int32))))
+            src = np.asarray(tr.dataset.images[:BS], np.float32)
+            quant = float(np.abs(x.cpu().numpy() - src).max())
+            print(f"  u8 table on the card: {tuple(tr.table.shape)} uint8; a gathered batch "
+                  f"of {BS} rows dequantized within {ulp} ulp of the fp32 values of its "
+                  f"stored pixels (u8 / 255 exactly rounded); the synthetic MNIST pixels are "
+                  f"not on the 1/255 grid, so the batch is {quant:.3e} from the fp32 "
+                  f"table's (bound 1/510)")
+            if ulp > 1 or quant > 1 / 510 + 1e-7:
+                fail(f"the u8 table's batch is {ulp} ulp from its pixels")
+        del r
+
+    cad = run("MNIST sub-epoch cadence", SURF_MNIST + ["--log_every", str(SURF_CADENCE),
+                                                       "--sample_every", str(SURF_CADENCE)],
+              _mnist_expect(60000 // SURF_CADENCE))
+    beside(cad, "MNIST")
+    with open(cad["out"] / "log.csv") as fh:
+        progress = [float(r["Batch"]) for r in csv.DictReader(fh)]
+    grids = sorted(p.name for p in (cad["out"] / "samples").iterdir())
+    step = SURF_CADENCE // BS
+    want_p = [100.0 * (k - 1) / (60000 / BS) for k in range(step, 60000 // BS + 1, step)]
+    want_g = sorted(f"1-{k - 1}.png" for k in range(step, 60000 // BS + 1, step))
+    print(f"  log.csv epoch progress {progress}, grids {grids}: K1 once a segment "
+          f"({cad['launches']['K1']} launches for {len(want_p)} segments)")
+    if progress != want_p or grids != want_g:
+        fail(f"sub-epoch cadence: progress {progress} / grids {grids}, the JAX Trainer's "
+             f"cadence gives {want_p} / {want_g}")
+    del cad
+
+    # --group_fakes against the per-batch epoch, same seed.
+    grouped = run("CelebA group_fakes", SURF_CELEBA + ["--group_fakes", "true"],
+                  lambda n_d, n_g: _celeba_expect(n_d, n_g, fakes=1 + -(-(n_d - 1) // 5)))
+    beside(grouped, "CelebA")
+    want_b = {CB: 1 + 2, 5 * CB: 1, 4 * CB: 1}
+    got_b = {b: c // G_NORMS for b, c in grouped["k4_batches"].items()}
+    if got_b != want_b or any(c % G_NORMS for c in grouped["k4_batches"].values()):
+        fail(f"--group_fakes: K4 G forwards by batch {got_b}, expected {want_b}")
+    again = surface_run("CelebA per-batch again", SURF_CELEBA, root, smi, _celeba_expect)
+    repeat = _state_gap(again["tr"].state, celeba["tr"].state)
+    # How the batched forward moves the fakes, on the reference's end state.
+    b, st = celeba["tr"].builder, celeba["tr"].state
+    g = torch.Generator(dev).manual_seed(43)
+    z, y = b.gen_z(g, CB, (5,)), b.gen_y(g, CB, (5,))
+    each = torch.stack([b.fakes(st.g_params, z[s], y[s]) for s in range(5)]).float()
+    diff = b.batch_fakes(st, z, y).float() - each
+    moved = diff != 0
+    share = float(moved.float().mean())
+    rel = float((diff[moved].abs() / each[moved].abs().clamp_min(1e-30)).median()) \
+        if share else 0.0
+    gm = torch.Generator(dev).manual_seed(44)
+
+    def fakes_moved(tr):
+        forward = tr.builder.fakes
+
+        def fakes(g_params, zz, yy):
+            f = forward(g_params, zz, yy)
+            on = torch.rand(f.shape, generator=gm, device=f.device) < share
+            sign = torch.rand(f.shape, generator=gm, device=f.device) < 0.5
+            return torch.where(on, f * torch.where(sign, 1 - rel, 1 + rel), f)
+        tr.builder.fakes = fakes
+
+    moved_run = surface_run("CelebA per-batch, fakes moved", SURF_CELEBA, root, smi,
+                            _celeba_expect, setup=fakes_moved)
+    witness = _state_gap(moved_run["tr"].state, celeba["tr"].state)
+    gap = _state_gap(grouped["tr"].state, celeba["tr"].state)
+    print(f"  the 640-row forward moves {share:.3e} of the fakes' elements by a median "
+          f"{rel:.3e} relative; grouped epoch against the per-batch one (same seed): "
+          f"{gap:.3e}; two per-batch runs {repeat:.3e}; witness, the per-batch epoch with "
+          f"its fakes moved so: {witness:.3e}; held to {SURF_GROUP_FACTOR:g}x")
+    if gap > SURF_GROUP_FACTOR * max(witness, repeat):
+        fail(f"the grouped epoch leaves the per-batch one by {gap:.3e}, over "
+             f"{SURF_GROUP_FACTOR:g}x the witness {witness:.3e}")
+    del grouped, again, moved_run
+    torch.cuda.empty_cache()
+    # K4 (and K5) at the grouped batch against the plain versions, timed.
+    g = torch.Generator(dev).manual_seed(41)
+    t = [0.0, 0.0]
+    b640 = 5 * CB
+    for hw, c, mult in GN_SHAPES:
+        x, dy, sc, bi = gn_operands(g, dev, b640, hw, c, torch.bfloat16)
+        gn_held(x, dy, sc, bi)
+        t[0] += mult * cuda_ms(lambda: gn.gn_relu_forward(x, sc, bi, 32, 1e-5), 10)
+        t[1] += mult * cuda_ms(lambda: gn.gn_relu_plain(x, sc, bi, 32, 1e-5), 3)
+        del x, dy
+    print(f"K4 at B {b640} [{smi}], ms per G forward by CUDA events: {t[0]:.4f}, plain "
+          f"{t[1]:.3f}")
+
+    # Real-format CelebA: the cache, then the flagship from it and the host loop.
+    img, attr, nat_ips, pil_ips = surface_decode(root / "celeba_files", smi)
+    files = ["-d", str(img), "-lp", str(attr)]
+    for name, extra in (("CelebA cache", []), ("CelebA host loop", ["--host_loop", "true"])):
+        r = run(name, SURF_CELEBA + files + extra, _celeba_expect)
+        beside(r, "CelebA")
+        tr = r["tr"]
+        if (tr.host_loader is not None) != bool(extra) or tr.dataset.label_true_count != \
+                -(-SURF_JPEGS // 3):
+            fail(f"{name}: the dataset is not the files' ({type(tr.dataset).__name__})")
+        del r, tr
+
+    prof = run("CelebA profile", SURF_CELEBA + ["-p"], _celeba_expect, capture=True)
+    text = prof["printed"]
+    trace = prof["out"] / "profile" / "trace.json"
+    table = [ln for ln in text.splitlines() if "Self CUDA time total" in ln]
+    summary = text[text.find("=== Training profile"):] if "=== Training profile" in text else ""
+    lines = text.splitlines()
+    first = next((i for i, ln in enumerate(lines) if ln.startswith("-----")), len(lines))
+    last = next((i for i, ln in enumerate(lines) if "Self CUDA time total" in ln), first)
+    print("\n".join(lines[first:last + 1]))
+    print(summary)
+    print(f"  -p: trace {trace.name} {trace.stat().st_size / 2**20:.1f} MiB under profile/; "
+          f"{prof['ms']:.3f} ms per D step with the sections' synchronizations")
+    if not (trace.exists() and table and "group_run" in summary and "checkpoint" in summary):
+        fail("-p wrote no trace, or printed no key-averages table or section summary")
+    del prof
+    print(f"surface phase [{smi}]: {time.perf_counter() - t_phase:.1f} s")
+    return runs, {"K4": tuple(t)}, (nat_ips, pil_ips)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3468,6 +3884,9 @@ def main() -> int:
     if "--interop" in sys.argv[1:]:
         interop_phase(dev, out_root, smi, peak_flops)
         return 0
+    if "--surface" in sys.argv[1:]:
+        surface_phase(dev, out_root, smi)
+        return 0
 
     # 3. The MNIST path (K1): kernel vs plain, the Trainer, K1's timing.
     max_abs = k1_check_phase(dev, out_root)
@@ -3524,7 +3943,17 @@ def main() -> int:
         k = keys[entry["name"]]
         entry["interop_launches"] = {run: counts.get(k, 0) for run, counts in interop.items()}
 
-    # 12. The kernels line; 13. the result line.
+    # 12. The rest of the single-device surface: -wd, --u8_table, --bf16 and
+    # a sub-epoch cadence on MNIST; --group_fakes, the decode-once cache, the
+    # host loop and -p on CelebA; K4 at the grouped batch.
+    surface, b640, _ = surface_phase(dev, out_root, smi)
+    for entry in kernels:
+        k = keys[entry["name"]]
+        entry["surface_launches"] = {run: counts[k] for run, counts in surface.items()}
+        if k in b640:
+            entry[f"b{5 * CB}_ms"], entry[f"b{5 * CB}_plain_ms"] = b640[k]
+
+    # 13. The kernels line; 14. the result line.
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -1,14 +1,17 @@
-"""In-memory datasets, a host batch sampler and data initialisation.
+"""In-memory datasets, a host batch loader and data initialisation.
 
 The training paths keep the whole dataset, and the public split, on the
-device (training/loop.py); the host needs the dataset objects, the per-epoch
-batch count, and single shuffled batches for the mean sampler
-(``Loader.one_batch``).
+device (training/loop.py), but for CelebA under ``--host_loop``, whose
+batches the ``Loader`` decodes on the host one at a time. The host also
+needs the dataset objects, the per-epoch batch count, and single shuffled
+batches for the mean sampler (``Loader.one_batch``).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import queue
+import threading
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -40,22 +43,56 @@ class ArrayDataset:
 
 
 class Loader:
-    """Shuffled fixed-size batches of an ArrayDataset (the JAX package's
-    data/loader.py Loader, ``one_batch`` only)."""
+    """Shuffled fixed-size batches of a dataset (the JAX package's
+    data/loader.py Loader): an ArrayDataset's rows by one fancy index, any
+    other dataset (CelebA under ``--host_loop``) item by item. An epoch
+    drops its last partial batch; batches of a dataset that decodes are
+    assembled by a background thread, PREFETCH ahead."""
+    PREFETCH = 2
 
-    def __init__(self, dataset: ArrayDataset, batch_size: int, seed: int = 0):
+    def __init__(self, dataset, batch_size: int, seed: int = 0):
         self.dataset = dataset
         self.batch_size = batch_size
         self._rng = np.random.default_rng(seed)
 
-    def one_batch(self) -> Tuple[np.ndarray, np.ndarray]:
+    def _epoch_indices(self) -> np.ndarray:
         idx = np.arange(len(self.dataset))
         self._rng.shuffle(idx)
-        idx = idx[: self.batch_size]
-        x = self.dataset.images[idx]
-        if self.dataset.transform is not None:
-            x = self.dataset.transform(x)
-        return x, self.dataset.labels[idx]
+        return idx
+
+    def _make_batch(self, idx: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        if isinstance(self.dataset, ArrayDataset):
+            x = self.dataset.images[idx]
+            if self.dataset.transform is not None:
+                x = self.dataset.transform(x)
+            return x, self.dataset.labels[idx]
+        xs, ys = zip(*(self.dataset[int(i)] for i in idx))
+        return np.stack(xs), np.asarray(ys, dtype=np.int64)
+
+    def one_batch(self) -> Tuple[np.ndarray, np.ndarray]:
+        return self._make_batch(self._epoch_indices()[: self.batch_size])
+
+    def __iter__(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+        idx = self._epoch_indices()
+        bs = self.batch_size
+        batches = [idx[i * bs:(i + 1) * bs] for i in range(len(idx) // bs)]
+        if isinstance(self.dataset, ArrayDataset):
+            for b in batches:
+                yield self._make_batch(b)
+            return
+        q: "queue.Queue" = queue.Queue(maxsize=self.PREFETCH)
+        done = object()
+
+        def produce():
+            try:
+                for b in batches:
+                    q.put(self._make_batch(b))
+            finally:
+                q.put(done)
+
+        threading.Thread(target=produce, daemon=True).start()
+        while (item := q.get()) is not done:
+            yield item
 
 
 def n_batches(dataset, batch_size: int) -> int:
@@ -64,23 +101,28 @@ def n_batches(dataset, batch_size: int) -> int:
     return len(dataset) // batch_size
 
 
-def init_data(opt) -> Tuple[ArrayDataset, Optional[ArrayDataset]]:
+def init_data(opt) -> Tuple[object, Optional[ArrayDataset]]:
     """(training set, public split or None), as the JAX package's init_data
     (data/loader.py:140-174) splits them. The training set: MNIST stratified
-    to train_set_size (reference init_util.py:13-42), or CelebA decoded once
-    to uint8 with its host transform (the JAX Trainer's decode-once path,
-    training/loop.py:87-110). The public split, with ``-pss`` > 0: MNIST's
+    to train_set_size (reference init_util.py:13-42), or CelebA read from its
+    decode-once uint8 cache (``-nw`` decoder threads) with its host
+    transform (the JAX Trainer's decode-once path, training/loop.py:87-110);
+    under ``--host_loop`` the CelebA dataset itself, which decodes each image
+    when a batch asks for it. The public split, with ``-pss`` > 0: MNIST's
     whole test split whatever the value of ``-pss``; CelebA's
-    ``public_set_size`` rows after the training rows, decoded to uint8 the
-    same way (normalised and flipped on the device after each gather)."""
+    ``public_set_size`` rows after the training rows, from their own cache
+    (normalised and flipped on the device after each gather)."""
     if opt.dataset == "CelebA":
         from csl_gan_tpu_torch.data import celeba
 
+        def dataset(length, offset, seed):
+            return celeba.CelebADataset(opt.data_path, im_size=opt.im_size, length=length,
+                                        offset=offset, attr_file=opt.label_path,
+                                        attr=opt.label_attr, rng_seed=seed)
+
         def decoded(length, offset, flip_seed):
-            ds = celeba.CelebADataset(opt.data_path, im_size=opt.im_size, length=length,
-                                      offset=offset, attr_file=opt.label_path,
-                                      attr=opt.label_attr)
-            u8, labels = ds.decoded_cache()
+            ds = dataset(length, offset, 0)
+            u8, labels = ds.decoded_cache(n_threads=int(opt.num_workers or 0))
             flip_rng = np.random.default_rng(flip_seed)
 
             def host_transform(batch):
@@ -95,6 +137,8 @@ def init_data(opt) -> Tuple[ArrayDataset, Optional[ArrayDataset]]:
 
         public = (decoded(opt.public_set_size, opt.train_set_size, opt.manual_seed + 14)
                   if opt.public_set_size > 0 else None)
+        if opt.host_loop:
+            return dataset(opt.train_set_size, 0, opt.manual_seed), public
         return decoded(opt.train_set_size, 0, opt.manual_seed + 13), public
     from csl_gan_tpu_torch.data import mnist
 

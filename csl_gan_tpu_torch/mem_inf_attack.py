@@ -16,6 +16,7 @@ the MNIST test set, or the CelebA images after the training set
 """
 
 import argparse
+from argparse import Namespace
 import json
 import os
 import shutil
@@ -53,7 +54,8 @@ def _datasets(opt):
     """((train images, labels), (nontrain images, labels)): the training set
     and the public split of ``init_data``; MNIST float in [0, 1], CelebA
     uint8."""
-    train, public = init_data(opt)
+    # The arrays themselves, whether the run streamed its batches or not.
+    train, public = init_data(Namespace(**{**vars(opt), "host_loop": False}))
     return (train.images, train.labels), (public.images, public.labels)
 
 

@@ -30,7 +30,8 @@ def _dcresnet_pair(opt):
 def init_models(opt, device: torch.device):
     """(G, D) per config, on `device`: the MNIST vanilla pair, or the DCResNet
     pair (the G's label mode and the D's conditional arch as configured),
-    bf16 compute under --bf16, whose G has GroupNorm when per-sample
+    bf16 compute under --bf16 (the vanilla MLP computes fp32 whatever the
+    flag, as the JAX package's does), whose G has GroupNorm when per-sample
     gradients are on (-dpm gc / tm / sv) and BatchNorm otherwise (the JAX
     package's ``bn = not per_sample_grad``) and, under
     ``--ref_pixel_shuffle``, the reference's pixel-shuffle upsampling (the

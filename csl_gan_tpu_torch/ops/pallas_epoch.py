@@ -50,7 +50,8 @@ _G_KEYS = ("g_adv_loss", "g_aux_loss", "g_aux_acc")
 
 def supports(builder, use_dp: bool, n_devices: int) -> bool:
     """True when the epoch kernel reproduces this config exactly (the JAX
-    module's gate, ops/pallas_epoch.py:66-106)."""
+    module's gate, ops/pallas_epoch.py:66-106), with the CUDA kernel's own
+    bound of 16 classes."""
     opt = builder.opt
     common = bool(
         not builder.penalty_types
@@ -61,7 +62,7 @@ def supports(builder, use_dp: bool, n_devices: int) -> bool:
         and builder.arch == "ACGAN"
         and builder.aux_type == "cross_entropy"
         and builder.use_aux
-        and builder.n_classes >= 2
+        and 2 <= builder.n_classes <= 16
         and isinstance(builder.G, MNISTVanillaG)
         and isinstance(builder.D, MNISTVanillaD)
         and not builder.g_has_bn

@@ -337,44 +337,35 @@ def _adaptive(o) -> bool:
 
 
 def _k1_path(o) -> bool:
-    """The configurations the Trainer runs on the epochs runner (K1): the
-    option-level part of ``ops/pallas_epoch.supports``."""
+    """The option-level part of ``ops/pallas_epoch.supports``, the gate of
+    the epochs runner (K1). ``--bf16`` sets the builder's compute dtype and
+    ``--u8_table`` stores the table without its one-hot columns; either
+    leaves the gate, as ``-wd`` does. The Trainer also leaves K1 under
+    ``--host_loop``, as the JAX Trainer's host loop does."""
     return bool(o.pallas_epoch and _vanilla(o) and o.dataset == "MNIST"
                 and o.conditional and o.conditional_arch == "ACGAN"
-                and o.aux_loss_type == "cross_entropy" and o.n_classes >= 2
+                and o.aux_loss_type == "cross_entropy" and 2 <= o.n_classes <= 16
                 and not o.penalty and not o.backprop_clip and not o.poisson
+                and not o.bf16 and not o.u8_table
                 and o.per_sample_chunk is None and o.n_d_steps <= 1
                 and float(o.train_d_until_threshold) >= 1e10
+                and (o.weight_decay or 0) == 0
                 and o.batch_size % 8 == 0
                 and (o.dp_mode is None or (o.dp_mode == "gc" and o.grad_clip_split
                                            and not o.use_grad_clip_per_layer
                                            and not _adaptive(o))))
 
 
-# (flag, test on the parsed opt) for every option whose path is not ported.
-# The vanilla MNIST flagship runs on the epoch kernel K1, every other ported
-# configuration on the step runner (training/loop.py).
+# (flag, test on the parsed opt) for every option whose path is not ported:
+# multi-device training, and downloading MNIST, which needs the network.
+# Adaptive clipping outside -dpm gc is accepted and, as in the JAX package,
+# read by no step.
 _NOT_PORTED = [
-    ("--grad_clip_mode adaptive / adaptive-pl outside -dpm gc (the JAX package "
-     "ignores it there)", lambda o: _adaptive(o) and o.dp_mode != "gc"),
-    ("--weight_decay", lambda o: (o.weight_decay or 0) != 0),
     ("--fsdp", lambda o: o.fsdp),
     ("--tp", lambda o: o.tp != 1),
     ("--mesh_shape", lambda o: (o.mesh_shape or 1) != 1),
     ("--multihost", lambda o: o.multihost),
-    ("--host_loop", lambda o: o.host_loop),
-    ("--bf16 on the vanilla model", lambda o: o.bf16 and _vanilla(o)),
-    ("--u8_table", lambda o: o.u8_table),
-    ("--group_fakes", lambda o: o.group_fakes),
-    ("--profile_training", lambda o: o.profile_training),
     ("--download_mnist", lambda o: o.download_mnist),
-    ("--log_every below one epoch of samples", lambda o: o.log_every_epochs < 0),
-    ("--sample_every below one epoch of samples on the K1 path (the MNIST "
-     "vanilla ACGAN epoch kernel)",
-     lambda o: o.sample_every_epochs < 0 and _k1_path(o)),
-    ("--aux_loss_type wasserstein on the conditional vanilla model",
-     lambda o: o.aux_loss_type != "cross_entropy" and _vanilla(o) and o.conditional),
-    ("--n_classes outside 2..16", lambda o: not 2 <= o.n_classes <= 16),
 ]
 
 

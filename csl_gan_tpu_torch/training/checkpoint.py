@@ -7,7 +7,9 @@ does), so a save of either package loads in the other.
 - ``model_state_dict``: the flax parameter tree (``convert.params_to_jax``;
   ``convert.params_from_jax`` on the way back).
 - ``optimizer_state_dict``: optax.adam's state, ``{"0": {"count", "mu",
-  "nu"}, "1": {}}`` with ``count`` an int32 scalar.
+  "nu"}, "1": {}}`` with ``count`` an int32 scalar; under ``-wd`` D's is
+  the state of the JAX package's chain (add_decayed_weights, scale_by_adam,
+  scale), ``{"0": {}, "1": {"count", "mu", "nu"}, "2": {}}``.
 - G: ``batch_stats``, a BatchNorm G's running averages (``{}`` for the
   other generators). D: ``clipping`` (an fp32 scalar, or the
   per-leaf vector in leaf order; under adaptive clipping the last step's
@@ -45,11 +47,11 @@ def _sorted(tree):
     return tree
 
 
-def _adam(mu: Params, nu: Params, count: int, kind: str) -> dict:
-    return {"0": {"count": np.asarray(count, np.int32),
-                  "mu": convert.params_to_jax(mu, kind),
-                  "nu": convert.params_to_jax(nu, kind)},
-            "1": {}}
+def _adam(mu: Params, nu: Params, count: int, kind: str, decay: bool = False) -> dict:
+    adam = {"count": np.asarray(count, np.int32),
+            "mu": convert.params_to_jax(mu, kind),
+            "nu": convert.params_to_jax(nu, kind)}
+    return {"0": {}, "1": adam, "2": {}} if decay else {"0": adam, "1": {}}
 
 
 def _write(path: str, payload: dict) -> None:
@@ -73,11 +75,12 @@ def save_g(path: str, epoch: int, state: TrainState, loss: float = 0.0) -> None:
 
 def save_d(path: str, epoch: int, state: TrainState,
            accountant_state: Optional[dict] = None,
-           run_state: Optional[dict] = None, loss: float = 0.0) -> None:
+           run_state: Optional[dict] = None, loss: float = 0.0,
+           decay: bool = False) -> None:
     payload = {
         "epoch": int(epoch),
         "model_state_dict": convert.params_to_jax(state.d_params, "D"),
-        "optimizer_state_dict": _adam(state.d_mu, state.d_nu, state.d_count, "D"),
+        "optimizer_state_dict": _adam(state.d_mu, state.d_nu, state.d_count, "D", decay),
         "clipping": convert.clipping_to_jax(state.clipping),
         "scaling_vec": convert.scaling_vec_to_jax(state.scaling_vec),
         "accountant": accountant_state or {},
@@ -90,11 +93,13 @@ def save_d(path: str, epoch: int, state: TrainState,
 
 def save_pair(output_dir: str, epoch_label: int, epoch: int, state: TrainState,
               accountant_state: Optional[dict] = None,
-              run_state: Optional[dict] = None) -> None:
+              run_state: Optional[dict] = None, decay: bool = False) -> None:
+    """saves/D-{epoch_label} and G-{epoch_label}; ``decay`` (``-wd``) writes
+    D's optimizer state in the layout of the JAX package's decay chain."""
     saves = os.path.join(output_dir, "saves")
     os.makedirs(saves, exist_ok=True)
     save_d(os.path.join(saves, f"D-{epoch_label}"), epoch, state, accountant_state,
-           run_state)
+           run_state, decay=decay)
     save_g(os.path.join(saves, f"G-{epoch_label}"), epoch, state)
 
 
@@ -126,7 +131,13 @@ def _params(tree: dict, kind: str, like: Params, path: str, what: str) -> Params
 
 
 def _opt_state(p: dict, kind: str, params: Params, path: str):
-    adam = p["optimizer_state_dict"]["0"]
+    """(mu, nu, count) of the save's Adam state: the entry of the optax chain
+    that holds a count (the first of optax.adam's, the second of the decay
+    chain's)."""
+    chain = p["optimizer_state_dict"]
+    adam = next((v for _, v in sorted(chain.items()) if "count" in v), None)
+    if adam is None:
+        raise ValueError(f"{path}: optimizer_state_dict holds no Adam state")
     return (_params(adam["mu"], kind, params, path, "Adam mu"),
             _params(adam["nu"], kind, params, path, "Adam nu"),
             int(np.asarray(adam["count"])))

@@ -2,13 +2,17 @@
 
 The port's counterpart of the JAX package's training/loop.py ``Trainer``.
 The dataset lives on the device: MNIST as one flat table ``[x | one-hot |
-label]`` (the one-hot of conditional runs only; bf16 under
-``--bf16_table``, the default), CelebA as the decoded
-uint8 images plus labels (normalised and randomly flipped after each
-gather). Groups of whole epochs run through a runner, chosen by config:
+label]`` (the one-hot of conditional runs with 2..64 classes only; bf16
+under ``--bf16_table``, the default; under ``--u8_table`` the uint8 ``[x *
+255 | label]``, dequantized after each gather), CelebA as the uint8 images
+of its decode-once cache plus labels (normalised and randomly flipped after
+each gather). Under ``--host_loop`` CelebA stays on the host: each batch is
+decoded, flipped and normalised there and copied to the card. Groups of
+whole epochs run through a runner, chosen by config:
 
-  - the MNIST vanilla conditional ACGAN path (``pallas_epoch.supports`` and
-    ``--pallas_epoch true``): the epochs runner, one K1 launch per epoch;
+  - the MNIST vanilla conditional ACGAN path (``pallas_epoch.supports``,
+    ``--pallas_epoch true``, no ``--host_loop``): the epochs runner, one K1
+    launch per epoch, or per segment when a sub-epoch cadence cuts it;
   - every other ported configuration: the step runner, whose D step is that
     of the config's ``--dp_mode`` (gc by the route the config selects: ghost,
     conv ghost through K2/K3, two-pass, or materialized per-sample gradients,
@@ -22,7 +26,9 @@ gather). Groups of whole epochs run through a runner, chosen by config:
     under ``-pupd false`` the penalty is taken per sample on the real batch,
     inside each sample's clipped loss; under ``--backprop_clip`` (the
     vanilla model) the D clips its activations and cotangents and the
-    derived bounds become the clipping vector.
+    derived bounds become the clipping vector; under ``--group_fakes`` a
+    segment that starts on a cadence point runs by cadence groups, one G
+    forward for each group's fakes.
 Options outside the ported slice are refused by ``options.check_ported``.
 With ``-pss`` the public split lives on the device beside the dataset.
 ``-wi`` runs that many non-private D steps (with their G steps) on public
@@ -36,11 +42,16 @@ writes ``log.csv`` (under ``-dpm is`` with the interval's mean, least and
 largest sensitivity),
 ``privacy_log.csv`` (epsilon plus the mean samples' privacy cost), the
 fixed-z sample grids ``samples/{epoch}-{batch}.png`` on the sample cadence
-(a sub-epoch cadence from inside the step runner) and the
-``saves/{G,D}-{epoch}`` checkpoints on the save cadence and at the end
-(training/checkpoint.py). Save and sample epochs end a group, as log epochs
-do. ``--stop_on_g_freeze N`` stops after the group that ends N log
-intervals in a row without a G update (JAX training/loop.py:871-884).
+and the ``saves/{G,D}-{epoch}`` checkpoints on the save cadence and at the
+end (training/checkpoint.py). Save and sample epochs end a group, as log
+epochs do. A ``--log_every`` or ``--sample_every`` below one epoch of
+samples cuts each epoch into segments (the JAX Trainer's ``_epoch_scan``,
+training/loop.py:591-655): the accountant steps per segment, and a cut on
+the cadence writes its log row (with the JAX Trainer's epoch progress) or
+grid. Under ``-p`` (training/profiling.py) ``torch.profiler`` traces the
+run into ``profile/`` and each phase is timed. ``--stop_on_g_freeze N``
+stops after the group that ends N log intervals in a row without a G
+update (JAX training/loop.py:871-884).
 ``--resume_path`` continues a run of either package from its saves: a save
 of the port carries the Trainer's generator states, so the resumed run
 equals the uninterrupted one; a JAX save does not, and the generators are
@@ -55,19 +66,21 @@ import os
 import shutil
 import signal
 import threading
+from contextlib import nullcontext
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from csl_gan_tpu_torch import options as options_mod
-from csl_gan_tpu_torch.data import Loader, init_data, n_batches
+from csl_gan_tpu_torch.data import ArrayDataset, Loader, init_data, n_batches
 from csl_gan_tpu_torch.models.registry import init_models
 from csl_gan_tpu_torch.ops.backprop_clip import bpc_config_for
 from csl_gan_tpu_torch.ops import pallas_epoch as pe
 from csl_gan_tpu_torch.privacy import MeanSampler, accountant_from_state_dict, make_accountant
 from csl_gan_tpu_torch.training import checkpoint
 from csl_gan_tpu_torch.training.logger import build_logger
+from csl_gan_tpu_torch.training.profiling import SectionTimer, TrainingProfile
 from csl_gan_tpu_torch.training.segment_runner import EpochsRunner, PublicRows, StepRunner
 from csl_gan_tpu_torch.training.steps import StepBuilder
 from csl_gan_tpu_torch.utils.images import denorm_celeba, save_image_grid
@@ -130,6 +143,15 @@ class Trainer:
         self.G, self.D = init_models(opt, self.device)
         self.dataset, self.public_dataset = init_data(opt)
         self.n_batches = n_batches(self.dataset, opt.batch_size)
+        # --host_loop on CelebA: batches decoded on the host, one at a time.
+        self.host_loader = None
+        if not isinstance(self.dataset, ArrayDataset):
+            if opt.poisson and opt.use_dp:
+                raise Exception("--poisson requires an in-memory (device-resident) "
+                                "dataset; this dataset is streamed from the host.")
+            self.host_loader = Loader(self.dataset, opt.batch_size, seed=opt.manual_seed)
+        # -p: the phases' wall-clock sections (training/profiling.py).
+        self._timer = SectionTimer() if opt.profile_training else None
         label1_prob = 0.5
         if opt.dataset == "CelebA" and opt.conditional and \
                 self.dataset.label_true_count is not None:
@@ -142,9 +164,11 @@ class Trainer:
         # warmup of every configuration.
         self.step_runner = StepRunner(self.builder, self.n_batches, len(self.dataset),
                                       self._gather, self._u8_images, self.mean_sampler,
-                                      self._dev_mean, self.public)
+                                      self._dev_mean, self.public, loader=self.host_loader,
+                                      device=self.device)
         self.runner = self.step_runner
-        if opt.pallas_epoch and pe.supports(self.builder, opt.use_dp, 1):
+        # The JAX Trainer's host loop never takes its epoch kernel.
+        if opt.pallas_epoch and not opt.host_loop and pe.supports(self.builder, opt.use_dp, 1):
             self.runner = EpochsRunner(self.builder, self.n_batches, opt.use_dp)
         # D leaves in torch parameter order (weight before bias) as indices
         # into the JAX leaf order: the per-layer log columns.
@@ -162,8 +186,6 @@ class Trainer:
         self.start_epoch = 0
         if not fresh and opt.resume_epochs > 0:
             self._resume(opt.resume_epochs)
-        if isinstance(self.runner, StepRunner) and opt.sample_every_epochs < 0:
-            self.runner.on_sample = self._sample_in_group
 
         # The fixed sampling grid (reference train.py:256-261): z from the
         # seed alone, drawn on the CPU so both devices draw the same grid;
@@ -251,8 +273,12 @@ class Trainer:
         table, the one-hot only for conditional runs with 2..64 classes (JAX
         training/loop.py:349); bf16 rounds to nearest even, as JAX's astype
         does, so the stored pixels equal the JAX package's table bit for bit.
-        CelebA: the uint8 images [N, H, W, 3] and the labels. The public
-        split (``PublicRows``): MNIST fp32 images, CelebA uint8 ones."""
+        Under ``--u8_table`` (JAX training/loop.py:295-335): the pixels times
+        255, rounded, as uint8, with the label in a trailing uint8 column and
+        no one-hot, for at most 255 classes, else the default table and a
+        loud message. CelebA: the uint8 images [N, H, W, 3] and the labels;
+        under ``--host_loop`` nothing. The public split (``PublicRows``):
+        MNIST fp32 images, CelebA uint8 ones."""
         opt = self.opt
         self._dev_mean = None
         if self.mean_sampler is not None:
@@ -261,18 +287,45 @@ class Trainer:
         if self.public_dataset is not None:
             pub = self.public_dataset
             self.public = PublicRows(
-                torch.from_numpy(np.ascontiguousarray(pub.images)).to(self.device),
+                torch.from_numpy(np.array(pub.images)).to(self.device),
                 torch.from_numpy(np.asarray(pub.labels, np.int64)).to(self.device),
                 opt.n_classes if opt.conditional else 1)
+        self._u8_images = False
+        if self.host_loader is not None:
+            self.builder.img_shape = (opt.im_size, opt.im_size, 3)
+            return
         labels = np.asarray(self.dataset.labels, np.int64)
         self._u8_images = self.dataset.images.dtype == np.uint8
         if self._u8_images:
-            self.images = torch.from_numpy(np.ascontiguousarray(self.dataset.images)).to(self.device)
+            if opt.u8_table:
+                print("--u8_table requested but not applicable to this dataset (needs a "
+                      "float image table and <=255 classes); falling back to the default "
+                      "storage.")
+            # The cache is memory-mapped read-only: copy it once for the upload.
+            self.images = torch.from_numpy(np.array(self.dataset.images)).to(self.device)
             self.labels = torch.from_numpy(labels).to(self.device)
             self.builder.img_shape = tuple(self.images.shape[1:])
             return
         imgs = np.asarray(self.dataset.images, np.float32)
         self.builder.img_shape = imgs.shape[1:]
+        if opt.u8_table and opt.n_classes > 255:
+            print("--u8_table requested but not applicable to this dataset (needs a "
+                  "float image table and <=255 classes); falling back to the default "
+                  "storage.")
+        elif opt.u8_table:
+            p255 = imgs.reshape(len(imgs), -1) * 255.0
+            if not (np.all(p255 == np.rint(p255)) and p255.min() >= 0 and p255.max() <= 255):
+                print("Device image table stored uint8 (--u8_table): pixels are NOT "
+                      "u8-exact; quantizing to 1/255 steps (same order as source u8 "
+                      "quantization).")
+            else:
+                print("Device image table stored uint8 (--u8_table), <=1-ulp dequant u8/255 "
+                      "after the gather.")
+            table = np.concatenate([np.rint(np.clip(p255, 0, 255)).astype(np.uint8),
+                                    labels.astype(np.uint8)[:, None]], axis=1)
+            self.table = torch.from_numpy(table).to(self.device)
+            self.builder.labels_in_table = True
+            return
         cols = [imgs.reshape(len(imgs), -1)]
         onehot = opt.conditional and 2 <= opt.n_classes <= 64
         if onehot:
@@ -284,7 +337,8 @@ class Trainer:
         self.builder.onehot_in_table = onehot
 
     def _gather(self, idx: torch.Tensor):
-        """(images, labels) of the rows idx of the device dataset."""
+        """(images, labels) of the rows idx of the device dataset; one row
+        gather of the flat table serves both."""
         if self._u8_images:
             return self.images[idx], self.labels[idx]
         x, y, _ = self.builder.gather_batch(self.table, idx)
@@ -320,34 +374,108 @@ class Trainer:
             k += 1
         return k
 
+    def _section(self, name: str):
+        return self._timer.section(name) if self._timer else nullcontext()
+
+    def _force(self) -> None:
+        """Under ``-p`` on the card, wait for the device, so that a section's
+        time is its device work (the JAX Trainer's ``_force``)."""
+        if self._timer is not None and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _k1_sums(self, met: torch.Tensor, steps: int):
+        """K1's metric vector, summed over ``steps`` steps, as the D and G
+        metric sums of the step runner."""
+        m = met.cpu().numpy()
+        d_sums = {key: m[slot] for key, slot in (
+            ("d_adv_loss", pe.M_D_ADV), ("d_real_loss", pe.M_D_REAL),
+            ("d_fake_loss", pe.M_D_FAKE), ("d_real_acc", pe.M_D_RACC),
+            ("d_fake_acc", pe.M_D_FACC), ("d_real_aux_loss", pe.M_D_RAUX_LOSS),
+            ("d_real_aux_acc", pe.M_D_RAUX_ACC))}
+        for key, lo in (("norm_mean", pe.M_NORM_MEAN), ("norm_std", pe.M_NORM_STD),
+                        ("norm_max", pe.M_NORM_MAX), ("frac_clipped", pe.M_FRAC)):
+            d_sums[key] = m[lo:lo + len(self._torch_idx)]
+        if self.opt.dp_mode == "gc":
+            # Constant flat clipping, one value a step.
+            d_sums["clipping"] = steps * np.float32(self.state.clipping)
+        g_sums = {"g_adv_loss": m[pe.M_G_ADV], "g_aux_loss": m[pe.M_G_AUX],
+                  "g_aux_acc": m[pe.M_G_AUX_ACC]}
+        return d_sums, g_sums, steps
+
     def _run_group(self, epoch: int, k: int) -> None:
         """Epochs epoch..epoch+k-1 through the runner, then their metric sums
         (one host read per group) into the logger stats."""
-        self._group_start = epoch
-        if isinstance(self.runner, EpochsRunner):
-            self.state, met = self.runner.run(self.state, self.table,
-                                              self.gen_perm, self.gen, k)
-            m = met.cpu().numpy()
-            d_sums = {key: m[slot] for key, slot in (
-                ("d_adv_loss", pe.M_D_ADV), ("d_real_loss", pe.M_D_REAL),
-                ("d_fake_loss", pe.M_D_FAKE), ("d_real_acc", pe.M_D_RACC),
-                ("d_fake_acc", pe.M_D_FACC), ("d_real_aux_loss", pe.M_D_RAUX_LOSS),
-                ("d_real_aux_acc", pe.M_D_RAUX_ACC))}
-            for key, lo in (("norm_mean", pe.M_NORM_MEAN), ("norm_std", pe.M_NORM_STD),
-                            ("norm_max", pe.M_NORM_MAX), ("frac_clipped", pe.M_FRAC)):
-                d_sums[key] = m[lo:lo + len(self._torch_idx)]
-            g_sums = {"g_adv_loss": m[pe.M_G_ADV], "g_aux_loss": m[pe.M_G_AUX],
-                      "g_aux_acc": m[pe.M_G_AUX_ACC]}
-            g_count = self.n_batches * k
+        with self._section("group_run"):
+            if isinstance(self.runner, EpochsRunner):
+                self.state, met = self.runner.run(self.state, self.table,
+                                                  self.gen_perm, self.gen, k)
+                sums = self._k1_sums(met, self.n_batches * k)
+            else:
+                self.state, d_t, g_t, g_count = self.runner.run(self.state, self.gen_perm,
+                                                                self.gen, k)
+                sums = ({key: v.cpu().numpy() for key, v in d_t.items()},
+                        {key: v.cpu().numpy() for key, v in g_t.items()}, g_count)
+            self._force()
+        self._add_sums(*sums)
+
+    def _epoch_cuts(self):
+        """The segment ends of an epoch under a sub-epoch cadence: the
+        batches k (1-based) whose k * batch_size is a multiple of a sub-epoch
+        ``--log_every`` or ``--sample_every``, and the epoch's last (JAX
+        training/loop.py:591-604)."""
+        opt, n, bs = self.opt, self.n_batches, self.opt.batch_size
+        log_in, sample_in = opt.log_every_epochs < 0, opt.sample_every_epochs < 0
+        return sorted({k for k in range(1, n + 1)
+                       if k == n or (log_in and (k * bs) % opt.log_every == 0)
+                       or (sample_in and (k * bs) % opt.sample_every == 0)})
+
+    def _run_segments(self, epoch: int) -> None:
+        """One epoch cut into segments at its sub-epoch log and sample
+        points (the JAX Trainer's ``_epoch_scan``): after each segment its
+        sums go into the logger stats and the accountant steps by its
+        length; a log point writes its row, with the epoch progress
+        100 (cut - 1) / (train_set_size / batch_size), and a sample point
+        its grid ``{epoch + 1}-{cut - 1}.png``. K1 runs each segment in one
+        launch; the step runner by cadence groups under ``--group_fakes``
+        when a segment starts on a cadence point."""
+        opt, bs = self.opt, self.opt.batch_size
+        runner = self.runner
+        k1 = isinstance(runner, EpochsRunner)
+        timed = self.device.type == "cuda"
+        if timed:
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+        if k1:
+            src = runner.epoch_perm(self.table, self.gen_perm)
         else:
-            self.state, d_t, g_t, g_count = self.runner.run(self.state, self.gen_perm,
-                                                            self.gen, k)
-            d_sums = {key: v.cpu().numpy() for key, v in d_t.items()}
-            g_sums = {key: v.cpu().numpy() for key, v in g_t.items()}
-        if self.opt.dp_mode == "gc" and "clipping" not in d_sums:
-            # K1: constant flat clipping, one value a step.
-            d_sums["clipping"] = self.n_batches * k * np.float32(self.state.clipping)
-        self._add_sums(d_sums, g_sums, g_count)
+            src, stds = runner.epoch_source(self.gen_perm), runner.noise_stds(self.state)
+        start = 0
+        for cut in self._epoch_cuts():
+            with self._section("segment_run"):
+                if k1:
+                    self.state, met = runner.run_segment(self.state, self.table, src,
+                                                         self.gen, start, cut)
+                    sums = self._k1_sums(met, cut - start)
+                else:
+                    acc = [{}, {}, 0]
+                    self.state = runner.run_segment(self.state, src, self.gen, start, cut,
+                                                    acc, stds)
+                    sums = ({key: v.cpu().numpy() for key, v in acc[0].items()},
+                            {key: v.cpu().numpy() for key, v in acc[1].items()}, acc[2])
+                self._force()
+            self._add_sums(*sums)
+            if self.accountant is not None:
+                with self._section("accounting"):
+                    self.accountant.step(cut - start)
+            if opt.log_every_epochs < 0 and (cut * bs) % opt.log_every == 0:
+                self._flush_log(epoch, 100 * (cut - 1) / (opt.train_set_size / bs))
+            if opt.sample_every_epochs < 0 and (cut * bs) % opt.sample_every == 0:
+                with self._section("sampling"):
+                    self.sample(epoch, cut - 1)
+            start = cut
+        if timed:
+            ev[1].record()
+            runner.epoch_events = [ev]
 
     def _add_sums(self, d_sums, g_sums, g_count: int) -> None:
         """Metric sums (numpy) into the logger stats; the norm and clipping
@@ -385,45 +513,43 @@ class Trainer:
                        {key: v.cpu().numpy() for key, v in g_t.items()}, g_count)
         self.state = self.builder.reset_optimizers(self.state)
 
-    def _flush_log(self, epoch: int) -> None:
-        lg = self.logger
-        if self._is_min is not None:
-            # The interval's extremes, pre-scaled so that the logger's
-            # average divides back to them (JAX training/loop.py:843-855).
-            lg.stats["IS Min"] = self._is_min * lg.interval
-            lg.stats["IS Max"] = self._is_max * lg.interval
-            self._is_min = self._is_max = None
-        scale = 0 if lg.log_g_iter == 0 else lg.interval / lg.log_g_iter
-        for stat in [k for k in lg.stats if k.startswith("G ")]:
-            lg.stats[stat] = np.asarray(lg.stats[stat]) * scale
-        n_freeze = int(self.opt.stop_on_g_freeze or 0)
-        if n_freeze > 0:
-            self._g_freeze_streak = self._g_freeze_streak + 1 if lg.log_g_iter == 0 else 0
-            if self._g_freeze_streak >= n_freeze and not self._g_freeze_stop:
-                self._g_freeze_stop = True
-                print(f"G frozen for {self._g_freeze_streak} consecutive logging intervals "
-                      "(zero G updates; train_d_until_threshold gating) — stopping after "
-                      f"this epoch group (--stop_on_g_freeze {n_freeze}).", flush=True)
-        lg.log_g_iter = 0
-        lg.log(epoch, 100)
-        if self.accountant is not None and self.accountant.steps > 0:
-            eps, best_alpha = self.accountant.get_privacy_spent(self.opt.delta)
-            print("({}, {})-DP for alpha={}".format(eps, self.opt.delta, best_alpha))
+    def _flush_log(self, epoch: int, progress: float = 100) -> None:
+        with self._section("log_flush"):
+            lg = self.logger
+            if self._is_min is not None:
+                # The interval's extremes, pre-scaled so that the logger's
+                # average divides back to them (JAX training/loop.py:843-855).
+                lg.stats["IS Min"] = self._is_min * lg.interval
+                lg.stats["IS Max"] = self._is_max * lg.interval
+                self._is_min = self._is_max = None
+            scale = 0 if lg.log_g_iter == 0 else lg.interval / lg.log_g_iter
+            for stat in [k for k in lg.stats if k.startswith("G ")]:
+                lg.stats[stat] = np.asarray(lg.stats[stat]) * scale
+            n_freeze = int(self.opt.stop_on_g_freeze or 0)
+            if n_freeze > 0:
+                self._g_freeze_streak = self._g_freeze_streak + 1 if lg.log_g_iter == 0 else 0
+                if self._g_freeze_streak >= n_freeze and not self._g_freeze_stop:
+                    self._g_freeze_stop = True
+                    print(f"G frozen for {self._g_freeze_streak} consecutive logging intervals "
+                          "(zero G updates; train_d_until_threshold gating) — stopping after "
+                          f"this epoch group (--stop_on_g_freeze {n_freeze}).", flush=True)
+            lg.log_g_iter = 0
+            lg.log(epoch, progress)
+            if self.accountant is not None and self.accountant.steps > 0:
+                eps, best_alpha = self.accountant.get_privacy_spent(self.opt.delta)
+                print("({}, {})-DP for alpha={}".format(eps, self.opt.delta, best_alpha))
 
-    def sample(self, epoch: int, batch: int, state=None) -> None:
-        """The fixed-z grid of G at `state` (the current one by default) as
+    def sample(self, epoch: int, batch: int) -> None:
+        """The fixed-z grid of G at the current state as
         samples/{epoch + 1}-{batch}.png, n_classes columns (one class a
         column when conditional)."""
-        st = self.state if state is None else state
-        imgs = self.builder.sample_images(st, self.fixed_z, self.fixed_y).cpu().numpy()
+        imgs = self.builder.sample_images(self.state, self.fixed_z,
+                                          self.fixed_y).cpu().numpy()
         if self.opt.dataset == "CelebA":
             imgs = denorm_celeba(imgs)
         save_image_grid(imgs, os.path.join(self.opt.output_dir, "samples",
                                            f"{epoch + 1}-{batch}.png"),
                         nrow=self.opt.n_classes)
-
-    def _sample_in_group(self, state, j: int, i: int) -> None:
-        self.sample(self._group_start + j, i, state)
 
     def _save(self, epoch_label: int, epoch: int) -> None:
         run_state = {"device": self.device.type,
@@ -431,9 +557,10 @@ class Trainer:
                      "gen_perm": checkpoint.generator_state(self.gen_perm)}
         if self.step_runner.d_acc is not None:
             run_state["d_acc"] = self.step_runner.d_acc.cpu().numpy()
-        checkpoint.save_pair(self.opt.output_dir, epoch_label, epoch, self.state,
-                             self.accountant.state_dict() if self.accountant else None,
-                             run_state)
+        with self._section("checkpoint"):
+            checkpoint.save_pair(self.opt.output_dir, epoch_label, epoch, self.state,
+                                 self.accountant.state_dict() if self.accountant else None,
+                                 run_state, decay=self.builder.weight_decay != 0)
 
     def run(self) -> int:
         """Full training from ``start_epoch``. Returns the last epoch index.
@@ -443,12 +570,20 @@ class Trainer:
         "Preempted after epoch N", saves through the normal exit path and
         returns; ``--resume_path`` continues it with the accountant's steps.
         The handler is installed only on the main thread and the previous
-        one restored on the way out."""
+        one restored on the way out. Under ``-p`` the run is traced by
+        ``torch.profiler`` (written to ``profile/trace.json``), and the
+        key-averages table and the sections' summary are printed at the
+        end."""
         opt = self.opt
         print("\nStarting training...\n")
         self.logger.reset_stats()
+        profile = None
+        if self._timer is not None:
+            profile = TrainingProfile(opt.output_dir, self.device)
+            profile.start()
         if self.start_epoch == 0:
-            self._warmup()
+            with self._section("warmup"):
+                self._warmup()
         preempted = threading.Event()
         prev = None
         installed = threading.current_thread() is threading.main_thread()
@@ -458,45 +593,65 @@ class Trainer:
                       "checkpointing and exiting.", flush=True)
                 preempted.set()
             prev = signal.signal(signal.SIGTERM, on_sigterm)
-        epoch = next_e = self.start_epoch
         try:
-            while next_e < opt.n_epochs:
-                k = self._group_epochs(next_e)
-                self._run_group(next_e, k)
-                stop = False
-                for e in range(next_e, next_e + k):
-                    if self.accountant is not None:
-                        self.accountant.step(self.n_batches)
-                    if opt.log_every_epochs > 0 and (e + 1) % opt.log_every_epochs == 0:
-                        self._flush_log(e)
-                    if opt.sample_every_epochs > 0 and (e + 1) % opt.sample_every_epochs == 0:
-                        self.sample(e, self.n_batches - 1)
-                    if opt.use_dp:
-                        # The budget stop reads the bare epsilon (reference
-                        # train.py:592); the log adds the mean samples' cost.
-                        eps, _ = self.accountant.get_privacy_spent(opt.delta)
-                        self.privacy_writer.writerow([e, eps + self.mean_sample_privacy_cost])
-                        self.privacy_log.flush()
-                        stop = opt.epsilon_budget is not None and eps > opt.epsilon_budget
-                    stop = stop or self._g_freeze_stop
-                    if (e + 1) % opt.save_every == 0:
-                        self._save(e + 1, e)
-                    epoch = e
-                    if stop:
-                        break
-                if preempted.is_set():
-                    print(f"Preempted after epoch {epoch}; saving and exiting "
-                          "(resume with --resume_path).", flush=True)
-                    stop = True
-                if stop:
-                    break
-                next_e = epoch + 1
+            epoch = self._epochs(preempted)
         finally:
             if installed:
                 signal.signal(signal.SIGTERM, prev if prev is not None else signal.SIG_DFL)
+            if profile is not None:
+                print(profile.stop())
+                print("Profile trace written to", profile.trace_path)
         print("Finished training.")
         self._save(epoch + 1, opt.n_epochs)
+        if self._timer is not None:
+            print(self._timer.summary())
         self.close()
+        return epoch
+
+    def _epochs(self, preempted: threading.Event) -> int:
+        """The epoch loop of ``run``; returns the last epoch run."""
+        opt = self.opt
+        # A sub-epoch cadence cuts every epoch: one epoch at a time, by
+        # segments, the accountant stepped per segment.
+        segments = opt.log_every_epochs < 0 or opt.sample_every_epochs < 0
+        epoch = next_e = self.start_epoch
+        while next_e < opt.n_epochs:
+            if segments:
+                k = 1
+                self._run_segments(next_e)
+            else:
+                k = self._group_epochs(next_e)
+                self._run_group(next_e, k)
+            stop = False
+            for e in range(next_e, next_e + k):
+                if self.accountant is not None and not segments:
+                    with self._section("accounting"):
+                        self.accountant.step(self.n_batches)
+                if opt.log_every_epochs > 0 and (e + 1) % opt.log_every_epochs == 0:
+                    self._flush_log(e)
+                if opt.sample_every_epochs > 0 and (e + 1) % opt.sample_every_epochs == 0:
+                    with self._section("sampling"):
+                        self.sample(e, self.n_batches - 1)
+                if opt.use_dp:
+                    # The budget stop reads the bare epsilon (reference
+                    # train.py:592); the log adds the mean samples' cost.
+                    eps, _ = self.accountant.get_privacy_spent(opt.delta)
+                    self.privacy_writer.writerow([e, eps + self.mean_sample_privacy_cost])
+                    self.privacy_log.flush()
+                    stop = opt.epsilon_budget is not None and eps > opt.epsilon_budget
+                stop = stop or self._g_freeze_stop
+                if (e + 1) % opt.save_every == 0:
+                    self._save(e + 1, e)
+                epoch = e
+                if stop:
+                    break
+            if preempted.is_set():
+                print(f"Preempted after epoch {epoch}; saving and exiting "
+                      "(resume with --resume_path).", flush=True)
+                stop = True
+            if stop:
+                break
+            next_e = epoch + 1
         return epoch
 
     def close(self) -> None:

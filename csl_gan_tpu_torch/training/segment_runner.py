@@ -1,16 +1,21 @@
-"""The runners that drive whole epochs: ``EpochsRunner`` (the MNIST vanilla
-path, one K1 launch per epoch) and ``StepRunner`` (every other ported
-configuration of either model, one D step at a time with a G update on the
-n_d_steps cadence, and the non-private warmup of every configuration), and
-``PublicRows``, the public split on the device.
+"""The runners that drive whole epochs, or segments of one: ``EpochsRunner``
+(the MNIST vanilla path, one K1 launch per epoch or segment) and
+``StepRunner`` (every other ported configuration of either model, one D step
+at a time with a G update on the n_d_steps cadence, and the non-private
+warmup of every configuration), and ``PublicRows``, the public split on the
+device. A segment is the run of batches [start, cut) of an epoch between two
+sub-epoch log or sample cuts (the JAX Trainer's ``_epoch_scan``); an epoch
+without one is a single segment.
 
 EpochsRunner:
 
 For each epoch it draws, on the device and from the Trainer's generators, the
-permutation of the table rows and every step's randomness (z_d, z_g, y_g and
-the DP noise), in the order K1 consumes them (the JAX package pre-draws the
-same way at ops/pallas_epoch.py:492-514), then calls ``epoch_kernel`` once.
-Metric sums stay on the device; the caller reads them once per group.
+permutation of the table rows (``epoch_perm``); for each segment every step's
+randomness (z_d, z_g, y_g and the DP noise), in the order K1 consumes them
+(the JAX package pre-draws the same way at ops/pallas_epoch.py:492-514), then
+calls ``epoch_kernel`` once over the segment's steps: K1 takes its step count
+from its inputs, so a segment needs no other kernel. Metric sums stay on the
+device; the caller reads them once per group or segment.
 
 The streams are torch's, so they differ from the JAX package's for the same
 seed; value parity is tested with injected draws (tests/test_torch_epoch.py).
@@ -21,6 +26,7 @@ from __future__ import annotations
 import math
 from typing import Callable, List, Optional
 
+import numpy as np
 import torch
 
 from csl_gan_tpu_torch.models.common import one_hot
@@ -41,14 +47,16 @@ class EpochsRunner:
         # the last run() call, for per-epoch device times.
         self.epoch_events: List[tuple] = []
 
-    def draw(self, table: torch.Tensor, gen_perm: torch.Generator,
-             gen: torch.Generator, state: TrainState):
-        """One epoch's inputs: gathered rows, z_d, z_g, one_hot(y_g), noise."""
+    def epoch_perm(self, table: torch.Tensor, gen_perm: torch.Generator) -> torch.Tensor:
+        return torch.randperm(table.shape[0], generator=gen_perm, device=table.device)
+
+    def draw(self, table: torch.Tensor, perm: torch.Tensor, gen: torch.Generator,
+             state: TrainState, start: int, cut: int):
+        """Inputs of the segment's steps [start, cut): gathered rows, z_d,
+        z_g, one_hot(y_g), noise."""
         b = self.builder
-        bs, n = b.opt.batch_size, self.n
-        perm = torch.randperm(table.shape[0], generator=gen_perm,
-                              device=table.device)
-        rows = table[perm[: n * bs]]
+        bs, n = b.opt.batch_size, cut - start
+        rows = table[perm[start * bs:cut * bs]]
         z_d = b.gen_z(gen, bs, (n,))
         z_g = b.gen_z(gen, bs, (n,))
         ohg = one_hot(b.gen_y(gen, bs, (n,)), b.n_classes)
@@ -59,13 +67,24 @@ class EpochsRunner:
                                     lead=(n,))
         return rows, z_d, z_g, ohg, noise
 
+    def run_segment(self, state: TrainState, table: torch.Tensor, perm: torch.Tensor,
+                    gen: torch.Generator, start: int, cut: int):
+        """Steps [start, cut) of the epoch whose row permutation is ``perm``,
+        in one K1 launch. Returns (state, metric sums [40] on device)."""
+        params, mu, nu = pallas_epoch.leaves_of(state)
+        t = (state.d_count, state.g_count)
+        rows, z_d, z_g, ohg, noise = self.draw(table, perm, gen, state, start, cut)
+        params, mu, nu, met = pallas_epoch.epoch_kernel(
+            self.builder, rows, z_d, z_g, ohg, noise, state.clipping, t,
+            params, mu, nu, use_dp=self.use_dp)
+        t = (t[0] + cut - start, t[1] + cut - start)
+        return pallas_epoch.state_from_leaves(params, mu, nu, state.clipping, t), met
+
     def run(self, state: TrainState, table: torch.Tensor,
             gen_perm: torch.Generator, gen: torch.Generator, k: int):
         """k epochs from `state`. Returns (state, metric sums [40] on device)."""
         met = torch.zeros(pallas_epoch.MET_SLOTS, dtype=torch.float32,
                           device=table.device)
-        params, mu, nu = pallas_epoch.leaves_of(state)
-        t = (state.d_count, state.g_count)
         timed = table.is_cuda
         self.epoch_events = []
         for _ in range(k):
@@ -73,16 +92,13 @@ class EpochsRunner:
                 ev = (torch.cuda.Event(enable_timing=True),
                       torch.cuda.Event(enable_timing=True))
                 ev[0].record()
-            rows, z_d, z_g, ohg, noise = self.draw(table, gen_perm, gen, state)
-            params, mu, nu, m = pallas_epoch.epoch_kernel(
-                self.builder, rows, z_d, z_g, ohg, noise, state.clipping, t,
-                params, mu, nu, use_dp=self.use_dp)
+            perm = self.epoch_perm(table, gen_perm)
+            state, m = self.run_segment(state, table, perm, gen, 0, self.n)
             met += m
-            t = (t[0] + self.n, t[1] + self.n)
             if timed:
                 ev[1].record()
                 self.epoch_events.append(ev)
-        return pallas_epoch.state_from_leaves(params, mu, nu, state.clipping, t), met
+        return state, met
 
 
 class PublicRows:
@@ -137,15 +153,16 @@ class PublicRows:
 
 
 class StepRunner:
-    """k whole epochs, one D step at a time (the JAX package's
-    segment_runner.py _build_run, written as a Python loop over steps): the
-    D step of the config's ``dp_mode`` (training/steps.py ``d_core``: gc by
-    the route the config selects, is, tm / sv, or without DP the model's
-    plain D step); the G step of the model family.
+    """k whole epochs, or a segment of one, one D step at a time (the JAX
+    package's segment_runner.py _build_run, written as a Python loop over
+    steps): the D step of the config's ``dp_mode`` (training/steps.py
+    ``d_core``: gc by the route the config selects, is, tm / sv, or without
+    DP the model's plain D step); the G step of the model family.
 
     Per epoch it draws the row permutation from ``gen_perm`` (none for DP
-    runs under ``--poisson``); per step, from
-    ``gen`` and in this order: under DP with ``--poisson`` the step's
+    runs under ``--poisson``, none from the device under ``--host_loop``,
+    whose host loader shuffles); per step, from ``gen`` and in this order:
+    under DP with ``--poisson`` the step's
     Poisson inclusion (``StepBuilder.poisson_draw``: a [cap] batch with a
     validity mask, in place of the permutation's slice; JAX
     segment_runner.py:204-210), the horizontal flips (uint8 image tables),
@@ -168,6 +185,17 @@ class StepRunner:
     ``is_sens`` (``is_sens_min`` / ``is_sens_max``, from +inf / -inf, kept
     on the device).
 
+    Under ``--group_fakes`` (``StepBuilder.grouped_runner_ok``), a segment
+    that starts on a cadence point runs by cadence groups (JAX
+    ``_build_grouped_run``, segment_runner.py:336): the D steps up to and
+    including the next cadence point share one G, so their batches come
+    from one row gather, their draws are made in the per-batch order, their
+    fakes come from one (m * bs)-row G forward (``StepBuilder.batch_fakes``,
+    K4 at that batch on the card) of the same z, and each D step takes its
+    slice; then the G update. The draws, the steps and the G updates are
+    those of the per-batch path; only the batched forward's reduction order
+    differs. Other segments take the per-batch loop.
+
     Under adaptive clipping each gc D step also draws its clipping batch,
     after the penalty's draws: ``bs`` public rows (``PublicRows.batch``), or
     ``bs`` mean samples with uniform labels (``MeanSampler.device_sample``).
@@ -183,20 +211,20 @@ class StepRunner:
 
     ``gather(idx) -> (x, y)`` returns a batch's images and labels from the
     device-resident dataset; with ``u8_images`` the images are uint8 and get
-    the JAX Trainer's ``/127.5 - 1`` and random flip after the gather. An
-    unconditional run's steps take no labels (y None, the G step's too), and
-    its penalty batch none either (JAX segment_runner.py:208-234).
-
-    With ``on_sample`` set, ``on_sample(state, j, i)`` is called after batch i
-    of the run's epoch j whenever ``(i + 1) * batch_size`` is a multiple of
-    ``sample_every`` (the sub-epoch sample cadence, JAX loop.py:829-831).
+    the JAX Trainer's ``/127.5 - 1`` and random flip after the gather. With a
+    host ``loader`` (``--host_loop`` on CelebA) each batch comes from it,
+    decoded, flipped and normalised on the host, and is copied to the
+    device. An unconditional run's steps take no labels (y None, the G
+    step's too), and its penalty batch none either (JAX
+    segment_runner.py:208-234).
     """
 
     def __init__(self, builder: StepBuilder, n_batches: int, n_rows: int,
-                 gather: Callable, u8_images: bool,
+                 gather: Optional[Callable], u8_images: bool,
                  mean_sampler: Optional[MeanSampler] = None,
                  mean_samples: Optional[torch.Tensor] = None,
-                 public: Optional[PublicRows] = None):
+                 public: Optional[PublicRows] = None, loader=None,
+                 device: Optional[torch.device] = None):
         self.builder = builder
         self.n = n_batches
         self.n_rows = n_rows
@@ -205,20 +233,20 @@ class StepRunner:
         self.mean_sampler = mean_sampler
         self.mean_samples = mean_samples
         self.public = public
+        self.loader = loader
+        self.device = device
         opt = builder.opt
         self.use_dp = bool(opt.use_dp)
         self.adaptive = builder.adaptive and builder.dp_mode == "gc" and self.use_dp
         self.n_d = max(1, int(opt.n_d_steps))
         self.threshold = float(opt.train_d_until_threshold)
+        self.grouped = builder.grouped_runner_ok(self.use_dp) and loader is None
         # Running D adversarial-loss sum since the last cadence point; it
         # persists across run() calls, like the JAX runner's carry.
         self.d_acc = None
         self.epoch_events: List[tuple] = []
-        self.on_sample: Optional[Callable] = None
-        self.sample_every = int(opt.sample_every)
 
-    def _batch(self, idx: torch.Tensor, gen: torch.Generator):
-        x, y = self.gather(idx)
+    def _prep(self, x, y, gen: torch.Generator):
         if not self.builder.conditional:
             y = None
         if self.u8_images:
@@ -226,6 +254,9 @@ class StepRunner:
             x = x.float() / 127.5 - 1.0
             x = torch.where(flip[:, None, None, None], x.flip(2), x)
         return x, y
+
+    def _batch(self, idx: torch.Tensor, gen: torch.Generator):
+        return self._prep(*self.gather(idx), gen)
 
     def _surrogate_batch(self, gen: torch.Generator, bs: int):
         """``bs`` public rows, else ``bs`` mean samples with uniform labels:
@@ -276,8 +307,11 @@ class StepRunner:
             return [tmsv.student_t3(gen, l.shape) for l in leaves], None
         return [torch.randn(l.shape, generator=gen, device=gen.device) for l in leaves], None
 
-    def _d_step(self, state: TrainState, x, y, gen: torch.Generator, stds, use_dp: bool,
-                valid=None):
+    def _d_draws(self, state: TrainState, x, y, gen: torch.Generator, stds, use_dp: bool):
+        """Every draw of one D step after its batch, in the stream's order
+        (z, noise, penalty batch and draws, adaptive batch); none depends on
+        the state's values, so the grouped runner can make a group's draws
+        before its steps."""
         b = self.builder
         bs = x.shape[0]
         z = b.gen_z(gen, bs)
@@ -288,8 +322,8 @@ class StepRunner:
         ax = ay = None
         if use_dp and self.adaptive:
             ax, ay = self._surrogate_batch(gen, b.opt.batch_size)
-        return b.d_core(state, x, y, z, use_dp, noise=noise, fused=fused, pen_x=pen_x,
-                        pen_y=pen_y, alphas=alphas, ax=ax, ay=ay, valid=valid)
+        return dict(z=z, noise=noise, fused=fused, pen_x=pen_x, pen_y=pen_y, alphas=alphas,
+                    ax=ax, ay=ay)
 
     def _g_step(self, state: TrainState, gen: torch.Generator):
         b = self.builder
@@ -300,12 +334,17 @@ class StepRunner:
         return b.g_step_dcresnet(state, z, y)
 
     def _train_batch(self, state: TrainState, x, y, gen: torch.Generator, stds, i: int,
-                     use_dp: bool, sums, valid=None):
+                     use_dp: bool, sums, valid=None, draws=None, fake=None):
         """D step i of an epoch (or of the warmup) and, on the cadence, the
         gated G step; metrics summed into ``sums`` = [d_sums, g_sums, g_count].
-        Returns the state."""
+        ``draws`` (the step's own, from ``_d_draws``) are made here unless
+        given; ``fake`` replaces the D step's G forward. Returns the state."""
         d_sums, g_sums = sums[0], sums[1]
-        state, dm = self._d_step(state, x, y, gen, stds, use_dp, valid)
+        if draws is None:
+            draws = self._d_draws(state, x, y, gen, stds, use_dp)
+        z = draws.pop("z")
+        state, dm = self.builder.d_core(state, x, y, z, use_dp, valid=valid, fake=fake,
+                                        **draws)
         for key, v in dm.items():
             d_sums[key] = d_sums[key] + v if key in d_sums else v
         if "is_sens" in dm:
@@ -341,41 +380,94 @@ class StepRunner:
             state = self._train_batch(state, x, y, gen, None, i, False, sums)
         return (state, *sums)
 
+    def epoch_source(self, gen_perm: torch.Generator):
+        """What an epoch's batches come from: the row permutation of the
+        device dataset, None under DP with ``--poisson``, or the host
+        loader's batches."""
+        if self.loader is not None:
+            return iter(self.loader)
+        if self.use_dp and self.builder.poisson:
+            return None
+        return torch.randperm(self.n_rows, generator=gen_perm, device=gen_perm.device)
+
+    def noise_stds(self, state: TrainState):
+        """The gc noise's per-leaf stds for the run (None under adaptive
+        clipping and outside gc); a device tensor on the fused route, from
+        which K6 reads them."""
+        b = self.builder
+        if not (self.use_dp and b.dp_mode == "gc" and not self.adaptive):
+            return None
+        stds = gops.noise_stds(len(b.d_leaves), b.sigma, state.clipping, b.per_layer)
+        if b.fused_route:
+            return torch.tensor(stds, dtype=torch.float32, device=self.device)
+        return stds
+
+    def run_segment(self, state: TrainState, src, gen: torch.Generator, start: int,
+                    cut: int, sums, stds=None):
+        """D steps [start, cut) of an epoch from ``src`` (``epoch_source``),
+        each with its G update on the cadence, metrics summed into ``sums``;
+        cadence groups when the runner is grouped and ``start`` is a cadence
+        point. Returns the state."""
+        if self.d_acc is None:
+            self.d_acc = torch.zeros((), device=gen.device)
+        if self.grouped and src is not None and start % self.n_d == 0:
+            return self._grouped_segment(state, src, gen, start, cut, sums, stds)
+        b = self.builder
+        bs = b.opt.batch_size
+        for i in range(start, cut):
+            valid = None
+            if self.loader is not None:
+                hx, hy = next(src)
+                x, y = self._prep(torch.from_numpy(np.ascontiguousarray(hx)).to(self.device),
+                                  torch.from_numpy(np.asarray(hy, np.int64)).to(self.device),
+                                  gen)
+            elif src is None:
+                idx, valid = b.poisson_draw(gen, self.n_rows)
+                x, y = self._batch(idx, gen)
+            else:
+                x, y = self._batch(src[i * bs:(i + 1) * bs], gen)
+            state = self._train_batch(state, x, y, gen, stds, i, self.use_dp, sums, valid)
+        return state
+
+    def _grouped_segment(self, state: TrainState, perm: torch.Tensor, gen: torch.Generator,
+                         start: int, cut: int, sums, stds):
+        b = self.builder
+        bs = b.opt.batch_size
+        i = start
+        while i < cut:
+            j = i               # the group: steps i..j, j the next cadence point
+            while j < cut - 1 and j % self.n_d != 0:
+                j += 1
+            m = j - i + 1
+            xs, ys = self.gather(perm[i * bs:(j + 1) * bs])
+            steps = []
+            for s in range(m):
+                x, y = self._prep(xs[s * bs:(s + 1) * bs], ys[s * bs:(s + 1) * bs], gen)
+                steps.append((x, y, self._d_draws(state, x, y, gen, stds, self.use_dp)))
+            fakes = b.batch_fakes(state, torch.stack([d["z"] for _, _, d in steps]),
+                                  None if steps[0][1] is None
+                                  else torch.stack([y for _, y, _ in steps]))
+            for s, (x, y, draws) in enumerate(steps):
+                state = self._train_batch(state, x, y, gen, stds, i + s, self.use_dp, sums,
+                                          draws=draws, fake=fakes[s])
+            i = j + 1
+        return state
+
     def run(self, state: TrainState, gen_perm: torch.Generator,
             gen: torch.Generator, k: int):
         """k epochs from `state`. Returns (state, D metric sums, G metric
         sums, number of G updates)."""
-        b = self.builder
-        bs = b.opt.batch_size
-        dev = gen.device
         sums = [{}, {}, 0]
-        if self.d_acc is None:
-            self.d_acc = torch.zeros((), device=dev)
-        timed = dev.type == "cuda"
+        timed = gen.device.type == "cuda"
         self.epoch_events = []
-        poisson = self.use_dp and b.poisson
-        stds = None
-        if self.use_dp and b.dp_mode == "gc" and not self.adaptive:
-            stds = gops.noise_stds(len(b.d_leaves), b.sigma, state.clipping, b.per_layer)
-            if b.fused_route:    # K6 reads each leaf's std from device memory
-                stds = torch.tensor(stds, dtype=torch.float32, device=dev)
-        for j in range(k):
+        stds = self.noise_stds(state)
+        for _ in range(k):
             if timed:
                 ev = (torch.cuda.Event(enable_timing=True),
                       torch.cuda.Event(enable_timing=True))
                 ev[0].record()
-            perm = None if poisson else torch.randperm(self.n_rows, generator=gen_perm,
-                                                       device=dev)
-            for i in range(self.n):
-                valid = None
-                if poisson:
-                    idx, valid = b.poisson_draw(gen, self.n_rows)
-                else:
-                    idx = perm[i * bs:(i + 1) * bs]
-                x, y = self._batch(idx, gen)
-                state = self._train_batch(state, x, y, gen, stds, i, self.use_dp, sums, valid)
-                if self.on_sample is not None and (i + 1) * bs % self.sample_every == 0:
-                    self.on_sample(state, j, i)
+            state = self.run_segment(state, self.epoch_source(gen_perm), gen, 0, self.n,
+                                     sums, stds)
             if timed:
                 ev[1].record()
                 self.epoch_events.append(ev)

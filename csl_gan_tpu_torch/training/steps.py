@@ -107,10 +107,14 @@ class TrainState:
 
 def adam_update(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
                 v: torch.Tensor, t: int, lr: float, b1: float, b2: float,
-                eps: float = 1e-8):
+                eps: float = 1e-8, wd: float = 0.0):
     """optax scale_by_adam (eps_root=0) + scale(-lr) + apply_updates, with the
     bias correction 1 - exp(t * ln b) in fp32 as K1 computes it
-    (JAX ops/pallas_epoch.py:172-182). Returns (p, m, v)."""
+    (JAX ops/pallas_epoch.py:172-182). With ``wd`` the L2 decay wd * p is
+    added to the gradient before the moments (optax add_decayed_weights
+    first in the chain, JAX training/steps.py:73-86). Returns (p, m, v)."""
+    if wd:
+        g = g + wd * p
     m = b1 * m + (1.0 - b1) * g
     v = b2 * v + (1.0 - b2) * (g * g)
     tt = torch.tensor(float(t), dtype=torch.float32, device=p.device)
@@ -123,11 +127,11 @@ def adam_update(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
 
 
 def _adam_all(params: Params, grads: Params, mu: Params, nu: Params, t: int,
-              lr: float, b1: float, b2: float):
+              lr: float, b1: float, b2: float, wd: float = 0.0):
     new_p, new_m, new_v = {}, {}, {}
     for k in params:
         new_p[k], new_m[k], new_v[k] = adam_update(
-            params[k], grads[k], mu[k], nu[k], t, lr, b1, b2)
+            params[k], grads[k], mu[k], nu[k], t, lr, b1, b2, wd=wd)
     return new_p, new_m, new_v
 
 
@@ -207,7 +211,10 @@ class StepBuilder:
                                and self.grad_clip_split
                                and bool(opt.conv_ghost) and not self.use_bpc
                                and self.chunk is None)
-        self.compute_dtype = torch.bfloat16 if dcresnet and opt.bf16 else None
+        # --bf16: the DCResNet pair computes in bf16; the vanilla MLP in fp32
+        # whatever the flag (JAX models/mnist.py:24), so there the flag only
+        # takes the run off K1 (its gate reads compute_dtype).
+        self.compute_dtype = torch.bfloat16 if opt.bf16 else None
         # Conv models with flat clipping and conv ghost off: a norms-only pass
         # plus one weighted backward. bf16 is excluded: the weighted backward
         # would round the summed gradient to bf16, breaking the clip bound at
@@ -236,9 +243,13 @@ class StepBuilder:
         self.g_stat_names = tuple(n for n, _ in G.named_buffers())
         self.g_has_bn = bool(self.g_stat_names)
         self.img_shape = (28, 28, 1)
-        # Set by the Trainer when the device table is [x | one-hot | label].
+        # Set by the Trainer when the device table is [x | one-hot | label]
+        # (or, under --u8_table, the uint8 [x * 255 | label]).
         self.labels_in_table = False
         self.onehot_in_table = False
+        # -wd: L2 decay of D's parameters, folded into D's gradient before
+        # Adam on every D-step engine (JAX make_optimizers).
+        self.weight_decay = float(opt.weight_decay or 0)
 
     # ---------------- state and randomness ----------------
 
@@ -303,11 +314,11 @@ class StepBuilder:
 
     def gen_y(self, gen: torch.Generator, size: int, lead: tuple = ()):
         """Class labels (reference train.py:153-161): Bernoulli(label1_prob)
-        for two classes, uniform otherwise, None when unconditional (the JAX
+        for fewer than three classes, uniform otherwise, None when unconditional (the JAX
         package's gen_y)."""
         if not self.conditional:
             return None
-        if self.n_classes == 2:
+        if self.n_classes < 3:
             u = torch.rand(lead + (size,), generator=gen, device=gen.device)
             return (u < self.label1_prob).to(torch.int64)
         return torch.randint(0, self.n_classes, lead + (size,), generator=gen,
@@ -320,12 +331,17 @@ class StepBuilder:
         return self.split_rows(table[idx])
 
     def split_rows(self, rows: torch.Tensor):
+        """(x, y, one-hot) of gathered table rows; uint8 rows (``--u8_table``)
+        dequantize their pixels as u8 / 255 in fp32 (the loader's own math,
+        JAX training/loop.py:312-333)."""
+        u8 = rows.dtype == torch.uint8
         rows = rows.to(torch.float32)
         f = 1
         for d in self.img_shape:
             f *= d
-        x = rows[:, :f].reshape((rows.shape[0],) + tuple(self.img_shape))
-        onehot = rows[:, f:f + self.n_classes]
+        pix = rows[:, :f] / 255.0 if u8 else rows[:, :f]
+        x = pix.reshape((rows.shape[0],) + tuple(self.img_shape))
+        onehot = rows[:, f:f + self.n_classes] if self.onehot_in_table else None
         return x, rows[:, -1].to(torch.int64), onehot
 
     # ---------------- D steps ----------------
@@ -365,14 +381,15 @@ class StepBuilder:
                 None if aux_o is None else aux_o.detach())
 
     def d_step(self, state: TrainState, x, y, z,
-               noise: Optional[List[torch.Tensor]], use_dp: bool):
+               noise: Optional[List[torch.Tensor]], use_dp: bool, fake=None):
         """One D update of the vanilla model: the gc step (``d_step_gc``) or,
-        without DP, plain summed grads; then /bs and Adam. Returns
-        (state, metrics)."""
+        without DP, plain summed grads; then /bs and Adam. ``fake``, when
+        given, replaces the G forward on z (the grouped runner's batched
+        fakes). Returns (state, metrics)."""
         if use_dp:
-            return self.d_step_gc(state, x, y, z, noise=noise)
+            return self.d_step_gc(state, x, y, z, noise=noise, fake=fake)
         b = x.shape[0]
-        fake = self.fakes(state.g_params, z, y)
+        fake = self.fakes(state.g_params, z, y) if fake is None else fake
         summed, r_out, r_aux = self._real_sum_grads(state.d_params, x, y)
         fake_grads, f_out = self._fake_sum_grads(state.d_params, fake, y)
         grads = {k: (summed[k] + fake_grads[k]) / b for k in self.d_leaves}
@@ -381,7 +398,7 @@ class StepBuilder:
     def _apply_d(self, state: TrainState, grads: Params) -> TrainState:
         d_params, d_mu, d_nu = _adam_all(
             state.d_params, grads, state.d_mu, state.d_nu, state.d_count + 1,
-            self.opt.d_lr, self.opt.adam_b1, self.opt.adam_b2)
+            self.opt.d_lr, self.opt.adam_b1, self.opt.adam_b2, wd=self.weight_decay)
         return replace(state, d_params=d_params, d_mu=d_mu, d_nu=d_nu,
                        d_count=state.d_count + 1)
 
@@ -450,8 +467,9 @@ class StepBuilder:
             self.opt.g_lr, self.opt.adam_b1, self.opt.adam_b2)
         m = {"g_adv_loss": adv.detach()}
         if self.is_acgan:
-            m["g_aux_loss"] = aux.detach()
-            m["g_aux_acc"] = 100.0 * _acc_vs_max(aux_o.detach(), y_onehot).mean()
+            m["g_aux_loss"] = torch.as_tensor(aux, device=z.device).detach()
+            m["g_aux_acc"] = torch.zeros((), device=z.device) if aux_o is None \
+                else 100.0 * _acc_vs_max(aux_o.detach(), y_onehot).mean()
         return replace(state, g_params=g_params, g_mu=g_mu, g_nu=g_nu,
                        g_count=state.g_count + 1), m
 
@@ -501,6 +519,40 @@ class StepBuilder:
         with torch.no_grad():
             img = functional_call(self.G, {**state.g_params, **stats}, (z, y), {"train": True})
         return img, stats
+
+    def _fakes_or(self, state: TrainState, z, y, fake):
+        """``_step_fakes``, or the given fakes (the grouped runner's, of a
+        BatchNorm-free G) with the batch statistics unchanged."""
+        if fake is None:
+            return self._step_fakes(state, z, y)
+        return fake, state.g_batch_stats
+
+    def batch_fakes(self, state: TrainState, z_steps: torch.Tensor,
+                    y_steps: Optional[torch.Tensor]) -> torch.Tensor:
+        """Fresh fakes for m consecutive D steps in ONE G forward
+        (``--group_fakes``; JAX ``batch_fakes``, steps.py:360-390): G's
+        params change only at n_d_steps cadence points, so the m steps of a
+        cadence group see one G, and their m batches run as one m * bs
+        forward (through K4 on the card for the DCResNet G). ``z_steps``
+        [m, bs, latent] are the per-step z the per-batch path draws,
+        ``y_steps`` [m, bs] their labels or None. Returns [m, bs, ...];
+        slice j equals the step's own forward up to the reduction order of
+        the batched convolutions. A BatchNorm G is refused: its batch
+        statistics depend on the batch."""
+        if self.g_has_bn:
+            raise ValueError("batch_fakes requires a BatchNorm-free G")
+        m, bs = z_steps.shape[0], z_steps.shape[1]
+        yf = None if y_steps is None else y_steps.reshape(m * bs)
+        fakes = self.fakes(state.g_params, z_steps.reshape(m * bs, -1), yf)
+        return fakes.reshape((m, bs) + tuple(fakes.shape[1:]))
+
+    def grouped_runner_ok(self, use_dp: bool) -> bool:
+        """Whether the cadence-grouped runner (``--group_fakes``) applies:
+        n_d_steps > 1, no Poisson subsampling under DP, a BatchNorm-free G
+        (JAX ``grouped_runner_ok``, steps.py:1114-1125). The runner takes it
+        only for segments that start on a cadence point."""
+        return (bool(self.opt.group_fakes) and int(self.opt.n_d_steps) > 1
+                and not (self.poisson and use_dp) and not self.g_has_bn)
 
     def sample_images(self, state: TrainState, z, y):
         """Images of G at `state` for z and labels y (JAX ``sample_images``,
@@ -669,7 +721,7 @@ class StepBuilder:
                   pen_x=None, pen_y=None,
                   alphas: Optional[List[torch.Tensor]] = None, ax=None, ay=None,
                   valid: Optional[torch.Tensor] = None,
-                  ps_draws: Optional[List[torch.Tensor]] = None):
+                  ps_draws: Optional[List[torch.Tensor]] = None, fake=None):
         """One gc D update (JAX ``_d_step_gc``): under adaptive clipping the
         step's thresholds from (ax, ay) (``adaptive_clipping``), then the
         clipped private pass by the route the config selects (see the module
@@ -706,7 +758,7 @@ class StepBuilder:
             stds = (clipping * self.sigma).expand(len(self.d_leaves))
             if fused is not None:
                 fused = fused._replace(stds=stds.contiguous())
-        fake = self.fakes(state.g_params, z, y)
+        fake = self.fakes(state.g_params, z, y) if fake is None else fake
         row_w = self.row_weights(y, valid)
         ghost_outs = None
         if self.grad_clip_split:
@@ -802,11 +854,11 @@ class StepBuilder:
                                f_out.detach(), y, pen_value=pen_value)
 
     def d_step_plain(self, state: TrainState, x, y, z, pen_x=None, pen_y=None,
-                     alphas: Optional[List[torch.Tensor]] = None):
+                     alphas: Optional[List[torch.Tensor]] = None, fake=None):
         """The non-private D update (JAX ``_d_step_plain``): the gradient of
         the full-batch loss plus the penalty on (pen_x, pen_y) and the fakes,
         then Adam. Returns (state, metrics)."""
-        fake, g_stats = self._step_fakes(state, z, y)
+        fake, g_stats = self._fakes_or(state, z, y, fake)
         state = replace(state, g_batch_stats=g_stats)
         p = {k: v.detach().requires_grad_(True) for k, v in state.d_params.items()}
         pen_value = None
@@ -847,7 +899,8 @@ class StepBuilder:
         return sens, self.sigma * sens * scaling_vec if scaled else (self.sigma * sens).expand(n)
 
     def d_step_is(self, state: TrainState, x, y, z, eps: List[torch.Tensor],
-                  pen_x=None, pen_y=None, alphas: Optional[List[torch.Tensor]] = None):
+                  pen_x=None, pen_y=None, alphas: Optional[List[torch.Tensor]] = None,
+                  fake=None):
         """One immediate-sensitivity D update (JAX ``_d_step_is``); ``eps``
         are N(0, 1) draws shaped like the leaves, in leaf order, scaled here
         by the step's stds on the device. The penalty's gradient enters ||g||
@@ -861,7 +914,7 @@ class StepBuilder:
         ``--backprop_clip`` D runs clipped in the loss and its
         second-order pass. Returns (state, metrics) with ``is_sens`` a
         scalar, or [n_leaves] under ``-ispp true``."""
-        fake, g_stats = self._step_fakes(state, z, y)
+        fake, g_stats = self._fakes_or(state, z, y, fake)
         state = replace(state, g_batch_stats=g_stats)
         leaves = self.d_leaves
         pen_value = None
@@ -885,13 +938,14 @@ class StepBuilder:
         return new, metrics
 
     def d_step_tmsv(self, state: TrainState, x, y, z, noise: List[torch.Tensor],
-                    pen_x=None, pen_y=None, alphas: Optional[List[torch.Tensor]] = None):
+                    pen_x=None, pen_y=None, alphas: Optional[List[torch.Tensor]] = None,
+                    fake=None):
         """One trimmed-mean (``-dpm tm``) or sign-vote (``-dpm sv``) D update
         (JAX ``_d_step_tmsv``): per-sample grads of real + fake, aggregated
         per leaf with ``noise`` (Student-t(3) for tm, N(0, 1) for sv, leaf
         order), plus the penalty's grads, then Adam. The metrics are of the
         D before the update. Returns (state, metrics)."""
-        fake, g_stats = self._step_fakes(state, z, y)
+        fake, g_stats = self._fakes_or(state, z, y, fake)
         state = replace(state, g_batch_stats=g_stats)
         f, args = self.combined_ps_args(x, y, fake, self.row_weights(y))
         ps = gops.per_sample_grads(f, state.d_params, *args, chunk=self.chunk)
@@ -916,7 +970,7 @@ class StepBuilder:
 
     def d_core(self, state: TrainState, x, y, z, use_dp: bool, noise=None, fused=None,
                pen_x=None, pen_y=None, alphas: Optional[List[torch.Tensor]] = None,
-               ax=None, ay=None, valid=None):
+               ax=None, ay=None, valid=None, fake=None):
         """The D update by ``dp_mode`` (JAX ``_d_core``). ``noise`` is what
         the mode's step takes: per-leaf noise (gc; unit normals under
         adaptive clipping), unit normals (is), Student-t(3) or unit normals
@@ -925,8 +979,10 @@ class StepBuilder:
         per-sample penalty the gc step takes the penalty's draws ``alphas``
         for its samples and for the logged batch value alike. Without DP the
         vanilla model takes ``d_step`` (the plain version of K1) unless it
-        has a penalty, the DCResNet ``d_step_plain``."""
-        pen = dict(pen_x=pen_x, pen_y=pen_y, alphas=alphas)
+        has a penalty, the DCResNet ``d_step_plain``. ``fake``, when given,
+        replaces the step's G forward on z (the JAX ``_d_core``'s
+        ``fake_img``: the grouped runner's batched fakes)."""
+        pen = dict(pen_x=pen_x, pen_y=pen_y, alphas=alphas, fake=fake)
         if use_dp and self.dp_mode == "gc":
             return self.d_step_gc(state, x, y, z, noise=noise, fused=fused, ax=ax, ay=ay,
                                   valid=valid, ps_draws=alphas if self.ps_pen else None,
@@ -936,7 +992,7 @@ class StepBuilder:
         if use_dp:
             return self.d_step_tmsv(state, x, y, z, noise, **pen)
         if self.family == "vanilla" and not self.penalty_types:
-            return self.d_step(state, x, y, z, None, False)
+            return self.d_step(state, x, y, z, None, False, fake=fake)
         return self.d_step_plain(state, x, y, z, **pen)
 
     def g_step_dcresnet(self, state: TrainState, z, y):
@@ -961,7 +1017,8 @@ class StepBuilder:
             self.opt.adam_b2)
         m = {"g_adv_loss": adv.detach()}
         if self.is_acgan:
-            m["g_aux_loss"] = aux.detach()
-            m["g_aux_acc"] = 100.0 * (aux_o.detach().argmax(dim=1) == y).float().mean()
+            m["g_aux_loss"] = torch.as_tensor(aux, device=z.device).detach()
+            m["g_aux_acc"] = torch.zeros((), device=z.device) if aux_o is None \
+                else 100.0 * (aux_o.detach().argmax(dim=1) == y).float().mean()
         return replace(state, g_params=g_params, g_mu=g_mu, g_nu=g_nu,
                        g_count=state.g_count + 1, g_batch_stats=stats), m

@@ -217,7 +217,12 @@ def test_unported_combinations_raise(tmp_path, extra, flag):
     gc is the JAX package's config error, in both packages. The reference's
     pixel shuffle, ported since, parses and trains: the WCGAN is run's
     BatchNorm G upsamples so in every block, and its steps differ from the
-    same run's without it."""
+    same run's without it. The single-device flags, ported since, hold their
+    behaviour on these engines: ``--bf16`` on the vanilla is run and ``-wd``
+    on sv train (the decay in sv's Adam); ``--group_fakes`` leaves the
+    BatchNorm G of is per batch (the JAX gate); ``--u8_table`` stores the
+    MNIST table as uint8 under tm; adaptive clipping outside gc is read by
+    no step, so the is run equals the one without it bit for bit."""
     if flag == "--ref_pixel_shuffle":
         runs = []
         for tag, args in (("with", extra), ("without", extra[:-2])):
@@ -237,8 +242,33 @@ def test_unported_combinations_raise(tmp_path, extra, flag):
                 parse(argv + ["-o", str(tmp_path)])
             assert not isinstance(e.value, NotImplementedError)
         return
-    with pytest.raises(NotImplementedError, match=flag):
-        toptions.parse(extra + ["--platform", "cpu", "-o", str(tmp_path)])
+    if flag == "--fsdp":
+        with pytest.raises(NotImplementedError, match=flag):
+            toptions.parse(extra + ["--platform", "cpu", "-o", str(tmp_path)])
+        return
+    if flag == "--grad_clip_mode":
+        runs = []
+        for tag, args in (("with", extra), ("without", extra[:-2])):
+            tr = Trainer(toptions.parse(args + ["-tss", "40", "-ne", "1", "--platform", "cpu",
+                                                "-o", str(tmp_path / tag)]))
+            assert not tr.step_runner.adaptive and not isinstance(tr.state.clipping,
+                                                                  torch.Tensor)
+            tr.run()
+            runs.append(tr.state.d_params)
+        assert all(torch.equal(runs[0][k], runs[1][k]) for k in runs[0])
+        return
+    tr = Trainer(toptions.parse(extra + ["-ne", "1", "--platform", "cpu",
+                                         "-o", str(tmp_path / "run")]))
+    assert isinstance(tr.runner, StepRunner)
+    if flag == "--group_fakes":
+        assert tr.builder.g_has_bn and not tr.step_runner.grouped
+    elif flag == "--u8_table":
+        assert tr.table.dtype == torch.uint8 and tr.builder.labels_in_table
+    else:
+        assert tr.builder.weight_decay == (0.1 if flag == "--weight_decay" else 0.0)
+        tr.run()
+        assert tr.state.d_count == 5
+        assert all(bool(torch.isfinite(v).all()) for v in tr.state.d_params.values())
 
 
 def test_per_param_with_scaling_is_a_config_error(tmp_path):

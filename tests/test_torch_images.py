@@ -15,6 +15,7 @@ from csl_gan_tpu.utils import images as jimages
 from csl_gan_tpu_torch import options as toptions
 from csl_gan_tpu_torch.privacy.mean_sampler import MeanSampler
 from csl_gan_tpu_torch.training.loop import Trainer
+from csl_gan_tpu_torch.training.segment_runner import EpochsRunner, StepRunner
 from csl_gan_tpu_torch.utils import images
 
 RNG = np.random.default_rng(7)
@@ -118,10 +119,23 @@ def test_sub_epoch_cadence_grids_on_the_step_runner(tmp_path):
     assert images.read_png(str(out / "mean_samples" / "0-1.png")).shape == (64, 64, 3)
 
 
-def test_sub_epoch_cadence_on_the_k1_path_raises(tmp_path):
+def test_sub_epoch_cadence_on_the_k1_path(tmp_path):
+    """A sub-epoch --sample_every on the K1 path parses and cuts each epoch
+    into segments, one K1 call each (its plain version on the CPU), with a
+    grid at each sample point; the step runner takes it too."""
     args = ["MNIST", "--conditional", "-dpm", "gc", "-bs", "32", "-tss", "160",
-            "--sample_every", "64", "--platform", "cpu", "-o", str(tmp_path)]
-    with pytest.raises(NotImplementedError, match="--sample_every"):
-        toptions.parse(args)
-    opt = toptions.parse(args + ["--pallas_epoch", "false"])     # the step runner
+            "--sample_every", "64", "--platform", "cpu", "-ne", "1"]
+    opt = toptions.parse(args + ["-o", str(tmp_path / "k1")])
     assert opt.sample_every_epochs < 0 and opt.sample_every == 64
+    tr = Trainer(opt)
+    assert isinstance(tr.runner, EpochsRunner) and tr._epoch_cuts() == [2, 4, 5]
+    tr.run()
+    assert sorted(p.name for p in (tmp_path / "k1" / "samples").iterdir()) == \
+        ["1-1.png", "1-3.png"]
+    assert tr.state.d_count == tr.state.g_count == 5
+    opt = toptions.parse(args + ["--pallas_epoch", "false", "-o", str(tmp_path / "sr")])
+    tr = Trainer(opt)
+    assert isinstance(tr.runner, StepRunner)
+    tr.run()
+    assert sorted(p.name for p in (tmp_path / "sr" / "samples").iterdir()) == \
+        ["1-1.png", "1-3.png"]

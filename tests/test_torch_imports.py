@@ -2,7 +2,8 @@
 chip_smoke.py, pulls in neither JAX (jax, flax, optax) nor the JAX package
 csl_gan_tpu, nor msgpack, PIL or scikit-learn, which the card's machine may
 lack: the port writes its checkpoints and PNGs itself, reads CelebA JPEGs
-with PIL only inside the decoder, and imports scikit-learn only inside
+with PIL only inside the decoder (chip_smoke.py writes its JPEG files with
+it inside its CelebA phase), and imports scikit-learn only inside
 ``downstream.main``."""
 
 import ast
@@ -15,8 +16,10 @@ import pytest
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "flax", "optax", "csl_gan_tpu")
 OPTIONAL = ("msgpack", "PIL", "sklearn")
-# Where an optional package may be imported, inside a function only.
-LAZY = {"PIL": "csl_gan_tpu_torch/data/celeba.py", "sklearn": "csl_gan_tpu_torch/downstream.py"}
+# Where an optional package may be imported, inside a function only (PIL also
+# in chip_smoke.py, whose CelebA phase writes its JPEG files with it).
+LAZY = {"PIL": ("csl_gan_tpu_torch/data/celeba.py", "chip_smoke.py"),
+        "sklearn": ("csl_gan_tpu_torch/downstream.py",)}
 SOURCES = sorted((REPO / "csl_gan_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 
@@ -64,4 +67,4 @@ def test_optional_packages_only_inside_their_functions(path):
     for name, top in _imports(ast.parse(path.read_text(), filename=str(path))):
         root = name.split(".")[0]
         if root in OPTIONAL:
-            assert not top and LAZY.get(root) == rel, f"{rel}: imports {name}"
+            assert not top and rel in LAZY.get(root, ()), f"{rel}: imports {name}"

@@ -1,9 +1,9 @@
 """The config smoke matrix of tests/test_train_smoke.py (the reference's
 test_configs.sh) through the port's CLI (``python -m
 csl_gan_tpu_torch.train``) with ``--platform cpu``, on synthetic MNIST:
-each case trains and writes the files the JAX matrix asserts. ``-p`` and
-``--group_fakes`` raise the port's NotImplementedError naming the flag,
-until their queue items port them.
+each case trains and writes the files the JAX matrix asserts, ``-p`` (its
+trace under ``profile/``) and ``--group_fakes`` (with ``--n_d_steps 2``)
+among them.
 """
 
 import csv
@@ -129,6 +129,9 @@ def test_stop_on_g_freeze(tmp_path):
     (["-p"], "--profile_training"),
     (["--n_d_steps", "2", "--group_fakes", "true"], "--group_fakes"),
 ])
-def test_unported_matrix_flags_raise(tmp_path, extra, flag):
-    with pytest.raises(NotImplementedError, match=flag):
-        port_train.main(["MNIST", *BASE, *extra, "-o", str(tmp_path / "no")])
+def test_matrix_flags_profile_and_group_fakes(tmp_path, extra, flag):
+    """The two matrix flags a later slice ported train like the other cases;
+    ``-p`` also leaves its trace."""
+    out = run(tmp_path, flag.strip("-"), *extra)
+    assert len(_rows(out + "log.csv")) == 1
+    assert os.path.exists(out + "profile/trace.json") == (flag == "--profile_training")

@@ -19,6 +19,7 @@ from csl_gan_tpu_torch import options as toptions
 from csl_gan_tpu_torch.models.registry import init_models
 from csl_gan_tpu_torch.ops import pallas_epoch
 from csl_gan_tpu_torch.training.loop import Trainer
+from csl_gan_tpu_torch.training.segment_runner import EpochsRunner
 from torch_trainer_cases import DCRN, FLAGSHIP, STEP_RUNNER_FLAGS, TINY
 
 # The JAX package's options.parse creates ./output with a check, then a
@@ -150,10 +151,14 @@ def test_unported_flags_raise(tmp_path, extra, flag):
     config adaptive clipping (no public data, no mean samples) and mean
     samples (the default mean size exceeds -tss) raise the JAX package's
     config error on the same argv, and so does a penalty under DP without
-    either (the JAX rule of ``-pupd true``), and the others parse, a batch
-    of 20, Poisson subsampling and backprop clipping off K1's path, and the
-    reference's pixel shuffle, which has no effect on the vanilla model: one
-    step with it gives the params of one step without it, bit for bit."""
+    either (the JAX rule of ``-pupd true``), and a wasserstein aux loss on
+    the conditional vanilla model (the JAX model's error, when the models
+    are built); the others parse, a batch of 20, Poisson subsampling,
+    backprop clipping, ``-wd``, ``--bf16`` and ``--u8_table`` off K1's path,
+    and the reference's pixel shuffle, which has no effect on the vanilla
+    model: one step with it gives the params of one step without it, bit for
+    bit. Each flag of the last slice builds its Trainer, whose runner is K1's
+    exactly when the gate says so and the run is not ``--host_loop``'s."""
     argv = TINY + extra + ["--platform", "cpu", "-o", str(tmp_path)]
     if flag not in LIFTED:
         with pytest.raises(NotImplementedError, match=flag):
@@ -161,13 +166,19 @@ def test_unported_flags_raise(tmp_path, extra, flag):
         return
     if LIFTED[flag] is not None:
         from csl_gan_tpu import options as joptions
-        for parse, args in ((joptions.parse, TINY + extra + ["-o", str(tmp_path)]),
-                            (toptions.parse, argv)):
-            with pytest.raises(Exception, match=LIFTED[flag]):
-                parse(args)
+        from csl_gan_tpu.models.registry import init_models as jax_init_models
+        for build in (lambda: jax_init_models(joptions.parse(TINY + extra +
+                                                             ["-o", str(tmp_path)])),
+                      lambda: init_models(toptions.parse(argv), torch.device("cpu"))):
+            with pytest.raises(Exception, match=LIFTED[flag]) as err:
+                build()
+            assert not isinstance(err.value, NotImplementedError)
         return
     opt = toptions.parse(argv)
     assert toptions._k1_path(opt) == (flag not in OFF_K1)
+    if flag in SURFACE:
+        tr = Trainer(opt)
+        assert isinstance(tr.runner, EpochsRunner) == (flag not in OFF_K1 + ("--host_loop",))
     if flag == "--ref_pixel_shuffle":
         states = []
         for tag, args in (("with", argv), ("without", TINY + ["--platform", "cpu"])):
@@ -187,9 +198,16 @@ LIFTED = {"--grad_clip_mode": "Adaptive clipping derives its thresholds",
           "--num_mean_samples": r"mean_sample_size \(5000\) exceeds", "--public_set_size": None,
           "--warmup_iter": None, "--stop_on_g_freeze": None, "--batch_size": None,
           "--penalty": "In order to enable gradient penalty using public data",
-          "--poisson": None, "--backprop_clip": None, "--ref_pixel_shuffle": None}
+          "--poisson": None, "--backprop_clip": None, "--ref_pixel_shuffle": None,
+          "--weight_decay": None, "--u8_table": None, "--host_loop": None, "--bf16": None,
+          "--group_fakes": None, "--profile_training": None, "--log_every": None,
+          "--aux_loss_type": "Cross entropy loss is the only aux loss supported for vanilla"}
 # The lifted cases that parse but leave K1's gate.
-OFF_K1 = ("--batch_size", "--poisson", "--backprop_clip")
+OFF_K1 = ("--batch_size", "--poisson", "--backprop_clip", "--weight_decay", "--bf16",
+          "--u8_table")
+# The flags of the single-device surface's slice.
+SURFACE = ("--weight_decay", "--u8_table", "--host_loop", "--bf16", "--group_fakes",
+           "--profile_training", "--log_every")
 
 
 def test_pallas_true_on_the_cpu_is_reproducible(tmp_path):
@@ -221,9 +239,14 @@ def test_not_ported_names_only_unported_flags():
     for lifted in ("--poisson", "-pupd", "DRAGAN", "--backprop_clip", "--penalty",
                    "--ref_pixel_shuffle"):
         assert not any(lifted in n for n in names), lifted
-    for kept in ("adaptive", "--weight_decay", "--group_fakes",
-                 "--fsdp", "--tp", "--mesh_shape", "--multihost", "--u8_table"):
-        assert any(kept in n for n in names), kept
+    for lifted in ("adaptive", "--weight_decay", "--group_fakes", "--u8_table",
+                   "--host_loop", "--bf16", "--profile_training", "--log_every",
+                   "--sample_every", "--aux_loss_type", "--n_classes"):
+        assert not any(lifted in n for n in names), lifted
+    kept = ("--fsdp", "--tp", "--mesh_shape", "--multihost", "--download_mnist")
+    for flag in kept:
+        assert any(flag in n for n in names), flag
+    assert len(names) == len(kept)
 
 
 def test_celeba_raises(tmp_path):
@@ -247,15 +270,18 @@ def test_celeba_raises(tmp_path):
                           "--ref_pixel_shuffle", "true", "-o", str(tmp_path / "ok")])
     G, _ = init_models(opt, torch.device("cpu"))
     assert all(getattr(G, f"ResBlockUp_{i}").UpsampleConv_0.ref_ps for i in range(G.n_blocks))
-    for extra, flag in ((["--conditional", "-dpm", "gc", "-nms", "1", "--conditional_arch",
-                          "WCGAN", "--u8_table", "true"], "--u8_table"),
-                        (["--conditional", "-dpm", "gc", "-nms", "1", "-wd", "0.1"],
-                         "--weight_decay"),
-                        (["--conditional", "-dpm", "gc", "-nms", "1", "--group_fakes", "true"],
-                         "--group_fakes")):
-        with pytest.raises(NotImplementedError, match=flag):
-            toptions.parse(["CelebA", "-tss", "12800"] + extra + ["-o", str(tmp_path / "no")])
+    # Lifted since: they parse, and the JAX package's options say the same.
     from csl_gan_tpu import options as joptions
+    for extra, flag in ((["--conditional", "-dpm", "gc", "-nms", "1", "--conditional_arch",
+                          "WCGAN", "--u8_table", "true"], "u8_table"),
+                        (["--conditional", "-dpm", "gc", "-nms", "1", "-wd", "0.1"],
+                         "weight_decay"),
+                        (["--conditional", "-dpm", "gc", "-nms", "1", "--group_fakes", "true"],
+                         "group_fakes")):
+        args = ["CelebA", "-tss", "12800"] + extra + ["-o", str(tmp_path / "no")]
+        opt, jopt = toptions.parse(args), joptions.parse(args)
+        assert getattr(opt, flag) == getattr(jopt, flag) and getattr(opt, flag)
+        assert opt.n_d_steps == 5 and not toptions._k1_path(opt)
     argv = ["CelebA", "-tss", "12800", "--conditional", "-dpm", "is", "-nms", "1",
             "--poisson", "true", "-o", str(tmp_path / "no")]
     for parse in (joptions.parse, toptions.parse):
