@@ -10,6 +10,7 @@
     python3 chip_smoke.py --dp-surface  # steps 1-2, then step 10 alone
     python3 chip_smoke.py --interop     # steps 1-2, then step 11 alone
     python3 chip_smoke.py --surface     # steps 1-2, then step 12 alone
+    python3 chip_smoke.py --parallel    # steps 1-2, then step 13 alone
 
 From the root of a checkout, on a machine with one NVIDIA H100 and the CUDA
 toolkit, it:
@@ -243,7 +244,37 @@ toolkit, it:
      reference); and CelebA with ``-p`` (the trace under ``profile/``, the
      key-averages table and the sections' summary printed). Prints each
      run's ms per D step beside its flagship's;
- 13. prints one JSON ``kernels`` line (K1-K6: launches on their main path,
+ 13. multi-device training (outputs under build/chip_smoke/parallel/). The
+     card's machine shows one card, so two ``--multihost`` processes share
+     it over gloo (NCCL refuses two ranks on one device; ``LOCAL_WORLD_SIZE``
+     2 tells each that it shares) and each rank trains its half of every
+     batch; each rank is this script again (``--parallel-rank``), counting
+     every kernel's launches from 0 around ``csl_gan_tpu_torch.train.main``
+     and recording the shapes it gave K2-K6; every run is 2 epochs and its
+     ms per D step the second's. (a) The CelebA flagship's flags cut to
+     ``-tss 1280`` (10 D steps, 2 G updates an epoch): on each rank the
+     one-rank run's launches (K2/K3 3 times a D step at B 64 on the tensor
+     cores, K4 9 times a G forward and K5 9 times a G update, also where
+     gn_relu.cu issues them, K1 and K6 never); one full-width D step and G
+     step (B 128) from the one-rank run's end state on 2 ranks, replicated
+     and under ``--fsdp``, and the 2-epoch runs (rank 0's saves), held
+     group by group (D's and G's params and Adam moments) to the one-rank
+     state within 3x a witness: the same one-rank step or run computing
+     every pass in the ranks' halves (``in_halves``; two one-rank runs are
+     bitwise equal); each rank's state bytes and
+     ``torch.cuda.memory_allocated`` printed (under ``--fsdp`` a rank must
+     hold under 0.6 of the state). (b) Path 1 cut to ``-tss 6000`` (K6 once
+     a D step at [300, 101632] a rank, the noise from rank 0) and the MNIST
+     flagship's flags cut so (the ghost route; K1 never: the epochs runner
+     is the one-device path), each held to its one-rank run on the step
+     runner within PAR_FP32_BOUND. The shapes the ranks gave K2-K6 must be
+     the one-rank run's with the batch halved, and each is held against its
+     plain version (K2/K3 at conv2-conv4 B 64, K4/K5 at the nine norms B 64,
+     K6 at [300, 101632]). (c) The MNIST flagship as one ``--multihost``
+     process on NCCL (K1 once an epoch), whose saves must equal the plain
+     run's byte for byte. Prints ms per D step by rank beside the one-rank
+     run's, with the card's name and power limit;
+ 14. prints one JSON ``kernels`` line (K1-K6: launches on their main path,
      max abs gap to the plain version, ms, plain ms, bound, library ms; K4/K5
      also their launches on the CelebA tm path; every kernel its launches on
      each path of step 8, ``cond_arch_launches``, of step 9,
@@ -251,8 +282,9 @@ toolkit, it:
      11, ``interop_launches``, and of step 12, ``surface_launches``; K2-K6
      their times at batch 50, ``b50_ms`` / ``b50_plain_ms``, K2-K5 at the
      219-row Poisson buffer, ``b219_ms`` / ``b219_plain_ms``, and K4 at the
-     grouped batch, ``b640_ms`` / ``b640_plain_ms``);
- 14. ends with ``{"ok": true, "device": {...}}`` as the last line.
+     grouped batch, ``b640_ms`` / ``b640_plain_ms``; every kernel its
+     launches by rank on each run of step 13, ``parallel_launches``);
+ 15. ends with ``{"ok": true, "device": {...}}`` as the last line.
 Any failure raises or exits non-zero, and no result line is printed. It
 needs no network and imports nothing of JAX or of the JAX package.
 """
@@ -3182,12 +3214,13 @@ def write_reference_run(root):
 
 
 @contextlib.contextmanager
-def shapes_taken(seen):
-    """K2-K5's wrappers replaced by spies that add (kernel, operand shapes,
-    dtype) of each call to the set `seen` and call the wrapper; yields the
-    spies (K2, K3, K4, K5). A wrapper adds to its counts through its module
-    name, so while they stand in, the counts (``launches``, ``launches_tc``)
-    move on the spies."""
+def shapes_taken(seen, k6=False):
+    """K2-K5's wrappers (and K6's with ``k6``) replaced by spies that add
+    (kernel, operand shapes, dtype) of each call to the set `seen` and call
+    the wrapper; yields the spies (K2, K3, K4, K5[, K6]). A wrapper adds to
+    its counts through its module name, so while they stand in, the counts
+    (``launches``, ``launches_tc``) move on the spies."""
+    from csl_gan_tpu_torch.ops import pallas_clip as pc
     from csl_gan_tpu_torch.ops import pallas_conv_ghost as pcg
     from csl_gan_tpu_torch.ops import pallas_groupnorm as gn
 
@@ -3200,7 +3233,8 @@ def shapes_taken(seen):
         return run
     swaps = tuple((mod, name, spy(key, getattr(mod, name))) for key, mod, name in (
         ("K2", pcg, "ghost_sq_norms"), ("K3", pcg, "weighted_kernel_grad"),
-        ("K4", gn, "gn_relu_forward"), ("K5", gn, "gn_relu_backward")))
+        ("K4", gn, "gn_relu_forward"), ("K5", gn, "gn_relu_backward"))
+        + ((("K6", pc, "leaf_weighted_sum_noise"),) if k6 else ()))
     with _swapped(swaps):
         yield [fn for _, _, fn in swaps]
 
@@ -3801,6 +3835,506 @@ def surface_phase(dev, out_root, smi):
     return runs, {"K4": tuple(t)}, (nat_ips, pil_ips)
 
 
+# ---------------- multi-device training ----------------
+
+# Phase 13: the data axis (csl_gan_tpu_torch/parallel) on the card's machine,
+# which shows one card. NCCL refuses two ranks on one device, so two
+# --multihost processes share the card over gloo (which carries the CUDA
+# tensors of all_reduce and broadcast through the host; LOCAL_WORLD_SIZE
+# tells each that it shares), and one --multihost process runs NCCL alone.
+# Each run is 2 epochs: the first of a process holds cuDNN's autotuning and
+# the first calls (~0.9 s a CelebA D step on an H100), so ms per D step are
+# the second epoch's. Each rank is a process of its own
+# (``--parallel-rank``), which sets every wrapper's count to 0 just before it
+# trains and reads them just after, and records the shapes it gave K2-K6.
+PAR_RANKS, PAR_EPOCHS = 2, 2
+PAR_CELEBA = SURF_CELEBA                    # 10 D steps, 2 G updates an epoch; B 64 a rank
+PAR_PATH1 = PATH1[:PATH1.index("-tss")] + ["-tss", "6000"] + PATH1[PATH1.index("-tss") + 2:]
+PAR_MNIST = ["MNIST", "--conditional", "-dpm", "gc", "--sigma", "10", "-bs", str(BS),
+             "-tss", "6000"]
+# The bf16 CelebA states against the one-rank run's, group by group (params
+# and Adam moments of D and of G, relative l2): each group within 3x its
+# witness, the one-rank run computing every pass in the ranks' halves
+# (``in_halves``), or within 3x PAR_FLOOR where the witness reads less. Two
+# one-rank runs are bitwise equal. PAR_FLOOR is eight fp32 ulps: the ranks
+# add the noise and their sums in another order than one device (D's params
+# 7.9e-8 from one rank after one step on an H100).
+PAR_FACTOR = 3.0
+PAR_FLOOR = 2.0 ** -20
+# The fp32 MNIST runs against their one-rank runs: relative l2 over each
+# group of params and Adam moments. The ranks' sums differ from the one
+# device's by their order only (~8e-8 after 20 steps on an H100).
+PAR_FP32_BOUND = 1e-4
+PAR_TIMEOUT = 300
+
+
+@contextlib.contextmanager
+def par_counted(counts):
+    """Every kernel's launches over the block into ``counts``: each
+    wrapper's count from 0, the tensor-core K2/K3, and K4/K5's CUDA
+    launches where gn_relu.cu issues them."""
+    import torch
+    from csl_gan_tpu_torch.ops import pallas_clip as pc
+    from csl_gan_tpu_torch.ops import pallas_conv_ghost as pcg
+    from csl_gan_tpu_torch.ops import pallas_epoch as pe
+    from csl_gan_tpu_torch.ops import pallas_groupnorm as gn
+    wrappers = {"K1": pe.epoch_kernel, "K2": pcg.ghost_sq_norms, "K3": pcg.weighted_kernel_grad,
+                "K4": gn.gn_relu_forward, "K5": gn.gn_relu_backward,
+                "K6": pc.leaf_weighted_sum_noise}
+    issued = (gn.cuda_launches(), gn.cuda_launches(True))
+    for w in wrappers.values():
+        w.launches = 0
+    pcg.ghost_sq_norms.launches_tc = pcg.weighted_kernel_grad.launches_tc = 0
+    yield
+    torch.cuda.synchronize()
+    counts.update({k: w.launches for k, w in wrappers.items()})
+    counts["K2 tc"], counts["K3 tc"] = (pcg.ghost_sq_norms.launches_tc,
+                                        pcg.weighted_kernel_grad.launches_tc)
+    counts["K4 cuda"] = gn.cuda_launches() - issued[0]
+    counts["K5 cuda"] = gn.cuda_launches(True) - issued[1]
+
+
+@contextlib.contextmanager
+def par_taken(counts, seen):
+    """``par_counted`` into ``counts`` and ``shapes_taken`` (K2-K6) into
+    ``seen`` over the block: the spies stand in first, so the counts are
+    theirs."""
+    with shapes_taken(seen, k6=True), par_counted(counts):
+        yield
+
+
+def shapes_json(seen):
+    return sorted([k, [list(s) for s in shapes], str(dt).replace("torch.", "")]
+                  for k, shapes, dt in seen)
+
+
+def shapes_of(rows):
+    import torch
+    return {(k, tuple(tuple(s) for s in shapes), getattr(torch, dt)) for k, shapes, dt in rows}
+
+
+@contextlib.contextmanager
+def in_halves(builder):
+    """The one-device ``builder`` computing every batched pass in the
+    PAR_RANKS parts of rows that ``torch.tensor_split`` gives the ranks: G's
+    and D's forwards (so their backwards too) and the conv-ghost real pass,
+    whose clipped sums add. The parts' gradients add in autograd as the
+    ranks' all-reduce adds them. Nothing of ``parallel/`` takes part: the
+    witness of what splitting the batch does to the arithmetic alone. The
+    real pass's clip statistics (metrics only) are the first part's. A
+    BatchNorm G is refused (its statistics would be a part's)."""
+    import torch
+    from csl_gan_tpu_torch.ops import conv_ghost
+    if builder.g_has_bn:
+        fail("in_halves: a BatchNorm G's statistics depend on the batch")
+    g_fwd, d_fwd, real = builder.G.forward, builder.D.forward, conv_ghost.dcresnet_real_ghost
+
+    def parts(t):
+        return [None] * PAR_RANKS if t is None else torch.tensor_split(t, PAR_RANKS)
+
+    def g_forward(z, y=None, *a, **kw):
+        return torch.cat([g_fwd(zi, yi, *a, **kw) for zi, yi in zip(parts(z), parts(y))])
+
+    def d_forward(x, y=None, *a, **kw):
+        outs = [d_fwd(xi, yi, *a, **kw) for xi, yi in zip(parts(x), parts(y))]
+        return tuple(None if o[0] is None else torch.cat(o) for o in zip(*outs))
+
+    def real_ghost(d_params, x, y, *, row_w=None, valid=None, **kw):
+        res = [real(d_params, xi, yi, row_w=wi, valid=vi, **kw)
+               for xi, yi, wi, vi in zip(parts(x), parts(y), parts(row_w), parts(valid))]
+        if kw.get("norms_only"):
+            return torch.cat(res, dim=1)
+        summed = {k: sum(r[0][k] for r in res) for k in res[0][0]}
+        outs = tuple(None if o[0] is None else torch.cat(o) for o in zip(*(r[2] for r in res)))
+        return summed, res[0][1], outs
+
+    with _swapped(((builder.G, "forward", g_forward), (builder.D, "forward", d_forward),
+                   (conv_ghost, "dcresnet_real_ghost", real_ghost))):
+        yield
+
+
+def _last_epoch_ms(tr) -> float:
+    a, b = tr.runner.epoch_events[-1]
+    return a.elapsed_time(b) / tr.n_batches
+
+
+def _finite(st) -> bool:
+    import torch
+    return all(bool(torch.isfinite(t).all()) for f in ("d_params", "d_mu", "d_nu", "g_params",
+                                                       "g_mu", "g_nu")
+               for t in getattr(st, f).values())
+
+
+def parallel_step_rank(job) -> None:
+    """The step check's job on one rank: the payload's D step and G step
+    (the global batch's inputs) on this rank's rows, replicated and under
+    --fsdp; rank 0 saves each whole state after the steps, the launches and
+    the shapes K2-K6 took."""
+    import dataclasses
+
+    import torch
+    from csl_gan_tpu_torch import options as toptions
+    from csl_gan_tpu_torch.models.registry import init_models
+    from csl_gan_tpu_torch.parallel import launch
+    from csl_gan_tpu_torch.training.steps import StepBuilder
+
+    opt = toptions.parse(job["argv"])
+    mesh = launch.init_multihost(opt)
+    try:
+        G, D = init_models(opt, mesh.device)
+        payload = torch.load(job["payload"], map_location=mesh.device, weights_only=False)
+        out = {"shapes": set()}
+        for fsdp in (False, True):
+            tb = StepBuilder(opt, G, D, mesh=dataclasses.replace(mesh, fsdp=fsdp))
+            counts = {}
+            with par_taken(counts, out["shapes"]):
+                st, dm = tb.d_core(tb.shard_state(payload["state"]), **payload["d"])
+                st, gm = tb.g_core(st, *payload["g"])
+            whole = tb.full_state(st)
+            out[fsdp] = {"state": whole, "launches": counts, "d": dm, "g": gm}
+        if mesh.is_main:
+            torch.save(out, job["report"])
+    finally:
+        launch.dist.destroy_process_group()
+
+
+def parallel_train_rank(job) -> None:
+    """A training job on one rank: ``train.main`` on the job's argv (a
+    --multihost process), its launches counted and its kernels' shapes
+    recorded (``par_taken``); the report (launches, shapes, ms per D step
+    of the last epoch by CUDA events, the state's bytes and what the job
+    holds allocated on the card at its end) goes to the job's JSON file."""
+    import gc
+
+    import torch
+    from csl_gan_tpu_torch import train
+
+    gc.collect()
+    base = torch.cuda.memory_allocated()
+    counts, seen = {}, set()
+    t0 = time.perf_counter()
+    with par_taken(counts, seen):
+        tr = train.main(job["argv"])
+    wall = time.perf_counter() - t0
+    st = tr.state
+    report = {"rank": tr.mesh.rank, "world": tr.mesh.world, "backend": tr.mesh.backend,
+              "fsdp": tr.mesh.fsdp, "launches": counts, "shapes": shapes_json(seen),
+              "n": tr.n_batches, "ms": _last_epoch_ms(tr), "wall_s": wall,
+              "runner": type(tr.runner).__name__, "state_bytes": _state_mb(st) * 2 ** 20,
+              "allocated": torch.cuda.memory_allocated() - base, "finite": _finite(st),
+              "counts": [st.d_count, st.g_count]}
+    with open(job["report"], "w") as fh:
+        json.dump(report, fh)
+
+
+def parallel_rank(spec_json: str) -> int:
+    """One rank process of phase 13 (``chip_smoke.py --parallel-rank
+    <json>``): its jobs in turn, each in a process group of its own (a step
+    check with a payload, else a training run)."""
+    import torch
+    spec = json.loads(spec_json)
+    sys.path.insert(0, str(REPO))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for job in spec["jobs"]:
+        (parallel_step_rank if job.get("payload") else parallel_train_rank)(job)
+    return 0
+
+
+def par_launch(jobs, ranks, root):
+    """``jobs`` [(name, argv, step payload or None)] as ``ranks``
+    --multihost processes on the card (``LOCAL_WORLD_SIZE`` ``ranks``: they
+    share it), which run them in turn, each for PAR_EPOCHS epochs over a
+    port of its own. Returns for each job (its reports by rank, or with a
+    payload rank 0's saved results; rank 0's output directory)."""
+    import os
+    import signal
+
+    from csl_gan_tpu_torch.parallel.launch import free_port
+
+    dirs = []
+    for name, _, payload in jobs:
+        tag = name.replace(" ", "_").replace("-", "")
+        (root / (tag + "_reports")).mkdir(parents=True, exist_ok=True)
+        dirs.append((root / tag, root / (tag + "_reports"), ".pt" if payload else ".json",
+                     free_port()))
+    procs = []
+    for r in range(ranks):
+        spec = {"jobs": [
+            {"argv": argv + ["-ne", str(PAR_EPOCHS), "--manual_seed", "1", "-o", str(out),
+                             "--multihost", "true", "--coordinator_address",
+                             f"localhost:{port}", "--num_processes", str(ranks),
+                             "--process_id", str(r)],
+             "report": str(rep / f"rank{r}{ext}"), "payload": payload}
+            for (_, argv, payload), (out, rep, ext, port) in zip(jobs, dirs)]}
+        env = dict(os.environ, LOCAL_WORLD_SIZE=str(ranks), LOCAL_RANK=str(r))
+        procs.append(subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                       "--parallel-rank", json.dumps(spec)], cwd=REPO,
+                                      env=env, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, start_new_session=True))
+    texts = []
+    deadline = time.time() + PAR_TIMEOUT * len(jobs)
+    try:
+        for p in procs:
+            texts.append(p.communicate(timeout=max(1.0, deadline - time.time()))[0]
+                         .decode(errors="replace"))
+    except subprocess.TimeoutExpired:
+        fail(f"{[j[0] for j in jobs]}: a rank did not finish in time")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, texts)):
+        if p.returncode != 0:
+            print(text[-4000:])
+            fail(f"{[j[0] for j in jobs]}: rank {r} exited with code {p.returncode}")
+    for line in texts[0].splitlines():
+        if line.startswith("torch.distributed:"):
+            print(f"  rank 0: {line}")
+    return [(rep / f"rank0{ext}" if payload else
+             [json.loads((rep / f"rank{r}{ext}").read_text()) for r in range(ranks)], out)
+            for (_, _, payload), (out, rep, ext, _) in zip(jobs, dirs)]
+
+
+def par_one(name, argv, root, within=None):
+    """``argv`` for PAR_EPOCHS epochs on one rank in this process: (the
+    Trainer, its launches and the shapes K2-K6 took, as ``par_taken``
+    records them, ms per D step of the last epoch). ``within(builder)``, a
+    context, is entered around the run."""
+    from csl_gan_tpu_torch import options as toptions
+    from csl_gan_tpu_torch.training.loop import Trainer
+
+    out = root / name.replace(" ", "_").replace(",", "")
+    tr = Trainer(toptions.parse(argv + ["-ne", str(PAR_EPOCHS), "--manual_seed", "1",
+                                        "-o", str(out)]))
+    counts, seen = {}, set()
+    with within(tr.builder) if within else contextlib.nullcontext(), par_taken(counts, seen):
+        tr.run()
+    if not _finite(tr.state):
+        fail(f"{name}: non-finite state")
+    return tr, counts, _last_epoch_ms(tr), seen
+
+
+def saved_state(out, template):
+    """The state of a run's last saves (the single-device format)."""
+    from csl_gan_tpu_torch.training import checkpoint
+    st, _ = checkpoint.load_g(str(out / "saves" / f"G-{PAR_EPOCHS}"), template)
+    return checkpoint.load_d(str(out / "saves" / f"D-{PAR_EPOCHS}"), st)[0]
+
+
+def halved(seen):
+    """The shapes a rank of PAR_RANKS takes where one rank took ``seen``."""
+    return {(k, tuple((s[0] // PAR_RANKS,) + s[1:] for s in shapes), dt)
+            for k, shapes, dt in seen}
+
+
+def par_shapes_held(name, seen, want, dev, peak_bytes):
+    """The shapes the ranks gave K2-K6 (``seen``) must be ``want`` (the
+    one-rank run's, each batch cut to a rank's rows); each is then held
+    against its kernel's plain version at its bound: K2/K3 by ``conv_held``
+    (the tensor-core variant on bf16 operands, FFMA on fp32), K4/K5 by
+    ``gn_held``, K6 by ``k6_held``."""
+    import torch
+    if seen != want:
+        fail(f"{name}: the ranks gave K2-K6 {sorted(seen, key=str)}, expected "
+             f"{sorted(want, key=str)}")
+    g = torch.Generator(dev).manual_seed(48)
+    convs = sorted({(shapes, dt) for k, shapes, dt in seen if k in ("K2", "K3")}, key=str)
+    for ((b, h, _, cin), (_, ho, _, cout)), dt in convs:
+        if ho != (h + 4 - 5) // 2 + 1:
+            fail(f"{name}: K2/K3 at [{b}, {h}, {h}, {cin}] -> {ho} is not a 5x5 stride-2 conv")
+        variant = "tc" if dt == torch.bfloat16 else "ffma"
+        r2, r3, _, _ = conv_held(f"{name}: conv {h}x{h}x{cin}->{cout} (B {b})",
+                                 *conv_operands(g, dev, b, h, cin, cout, dt), variant)
+        print(f"  {name}: conv {h}x{h}x{cin}->{cout} {str(dt)[6:]} (B {b}, a rank's), "
+              f"{variant}: K2 rel l2 {r2:.3e}, K3 rel l2 {r3:.3e} (bound {CONV_BOUND:g})")
+    for ((b, hw, c),), dt in sorted({(shapes, dt) for k, shapes, dt in seen
+                                     if k in ("K4", "K5")}, key=str):
+        gn_held(*gn_operands(g, dev, b, hw, c, dt))
+    for ((b, *leaf),), dt in sorted({(shapes, dt) for k, shapes, dt in seen if k == "K6"},
+                                    key=str):
+        # K6 takes the leaf's per-sample gradients [b, *leaf] as [b, P].
+        k6_held(g, dev, b, math.prod(leaf), f"{name}, a rank's rows, leaf {leaf}", peak_bytes)
+
+
+def par_groups_held(name, got, ref, halves, witness, repeat):
+    """``got`` against the one-rank ``ref`` group by group, each group
+    within PAR_FACTOR x max(its ``witness``, its ``repeat``, PAR_FLOOR);
+    its gap to ``halves`` (the witness's state) printed beside."""
+    gaps, beside = _group_gaps(got, ref), _group_gaps(got, halves)
+    bounds = {g: PAR_FACTOR * max(witness[g], repeat[g], PAR_FLOOR) for g in gaps}
+    print(f"  {name} against one rank, by group: " + "; ".join(
+        f"{g} {gaps[g]:.3e} (bound {bounds[g]:.3e}; witness {witness[g]:.3e}; against the "
+        f"run in halves {beside[g]:.3e})" for g in gaps))
+    over = [g for g in gaps if not gaps[g] <= bounds[g]]
+    if over:
+        fail(f"{name}: {over} leave the one-rank state beyond their bounds")
+
+
+def parallel_phase(dev, out_root, smi, peak_bytes):
+    """Phase 13. Returns each run's launches by rank, for the kernels line."""
+    import torch
+
+    root = out_root / "parallel"
+    launches = {}
+
+    def held_ranks(name, reports, want, ms1):
+        for r in reports:
+            got = {k: r["launches"][k] for k in want}
+            if got != want or not r["finite"] or r["backend"] != "gloo" or \
+                    r["runner"] != "StepRunner":
+                fail(f"{name}: rank {r['rank']} launches {got} (expected {want}), backend "
+                     f"{r['backend']}, runner {r['runner']}, finite {r['finite']}")
+        launches[name] = [r["launches"] for r in reports]
+        print(f"{name} [{smi}]: {PAR_RANKS} ranks over gloo sharing the card, "
+              f"{PAR_EPOCHS} epochs of {reports[0]['n']} D steps; launches by rank "
+              + "; ".join(f"rank {r['rank']}: " + (", ".join(
+                  f"{k} {v}" for k, v in r["launches"].items() if v) or "none")
+                          for r in reports)
+              + "; ms per D step (last epoch) by rank " + ", ".join(
+                  f"{r['ms']:.3f}" for r in reports)
+              + f" against one rank's {ms1:.3f}; wall s by rank "
+              + ", ".join(f"{r['wall_s']:.2f}" for r in reports))
+        return set().union(*(shapes_of(r["shapes"]) for r in reports))
+
+    # (a) The CelebA flagship's flags cut to 10 D steps an epoch: one rank in
+    # this process (twice, and in halves: the witness), then one pair of
+    # rank processes for the step check and the runs, replicated and --fsdp.
+    t_phase = time.perf_counter()
+    tr1, want, ms1, seen1 = par_one("CelebA one rank", PAR_CELEBA, root)
+    n_d, n_g = tr1.state.d_count, tr1.state.g_count
+    formula = dict(_celeba_expect(n_d, n_g), K1=0, K6=0)
+    if {k: want[k] for k in formula} != formula:
+        fail(f"CelebA one rank: launches {want}, expected {formula}")
+    again, _, _, _ = par_one("CelebA one rank again", PAR_CELEBA, root)
+    repeat = _group_gaps(again.state, tr1.state)
+    del again
+    halves, _, _, _ = par_one("CelebA one rank in halves", PAR_CELEBA, root, in_halves)
+    witness = _group_gaps(halves.state, tr1.state)
+    print(f"CelebA one rank [{smi}]: {PAR_EPOCHS} epochs of {tr1.n_batches} D steps, launches "
+          f"{want}; {ms1:.3f} ms per D step (last epoch); witness, the one-rank run with "
+          f"every pass in {PAR_RANKS} halves, by group: "
+          + ", ".join(f"{g} {v:.3e}" for g, v in witness.items())
+          + f"; two one-rank runs {max(repeat.values()):.3e}")
+
+    # One full-width D step and G step (B 128, 64 rows a rank) from the
+    # one-rank run's end state, replicated and under --fsdp, against the
+    # same steps on one rank, each group within 3x the same steps in halves.
+    b, st = tr1.builder, tr1.state
+    runner, gs = tr1.step_runner, torch.Generator(dev).manual_seed(47)
+    x, y = runner._batch(torch.randperm(runner.n_rows, generator=gs, device=dev)[:CB], gs)
+    d_in = dict(x=x, y=y, use_dp=True, **runner._d_draws(st, x, y, gs, runner.noise_stds(st),
+                                                         True))
+    g_in = (b.gen_z(gs, CB), b.gen_y(gs, CB))
+    payload = root / "step_payload.pt"
+    torch.save({"state": st, "d": d_in, "g": g_in}, payload)
+
+    def one_step():
+        return b.g_core(b.d_core(st, **d_in)[0], *g_in)[0]
+
+    ref1, ref2 = one_step(), one_step()
+    with in_halves(b):
+        split = one_step()
+    step_repeat, step_witness = _group_gaps(ref2, ref1), _group_gaps(split, ref1)
+    fsdp_argv = PAR_CELEBA + ["--fsdp", "true"]
+    (step_path, _), *celeba = par_launch(
+        [("CelebA step", PAR_CELEBA, str(payload)), ("CelebA 2 ranks", PAR_CELEBA, None),
+         ("CelebA 2 ranks fsdp", fsdp_argv, None)], PAR_RANKS, root)
+    got = torch.load(step_path, map_location=dev, weights_only=False)
+    celeba_seen = set(got["shapes"])
+    for fsdp in (False, True):
+        k = got[fsdp]["launches"]
+        name = f"CelebA step{' fsdp' if fsdp else ''}"
+        print(f"{name} [{smi}]: one D step and one G step at B {CB}, {CB // PAR_RANKS} rows a "
+              f"rank on {PAR_RANKS} ranks; rank 0 launched K2 {k['K2']}, K3 {k['K3']}, K4 "
+              f"{k['K4']}, K5 {k['K5']}; two one-rank steps {max(step_repeat.values()):.3e}")
+        par_groups_held(name, got[fsdp]["state"], ref1, split, step_witness, step_repeat)
+        if (k["K2"], k["K3"], k["K4"], k["K5"]) != (3, 3, 2 * G_NORMS, G_NORMS):
+            fail(f"{name}: launches {k}")
+    del ref1, ref2, split, got
+    whole_mb = _state_mb(tr1.state)
+    state_mb = {}
+    for fsdp, (reports, out) in zip((False, True), celeba):
+        name = "CelebA 2 ranks" + (" fsdp" if fsdp else "")
+        celeba_seen |= held_ranks(name, reports, want, ms1)
+        if any(r["fsdp"] != fsdp or r["counts"] != [n_d, n_g] for r in reports):
+            fail(f"{name}: --fsdp / update counts {[(r['fsdp'], r['counts']) for r in reports]}")
+        state_mb[fsdp] = [r["state_bytes"] / 2 ** 20 for r in reports]
+        print(f"  state (params and Adam moments) by rank "
+              + ", ".join(f"{x:.2f} MB ({x / whole_mb:.3f} of one rank's)"
+                          for x in state_mb[fsdp])
+              + "; torch.cuda.memory_allocated by rank at the run's end, over its start "
+              + ", ".join(f"{r['allocated'] / 2 ** 20:.1f} MB" for r in reports))
+        par_groups_held(name, saved_state(out, tr1.state), tr1.state, halves.state, witness,
+                        repeat)
+    if not all(x < 0.6 * whole_mb for x in state_mb[True]):
+        fail(f"--fsdp: a rank holds {state_mb[True]} MB of a {whole_mb:.2f} MB state")
+    del tr1, halves
+    torch.cuda.empty_cache()
+    par_shapes_held("CelebA 2 ranks", celeba_seen, halved(seen1), dev, peak_bytes)
+
+    # (b) MNIST path 1 (K6 at [300, 101632] a rank, the noise from rank 0)
+    # and the MNIST flagship's flags on the ghost route (K1 is the
+    # one-device path), each against its one-rank run on the step runner.
+    cases = (("path 1", PAR_PATH1, PAR_PATH1),
+             ("MNIST ghost", PAR_MNIST, PAR_MNIST + ["--pallas_epoch", "false"]))
+    ones = []
+    for name, argv, argv1 in cases:
+        tr1, want, ms1, seen1 = par_one(name + " one rank", argv1, root)
+        if type(tr1.runner).__name__ != "StepRunner" or want["K1"] or \
+                want["K6"] != (tr1.state.d_count if argv is PAR_PATH1 else 0):
+            fail(f"{name} one rank: launches {want} on the {type(tr1.runner).__name__}")
+        ones.append((tr1, want, ms1, seen1))
+    runs = par_launch([(name + " 2 ranks", argv, None) for name, argv, _ in cases],
+                      PAR_RANKS, root)
+    for (name, _, _), (tr1, want, ms1, seen1), (reports, out) in zip(cases, ones, runs):
+        seen = held_ranks(name + " 2 ranks", reports, want, ms1)
+        gap = _state_gap(saved_state(out, tr1.state), tr1.state)
+        print(f"  end state against the one-rank run's (fp32): {gap:.3e} (bound "
+              f"{PAR_FP32_BOUND:g})")
+        if not gap <= PAR_FP32_BOUND:
+            fail(f"{name}: 2 ranks leave the one-rank run by {gap:.3e}")
+        par_shapes_held(name + " 2 ranks", seen, halved(seen1), dev, peak_bytes)
+    del ones, runs
+
+    # (c) One rank on NCCL: the MNIST flagship's K1 path through --multihost
+    # against the plain run, byte for byte.
+    plain, want, ms1, _ = par_one("MNIST plain", SURF_MNIST, root)
+    [(reports, out)] = par_launch([("MNIST NCCL", SURF_MNIST, None)], 1, root)
+    r = reports[0]
+    launches["MNIST NCCL"] = [r["launches"]]
+    if r["backend"] != "nccl" or r["launches"] != want or want["K1"] != PAR_EPOCHS or \
+            r["runner"] != "EpochsRunner":
+        fail(f"MNIST NCCL: backend {r['backend']}, launches {r['launches']} (plain {want}), "
+             f"runner {r['runner']}")
+    plain_saves = root / "MNIST_plain" / "saves"
+    names = sorted(p.name for p in plain_saves.iterdir())
+    same = names == sorted(p.name for p in (out / "saves").iterdir()) and all(
+        (out / "saves" / f).read_bytes() == (plain_saves / f).read_bytes() for f in names)
+    print(f"MNIST NCCL [{smi}]: one --multihost rank over nccl, K1 {r['launches']['K1']} "
+          f"launch(es) on the {r['runner']}; saves {names} byte for byte the plain run's: "
+          f"{same}; {r['ms']:.3f} ms per D step (last epoch) against the plain run's {ms1:.3f}")
+    if not same:
+        fail("MNIST NCCL: the saves differ from the plain run's")
+    print(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def _group_gaps(a, b) -> dict:
+    """``_state_gap`` by group."""
+    import torch
+    return {g: rel_l2(torch.cat([getattr(a, g)[k].float().reshape(-1) for k in getattr(b, g)]),
+                      torch.cat([getattr(b, g)[k].float().reshape(-1) for k in getattr(b, g)]))
+            for g in ("d_params", "d_mu", "d_nu", "g_params", "g_mu", "g_nu")}
+
+
+def _state_mb(st) -> float:
+    return sum(t.numel() * t.element_size() for f in ("d_params", "d_mu", "d_nu", "g_params",
+                                                      "g_mu", "g_nu")
+               for t in getattr(st, f).values()) / 2 ** 20
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3887,6 +4421,9 @@ def main() -> int:
     if "--surface" in sys.argv[1:]:
         surface_phase(dev, out_root, smi)
         return 0
+    if "--parallel" in sys.argv[1:]:
+        parallel_phase(dev, out_root, smi, peak_bytes)
+        return 0
 
     # 3. The MNIST path (K1): kernel vs plain, the Trainer, K1's timing.
     max_abs = k1_check_phase(dev, out_root)
@@ -3953,7 +4490,14 @@ def main() -> int:
         if k in b640:
             entry[f"b{5 * CB}_ms"], entry[f"b{5 * CB}_plain_ms"] = b640[k]
 
-    # 13. The kernels line; 14. the result line.
+    # 13. Multi-device training: 2 ranks sharing the card over gloo (CelebA,
+    # replicated and --fsdp; path 1; the MNIST ghost route), 1 rank on NCCL.
+    par = parallel_phase(dev, out_root, smi, peak_bytes)
+    for entry in kernels:
+        k = keys[entry["name"]]
+        entry["parallel_launches"] = {run: [c[k] for c in by_rank] for run, by_rank in par.items()}
+
+    # 14. The kernels line; 15. the result line.
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
@@ -3961,4 +4505,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 2 and sys.argv[1] == "--parallel-rank":
+        sys.exit(parallel_rank(sys.argv[2]))
     sys.exit(main())

@@ -94,7 +94,14 @@ class BatchNormRelu(nn.Module):
     mode it normalizes by the batch's mean and fast variance
     max(E[x^2] - E[x]^2, 0) and writes 0.9 * running + 0.1 * batch into its
     ``mean`` / ``var`` buffers in place (outside autograd); in eval mode it
-    normalizes by the buffers."""
+    normalizes by the buffers.
+
+    Under a data axis (``mesh``, a ``parallel.MeshContext`` with a process
+    group, set by the step builder) x is a rank's rows and the statistics
+    are the global batch's, as the JAX package's sharded batch gives them:
+    the sum and the sum of squares over the rank's rows, summed over the
+    ranks by a differentiable sum whose backward sums the ranks' gradients
+    (``sum_distinct``; ``nn.SyncBatchNorm`` refuses CPU tensors)."""
 
     def __init__(self, features: int, momentum: float = 0.9, eps: float = 1e-5):
         super().__init__()
@@ -103,12 +110,23 @@ class BatchNormRelu(nn.Module):
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
         self.momentum, self.eps = momentum, eps
+        self.mesh = None
+
+    def _batch_stats(self, xf: torch.Tensor):
+        if self.mesh is None or not self.mesh.grouped:
+            mean = xf.mean(dim=(0, 1, 2))
+            return mean, (xf * xf).mean(dim=(0, 1, 2))
+        c = xf.shape[-1]
+        count = torch.full((1,), float(xf[..., 0].numel()), device=xf.device)
+        s = self.mesh.sum_distinct(torch.cat([xf.sum(dim=(0, 1, 2)),
+                                              (xf * xf).sum(dim=(0, 1, 2)), count]))
+        return s[:c] / s[-1], s[c:2 * c] / s[-1]
 
     def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
         xf = x.float()
         if train:
-            mean = xf.mean(dim=(0, 1, 2))
-            var = torch.clamp((xf * xf).mean(dim=(0, 1, 2)) - mean * mean, min=0.0)
+            mean, ex2 = self._batch_stats(xf)
+            var = torch.clamp(ex2 - mean * mean, min=0.0)
             with torch.no_grad():
                 self.mean.copy_(self.momentum * self.mean + (1.0 - self.momentum) * mean)
                 self.var.copy_(self.momentum * self.var + (1.0 - self.momentum) * var)

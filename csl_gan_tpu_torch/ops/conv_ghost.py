@@ -67,7 +67,8 @@ def dcresnet_real_ghost(d_params: Dict[str, torch.Tensor], x: torch.Tensor,
                         row_w: Optional[torch.Tensor], max_norm,
                         per_layer: bool = False, concat_planes: bool = False,
                         stride: int = 2, pad: int = 2, compute_dtype=None,
-                        norms_only: bool = False, valid: Optional[torch.Tensor] = None):
+                        norms_only: bool = False, valid: Optional[torch.Tensor] = None,
+                        stats_gather=None):
     """Clipped summed gradient of the per-sample REAL wgan loss
     loss_i = -out_i [+ ACGAN aux term of sample i], with out_i the WCGAN
     head's column y_i.
@@ -79,7 +80,11 @@ def dcresnet_real_ghost(d_params: Dict[str, torch.Tensor], x: torch.Tensor,
 
     ``valid`` (the Poisson row mask, [B] fp32) scales the head cotangents
     before K2 and K3 see them, so a masked row has gradient and norm 0
-    (factor 1, contribution 0); the kernels take no mask."""
+    (factor 1, contribution 0); the kernels take no mask.
+
+    Under a data axis x is a rank's rows: K2 and K3 run on them, the norms
+    are theirs and the sums are over them, which the caller reduces
+    (``stats_gather``: see ``grads.stats_from_norms``)."""
     b = x.shape[0]
     dt = compute_dtype
     n_convs = sum(1 for k in d_params if k.startswith("TorchConv_") and k.endswith(".weight"))
@@ -189,4 +194,4 @@ def dcresnet_real_ghost(d_params: Dict[str, torch.Tensor], x: torch.Tensor,
     clip_norms = leaf_norms * _BF16_NORM_MARGIN if dt is not None else leaf_norms
     factors = clip_factors(clip_norms, max_norm, per_layer)
     summed = {k: wsum[k](factors[i]) for i, k in enumerate(leaves)}
-    return summed, stats_from_norms(leaf_norms, factors), (out, aux_out)
+    return summed, stats_from_norms(leaf_norms, factors, stats_gather), (out, aux_out)

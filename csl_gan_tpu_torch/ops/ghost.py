@@ -26,12 +26,15 @@ def vanilla_real_ghost(d_params: Dict[str, torch.Tensor], x: torch.Tensor,
                        y_onehot: Optional[torch.Tensor],
                        aux_labels: Optional[torch.Tensor],
                        aux_scalar: float, max_norm: float,
-                       per_layer: bool = False, valid: Optional[torch.Tensor] = None):
+                       per_layer: bool = False, valid: Optional[torch.Tensor] = None,
+                       stats_gather=None):
     """Clipped summed gradient of the per-sample real loss BCE(out_i, 1)
     [+ aux_scalar * CE_i]. The DP noise is pre-drawn and added by the caller
     (training/steps.py), as the epoch kernel consumes it. ``valid`` (the
     Poisson row mask, [B] fp32) scales the head cotangents, so a masked row
-    has gradient and norm 0 (factor 1, contribution 0).
+    has gradient and norm 0 (factor 1, contribution 0). The sum is over the
+    rows given: a rank's rows under a data axis, which the caller reduces
+    (``stats_gather``: see ``grads.stats_from_norms``).
 
     Returns (summed grads by param name, ClipStats, (out, aux_out))."""
     b = x.shape[0]
@@ -86,5 +89,5 @@ def vanilla_real_ghost(d_params: Dict[str, torch.Tensor], x: torch.Tensor,
     if use_aux:
         summed["linOutAux.bias"] = wsum_vec(c_aux, factors[4])
         summed["linOutAux.weight"] = wsum_mat(h, c_aux, factors[5])
-    stats: ClipStats = stats_from_norms(leaf_norms, factors)
+    stats: ClipStats = stats_from_norms(leaf_norms, factors, stats_gather)
     return summed, stats, (out, aux)

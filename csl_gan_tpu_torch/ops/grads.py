@@ -94,7 +94,13 @@ def weighted_sum(grads_ps: Params, factors: torch.Tensor) -> Params:
             for i, (k, g) in enumerate(grads_ps.items())}
 
 
-def stats_from_norms(leaf_norms: torch.Tensor, factors: torch.Tensor) -> ClipStats:
+def stats_from_norms(leaf_norms: torch.Tensor, factors: torch.Tensor,
+                     gather: Optional[Callable] = None) -> ClipStats:
+    """The batch's ClipStats of [n_leaves, batch] norms and factors. Under a
+    data axis ``gather`` maps this rank's columns to the whole batch's
+    (``MeshContext.gather_cols``), so the statistics are the batch's."""
+    if gather is not None:
+        leaf_norms, factors = gather(leaf_norms), gather(factors)
     return ClipStats(
         norm_mean=leaf_norms.mean(dim=1),
         norm_std=leaf_norms.std(dim=1, correction=0),
@@ -214,7 +220,8 @@ def mask_loss(loss_fn: Callable, batch: tuple, valid: Optional[torch.Tensor]):
 
 
 def two_pass_clipped_grad_sum(loss_fn: Callable, params: Params, *batch: torch.Tensor,
-                              max_norm: MaxNorm, per_layer: bool = False
+                              max_norm: MaxNorm, per_layer: bool = False,
+                              stats_gather: Optional[Callable] = None
                               ) -> Tuple[Params, ClipStats]:
     """Clipped gradient sum without re-reading materialized per-sample grads.
 
@@ -223,7 +230,9 @@ def two_pass_clipped_grad_sum(loss_fn: Callable, params: Params, *batch: torch.T
     sum_i w_i * loss_i with the clip factors as constants: exactly the clipped
     sum, since d/dp sum_i w_i l_i(p) = sum_i w_i g_i. Per-leaf factors differ
     across leaves, which one weighted backward cannot express, so per-layer
-    clipping takes ``clipped_grad_sum``."""
+    clipping takes ``clipped_grad_sum``. The sum is over the rows given (a
+    rank's rows under a data axis: the caller reduces it); ``stats_gather``
+    as in ``stats_from_norms``."""
 
     def norms_of(*example):
         g = grad(loss_fn)(params, *example)
@@ -231,7 +240,7 @@ def two_pass_clipped_grad_sum(loss_fn: Callable, params: Params, *batch: torch.T
 
     norms = vmap(norms_of)(*batch).T                    # [n_leaves, batch]
     factors = clip_factors(norms, max_norm, per_layer)
-    stats = stats_from_norms(norms, factors)
+    stats = stats_from_norms(norms, factors, stats_gather)
     if per_layer:
         summed, _ = clipped_grad_sum(loss_fn, params, *batch, max_norm=max_norm,
                                      per_layer=True)
@@ -248,7 +257,8 @@ def two_pass_clipped_grad_sum(loss_fn: Callable, params: Params, *batch: torch.T
 def clipped_grad_sum(loss_fn: Callable, params: Params, *batch: torch.Tensor,
                      max_norm: MaxNorm, per_layer: bool = False,
                      chunk: Optional[int] = None,
-                     fused_noise: Optional[FusedNoise] = None
+                     fused_noise: Optional[FusedNoise] = None,
+                     stats_gather: Optional[Callable] = None
                      ) -> Tuple[Params, ClipStats]:
     """Sum over samples of per-sample-clipped gradients, plus norm statistics
     (the equivalent of Opacus ``clip()`` and the grad-norm logging pass).
@@ -257,7 +267,11 @@ def clipped_grad_sum(loss_fn: Callable, params: Params, *batch: torch.Tensor,
     per-sample-gradient memory by chunk x params; pad rows get factor 0 and
     are dropped from the statistics. With ``fused_noise`` (unchunked only) the
     Gaussian DP noise is added inside the weighted sum; noise addition
-    commutes with the fake-pass and penalty gradients that may follow."""
+    commutes with the fake-pass and penalty gradients that may follow.
+
+    Under a data axis the sum (and its noise, which only one rank adds: the
+    others pass zero stds) is over this rank's rows, and the caller reduces
+    it; ``stats_gather`` as in ``stats_from_norms``."""
     gfn = vmap(grad(loss_fn), in_dims=(None,) + (0,) * len(batch))
 
     def one_chunk(bc):
@@ -271,7 +285,7 @@ def clipped_grad_sum(loss_fn: Callable, params: Params, *batch: torch.Tensor,
             summed = weighted_sum_fused_noise(g_ps, factors, fused_noise)
         else:
             summed = weighted_sum(g_ps, factors)
-        return summed, stats_from_norms(norms, factors)
+        return summed, stats_from_norms(norms, factors, stats_gather)
 
     if fused_noise is not None:
         raise ValueError("fused_noise is not supported with chunked per-sample "
@@ -288,7 +302,7 @@ def clipped_grad_sum(loss_fn: Callable, params: Params, *batch: torch.Tensor,
         factors_all.append(factors)
     norms = torch.cat(norms_all, dim=1)[:, :n]
     factors = torch.cat(factors_all, dim=1)[:, :n]
-    return summed, stats_from_norms(norms, factors)
+    return summed, stats_from_norms(norms, factors, stats_gather)
 
 
 def noise_like(gen: torch.Generator, leaves: Sequence[torch.Tensor],

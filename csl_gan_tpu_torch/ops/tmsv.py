@@ -44,8 +44,19 @@ def sign_vote(g: torch.Tensor, rho_per_step: float,
               gen: Optional[torch.Generator] = None,
               noise: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Noisy per-coordinate sign vote of g [B, ...], divided by B."""
-    b = g.shape[0]
-    vote = torch.sum(torch.sign(g), dim=0)
+    return noisy_vote(vote_sum(g), g.shape[0], rho_per_step, gen, noise)
+
+
+def vote_sum(g: torch.Tensor) -> torch.Tensor:
+    """The per-coordinate sum of the signs of g [B, ...]: a sum over rows,
+    which ranks of a data axis add up."""
+    return torch.sum(torch.sign(g), dim=0)
+
+
+def noisy_vote(vote: torch.Tensor, b: int, rho_per_step: float,
+               gen: Optional[torch.Generator] = None,
+               noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(vote + noise) / b of a summed vote over b rows."""
     if noise is None:
         noise = torch.randn(vote.shape, generator=gen, device=gen.device,
                             dtype=torch.float32)

@@ -341,7 +341,10 @@ def _k1_path(o) -> bool:
     the epochs runner (K1). ``--bf16`` sets the builder's compute dtype and
     ``--u8_table`` stores the table without its one-hot columns; either
     leaves the gate, as ``-wd`` does. The Trainer also leaves K1 under
-    ``--host_loop``, as the JAX Trainer's host loop does."""
+    ``--host_loop``, as the JAX Trainer's host loop does. K1 is the
+    one-device path: the run's ranks are ``parallel/launch.world_size``'s,
+    clamped to the visible devices as the ranks are spawned."""
+    from csl_gan_tpu_torch.parallel.launch import world_size
     return bool(o.pallas_epoch and _vanilla(o) and o.dataset == "MNIST"
                 and o.conditional and o.conditional_arch == "ACGAN"
                 and o.aux_loss_type == "cross_entropy" and 2 <= o.n_classes <= 16
@@ -351,20 +354,18 @@ def _k1_path(o) -> bool:
                 and float(o.train_d_until_threshold) >= 1e10
                 and (o.weight_decay or 0) == 0
                 and o.batch_size % 8 == 0
+                and world_size(o, say=False) == 1
                 and (o.dp_mode is None or (o.dp_mode == "gc" and o.grad_clip_split
                                            and not o.use_grad_clip_per_layer
                                            and not _adaptive(o))))
 
 
 # (flag, test on the parsed opt) for every option whose path is not ported:
-# multi-device training, and downloading MNIST, which needs the network.
-# Adaptive clipping outside -dpm gc is accepted and, as in the JAX package,
-# read by no step.
+# the tensor-parallel model axis, and downloading MNIST, which needs the
+# network. Adaptive clipping outside -dpm gc is accepted and, as in the JAX
+# package, read by no step.
 _NOT_PORTED = [
-    ("--fsdp", lambda o: o.fsdp),
     ("--tp", lambda o: o.tp != 1),
-    ("--mesh_shape", lambda o: (o.mesh_shape or 1) != 1),
-    ("--multihost", lambda o: o.multihost),
     ("--download_mnist", lambda o: o.download_mnist),
 ]
 

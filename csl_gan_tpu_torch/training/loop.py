@@ -57,6 +57,18 @@ of the port carries the Trainer's generator states, so the resumed run
 equals the uninterrupted one; a JAX save does not, and the generators are
 then seeded from (seed, resume epoch). SIGTERM lets the current group
 finish, then saves and returns (JAX training/loop.py:937-1039).
+
+Under a data axis (``mesh``, parallel/mesh.py; one Trainer a rank) each
+rank holds the whole device dataset, as the JAX Trainer replicates it, and
+seeds its generators alike: every rank draws the same global permutation,
+z, labels and noise, and the steps keep each rank's rows. The epochs runner
+(K1) is left, as the JAX gate leaves it off one device. Rank 0 alone
+prints the logs and writes ``log.csv``'s rows, ``privacy_log.csv``, the
+sample grids and the saves; under ``--fsdp`` the state is gathered whole on
+every rank first, so a save is the single-device one. A resume loads the
+whole save on every rank, then shards it. The SIGTERM stop flag is
+all-reduced at each group boundary, so every rank stops after the same
+epoch and reaches the save. Under ``-p`` each rank writes its own trace.
 """
 
 from __future__ import annotations
@@ -77,6 +89,7 @@ from csl_gan_tpu_torch.data import ArrayDataset, Loader, init_data, n_batches
 from csl_gan_tpu_torch.models.registry import init_models
 from csl_gan_tpu_torch.ops.backprop_clip import bpc_config_for
 from csl_gan_tpu_torch.ops import pallas_epoch as pe
+from csl_gan_tpu_torch.parallel.mesh import MeshContext
 from csl_gan_tpu_torch.privacy import MeanSampler, accountant_from_state_dict, make_accountant
 from csl_gan_tpu_torch.training import checkpoint
 from csl_gan_tpu_torch.training.logger import build_logger
@@ -97,8 +110,11 @@ _NORM_STATS = (("norm_mean", "D Layer Grad Norm Means"),
                ("frac_clipped", "Grads Clipped"))
 
 
-def resolve_device(opt) -> torch.device:
-    """cuda:0 unless --platform cpu; without a CUDA device, raise."""
+def resolve_device(opt, mesh: MeshContext = None) -> torch.device:
+    """The rank's device under a data axis; else cuda:0 unless --platform
+    cpu; without a CUDA device, raise."""
+    if mesh is not None and mesh.grouped:
+        return mesh.device
     if opt.platform == "cpu":
         return torch.device("cpu")
     if not torch.cuda.is_available():
@@ -120,9 +136,13 @@ def snapshot_code(output_dir: str) -> None:
 class Trainer:
     MAX_EPOCH_GROUP = 100
 
-    def __init__(self, opt):
+    def __init__(self, opt, mesh: MeshContext = None):
         self.opt = opt
-        self.device = resolve_device(opt)
+        self.device = resolve_device(opt, mesh)
+        self.mesh = mesh if mesh is not None else MeshContext(device=self.device)
+        if opt.batch_size < self.mesh.world:
+            raise ValueError(f"-bs {opt.batch_size} gives a rank of the {self.mesh.world} "
+                             "no row; raise -bs or use fewer ranks")
         options_mod.save_opt(opt, os.path.join(opt.output_dir, "opt.txt"))
         fresh = opt.resume_path is None
         if fresh:
@@ -156,7 +176,7 @@ class Trainer:
         if opt.dataset == "CelebA" and opt.conditional and \
                 self.dataset.label_true_count is not None:
             label1_prob = self.dataset.label_true_count / opt.train_set_size
-        self.builder = StepBuilder(opt, self.G, self.D, label1_prob)
+        self.builder = StepBuilder(opt, self.G, self.D, label1_prob, mesh=self.mesh)
         self.state = self.builder.init_state()
         self._setup_mean_samples()
         self._setup_device_data()
@@ -168,7 +188,8 @@ class Trainer:
                                       device=self.device)
         self.runner = self.step_runner
         # The JAX Trainer's host loop never takes its epoch kernel.
-        if opt.pallas_epoch and not opt.host_loop and pe.supports(self.builder, opt.use_dp, 1):
+        if opt.pallas_epoch and not opt.host_loop and \
+                pe.supports(self.builder, opt.use_dp, self.mesh.world):
             self.runner = EpochsRunner(self.builder, self.n_batches, opt.use_dp)
         # D leaves in torch parameter order (weight before bias) as indices
         # into the JAX leaf order: the per-layer log columns.
@@ -186,6 +207,7 @@ class Trainer:
         self.start_epoch = 0
         if not fresh and opt.resume_epochs > 0:
             self._resume(opt.resume_epochs)
+        self.state = self.builder.shard_state(self.state)
 
         # The fixed sampling grid (reference train.py:256-261): z from the
         # seed alone, drawn on the CPU so both devices draw the same grid;
@@ -204,7 +226,7 @@ class Trainer:
         self.logger = build_logger(opt, os.path.join(opt.output_dir, "log.csv"),
                                    write_header=fresh)
         self.privacy_log = None
-        if opt.use_dp:
+        if opt.use_dp and self.mesh.is_main:
             self.privacy_log = open(os.path.join(opt.output_dir, "privacy_log.csv"), "a")
             self.privacy_writer = csv.writer(self.privacy_log)
             if fresh:
@@ -534,6 +556,9 @@ class Trainer:
                           "(zero G updates; train_d_until_threshold gating) — stopping after "
                           f"this epoch group (--stop_on_g_freeze {n_freeze}).", flush=True)
             lg.log_g_iter = 0
+            if not self.mesh.is_main:
+                lg.reset_stats()
+                return
             lg.log(epoch, progress)
             if self.accountant is not None and self.accountant.steps > 0:
                 eps, best_alpha = self.accountant.get_privacy_spent(self.opt.delta)
@@ -542,9 +567,12 @@ class Trainer:
     def sample(self, epoch: int, batch: int) -> None:
         """The fixed-z grid of G at the current state as
         samples/{epoch + 1}-{batch}.png, n_classes columns (one class a
-        column when conditional)."""
-        imgs = self.builder.sample_images(self.state, self.fixed_z,
-                                          self.fixed_y).cpu().numpy()
+        column when conditional); on rank 0 (every rank gathers --fsdp's
+        params)."""
+        state = self.builder.full_params(self.state)
+        if not self.mesh.is_main:
+            return
+        imgs = self.builder.sample_images(state, self.fixed_z, self.fixed_y).cpu().numpy()
         if self.opt.dataset == "CelebA":
             imgs = denorm_celeba(imgs)
         save_image_grid(imgs, os.path.join(self.opt.output_dir, "samples",
@@ -558,7 +586,11 @@ class Trainer:
         if self.step_runner.d_acc is not None:
             run_state["d_acc"] = self.step_runner.d_acc.cpu().numpy()
         with self._section("checkpoint"):
-            checkpoint.save_pair(self.opt.output_dir, epoch_label, epoch, self.state,
+            # Every rank gathers --fsdp's shards; rank 0 writes.
+            state = self.builder.full_state(self.state)
+            if not self.mesh.is_main:
+                return
+            checkpoint.save_pair(self.opt.output_dir, epoch_label, epoch, state,
                                  self.accountant.state_dict() if self.accountant else None,
                                  run_state, decay=self.builder.weight_decay != 0)
 
@@ -575,11 +607,14 @@ class Trainer:
         key-averages table and the sections' summary are printed at the
         end."""
         opt = self.opt
-        print("\nStarting training...\n")
+        main = self.mesh.is_main
+        if main:
+            print("\nStarting training...\n")
         self.logger.reset_stats()
         profile = None
         if self._timer is not None:
-            profile = TrainingProfile(opt.output_dir, self.device)
+            name = "trace.json" if main else f"trace.rank{self.mesh.rank}.json"
+            profile = TrainingProfile(opt.output_dir, self.device, name=name)
             profile.start()
         if self.start_epoch == 0:
             with self._section("warmup"):
@@ -599,11 +634,14 @@ class Trainer:
             if installed:
                 signal.signal(signal.SIGTERM, prev if prev is not None else signal.SIG_DFL)
             if profile is not None:
-                print(profile.stop())
+                table = profile.stop()
+                if main:
+                    print(table)
                 print("Profile trace written to", profile.trace_path)
-        print("Finished training.")
+        if main:
+            print("Finished training.")
         self._save(epoch + 1, opt.n_epochs)
-        if self._timer is not None:
+        if self._timer is not None and main:
             print(self._timer.summary())
         self.close()
         return epoch
@@ -636,8 +674,9 @@ class Trainer:
                     # The budget stop reads the bare epsilon (reference
                     # train.py:592); the log adds the mean samples' cost.
                     eps, _ = self.accountant.get_privacy_spent(opt.delta)
-                    self.privacy_writer.writerow([e, eps + self.mean_sample_privacy_cost])
-                    self.privacy_log.flush()
+                    if self.privacy_log is not None:
+                        self.privacy_writer.writerow([e, eps + self.mean_sample_privacy_cost])
+                        self.privacy_log.flush()
                     stop = opt.epsilon_budget is not None and eps > opt.epsilon_budget
                 stop = stop or self._g_freeze_stop
                 if (e + 1) % opt.save_every == 0:
@@ -645,9 +684,11 @@ class Trainer:
                 epoch = e
                 if stop:
                     break
-            if preempted.is_set():
-                print(f"Preempted after epoch {epoch}; saving and exiting "
-                      "(resume with --resume_path).", flush=True)
+            # Every rank stops after the same epoch when one was signalled.
+            if self.mesh.any(preempted.is_set()):
+                if self.mesh.is_main:
+                    print(f"Preempted after epoch {epoch}; saving and exiting "
+                          "(resume with --resume_path).", flush=True)
                 stop = True
             if stop:
                 break
@@ -660,7 +701,7 @@ class Trainer:
             self.privacy_log.close()
 
 
-def run_training(opt) -> Trainer:
-    trainer = Trainer(opt)
+def run_training(opt, mesh: MeshContext = None) -> Trainer:
+    trainer = Trainer(opt, mesh)
     trainer.run()
     return trainer

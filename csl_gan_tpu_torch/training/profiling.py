@@ -59,11 +59,14 @@ class SectionTimer:
 class TrainingProfile:
     """``torch.profiler`` over a training run on ``device``: CPU activity,
     and CUDA activity on the card. ``stop()`` writes the chrome trace to
-    ``<output_dir>/profile/trace.json`` and returns the key-averages table,
-    sorted by self device time on the card (self CPU time otherwise)."""
+    ``<output_dir>/profile/trace.json`` (``name``: a rank's own under a data
+    axis) and returns the key-averages table, sorted by self device time on
+    the card (self CPU time otherwise)."""
 
-    def __init__(self, output_dir: str, device: torch.device, row_limit: int = 20):
+    def __init__(self, output_dir: str, device: torch.device, row_limit: int = 20,
+                 name: str = "trace.json"):
         self.dir = os.path.join(output_dir, "profile")
+        self.name = name
         self.cuda = device.type == "cuda"
         self.row_limit = row_limit
         acts = [torch.profiler.ProfilerActivity.CPU]
@@ -80,7 +83,7 @@ class TrainingProfile:
             torch.cuda.synchronize()
         self.prof.stop()
         os.makedirs(self.dir, exist_ok=True)
-        self.trace_path = os.path.join(self.dir, "trace.json")
+        self.trace_path = os.path.join(self.dir, self.name)
         self.prof.export_chrome_trace(self.trace_path)
         key = "self_cuda_time_total" if self.cuda else "self_cpu_time_total"
         return self.prof.key_averages().table(sort_by=key, row_limit=self.row_limit)

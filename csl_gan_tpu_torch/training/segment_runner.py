@@ -185,6 +185,14 @@ class StepRunner:
     ``is_sens`` (``is_sens_min`` / ``is_sens_max``, from +inf / -inf, kept
     on the device).
 
+    Under a data axis (``StepBuilder.mesh``) every rank makes every draw
+    above, the same global values, and each step keeps its rows: the draws
+    and the generators stay in step across ranks, and an N-rank run trains
+    what the one-device run trains. The noise is drawn from shape-only
+    stand-ins of D's leaves (``StepBuilder.d_templates``), whole under
+    --fsdp too. The threshold gate takes rank 0's decision (its ``d_acc``
+    is every rank's: the metrics are of the gathered outputs).
+
     Under ``--group_fakes`` (``StepBuilder.grouped_runner_ok``), a segment
     that starts on a cadence point runs by cadence groups (JAX
     ``_build_grouped_run``, segment_runner.py:336): the D steps up to and
@@ -317,7 +325,7 @@ class StepRunner:
         z = b.gen_z(gen, bs)
         noise = fused = None
         if use_dp:
-            noise, fused = self._noise(gen, [state.d_params[n] for n in b.d_leaves], stds)
+            noise, fused = self._noise(gen, b.d_templates, stds)
         pen_x, pen_y, alphas = self._penalty_inputs(gen, x, y, bs)
         ax = ay = None
         if use_dp and self.adaptive:
@@ -328,10 +336,7 @@ class StepRunner:
     def _g_step(self, state: TrainState, gen: torch.Generator):
         b = self.builder
         bs = b.opt.batch_size
-        z, y = b.gen_z(gen, bs), b.gen_y(gen, bs)
-        if b.family == "vanilla":
-            return b.g_step(state, z, None if y is None else one_hot(y, b.n_classes))
-        return b.g_step_dcresnet(state, z, y)
+        return b.g_core(state, b.gen_z(gen, bs), b.gen_y(gen, bs))
 
     def _train_batch(self, state: TrainState, x, y, gen: torch.Generator, stds, i: int,
                      use_dp: bool, sums, valid=None, draws=None, fake=None):
@@ -356,8 +361,10 @@ class StepRunner:
             d_sums["is_sens_max"] = torch.maximum(d_sums["is_sens_max"], sens)
         self.d_acc = self.d_acc + dm["d_adv_loss"]
         if i % self.n_d == 0:
+            # Under a data axis every rank takes rank 0's decision: a G step
+            # launches collectives, so no rank may branch alone.
             g_on = (self.threshold >= 1e10
-                    or float(self.d_acc) / self.n_d < self.threshold)
+                    or self.builder.mesh.agree(float(self.d_acc) / self.n_d < self.threshold))
             if g_on:
                 state, gm = self._g_step(state, gen)
                 for key, v in gm.items():

@@ -57,6 +57,25 @@ loss is the only one that is not zero (``_aux_batch``, ``_aux_single``),
 and the G step adds it for ACGAN alone. Parameters are dicts of torch
 state-dict names; per-leaf lists follow the JAX leaf order
 (``StepBuilder.d_leaves``).
+
+Under a data axis (``mesh``, a ``parallel.MeshContext`` with more than one
+rank) every step takes the global batch's inputs, the same on every rank,
+and keeps this rank's rows (``_rows``): D and G run on them, so K2-K6 and
+K4/K5 see B / N rows. A quantity that the JAX step takes over the batch
+becomes a sum over local rows, all-reduced: the clipped sums, the fake-pass
+and penalty gradients, the votes (one flat all-reduce a step,
+``_reduce``). D's per-row outputs are gathered (``_gather_out``, whose
+backward is the slice of this rank's rows), so every loss, metric and clip
+statistic is the single-device function of the whole batch, on every rank,
+and its gradient through the local rows is this rank's share. The
+division stays by the global batch. Only rank 0 adds the gc noise before
+the reduction (on the fused route the other ranks pass K6 a zero std), so
+it enters once. The is step's gradient is reduced with an identity
+backward (``sum_replicated``) before its sensitivity; tm gathers the
+per-sample gradients for its sort. Under ``--fsdp`` the state holds shards:
+``d_core`` / ``g_core`` gather the params whole for the step, Adam updates
+each rank's shard (``_adam_all``), and the moments stay shards. With one
+rank every collective is the identity and the arithmetic is unchanged.
 """
 
 from __future__ import annotations
@@ -71,11 +90,12 @@ from torch.func import functional_call
 
 from csl_gan_tpu_torch.models import losses
 from csl_gan_tpu_torch.models.common import one_hot
-from csl_gan_tpu_torch.models.dcresnet import DCResNetDiscriminator, d_leaves
+from csl_gan_tpu_torch.models.dcresnet import BatchNormRelu, DCResNetDiscriminator, d_leaves
 from csl_gan_tpu_torch.models.mnist import G_LEAVES, MNISTVanillaD
 from csl_gan_tpu_torch.models.mnist import d_leaves as mnist_d_leaves
 from csl_gan_tpu_torch.ops import conv_ghost, ghost, tmsv
 from csl_gan_tpu_torch.ops import grads as gops
+from csl_gan_tpu_torch.parallel.mesh import MeshContext
 from csl_gan_tpu_torch.training import param_order
 from csl_gan_tpu_torch.training import penalty as penalty_mod
 
@@ -127,11 +147,17 @@ def adam_update(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
 
 
 def _adam_all(params: Params, grads: Params, mu: Params, nu: Params, t: int,
-              lr: float, b1: float, b2: float, wd: float = 0.0):
+              lr: float, b1: float, b2: float, wd: float = 0.0,
+              mesh: Optional[MeshContext] = None):
+    """Adam over every leaf. Under ``--fsdp`` a leaf whose moments are a
+    shard updates this rank's shard of its whole params and reduced
+    gradient (Adam is elementwise), so the new params are shards too."""
     new_p, new_m, new_v = {}, {}, {}
     for k in params:
-        new_p[k], new_m[k], new_v[k] = adam_update(
-            params[k], grads[k], mu[k], nu[k], t, lr, b1, b2, wd=wd)
+        p, g = params[k], grads[k]
+        if mesh is not None and mu[k].shape != p.shape:
+            p, g = mesh.shard_leaf(p), mesh.shard_leaf(g)
+        new_p[k], new_m[k], new_v[k] = adam_update(p, g, mu[k], nu[k], t, lr, b1, b2, wd=wd)
     return new_p, new_m, new_v
 
 
@@ -146,9 +172,15 @@ class StepBuilder:
     """Config of the ported step functions (the JAX TrainStepBuilder's
     fields that the epoch kernel's gate reads) plus the step math."""
 
-    def __init__(self, opt, G, D, label1_prob: float = 0.5):
+    def __init__(self, opt, G, D, label1_prob: float = 0.5,
+                 mesh: Optional[MeshContext] = None):
         self.opt = opt
         self.G, self.D = G, D
+        # The data axis (parallel/mesh.py); one device without a group.
+        self.mesh = mesh if mesh is not None else MeshContext()
+        for m in G.modules():
+            if isinstance(m, BatchNormRelu):
+                m.mesh = self.mesh if self.mesh.grouped else None
         self.family = G.family
         self.conditional = bool(opt.conditional)
         self.n_classes = opt.n_classes if opt.conditional else 0
@@ -250,6 +282,14 @@ class StepBuilder:
         # -wd: L2 decay of D's parameters, folded into D's gradient before
         # Adam on every D-step engine (JAX make_optimizers).
         self.weight_decay = float(opt.weight_decay or 0)
+        # The whole shapes of the leaves (--fsdp's state holds shards), and
+        # shape-only stand-ins of D's, from which a step's noise is drawn.
+        self.d_shapes = {k: tuple(v.shape) for k, v in D.state_dict().items()
+                         if k in self.d_leaves}
+        self.g_shapes = {k: tuple(v.shape) for k, v in G.state_dict().items()
+                         if k in self.g_leaves}
+        self.d_templates = tuple(torch.empty(self.d_shapes[k], device="meta")
+                                 for k in self.d_leaves)
 
     # ---------------- state and randomness ----------------
 
@@ -286,6 +326,90 @@ class StepBuilder:
         return replace(state, d_mu=zeros(state.d_mu), d_nu=zeros(state.d_nu),
                        g_mu=zeros(state.g_mu), g_nu=zeros(state.g_nu), d_count=0,
                        g_count=0)
+
+    # ---------------- the data axis and --fsdp ----------------
+
+    _TREES = (("d_params", "d"), ("g_params", "g"), ("d_mu", "d"), ("d_nu", "d"),
+              ("g_mu", "g"), ("g_nu", "g"))
+
+    def _rows(self, *ts):
+        """This rank's rows of each global batch tensor (a list element by
+        element; None stays None); the tensors themselves on one device."""
+        m = self.mesh
+        return tuple([m.shard_rows(e) for e in t] if isinstance(t, (list, tuple))
+                     else m.shard_rows(t) for t in ts)
+
+    def _gather_out(self, n: int, *ts):
+        """The whole batch's rows of per-row tensors (None stays None), every
+        rank's rows in one collective; differentiable, the gradient of this
+        rank's tensors being their rows of the incoming one. The tensors
+        themselves without a process group."""
+        if not self.mesh.grouped:
+            return ts
+        present = [t for t in ts if t is not None]
+        widths = [math.prod(t.shape[1:]) for t in present]
+        whole = self.mesh.gather_rows(
+            torch.cat([t.reshape(t.shape[0], w).float() for t, w in zip(present, widths)],
+                      dim=1), n)
+        parts = iter(torch.split(whole, widths, dim=1))
+        return tuple(None if t is None else
+                     next(parts).reshape((n,) + tuple(t.shape[1:])).to(t.dtype) for t in ts)
+
+    def _reduce(self, grads: Params) -> Params:
+        """Per-rank sums of gradients, summed over the ranks in one
+        all-reduce."""
+        return self.mesh.all_sum_dict(grads)
+
+    def _stats_gather(self, n: int):
+        """``stats_from_norms``'s gather of [n_leaves, rows] columns."""
+        return (lambda t: self.mesh.gather_cols(t, n)) if self.mesh.grouped else None
+
+    def _pen_kw(self, pen_x) -> dict:
+        """``calc_penalty``'s data-axis arguments for a penalty batch of
+        which this rank has its rows: the mean over the whole batch's rows
+        and, for DRAGAN, the whole real batch's std."""
+        if not self.mesh.grouped or pen_x is None or not self.penalty_types:
+            return {}
+        n = pen_x.shape[0]
+        kw = {"batch_mean": lambda gp: self.mesh.gather_rows(gp, n).mean()}
+        if any(t.startswith("DRAGAN") for t in self.penalty_types):
+            kw["real_std"] = torch.std(pen_x, correction=0)
+        return kw
+
+    def _whole(self, state: TrainState, fields) -> TrainState:
+        """``state`` with the trees ``fields`` whole (one all-reduce); the
+        state itself unless --fsdp shards it."""
+        if not self.mesh.fsdp:
+            return state
+        shapes = {"d": self.d_shapes, "g": self.g_shapes}
+        tree, shp = {}, {}
+        for f, side in fields:
+            for k, v in getattr(state, f).items():
+                tree[(f, k)], shp[(f, k)] = v, shapes[side][k]
+        whole = self.mesh.unshard(tree, shp)
+        return replace(state, **{f: {k: whole[(f, k)] for k in getattr(state, f)}
+                                 for f, _ in fields})
+
+    def full_params(self, state: TrainState) -> TrainState:
+        """``state`` with D's and G's params whole (--fsdp)."""
+        return self._whole(state, self._TREES[:2])
+
+    def full_state(self, state: TrainState) -> TrainState:
+        """``state`` with params and Adam moments whole (--fsdp): what a
+        save writes, the single-device state."""
+        return self._whole(state, self._TREES)
+
+    def shard_state(self, state: TrainState) -> TrainState:
+        """``state`` with every whole leaf that --fsdp shards cut to this
+        rank's shard (params and moments); the state itself otherwise."""
+        if not self.mesh.fsdp:
+            return state
+        shapes = {"d": self.d_shapes, "g": self.g_shapes}
+        return replace(state, **{f: self.mesh.shard_tree(getattr(state, f), shapes[side])
+                                 for f, side in self._TREES})
+
+    def _adam_mesh(self) -> Optional[MeshContext]:
+        return self.mesh if self.mesh.fsdp else None
 
     def _per_layer_vector(self, flag: str, cli: str, user_set: str,
                           default_builder) -> List[float]:
@@ -355,27 +479,38 @@ class StepBuilder:
                                self.n_classes, reduction=reduction)
 
     def _fake_sum_grads(self, d_params: Params, fake: torch.Tensor, y, valid=None,
-                        bpc: bool = False):
+                        bpc: bool = False, n: Optional[int] = None, yg=None):
         """Summed grads of the clean fake pass (JAX steps.py fake_sum):
         sum_i valid_i loss(out_i, fake) [+ the aux terms when d_fake_aux];
-        through the backprop-clipped D with ``bpc``."""
+        through the backprop-clipped D with ``bpc``. Under a data axis
+        ``fake`` and ``y`` are this rank's rows, ``n``, ``yg`` and ``valid``
+        the whole batch's count, labels and mask: the grads are this rank's
+        share, which the caller reduces. Returns (grads, the whole batch's
+        outputs)."""
+        n = fake.shape[0] if n is None else n
+        yg = y if yg is None else yg
         p = {k: v.detach().requires_grad_(True) for k, v in d_params.items()}
         with torch.enable_grad():
             out, aux_o = self._d_apply(p, fake, y, aux=self.d_fake_aux, bpc=bpc)
+            out, aux_o = self._gather_out(n, out, aux_o)
             per = losses.d_fake_loss(self.family, out, "none")
             if self.d_fake_aux:
-                per = per + self._aux_batch(aux_o, y, fake=True, reduction="none")
+                per = per + self._aux_batch(aux_o, yg, fake=True, reduction="none")
             loss = torch.sum(per if valid is None else per * valid)
             grads = torch.autograd.grad(loss, [p[k] for k in self.d_leaves])
         return dict(zip(self.d_leaves, grads)), out.detach()
 
-    def _real_sum_grads(self, d_params: Params, x, y):
-        """Plain summed grads of the per-sample real loss (non-private)."""
+    def _real_sum_grads(self, d_params: Params, x, y, n: Optional[int] = None, yg=None):
+        """Plain summed grads of the per-sample real loss (non-private); this
+        rank's share under a data axis, as in ``_fake_sum_grads``."""
+        n = x.shape[0] if n is None else n
+        yg = y if yg is None else yg
         p = {k: v.detach().requires_grad_(True) for k, v in d_params.items()}
         with torch.enable_grad():
             out, aux_o = self._d_apply(p, x, y)
+            out, aux_o = self._gather_out(n, out, aux_o)
             loss = losses.d_real_loss(self.family, out, "sum") + self._aux_batch(
-                aux_o, y, fake=False, reduction="sum")
+                aux_o, yg, fake=False, reduction="sum")
             grads = torch.autograd.grad(loss, [p[k] for k in self.d_leaves])
         return (dict(zip(self.d_leaves, grads)), out.detach(),
                 None if aux_o is None else aux_o.detach())
@@ -385,20 +520,24 @@ class StepBuilder:
         """One D update of the vanilla model: the gc step (``d_step_gc``) or,
         without DP, plain summed grads; then /bs and Adam. ``fake``, when
         given, replaces the G forward on z (the grouped runner's batched
-        fakes). Returns (state, metrics)."""
+        fakes: this rank's rows under a data axis, as in every D step).
+        Returns (state, metrics)."""
         if use_dp:
             return self.d_step_gc(state, x, y, z, noise=noise, fake=fake)
-        b = x.shape[0]
+        b, yg = x.shape[0], y
+        x, y, z = self._rows(x, y, z)
         fake = self.fakes(state.g_params, z, y) if fake is None else fake
-        summed, r_out, r_aux = self._real_sum_grads(state.d_params, x, y)
-        fake_grads, f_out = self._fake_sum_grads(state.d_params, fake, y)
-        grads = {k: (summed[k] + fake_grads[k]) / b for k in self.d_leaves}
-        return self._apply_d(state, grads), self._d_metrics(r_out, r_aux, f_out, y)
+        summed, r_out, r_aux = self._real_sum_grads(state.d_params, x, y, b, yg)
+        fake_grads, f_out = self._fake_sum_grads(state.d_params, fake, y, n=b, yg=yg)
+        total = self._reduce({k: summed[k] + fake_grads[k] for k in self.d_leaves})
+        grads = {k: total[k] / b for k in self.d_leaves}
+        return self._apply_d(state, grads), self._d_metrics(r_out, r_aux, f_out, yg)
 
     def _apply_d(self, state: TrainState, grads: Params) -> TrainState:
         d_params, d_mu, d_nu = _adam_all(
             state.d_params, grads, state.d_mu, state.d_nu, state.d_count + 1,
-            self.opt.d_lr, self.opt.adam_b1, self.opt.adam_b2, wd=self.weight_decay)
+            self.opt.d_lr, self.opt.adam_b1, self.opt.adam_b2, wd=self.weight_decay,
+            mesh=self._adam_mesh())
         return replace(state, d_params=d_params, d_mu=d_mu, d_nu=d_nu,
                        d_count=state.d_count + 1)
 
@@ -450,21 +589,24 @@ class StepBuilder:
         None when unconditional. Under DP with ``--backprop_clip`` (and
         ``--bpc_during_g_train``, the default) D runs clipped here too.
         Returns (state, metrics)."""
-        y = None if y_onehot is None else torch.argmax(y_onehot, dim=1)
+        n = z.shape[0]
+        yg = None if y_onehot is None else torch.argmax(y_onehot, dim=1)
+        z, y = self._rows(z, yg)
         p = {k: v.detach().requires_grad_(True) for k, v in state.g_params.items()}
         with torch.enable_grad():
             img = functional_call(self.G, p, (z, y))
             out, aux_o = self._d_apply(state.d_params, img, y, bpc=self.bpc_g and self.opt.use_dp)
+            out, aux_o = self._gather_out(n, out, aux_o)
             adv = losses.g_adv_loss(self.family, out)
             loss = adv
             if self.is_acgan:
-                aux = self._aux_batch(aux_o, y, fake=False)
+                aux = self._aux_batch(aux_o, yg, fake=False)
                 loss = adv + aux
             grads = torch.autograd.grad(loss, [p[k] for k in G_LEAVES])
-        grads = dict(zip(G_LEAVES, grads))
+        grads = self._reduce(dict(zip(G_LEAVES, grads)))
         g_params, g_mu, g_nu = _adam_all(
             state.g_params, grads, state.g_mu, state.g_nu, state.g_count + 1,
-            self.opt.g_lr, self.opt.adam_b1, self.opt.adam_b2)
+            self.opt.g_lr, self.opt.adam_b1, self.opt.adam_b2, mesh=self._adam_mesh())
         m = {"g_adv_loss": adv.detach()}
         if self.is_acgan:
             m["g_aux_loss"] = torch.as_tensor(aux, device=z.device).detach()
@@ -486,17 +628,20 @@ class StepBuilder:
             onehot = onehot * valid[:, None]
         return 1.0 / torch.clamp(onehot @ onehot.sum(dim=0), min=1.0)
 
-    def _penalty_grads(self, d_params: Params, pen_x, pen_y, fake, alphas):
+    def _penalty_grads(self, d_params: Params, pen_x, pen_y, fake, alphas,
+                       pen_kw: Optional[dict] = None):
         """(value, grads by name) of the gradient penalty on the public /
         mean-sample batch, or the real batch under ``-pupd false`` outside
         gc (JAX steps.py _penalty_grads); ``alphas`` holds each penalty's
-        draw (``penalty.draw_shape``)."""
+        draw (``penalty.draw_shape``). Under a data axis the inputs are this
+        rank's rows and ``pen_kw`` is ``_pen_kw`` of the whole batch: the
+        value is the whole batch's, the grads this rank's share."""
         p = {k: v.detach().requires_grad_(True) for k, v in d_params.items()}
         with torch.enable_grad():
             val = penalty_mod.calc_penalty(
                 lambda xx, yy: self._d_apply(p, xx, yy), self.penalty_types, pen_x, pen_y,
                 fake, alphas,
-                aux_penalty=self.aux_penalty, n_classes=self.n_classes)
+                aux_penalty=self.aux_penalty, n_classes=self.n_classes, **(pen_kw or {}))
             # The input gradient does not depend on the head biases: their
             # penalty gradient is zero.
             grads = torch.autograd.grad(val, [p[k] for k in self.d_leaves],
@@ -538,12 +683,16 @@ class StepBuilder:
         ``y_steps`` [m, bs] their labels or None. Returns [m, bs, ...];
         slice j equals the step's own forward up to the reduction order of
         the batched convolutions. A BatchNorm G is refused: its batch
-        statistics depend on the batch."""
+        statistics depend on the batch. Under a data axis only this rank's
+        rows of each step are made: [m, rows, ...]."""
         if self.g_has_bn:
             raise ValueError("batch_fakes requires a BatchNorm-free G")
+        lo, hi = self.mesh.bounds(z_steps.shape[1])
+        z_steps = z_steps[:, lo:hi]
+        y_steps = None if y_steps is None else y_steps[:, lo:hi]
         m, bs = z_steps.shape[0], z_steps.shape[1]
         yf = None if y_steps is None else y_steps.reshape(m * bs)
-        fakes = self.fakes(state.g_params, z_steps.reshape(m * bs, -1), yf)
+        fakes = self.fakes(self.full_params(state).g_params, z_steps.reshape(m * bs, -1), yf)
         return fakes.reshape((m, bs) + tuple(fakes.shape[1:]))
 
     def grouped_runner_ok(self, use_dp: bool) -> bool:
@@ -688,8 +837,12 @@ class StepBuilder:
         the DCResNet D (K2 on the card for its ghost-order layers), else the
         norms of the materialized per-sample gradients. Their mean or max
         over the batch (``--adaptive_stat``) times ``--adaptive_scalar``: an
-        fp32 [n_leaves] tensor per layer, the l2 of that vector otherwise."""
+        fp32 [n_leaves] tensor per layer, the l2 of that vector otherwise.
+        Under a data axis each rank takes the norms of its rows of (ax, ay)
+        and the statistic is over the gathered norms of the whole batch."""
         row_w = self.row_weights(ay) if self.conditional else None
+        n = ax.shape[0]
+        ax, ay, row_w = self._rows(ax, ay, row_w)
         if self.use_conv_ghost:
             norms = conv_ghost.dcresnet_real_ghost(
                 d_params, ax, ay, n_classes=self.n_classes, arch=self.arch,
@@ -700,6 +853,7 @@ class StepBuilder:
             f, args = self.real_ps_args(ax, ay, row_w)
             norms = gops.leaf_norms(gops.per_sample_grads(f, d_params, *args,
                                                           chunk=self.chunk))
+        norms = self.mesh.gather_cols(norms, n)
         stat = norms.mean(dim=1) if self.adaptive_stat == "mean" else norms.amax(dim=1)
         if self.per_layer:
             return stat * self.adaptive_scalar
@@ -743,7 +897,12 @@ class StepBuilder:
         are scaled on the device by this step's stds sigma * C (``fused.stds``
         is replaced). Returns (state, metrics); the metrics' ``clipping`` is
         the step's thresholds as a device tensor, and an adaptive step puts
-        them into the new state."""
+        them into the new state.
+
+        Under a data axis every input is the whole batch's, the same on all
+        ranks, but ``fake`` (this rank's rows); the step keeps this rank's
+        rows, reduces the clipped, fake-pass and penalty sums, and only rank
+        0 adds the noise (the others pass K6 a zero std)."""
         if (fused is None) == (noise is None) or (fused is not None) != self.fused_route:
             raise ValueError("d_step_gc takes per-leaf noise, or fused noise exactly "
                              "on the fused route (--pallas true, materialized)")
@@ -758,8 +917,17 @@ class StepBuilder:
             stds = (clipping * self.sigma).expand(len(self.d_leaves))
             if fused is not None:
                 fused = fused._replace(stds=stds.contiguous())
-        fake = self.fakes(state.g_params, z, y) if fake is None else fake
+        if fused is not None and not self.mesh.is_main:
+            # The noise enters once: the other ranks give K6 a zero std.
+            fused = fused._replace(stds=torch.zeros_like(fused.stds))
+        add_noise = noise is not None and self.mesh.is_main
         row_w = self.row_weights(y, valid)
+        yg, vg = y, valid
+        pen_kw = self._pen_kw(pen_x)
+        x, y, z, valid, row_w, pen_x, pen_y, alphas, ps_draws = self._rows(
+            x, y, z, valid, row_w, pen_x, pen_y, alphas, ps_draws)
+        sg = self._stats_gather(b)
+        fake = self.fakes(state.g_params, z, y) if fake is None else fake
         ghost_outs = None
         if self.grad_clip_split:
             # Private real pass: per-sample clip; clean fake pass: summed grads.
@@ -768,36 +936,37 @@ class StepBuilder:
                 summed, stats, ghost_outs = ghost.vanilla_real_ghost(
                     d_params, x, one_hot(y, self.n_classes) if cond else None,
                     y if cond and self.use_aux else None,
-                    self.aux_scalar, clipping, self.per_layer, valid=valid)
+                    self.aux_scalar, clipping, self.per_layer, valid=valid, stats_gather=sg)
             elif self.use_conv_ghost and not self.ps_pen:
                 summed, stats, ghost_outs = conv_ghost.dcresnet_real_ghost(
                     d_params, x, y, n_classes=self.n_classes, arch=self.arch,
                     aux_type=self.aux_type, aux_scalar=self.aux_scalar, row_w=row_w,
                     max_norm=clipping, per_layer=self.per_layer,
                     concat_planes=self.concat_planes, compute_dtype=self.compute_dtype,
-                    valid=valid)
+                    valid=valid, stats_gather=sg)
             elif self.use_two_pass and not self.ps_pen:
                 f, args = gops.mask_loss(*self.real_ps_args(x, y, row_w), valid)
                 summed, stats = gops.two_pass_clipped_grad_sum(
-                    f, d_params, *args, max_norm=clipping, per_layer=False)
+                    f, d_params, *args, max_norm=clipping, per_layer=False, stats_gather=sg)
             else:
                 f, args = gops.mask_loss(*self.real_ps_args(x, y, row_w, fake, ps_draws), valid)
                 summed, stats = gops.clipped_grad_sum(
                     f, d_params, *args, max_norm=clipping, per_layer=self.per_layer,
-                    chunk=self.chunk, fused_noise=fused)
-            fake_grads, f_out = self._fake_sum_grads(d_params, fake, y, valid, bpc=True)
+                    chunk=self.chunk, fused_noise=fused, stats_gather=sg)
+            fake_grads, f_out = self._fake_sum_grads(d_params, fake, y, vg, bpc=True, n=b,
+                                                     yg=yg)
         else:
             f, args = gops.mask_loss(*self.combined_ps_args(x, y, fake, row_w, ps_draws), valid)
             summed, stats = gops.clipped_grad_sum(
                 f, d_params, *args, max_norm=clipping, per_layer=self.per_layer,
-                chunk=self.chunk, fused_noise=fused)
+                chunk=self.chunk, fused_noise=fused, stats_gather=sg)
             fake_grads = None
             with torch.no_grad():
                 f_out = self._d_apply(d_params, fake, y, aux=False)[0]
-        if noise is not None and stds is not None:
+        if add_noise and stds is not None:
             summed = dict(zip(self.d_leaves, gops.add_scaled_noise(
                 [summed[k] for k in self.d_leaves], noise, stds)))
-        elif noise is not None:
+        elif add_noise:
             summed = {k: summed[k] + noise[i] for i, k in enumerate(self.d_leaves)}
         total = summed if fake_grads is None else \
             {k: summed[k] + fake_grads[k] for k in self.d_leaves}
@@ -809,10 +978,12 @@ class StepBuilder:
                 pen_value = penalty_mod.calc_penalty(
                     lambda xx, yy: self._d_apply(d_params, xx, yy), self.penalty_types,
                     pen_x, pen_y, fake, alphas, aux_penalty=self.aux_penalty,
-                    n_classes=self.n_classes)
+                    n_classes=self.n_classes, **pen_kw)
         elif self.penalty_types:
-            pen_value, pen_grads = self._penalty_grads(d_params, pen_x, pen_y, fake, alphas)
+            pen_value, pen_grads = self._penalty_grads(d_params, pen_x, pen_y, fake, alphas,
+                                                       pen_kw)
             total = {k: t + pen_grads[k] * b_eff for k, t in total.items()}
+        total = self._reduce(total)
         grads = {k: t / b_eff for k, t in total.items()}
 
         if ghost_outs is not None:
@@ -820,7 +991,11 @@ class StepBuilder:
         else:
             with torch.no_grad():
                 r_out, r_aux = self._d_apply(d_params, x, y)
-        metrics = self._d_metrics(r_out, r_aux, f_out, y, stats, pen_value, valid)
+        if fake_grads is None:
+            r_out, r_aux, f_out = self._gather_out(b, r_out, r_aux, f_out)
+        else:
+            r_out, r_aux = self._gather_out(b, r_out, r_aux)
+        metrics = self._d_metrics(r_out, r_aux, f_out, yg, stats, pen_value, vg)
         metrics["clipping"] = self.clipping_tensor(clipping, x.device)
         new = self._apply_d(state, grads)
         if self.adaptive:
@@ -836,17 +1011,24 @@ class StepBuilder:
 
     # ---------------- the is, tm/sv and non-private D steps ----------------
 
-    def _full_batch_loss(self, d_params: Params, x, y, fake, bpc: bool = False):
+    def _full_batch_loss(self, d_params: Params, x, y, fake, bpc: bool = False,
+                         n: Optional[int] = None, yg=None):
         """The full-batch D loss of JAX ``_d_step_plain`` / ``_d_step_is``
         without the penalty: mean real and fake losses, the real aux loss and,
         with ``--d_fake_aux_loss``, the fake's; through the backprop-clipped
-        D with ``bpc`` (the is step). Returns (loss, r_out, r_aux, f_out)."""
+        D with ``bpc`` (the is step). Under a data axis x, y and fake are
+        this rank's rows and ``n``, ``yg`` the whole batch's count and
+        labels: D's outputs are gathered and the loss is the whole batch's.
+        Returns (loss, r_out, r_aux, f_out), the outputs the whole batch's."""
+        n = x.shape[0] if n is None else n
+        yg = y if yg is None else yg
         f_out, f_aux = self._d_apply(d_params, fake, y, aux=self.d_fake_aux, bpc=bpc)
         r_out, r_aux = self._d_apply(d_params, x, y, bpc=bpc)
+        f_out, f_aux, r_out, r_aux = self._gather_out(n, f_out, f_aux, r_out, r_aux)
         total = losses.d_real_loss(self.family, r_out) + losses.d_fake_loss(self.family, f_out)
-        total = total + self._aux_batch(r_aux, y, fake=False)
+        total = total + self._aux_batch(r_aux, yg, fake=False)
         if self.d_fake_aux:
-            total = total + self._aux_batch(f_aux, y, fake=True)
+            total = total + self._aux_batch(f_aux, yg, fake=True)
         return total, r_out, r_aux, f_out
 
     def _metrics_of(self, r_out, r_aux, f_out, y, pen_value):
@@ -858,22 +1040,25 @@ class StepBuilder:
         """The non-private D update (JAX ``_d_step_plain``): the gradient of
         the full-batch loss plus the penalty on (pen_x, pen_y) and the fakes,
         then Adam. Returns (state, metrics)."""
+        n, yg = x.shape[0], y
+        pen_kw = self._pen_kw(pen_x)
+        x, y, z, pen_x, pen_y, alphas = self._rows(x, y, z, pen_x, pen_y, alphas)
         fake, g_stats = self._fakes_or(state, z, y, fake)
         state = replace(state, g_batch_stats=g_stats)
         p = {k: v.detach().requires_grad_(True) for k, v in state.d_params.items()}
         pen_value = None
         with torch.enable_grad():
-            total, r_out, r_aux, f_out = self._full_batch_loss(p, x, y, fake)
+            total, r_out, r_aux, f_out = self._full_batch_loss(p, x, y, fake, n=n, yg=yg)
             if self.penalty_types:
                 pen_value = penalty_mod.calc_penalty(
                     lambda xx, yy: self._d_apply(p, xx, yy), self.penalty_types,
                     pen_x, pen_y, fake, alphas, aux_penalty=self.aux_penalty,
-                    n_classes=self.n_classes)
+                    n_classes=self.n_classes, **pen_kw)
                 total = total + pen_value
             grads = torch.autograd.grad(total, [p[k] for k in self.d_leaves])
-        metrics = self._metrics_of(r_out, r_aux, f_out, y,
+        metrics = self._metrics_of(r_out, r_aux, f_out, yg,
                                    None if pen_value is None else pen_value.detach())
-        return self._apply_d(state, dict(zip(self.d_leaves, grads))), metrics
+        return self._apply_d(state, self._reduce(dict(zip(self.d_leaves, grads)))), metrics
 
     def sensitivity(self, g: List[torch.Tensor], x_in: torch.Tensor, scaling_vec):
         """(sens, per-leaf stds) of the is step from its gradient ``g`` (with
@@ -884,18 +1069,21 @@ class StepBuilder:
         is the global norm of g, as in the JAX step: a leaf whose gradient is
         exactly 0 (lin2.bias under backprop clipping, when the clipped real
         and fake cotangents cancel) then has no square root to differentiate
-        at 0."""
+        at 0. Under a data axis x_in is this rank's rows and g the reduced
+        gradient (``sum_replicated``): the squares of the input gradient are
+        summed over the ranks."""
         n = len(g)
         if self.is_per_param:
             gx, = torch.autograd.grad(gops.per_leaf_norms(g), x_in,
                                       torch.eye(n, device=x_in.device), is_grads_batched=True)
-            sens = torch.sqrt(torch.sum(gx.reshape(n, -1).float() ** 2, dim=1))
+            sens = torch.sqrt(self.mesh.all_sum(
+                torch.sum(gx.reshape(n, -1).float() ** 2, dim=1)))
             return sens, self.sigma * sens
         scaled = self.is_scaling_mode != "standard"
         s = torch.sqrt(torch.sum((gops.per_leaf_norms(g) / scaling_vec) ** 2)) if scaled \
             else gops.global_norm(g)
         gx, = torch.autograd.grad(s, x_in)
-        sens = torch.sqrt(torch.sum(gx.float() ** 2))
+        sens = torch.sqrt(self.mesh.all_sum(torch.sum(gx.float() ** 2)))
         return sens, self.sigma * sens * scaling_vec if scaled else (self.sigma * sens).expand(n)
 
     def d_step_is(self, state: TrainState, x, y, z, eps: List[torch.Tensor],
@@ -913,18 +1101,29 @@ class StepBuilder:
         package's one differentiated loss, without a third-order graph. Under
         ``--backprop_clip`` D runs clipped in the loss and its
         second-order pass. Returns (state, metrics) with ``is_sens`` a
-        scalar, or [n_leaves] under ``-ispp true``."""
+        scalar, or [n_leaves] under ``-ispp true``. Under a data axis the
+        gradient g of this rank's rows is reduced by ``sum_replicated`` (every
+        rank then differentiates the same ||g||, and the identity backward
+        gives each its rows' input gradient); the noise, the same draw on
+        every rank, goes onto the reduced g."""
+        n, yg = x.shape[0], y
+        pen_kw = self._pen_kw(pen_x)
+        x, y, z, pen_x, pen_y, alphas = self._rows(x, y, z, pen_x, pen_y, alphas)
         fake, g_stats = self._fakes_or(state, z, y, fake)
         state = replace(state, g_batch_stats=g_stats)
         leaves = self.d_leaves
         pen_value = None
         if self.penalty_types:
-            pen_value, pen_grads = self._penalty_grads(state.d_params, pen_x, pen_y, fake, alphas)
+            pen_value, pen_grads = self._penalty_grads(state.d_params, pen_x, pen_y, fake, alphas,
+                                                       pen_kw)
+            pen_grads = self._reduce(pen_grads)
         p = {k: v.detach().requires_grad_(True) for k, v in state.d_params.items()}
         x_in = x.detach().requires_grad_(True)
         with torch.enable_grad():
-            total, r_out, r_aux, f_out = self._full_batch_loss(p, x_in, y, fake, bpc=True)
+            total, r_out, r_aux, f_out = self._full_batch_loss(p, x_in, y, fake, bpc=True, n=n,
+                                                               yg=yg)
             g = list(torch.autograd.grad(total, [p[k] for k in leaves], create_graph=True))
+            g = self.mesh.sum_replicated_list(g)
             if pen_value is not None:
                 g = [gi + pen_grads[k] for gi, k in zip(g, leaves)]
             sens, stds = self.sensitivity(g, x_in, state.scaling_vec)
@@ -933,7 +1132,7 @@ class StepBuilder:
         if self.is_scaling_mode == "moving-avg-pl":
             new = replace(new, scaling_vec=state.scaling_vec * self.moving_avg_beta
                           + gops.per_leaf_norms(noised) * (1 - self.moving_avg_beta))
-        metrics = self._metrics_of(r_out, r_aux, f_out, y, pen_value)
+        metrics = self._metrics_of(r_out, r_aux, f_out, yg, pen_value)
         metrics["is_sens"] = sens.detach()
         return new, metrics
 
@@ -944,28 +1143,40 @@ class StepBuilder:
         (JAX ``_d_step_tmsv``): per-sample grads of real + fake, aggregated
         per leaf with ``noise`` (Student-t(3) for tm, N(0, 1) for sv, leaf
         order), plus the penalty's grads, then Adam. The metrics are of the
-        D before the update. Returns (state, metrics)."""
+        D before the update. Under a data axis each rank takes the per-sample
+        gradients of its rows: tm gathers them for its sort, sv sums its
+        votes over the ranks. Returns (state, metrics)."""
+        n, yg = x.shape[0], y
+        pen_kw = self._pen_kw(pen_x)
+        row_w = self.row_weights(y)
+        x, y, z, row_w, pen_x, pen_y, alphas = self._rows(x, y, z, row_w, pen_x, pen_y, alphas)
         fake, g_stats = self._fakes_or(state, z, y, fake)
         state = replace(state, g_batch_stats=g_stats)
-        f, args = self.combined_ps_args(x, y, fake, self.row_weights(y))
+        f, args = self.combined_ps_args(x, y, fake, row_w)
         ps = gops.per_sample_grads(f, state.d_params, *args, chunk=self.chunk)
         grads = {}
-        for i, k in enumerate(self.d_leaves):
-            if self.dp_mode == "tm":
-                grads[k] = tmsv.trimmed_mean(ps[k], self.tm_m, self.tm_min_val, self.tm_max_val,
+        if self.dp_mode == "tm":
+            for i, k in enumerate(self.d_leaves):
+                grads[k] = tmsv.trimmed_mean(self.mesh.gather_rows(ps[k], n), self.tm_m,
+                                             self.tm_min_val, self.tm_max_val,
                                              self.smooth_sens_t, self.rho_per_step,
                                              noise=noise[i])
-            else:
-                grads[k] = tmsv.sign_vote(ps[k], self.rho_per_step, noise=noise[i])
+        else:
+            votes = self.mesh.all_sum_list([tmsv.vote_sum(ps[k]) for k in self.d_leaves])
+            for i, k in enumerate(self.d_leaves):
+                grads[k] = tmsv.noisy_vote(votes[i], n, self.rho_per_step, noise=noise[i])
         del ps
         pen_value = None
         if self.penalty_types:
-            pen_value, pen_grads = self._penalty_grads(state.d_params, pen_x, pen_y, fake, alphas)
+            pen_value, pen_grads = self._penalty_grads(state.d_params, pen_x, pen_y, fake, alphas,
+                                                       pen_kw)
+            pen_grads = self._reduce(pen_grads)
             grads = {k: g + pen_grads[k] for k, g in grads.items()}
         with torch.no_grad():
             r_out, r_aux = self._d_apply(state.d_params, x, y)
             f_out = self._d_apply(state.d_params, fake, y, aux=False)[0]
-        metrics = self._metrics_of(r_out, r_aux, f_out, y, pen_value)
+            r_out, r_aux, f_out = self._gather_out(n, r_out, r_aux, f_out)
+        metrics = self._metrics_of(r_out, r_aux, f_out, yg, pen_value)
         return self._apply_d(state, grads), metrics
 
     def d_core(self, state: TrainState, x, y, z, use_dp: bool, noise=None, fused=None,
@@ -981,44 +1192,65 @@ class StepBuilder:
         vanilla model takes ``d_step`` (the plain version of K1) unless it
         has a penalty, the DCResNet ``d_step_plain``. ``fake``, when given,
         replaces the step's G forward on z (the JAX ``_d_core``'s
-        ``fake_img``: the grouped runner's batched fakes)."""
+        ``fake_img``: the grouped runner's batched fakes, this rank's rows).
+        Under --fsdp the step runs on the whole params and the new state
+        holds this rank's shards."""
         pen = dict(pen_x=pen_x, pen_y=pen_y, alphas=alphas, fake=fake)
+        state = self.full_params(state)
         if use_dp and self.dp_mode == "gc":
-            return self.d_step_gc(state, x, y, z, noise=noise, fused=fused, ax=ax, ay=ay,
-                                  valid=valid, ps_draws=alphas if self.ps_pen else None,
-                                  **pen)
-        if use_dp and self.dp_mode == "is":
-            return self.d_step_is(state, x, y, z, noise, **pen)
-        if use_dp:
-            return self.d_step_tmsv(state, x, y, z, noise, **pen)
-        if self.family == "vanilla" and not self.penalty_types:
-            return self.d_step(state, x, y, z, None, False, fake=fake)
-        return self.d_step_plain(state, x, y, z, **pen)
+            new, m = self.d_step_gc(state, x, y, z, noise=noise, fused=fused, ax=ax, ay=ay,
+                                    valid=valid, ps_draws=alphas if self.ps_pen else None,
+                                    **pen)
+        elif use_dp and self.dp_mode == "is":
+            new, m = self.d_step_is(state, x, y, z, noise, **pen)
+        elif use_dp:
+            new, m = self.d_step_tmsv(state, x, y, z, noise, **pen)
+        elif self.family == "vanilla" and not self.penalty_types:
+            new, m = self.d_step(state, x, y, z, None, False, fake=fake)
+        else:
+            new, m = self.d_step_plain(state, x, y, z, **pen)
+        return self.shard_state(new), m
+
+    def g_core(self, state: TrainState, z, y):
+        """The G update of the model family on z and labels y (None when
+        unconditional): ``g_step`` (one-hot labels) or ``g_step_dcresnet``;
+        under --fsdp on the whole params, the state's shards updated."""
+        state = self.full_params(state)
+        if self.family == "vanilla":
+            new, m = self.g_step(state, z, None if y is None else one_hot(y, self.n_classes))
+        else:
+            new, m = self.g_step_dcresnet(state, z, y)
+        return self.shard_state(new), m
 
     def g_step_dcresnet(self, state: TrainState, z, y):
         """G update against the current D: wgan adversarial loss (a WCGAN
         critic's column y of its head) + the ACGAN aux loss (JAX _g_step);
         the GroupNorm+ReLU backward runs K5. A BatchNorm G trains on batch
-        statistics and updates its running averages."""
+        statistics and updates its running averages. Under a data axis G and
+        D run on this rank's rows of z and y, D's outputs are gathered for
+        the whole batch's loss, and the grads are reduced."""
+        n, yg = z.shape[0], y
+        z, y = self._rows(z, y)
         p = {k: v.detach().requires_grad_(True) for k, v in state.g_params.items()}
         stats = {k: v.clone() for k, v in state.g_batch_stats.items()}
         with torch.enable_grad():
             img = functional_call(self.G, {**p, **stats}, (z, y))
             out, aux_o = self._d_apply(state.d_params, img, y)
+            out, aux_o = self._gather_out(n, out, aux_o)
             adv = losses.g_adv_loss(self.family, out)
             loss = adv
             if self.is_acgan:
-                aux = self._aux_batch(aux_o, y, fake=False)
+                aux = self._aux_batch(aux_o, yg, fake=False)
                 loss = adv + aux
             grads = torch.autograd.grad(loss, [p[k] for k in self.g_leaves])
         g_params, g_mu, g_nu = _adam_all(
-            state.g_params, dict(zip(self.g_leaves, grads)), state.g_mu,
+            state.g_params, self._reduce(dict(zip(self.g_leaves, grads))), state.g_mu,
             state.g_nu, state.g_count + 1, self.opt.g_lr, self.opt.adam_b1,
-            self.opt.adam_b2)
+            self.opt.adam_b2, mesh=self._adam_mesh())
         m = {"g_adv_loss": adv.detach()}
         if self.is_acgan:
             m["g_aux_loss"] = torch.as_tensor(aux, device=z.device).detach()
             m["g_aux_acc"] = torch.zeros((), device=z.device) if aux_o is None \
-                else 100.0 * (aux_o.detach().argmax(dim=1) == y).float().mean()
+                else 100.0 * (aux_o.detach().argmax(dim=1) == yg).float().mean()
         return replace(state, g_params=g_params, g_mu=g_mu, g_nu=g_nu,
                        g_count=state.g_count + 1, g_batch_stats=stats), m

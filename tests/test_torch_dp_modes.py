@@ -214,7 +214,9 @@ def test_moving_avg_pl_resumes_bitwise(tmp_path):
 ])
 def test_unported_combinations_raise(tmp_path, extra, flag):
     """Flags outside the port raise naming themselves; ``--poisson`` outside
-    gc is the JAX package's config error, in both packages. The reference's
+    gc is the JAX package's config error, in both packages. ``--fsdp``,
+    ported since, has no effect on one rank: the is run equals the one
+    without it bit for bit. The reference's
     pixel shuffle, ported since, parses and trains: the WCGAN is run's
     BatchNorm G upsamples so in every block, and its steps differ from the
     same run's without it. The single-device flags, ported since, hold their
@@ -243,8 +245,15 @@ def test_unported_combinations_raise(tmp_path, extra, flag):
             assert not isinstance(e.value, NotImplementedError)
         return
     if flag == "--fsdp":
-        with pytest.raises(NotImplementedError, match=flag):
-            toptions.parse(extra + ["--platform", "cpu", "-o", str(tmp_path)])
+        # Ported since: on one rank --fsdp has no effect (the JAX rule).
+        runs = []
+        for tag, args in (("with", extra), ("without", extra[:-2])):
+            tr = Trainer(toptions.parse(args + ["-tss", "64", "-ne", "1", "--platform", "cpu",
+                                                "-o", str(tmp_path / tag)]))
+            assert not tr.mesh.fsdp
+            tr.run()
+            runs.append(tr.state.d_params)
+        assert all(torch.equal(runs[0][k], runs[1][k]) for k in runs[0])
         return
     if flag == "--grad_clip_mode":
         runs = []

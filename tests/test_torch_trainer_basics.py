@@ -130,7 +130,8 @@ def test_no_platform_without_cuda_raises(tmp_path, monkeypatch):
     (["--tp", "2"], "--tp"),
     (["--u8_table", "true"], "--u8_table"),
     (["--mesh_shape", "2"], "--mesh_shape"),
-    (["--multihost", "true"], "--multihost"),
+    (["--multihost", "true", "--coordinator_address", "localhost:1", "--num_processes", "1",
+      "--process_id", "0"], "--multihost"),
     (["-nms", "1"], "--num_mean_samples"),
     (["-pss", "10"], "--public_set_size"),
     (["-wi", "5"], "--warmup_iter"),
@@ -157,8 +158,12 @@ def test_unported_flags_raise(tmp_path, extra, flag):
     backprop clipping, ``-wd``, ``--bf16`` and ``--u8_table`` off K1's path,
     and the reference's pixel shuffle, which has no effect on the vanilla
     model: one step with it gives the params of one step without it, bit for
-    bit. Each flag of the last slice builds its Trainer, whose runner is K1's
-    exactly when the gate says so and the run is not ``--host_loop``'s."""
+    bit. Each flag of the single-device surface's slice builds its Trainer,
+    whose runner is K1's exactly when the gate says so and the run is not
+    ``--host_loop``'s. The parallel flags parse: ``--mesh_shape 2`` asks for
+    two ranks and leaves K1's gate (the JAX gate's one device), ``--fsdp``
+    alone and ``--multihost`` of one process ask for one (K1's gate reads
+    the world ``--multihost``'s arguments give)."""
     argv = TINY + extra + ["--platform", "cpu", "-o", str(tmp_path)]
     if flag not in LIFTED:
         with pytest.raises(NotImplementedError, match=flag):
@@ -201,10 +206,11 @@ LIFTED = {"--grad_clip_mode": "Adaptive clipping derives its thresholds",
           "--poisson": None, "--backprop_clip": None, "--ref_pixel_shuffle": None,
           "--weight_decay": None, "--u8_table": None, "--host_loop": None, "--bf16": None,
           "--group_fakes": None, "--profile_training": None, "--log_every": None,
-          "--aux_loss_type": "Cross entropy loss is the only aux loss supported for vanilla"}
+          "--aux_loss_type": "Cross entropy loss is the only aux loss supported for vanilla",
+          "--fsdp": None, "--mesh_shape": None, "--multihost": None}
 # The lifted cases that parse but leave K1's gate.
 OFF_K1 = ("--batch_size", "--poisson", "--backprop_clip", "--weight_decay", "--bf16",
-          "--u8_table")
+          "--u8_table", "--mesh_shape")
 # The flags of the single-device surface's slice.
 SURFACE = ("--weight_decay", "--u8_table", "--host_loop", "--bf16", "--group_fakes",
            "--profile_training", "--log_every")
@@ -243,7 +249,9 @@ def test_not_ported_names_only_unported_flags():
                    "--host_loop", "--bf16", "--profile_training", "--log_every",
                    "--sample_every", "--aux_loss_type", "--n_classes"):
         assert not any(lifted in n for n in names), lifted
-    kept = ("--fsdp", "--tp", "--mesh_shape", "--multihost", "--download_mnist")
+    for lifted in ("--fsdp", "--mesh_shape", "--multihost"):
+        assert not any(lifted in n for n in names), lifted
+    kept = ("--tp", "--download_mnist")
     for flag in kept:
         assert any(flag in n for n in names), flag
     assert len(names) == len(kept)
