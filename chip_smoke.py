@@ -979,31 +979,34 @@ def gn_operands(g, dev, b, hw, c, dtype):
     return x, dy, sc, bi
 
 
-def gn_held(x, dy, sc, bi):
+def gn_held(x, dy, sc, bi, groups=32):
     """K4 and K5 against their plain versions (GN_BOUND, GN_PARAM_BOUND) and
-    against themselves; returns (plans, max abs gaps of K4 and K5)."""
+    against themselves, at ``groups`` groups; returns (plans, max abs gaps
+    of K4 and K5)."""
     import torch
     from csl_gan_tpu_torch.ops import pallas_groupnorm as gn
     b, hw, c = x.shape
-    tag = f"[{b}, {hw}, {c}] {str(x.dtype).replace('torch.', '')}"
-    (p4, occ4), (p5, occ5) = gn.occupancy(x, 32, False), gn.occupancy(x, 32, True)
+    tag = f"[{b}, {hw}, {c}] {str(x.dtype).replace('torch.', '')}" + (
+        f", {groups} groups" if groups != 32 else "")
+    G = groups
+    (p4, occ4), (p5, occ5) = gn.occupancy(x, G, False), gn.occupancy(x, G, True)
     if min(occ4, occ5) <= 0:
         fail(f"a K4/K5 plan cannot be resident at {tag}: {p4} ({occ4}), {p5} ({occ5})")
-    _, _, a, d = gn._affine(x.float(), sc, bi, 32, 1e-5)
+    _, _, a, d = gn._affine(x.float(), sc, bi, G, 1e-5)
     z = x.float() * a[:, None, :] + d[:, None, :]
     edge = z.abs() <= GN_EDGE * z.pow(2).mean().sqrt()
-    raw = [gn.gn_relu_backward(x, dy, sc, bi, 32, 1e-5),
-           gn.gn_relu_bwd_plain(x, dy, sc, bi, 32, 1e-5)]
+    raw = [gn.gn_relu_backward(x, dy, sc, bi, G, 1e-5),
+           gn.gn_relu_bwd_plain(x, dy, sc, bi, G, 1e-5)]
     dy = torch.where(edge, torch.zeros_like(dy), dy)
     del z, a, d
-    yk, yp = gn.gn_relu_forward(x, sc, bi, 32, 1e-5), gn.gn_relu_plain(x, sc, bi, 32, 1e-5)
-    bk = gn.gn_relu_backward(x, dy, sc, bi, 32, 1e-5)
-    bp = gn.gn_relu_bwd_plain(x, dy, sc, bi, 32, 1e-5)
-    y2 = gn.gn_relu_forward(x, sc, bi, 32, 1e-5)
-    b2 = gn.gn_relu_backward(x, dy, sc, bi, 32, 1e-5)
+    yk, yp = gn.gn_relu_forward(x, sc, bi, G, 1e-5), gn.gn_relu_plain(x, sc, bi, G, 1e-5)
+    bk = gn.gn_relu_backward(x, dy, sc, bi, G, 1e-5)
+    bp = gn.gn_relu_bwd_plain(x, dy, sc, bi, G, 1e-5)
+    y2 = gn.gn_relu_forward(x, sc, bi, G, 1e-5)
+    b2 = gn.gn_relu_backward(x, dy, sc, bi, G, 1e-5)
     # K5's ReLU mask against K4's: with dy = 1, dbeta counts the elements
     # K5 lets through, exactly in fp32, and y > 0 those K4 let through.
-    ones = gn.gn_relu_backward(x, torch.ones_like(dy), sc, bi, 32, 1e-5)[2]
+    ones = gn.gn_relu_backward(x, torch.ones_like(dy), sc, bi, G, 1e-5)[2]
     mask_same = torch.equal(ones, (yk > 0).sum(dim=(0, 1)).float())
     torch.cuda.synchronize()
     r4 = rel_l2(yk.float(), yp.float())
@@ -1229,9 +1232,9 @@ def plain_clip():
     forward of the step goes on through K4 on both sides)."""
     from csl_gan_tpu_torch.ops import pallas_clip as pc
 
-    def clip_plain(g, w, seed, std):
+    def clip_plain(g, w, seed, std, base=0):
         return pc.weighted_sum_noise_plain(g.reshape(g.shape[0], -1), w, seed,
-                                           std).reshape(g.shape[1:])
+                                           std, base).reshape(g.shape[1:])
 
     return _swapped(((pc, "leaf_weighted_sum_noise", clip_plain),))
 
@@ -1584,12 +1587,14 @@ def _step_builder(argv, dev, out_dir):
     return opt, StepBuilder(opt, G, D)
 
 
-def k6_held(g, dev, b, p, tag, peak_bytes):
+def k6_held(g, dev, b, p, tag, peak_bytes, base=0):
     """K6 against its plain version at [b, p] (the sum at std 0 to
     K6_SUM_BOUND, sum and noise with one seed to K6_NOISE_BOUND * std), run
     twice (bitwise), with another seed (a new draw) and the noise's moments,
-    timed beside its plain version and ``w @ g`` + ``randn``. Returns (times
-    and bytes bound, max abs gap)."""
+    timed beside its plain version and ``w @ g`` + ``randn``. With a counter
+    ``base`` (a model slice's, --tp) both run at it, and K6's noise there is
+    held to the same columns of K6's noise over the whole [b, base + p]
+    leaf, bit for bit. Returns (times and bytes bound, max abs gap)."""
     import torch
     from csl_gan_tpu_torch.ops import pallas_clip as pc
     std = torch.tensor(K6_STD, device=dev)
@@ -1597,20 +1602,30 @@ def k6_held(g, dev, b, p, tag, peak_bytes):
     x = torch.randn(b, p, generator=g, device=dev)
     w = torch.rand(b, generator=g, device=dev) * 0.9 + 0.1
     seed = torch.randint(0, 2 ** 63 - 1, (), generator=g, device=dev)
-    k0, p0 = pc.leaf_weighted_sum_noise(x, w, seed, zero), \
-        pc.weighted_sum_noise_plain(x, w, seed, zero)
-    k1, p1 = pc.leaf_weighted_sum_noise(x, w, seed, std), \
-        pc.weighted_sum_noise_plain(x, w, seed, std)
-    again = pc.leaf_weighted_sum_noise(x, w, seed, std)
-    other = pc.leaf_weighted_sum_noise(x, w, seed + 1, std)
+    k0, p0 = pc.leaf_weighted_sum_noise(x, w, seed, zero, base), \
+        pc.weighted_sum_noise_plain(x, w, seed, zero, base)
+    k1, p1 = pc.leaf_weighted_sum_noise(x, w, seed, std, base), \
+        pc.weighted_sum_noise_plain(x, w, seed, std, base)
+    again = pc.leaf_weighted_sum_noise(x, w, seed, std, base)
+    other = pc.leaf_weighted_sum_noise(x, w, seed + 1, std, base)
+    if base:
+        # w = 0: the output is std * z alone, on both sides exactly.
+        w0 = torch.zeros_like(w)
+        cut = pc.leaf_weighted_sum_noise(x, w0, seed, std, base)
+        whole = pc.leaf_weighted_sum_noise(torch.zeros(b, base + p, device=dev), w0, seed, std)
+        if not torch.equal(cut, whole[base:]):
+            fail(f"K6 at counter base {base} is not the whole leaf's noise at [{b}, {p}]")
+        print(f"K6 [{b}, {p}] at counter base {base}: its noise is columns {base}.."
+              f"{base + p - 1} of the whole [{b}, {base + p}] leaf's, bit for bit")
+        del whole
     torch.cuda.synchronize()
     r0 = rel_l2(k0, p0)
     gap = float((k1 - p1).abs().max())
     err = max(gap, float((k0 - p0).abs().max()))
     z = (k1 - k0) / K6_STD
     mean, sd = float(z.mean()), float(z.std())
-    t = {"ms": cuda_ms(lambda: pc.leaf_weighted_sum_noise(x, w, seed, std), 20),
-         "plain_ms": cuda_ms(lambda: pc.weighted_sum_noise_plain(x, w, seed, std), 3),
+    t = {"ms": cuda_ms(lambda: pc.leaf_weighted_sum_noise(x, w, seed, std, base), 20),
+         "plain_ms": cuda_ms(lambda: pc.weighted_sum_noise_plain(x, w, seed, std, base), 3),
          "library_ms": cuda_ms(lambda: w @ x + std * torch.randn(p, device=dev), 20),
          "bytes": 4.0 * (b * p + b + p) + 12}
     t["bound_ms"] = t["bytes"] / peak_bytes * 1e3
@@ -3967,9 +3982,10 @@ def _finite(st) -> bool:
 
 def parallel_step_rank(job) -> None:
     """The step check's job on one rank: the payload's D step and G step
-    (the global batch's inputs) on this rank's rows, replicated and under
-    --fsdp; rank 0 saves each whole state after the steps, the launches and
-    the shapes K2-K6 took."""
+    (the global batch's inputs) on this rank's rows (and, under --tp, its
+    channels), replicated and, on the data axis alone, under --fsdp; rank 0
+    saves each whole state after the steps, the launches and the shapes
+    K2-K6 took."""
     import dataclasses
 
     import torch
@@ -3984,11 +4000,13 @@ def parallel_step_rank(job) -> None:
         G, D = init_models(opt, mesh.device)
         payload = torch.load(job["payload"], map_location=mesh.device, weights_only=False)
         out = {"shapes": set()}
-        for fsdp in (False, True):
+        for fsdp in (False,) if mesh.tp > 1 else (False, True):
             tb = StepBuilder(opt, G, D, mesh=dataclasses.replace(mesh, fsdp=fsdp))
             counts = {}
             with par_taken(counts, out["shapes"]):
-                st, dm = tb.d_core(tb.shard_state(payload["state"]), **payload["d"])
+                st, dm = tb.shard_state(payload["state"]), None
+                if "d" in payload:      # else the G step alone
+                    st, dm = tb.d_core(st, **payload["d"])
                 st, gm = tb.g_core(st, *payload["g"])
             whole = tb.full_state(st)
             out[fsdp] = {"state": whole, "launches": counts, "d": dm, "g": gm}
@@ -4028,7 +4046,7 @@ def parallel_train_rank(job) -> None:
 
 
 def parallel_rank(spec_json: str) -> int:
-    """One rank process of phase 13 (``chip_smoke.py --parallel-rank
+    """One rank process of phases 13 and 14 (``chip_smoke.py --parallel-rank
     <json>``): its jobs in turn, each in a process group of its own (a step
     check with a payload, else a training run)."""
     import torch
@@ -4036,6 +4054,10 @@ def parallel_rank(spec_json: str) -> int:
     sys.path.insert(0, str(REPO))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # Deterministic cuDNN, as in the main process (``pinned_cudnn``): the
+    # bf16 G step's weight gradients then take the same algorithms in the
+    # ranks and in the one-rank witness.
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
     for job in spec["jobs"]:
         (parallel_step_rank if job.get("payload") else parallel_train_rank)(job)
     return 0
@@ -4129,12 +4151,13 @@ def halved(seen):
             for k, shapes, dt in seen}
 
 
-def par_shapes_held(name, seen, want, dev, peak_bytes):
+def par_shapes_held(name, seen, want, dev, peak_bytes, tp=1):
     """The shapes the ranks gave K2-K6 (``seen``) must be ``want`` (the
-    one-rank run's, each batch cut to a rank's rows); each is then held
-    against its kernel's plain version at its bound: K2/K3 by ``conv_held``
-    (the tensor-core variant on bf16 operands, FFMA on fp32), K4/K5 by
-    ``gn_held``, K6 by ``k6_held``."""
+    one-rank run's, each batch cut to a rank's rows, or under ``tp`` each
+    channel count to a rank's); each is then held against its kernel's
+    plain version at its bound: K2/K3 by ``conv_held`` (the tensor-core
+    variant on bf16 operands, FFMA on fp32), K4/K5 by ``gn_held`` (32 / tp
+    groups), K6 by ``k6_held`` (at the last model rank's counter base)."""
     import torch
     if seen != want:
         fail(f"{name}: the ranks gave K2-K6 {sorted(seen, key=str)}, expected "
@@ -4151,11 +4174,13 @@ def par_shapes_held(name, seen, want, dev, peak_bytes):
               f"{variant}: K2 rel l2 {r2:.3e}, K3 rel l2 {r3:.3e} (bound {CONV_BOUND:g})")
     for ((b, hw, c),), dt in sorted({(shapes, dt) for k, shapes, dt in seen
                                      if k in ("K4", "K5")}, key=str):
-        gn_held(*gn_operands(g, dev, b, hw, c, dt))
+        gn_held(*gn_operands(g, dev, b, hw, c, dt), groups=32 // tp)
     for ((b, *leaf),), dt in sorted({(shapes, dt) for k, shapes, dt in seen if k == "K6"},
                                     key=str):
         # K6 takes the leaf's per-sample gradients [b, *leaf] as [b, P].
-        k6_held(g, dev, b, math.prod(leaf), f"{name}, a rank's rows, leaf {leaf}", peak_bytes)
+        p = math.prod(leaf)
+        k6_held(g, dev, b, p, f"{name}, a rank's rows, leaf {leaf}", peak_bytes,
+                base=(tp - 1) * p)
 
 
 def par_groups_held(name, got, ref, halves, witness, repeat):
@@ -4172,8 +4197,28 @@ def par_groups_held(name, got, ref, halves, witness, repeat):
         fail(f"{name}: {over} leave the one-rank state beyond their bounds")
 
 
+@contextlib.contextmanager
+def pinned_cudnn():
+    """Deterministic cuDNN without autotuning over the block (the rank
+    processes of phases 13 and 14 set it for their lifetime)."""
+    import torch
+    cudnn = torch.backends.cudnn
+    was = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = was
+
+
 def parallel_phase(dev, out_root, smi, peak_bytes):
-    """Phase 13. Returns each run's launches by rank, for the kernels line."""
+    """Phase 13, with deterministic cuDNN. Returns each run's launches by
+    rank, for the kernels line."""
+    with pinned_cudnn():
+        return _parallel_phase(dev, out_root, smi, peak_bytes)
+
+
+def _parallel_phase(dev, out_root, smi, peak_bytes):
     import torch
 
     root = out_root / "parallel"
@@ -4237,10 +4282,34 @@ def parallel_phase(dev, out_root, smi, peak_bytes):
     with in_halves(b):
         split = one_step()
     step_repeat, step_witness = _group_gaps(ref2, ref1), _group_gaps(split, ref1)
+    # The G step alone from the one-rank D step's state, on the ranks and in
+    # halves: bitwise equal (the whole step's gap to the step in halves in
+    # G's groups is D's ~1e-8 carried through the bf16 G step, not G's own).
+    st_d = b.d_core(st, **d_in)[0]
+    g_payload = root / "g_step_payload.pt"
+    torch.save({"state": st_d, "g": g_in}, g_payload)
+    g_ref = b.g_core(st_d, *g_in)[0]
+    with in_halves(b):
+        g_split = b.g_core(st_d, *g_in)[0]
     fsdp_argv = PAR_CELEBA + ["--fsdp", "true"]
-    (step_path, _), *celeba = par_launch(
-        [("CelebA step", PAR_CELEBA, str(payload)), ("CelebA 2 ranks", PAR_CELEBA, None),
-         ("CelebA 2 ranks fsdp", fsdp_argv, None)], PAR_RANKS, root)
+    (step_path, _), (g_step_path, _), *celeba = par_launch(
+        [("CelebA step", PAR_CELEBA, str(payload)), ("CelebA G step", PAR_CELEBA, str(g_payload)),
+         ("CelebA 2 ranks", PAR_CELEBA, None), ("CelebA 2 ranks fsdp", fsdp_argv, None)],
+        PAR_RANKS, root)
+    g_got = torch.load(g_step_path, map_location=dev, weights_only=False)[False]["state"]
+    g_gaps, g_beside = _group_gaps(g_got, g_ref), _group_gaps(g_got, g_split)
+    by_leaf = sorted(((rel_l2(g_got.g_mu[k].float(), g_split.g_mu[k].float()), k)
+                      for k in g_split.g_mu), reverse=True)
+    print(f"CelebA G step alone [{smi}] from one D-updated state, {PAR_RANKS} ranks: against "
+          f"one rank, by group, " + ", ".join(f"{g} {v:.3e}" for g, v in g_gaps.items() if
+                                             g.startswith("g_"))
+          + "; against the G step in halves " + ", ".join(
+              f"{g} {v:.3e}" for g, v in g_beside.items() if g.startswith("g_"))
+          + "; g_mu (the gradient: b1 = 0) against the halves' by leaf, largest: " + ", ".join(
+              f"{k} {v:.3e}" for v, k in by_leaf[:6]))
+    if any(g_beside[g] != 0.0 for g in ("g_params", "g_mu", "g_nu")):
+        fail("CelebA G step alone: the ranks' G step is not the G step in halves, bit for bit")
+    del g_got, g_ref, g_split, st_d
     got = torch.load(step_path, map_location=dev, weights_only=False)
     celeba_seen = set(got["shapes"])
     for fsdp in (False, True):
@@ -4318,6 +4387,242 @@ def parallel_phase(dev, out_root, smi, peak_bytes):
     if not same:
         fail("MNIST NCCL: the saves differ from the plain run's")
     print(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# Phase 14: the tensor axis (--tp) on the card's machine, which shows one
+# card: as in phase 13, --multihost ranks share it over gloo and pin
+# deterministic cuDNN. At --tp 2 on 2 ranks (dp 1) each rank holds half the
+# output channels of every leaf that the JAX rule shards and computes only
+# those; 4 ranks make dp 2 x tp 2.
+TP = 2
+TP_CELEBA = PAR_CELEBA + ["--tp", str(TP)]
+TP_PATH1 = PAR_PATH1 + ["--tp", str(TP)]
+TP_MNIST = PAR_MNIST + ["--pallas_epoch", "false"]     # the fp32 ghost route, off K1
+
+
+def _tp_cut(w) -> bool:
+    """Whether --tp 2 cuts a conv weight [O, I, kh, kw] or a dense weight
+    [O, I]: its flax last dim O divisible and 2^11 elements or more (the
+    JAX package's state_spec)."""
+    return w.dim() in (2, 4) and w.shape[0] % TP == 0 and w.numel() >= 2 ** 11
+
+
+@contextlib.contextmanager
+def in_channel_halves():
+    """The one-device step computing every layer that --tp 2 cuts in its TP
+    parts of output channels, as the ranks split them: the convs and dense
+    layers of the forwards, concatenated (their backwards through autograd,
+    where the parts' input gradients add), each GroupNorm+ReLU on its
+    parts' channels with 32 / TP groups, and in the conv-ghost real pass the
+    input cotangents and K2's squared norms as the parts' fp32 sums and K3's
+    sum concatenated. Nothing of ``parallel/`` takes part: the witness of
+    what splitting the channels does to the arithmetic alone."""
+    import torch
+    from csl_gan_tpu_torch.models import dcresnet
+    from csl_gan_tpu_torch.ops import conv_ghost
+    from csl_gan_tpu_torch.ops import pallas_conv_ghost as pcg
+    conv, dense, gnr = dcresnet.conv_nhwc, dcresnet.dense, dcresnet.group_norm_relu
+    cin, norms, wsum = torch.nn.grad.conv2d_input, pcg.ghost_sq_norms, pcg.weighted_kernel_grad
+
+    def parts(w, b):
+        return zip(w.chunk(TP), [None] * TP if b is None else b.chunk(TP))
+
+    def conv_h(x, w, b, stride, padding, dtype=None):
+        if not _tp_cut(w):
+            return conv(x, w, b, stride, padding, dtype)
+        return torch.cat([conv(x, wi, bi, stride, padding, dtype) for wi, bi in parts(w, b)],
+                         dim=-1)
+
+    def dense_h(x, w, b, dtype=None):
+        if not _tp_cut(w):
+            return dense(x, w, b, dtype)
+        return torch.cat([dense(x, wi, bi, dtype) for wi, bi in parts(w, b)], dim=-1)
+
+    def gnr_h(x, sc, bi, groups=32, eps=1e-5):
+        if groups % TP or x.shape[-1] % TP:
+            return gnr(x, sc, bi, groups, eps)
+        return torch.cat([gnr(xi, si, bj, groups // TP, eps) for xi, si, bj in
+                          zip(x.chunk(TP, -1), sc.chunk(TP), bi.chunk(TP))], dim=-1)
+
+    def cin_h(shape, w, c, stride=1, padding=0):
+        if not _tp_cut(w):
+            return cin(shape, w, c, stride, padding)
+        outs = [cin(shape, wi, ci, stride, padding) for wi, ci in zip(w.chunk(TP), c.chunk(TP, 1))]
+        return sum(o.float() for o in outs).to(outs[0].dtype)
+
+    def norms_h(a, c, kh, kw, stride, pad):
+        return sum(norms(a, ci.contiguous(), kh, kw, stride, pad) for ci in c.chunk(TP, -1))
+
+    def wsum_h(a, c, f, ks, stride, pad):
+        part = tuple(ks[:3]) + (ks[3] // TP,)
+        return torch.cat([wsum(a, ci.contiguous(), f, part, stride, pad)
+                          for ci in c.chunk(TP, -1)], dim=-1)
+
+    # The wrappers count their launches through their module names.
+    norms_h.launches = norms_h.launches_tc = wsum_h.launches = wsum_h.launches_tc = 0
+    with _swapped(((dcresnet, "conv_nhwc", conv_h), (conv_ghost, "conv_nhwc", conv_h),
+                   (dcresnet, "dense", dense_h), (conv_ghost, "dense", dense_h),
+                   (dcresnet, "group_norm_relu", gnr_h), (torch.nn.grad, "conv2d_input", cin_h),
+                   (pcg, "ghost_sq_norms", norms_h), (pcg, "weighted_kernel_grad", wsum_h))):
+        yield
+
+
+def tp_halved(seen):
+    """The shapes a rank of --tp 2 on 2 ranks gives K2-K6 where one rank gave
+    ``seen``: every row of the batch, each conv's output channels, each
+    norm's channels and each K6 leaf's dim 0 cut by TP."""
+    out = set()
+    for k, shapes, dt in seen:
+        if k in ("K2", "K3"):
+            a, c = shapes
+            shapes = (a, c[:3] + (c[3] // TP,))
+        elif k in ("K4", "K5"):
+            (b, hw, c), = shapes
+            shapes = ((b, hw, c // TP),)
+        else:
+            (b, o, *rest), = shapes
+            shapes = ((b, o // TP, *rest),)
+        out.add((k, shapes, dt))
+    return out
+
+
+def tp_phase(dev, out_root, smi, peak_bytes):
+    """Phase 14, with deterministic cuDNN. Returns each run's launches by
+    rank, for the kernels line."""
+    with pinned_cudnn():
+        return _tp_phase(dev, out_root, smi, peak_bytes)
+
+
+def _tp_phase(dev, out_root, smi, peak_bytes):
+    import torch
+
+    root = out_root / "tp"
+    launches = {}
+    t_phase = time.perf_counter()
+
+    def held_ranks(name, reports, want, ms1, mb1):
+        # Each wrapper's launches; K4/K5's CUDA launches a call follow the
+        # plan of the rank's channel count, which differs from one rank's.
+        want = {k: v for k, v in want.items() if "cuda" not in k}
+        for r in reports:
+            got = {k: r["launches"][k] for k in want}
+            if got != want or not r["finite"] or r["backend"] != "gloo" or \
+                    r["runner"] != "StepRunner":
+                fail(f"{name}: rank {r['rank']} launches {got} (expected {want}), backend "
+                     f"{r['backend']}, runner {r['runner']}, finite {r['finite']}")
+        launches[name] = [r["launches"] for r in reports]
+        mb = [r["state_bytes"] / 2 ** 20 for r in reports]
+        print(f"{name} [{smi}]: {len(reports)} ranks at --tp {TP} over gloo sharing the card, "
+              f"{PAR_EPOCHS} epochs of {reports[0]['n']} D steps; launches by rank "
+              + "; ".join(f"rank {r['rank']}: " + (", ".join(
+                  f"{k} {v}" for k, v in r["launches"].items() if v) or "none")
+                          for r in reports)
+              + "; ms per D step (last epoch) by rank " + ", ".join(
+                  f"{r['ms']:.3f}" for r in reports)
+              + f" against one rank's {ms1:.3f}; wall s by rank "
+              + ", ".join(f"{r['wall_s']:.2f}" for r in reports)
+              + "; state (params and Adam moments) MB by rank " + ", ".join(
+                  f"{x:.2f} ({x / mb1:.3f} of one rank's {mb1:.2f})" for x in mb))
+        if any(r["counts"] != reports[0]["counts"] for r in reports):
+            fail(f"{name}: update counts {[r['counts'] for r in reports]}")
+        return set().union(*(shapes_of(r["shapes"]) for r in reports)), mb
+
+    # (a) The CelebA flagship's flags cut to 10 D steps an epoch on one rank
+    # (its end state starts the step check), one full-width D step and G
+    # step from it at --tp 2 against the same steps on one rank, each group
+    # within 3x the same steps computed in channel halves.
+    tr1, want, ms1, seen1 = par_one("CelebA one rank", PAR_CELEBA, root)
+    formula = dict(_celeba_expect(tr1.state.d_count, tr1.state.g_count), K1=0, K6=0)
+    if {k: want[k] for k in formula} != formula:
+        fail(f"CelebA one rank: launches {want}, expected {formula}")
+    b, st = tr1.builder, tr1.state
+    runner, gs = tr1.step_runner, torch.Generator(dev).manual_seed(47)
+    x, y = runner._batch(torch.randperm(runner.n_rows, generator=gs, device=dev)[:CB], gs)
+    d_in = dict(x=x, y=y, use_dp=True, **runner._d_draws(st, x, y, gs, runner.noise_stds(st),
+                                                         True))
+    g_in = (b.gen_z(gs, CB), b.gen_y(gs, CB))
+    payload = root / "tp_step_payload.pt"
+    torch.save({"state": st, "d": d_in, "g": g_in}, payload)
+
+    def one_step():
+        return b.g_core(b.d_core(st, **d_in)[0], *g_in)[0]
+
+    ref1, ref2 = one_step(), one_step()
+    with in_channel_halves():
+        split = one_step()
+    step_repeat, step_witness = _group_gaps(ref2, ref1), _group_gaps(split, ref1)
+    mb1 = _state_mb(st)
+
+    # (b) The fp32 runs' one-rank references: path 1 (K6) for 2 epochs, and
+    # one D + G step of the MNIST flagship's flags on the ghost route.
+    p1, want_p1, ms_p1, seen_p1 = par_one("path 1 one rank", PAR_PATH1, root)
+    if want_p1["K6"] != p1.state.d_count or want_p1["K1"]:
+        fail(f"path 1 one rank: launches {want_p1}")
+    mn, _, _, _ = par_one("MNIST ghost one rank", TP_MNIST, root)
+    mb_, mst = mn.builder, mn.state
+    mrun, gm = mn.step_runner, torch.Generator(dev).manual_seed(49)
+    mx, my = mrun._batch(torch.randperm(mrun.n_rows, generator=gm, device=dev)[:BS], gm)
+    md_in = dict(x=mx, y=my, use_dp=True, **mrun._d_draws(mst, mx, my, gm,
+                                                         mrun.noise_stds(mst), True))
+    mg_in = (mb_.gen_z(gm, BS), mb_.gen_y(gm, BS))
+    mpayload = root / "tp_mnist_payload.pt"
+    torch.save({"state": mst, "d": md_in, "g": mg_in}, mpayload)
+    mref = mb_.g_core(mb_.d_core(mst, **md_in)[0], *mg_in)[0]
+
+    (step_path, _), (celeba, celeba_out), (path1, path1_out) = par_launch(
+        [("CelebA tp step", TP_CELEBA, str(payload)), ("CelebA tp 2 ranks", TP_CELEBA, None),
+         ("path 1 tp 2 ranks", TP_PATH1, None)], TP, root)
+    [(mstep_path, _)] = par_launch([("MNIST tp step dp2", TP_MNIST + ["--tp", str(TP)],
+                                     str(mpayload))], 2 * TP, root)
+
+    got = torch.load(step_path, map_location=dev, weights_only=False)
+    k = got[False]["launches"]
+    print(f"CelebA tp step [{smi}]: one D step and one G step at B {CB} on {TP} ranks at --tp "
+          f"{TP} (every row, half the channels a rank); rank 0 launched K2 {k['K2']}, K3 "
+          f"{k['K3']}, K4 {k['K4']}, K5 {k['K5']}; two one-rank steps "
+          f"{max(step_repeat.values()):.3e}")
+    par_groups_held("CelebA tp step", got[False]["state"], ref1, split, step_witness,
+                    step_repeat)
+    if (k["K2"], k["K3"], k["K4"], k["K5"]) != (3, 3, 2 * G_NORMS, G_NORMS):
+        fail(f"CelebA tp step: launches {k}")
+    launches["CelebA tp step"] = [k]
+    seen = set(got["shapes"])
+    mgot = torch.load(mstep_path, map_location=dev, weights_only=False)
+    mgaps = _group_gaps(mgot[False]["state"], mref)
+    print(f"MNIST tp step dp2 [{smi}]: one D step (ghost route, fp32) and one G step at B {BS} "
+          f"on {2 * TP} ranks as (data, model) = (2, {TP}) against one rank, by group: "
+          + ", ".join(f"{g} {v:.3e}" for g, v in mgaps.items())
+          + f" (bound {PAR_FP32_BOUND:g}); rank 0 launched "
+          + (", ".join(f"{n} {v}" for n, v in mgot[False]["launches"].items() if v) or "none"))
+    if not all(v <= PAR_FP32_BOUND for v in mgaps.values()):
+        fail("MNIST tp step dp2: the ranks leave the one-rank step beyond the bound")
+    launches["MNIST tp step dp2"] = [mgot[False]["launches"]]
+    del ref1, ref2, split, got, mgot
+
+    # (c) Two epochs through train.main on 2 ranks at --tp 2: the CelebA
+    # flagship's flags and path 1's. The ranks' saves load as one rank's.
+    cs, mb = held_ranks("CelebA tp 2 ranks", celeba, want, ms1, mb1)
+    seen |= cs
+    if not all(x < 0.6 * mb1 for x in mb):
+        fail(f"--tp: a rank holds {mb} MB of a {mb1:.2f} MB state")
+    saved = saved_state(celeba_out, tr1.state)
+    print("  saves (rank 0's, whole leaves) load as one rank's; against the one-rank run, by "
+          "group (bf16; no bound: the step check above carries the precision): " + ", ".join(
+              f"{g} {v:.3e}" for g, v in _group_gaps(saved, tr1.state).items()))
+    if not _finite(saved) or saved.d_count != tr1.state.d_count:
+        fail("CelebA tp 2 ranks: the saves are not the run's")
+    del tr1
+    ps, _ = held_ranks("path 1 tp 2 ranks", path1, want_p1, ms_p1, _state_mb(p1.state))
+    gap = _state_gap(saved_state(path1_out, p1.state), p1.state)
+    print(f"  end state (saves) against the one-rank run's (fp32, K6's noise at each slice's "
+          f"counter base): {gap:.3e} (bound {PAR_FP32_BOUND:g})")
+    if not gap <= PAR_FP32_BOUND:
+        fail(f"path 1 tp 2 ranks: the ranks leave the one-rank run by {gap:.3e}")
+    torch.cuda.empty_cache()
+    par_shapes_held("CelebA tp", seen, tp_halved(seen1), dev, peak_bytes, tp=TP)
+    par_shapes_held("path 1 tp", ps, tp_halved(seen_p1), dev, peak_bytes, tp=TP)
+    print(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -4424,6 +4729,9 @@ def main() -> int:
     if "--parallel" in sys.argv[1:]:
         parallel_phase(dev, out_root, smi, peak_bytes)
         return 0
+    if "--tp" in sys.argv[1:]:
+        tp_phase(dev, out_root, smi, peak_bytes)
+        return 0
 
     # 3. The MNIST path (K1): kernel vs plain, the Trainer, K1's timing.
     max_abs = k1_check_phase(dev, out_root)
@@ -4497,7 +4805,15 @@ def main() -> int:
         k = keys[entry["name"]]
         entry["parallel_launches"] = {run: [c[k] for c in by_rank] for run, by_rank in par.items()}
 
-    # 14. The kernels line; 15. the result line.
+    # 14. The tensor axis: --tp 2 on 2 ranks sharing the card (a CelebA
+    # step against its channel-halves witness, the CelebA flagship's flags
+    # and path 1 for 2 epochs), dp 2 x tp 2 on 4 ranks (an MNIST step).
+    tp = tp_phase(dev, out_root, smi, peak_bytes)
+    for entry in kernels:
+        k = keys[entry["name"]]
+        entry["tp_launches"] = {run: [c[k] for c in by_rank] for run, by_rank in tp.items()}
+
+    # 15. The kernels line; 16. the result line.
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -25,6 +25,20 @@ bf16 inputs and weights and give bf16 outputs (flax nn.Conv), dense layers take
 bf16-rounded inputs and weights with an fp32 product and output (TorchDense's
 preferred_element_type), and tanh runs in fp32.
 
+Under a model axis (``--tp``; the forwards' ``mesh``, a
+``parallel.MeshContext`` of tp > 1 that the step builder passes) a layer
+whose weight arrives as this rank's slice of output channels is
+column-parallel: its input enters through ``mesh.copy_model``, a replicated
+bias is sliced by ``mesh.split_model`` and the layer computes this rank's
+channels only (``_conv``, ``_dense``). A consumer that needs every channel
+gathers them (``_full``: the next layer's input, the flatten before the
+heads, the dense stem before its reshape, tanh's input). A GroupNorm whose
+32 groups and channels the tensor axis divides runs on the rank's channels
+with 32 / tp groups (K4/K5 on [B, HW, C / tp]); one that it does not
+divide, and BatchNorm (per channel, its statistics over the data group),
+run on every channel. The residual sum adds the slices before one gather.
+Without a mesh every layer is whole and the arithmetic is unchanged.
+
 ``ref_ps`` (``--ref_pixel_shuffle``, set for checkpoints converted from the
 reference, training/ref_convert.py) swaps every upsample, the 1x1 shortcut's
 included, for the reference's channel-scrambling pixel shuffle
@@ -80,8 +94,45 @@ def dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
     return y if b is None else y + b
 
 
-def _conv(x, conv: nn.Conv2d, dtype):
-    return conv_nhwc(x, conv.weight, conv.bias, conv.stride, conv.padding, dtype)
+def _full(t: torch.Tensor, channels: int, mesh) -> torch.Tensor:
+    """NHWC (or [B, F]) ``t`` with every one of its ``channels`` on its
+    last dim: the gather of this rank's slice under a model axis."""
+    if mesh is None or t.shape[-1] == channels:
+        return t
+    return mesh.gather_model(t, -1)
+
+
+def _local(t: torch.Tensor, channels: int, mesh) -> torch.Tensor:
+    """This rank's slice of ``t``'s last dim, unless it is one already."""
+    return t if t.shape[-1] != channels else mesh.split_model(t, -1)
+
+
+def _col_bias(w: torch.Tensor, b: Optional[torch.Tensor], mesh):
+    """The bias of a column-parallel layer: a replicated bias is sliced by
+    ``split_model`` (its gradient then summed over the model group)."""
+    if b is None or b.shape[0] == w.shape[0]:
+        return b
+    return mesh.split_model(b, 0)
+
+
+def _conv(x, conv: nn.Conv2d, dtype, mesh=None):
+    """The conv on every input channel; under a model axis its output is
+    this rank's channels when its weight is this rank's slice."""
+    w, b = conv.weight, conv.bias
+    if mesh is not None:
+        x = _full(x, conv.in_channels, mesh)
+        if w.shape[0] != conv.out_channels:
+            x, b = mesh.copy_model(x), _col_bias(w, b, mesh)
+    return conv_nhwc(x, w, b, conv.stride, conv.padding, dtype)
+
+
+def _dense(x, lin: nn.Linear, dtype, mesh=None):
+    """``dense`` with every output feature (gathered under a model axis)."""
+    w, b = lin.weight, lin.bias
+    if mesh is None or w.shape[0] == lin.out_features:
+        return dense(x, w, b, dtype)
+    return _full(dense(mesh.copy_model(x), w, _col_bias(w, b, mesh), dtype),
+                 lin.out_features, mesh)
 
 
 def gn_relu(x: torch.Tensor, gn: nn.GroupNorm) -> torch.Tensor:
@@ -139,10 +190,18 @@ def _norm(cin: int, bn: bool) -> nn.Module:
     return BatchNormRelu(cin) if bn else nn.GroupNorm(32, cin, eps=1e-5)
 
 
-def norm_relu(x: torch.Tensor, norm: nn.Module, train: bool) -> torch.Tensor:
-    if isinstance(norm, BatchNormRelu):
-        return norm(x, train)
-    return gn_relu(x, norm)
+def norm_relu(x: torch.Tensor, norm: nn.Module, train: bool, mesh=None) -> torch.Tensor:
+    """The norm + ReLU of x (whole or, under a model axis, this rank's
+    channels). Under a model axis a GroupNorm that the axis divides gives
+    this rank's channels (K4/K5 on them, 32 / tp groups), any other norm
+    every channel."""
+    bn = isinstance(norm, BatchNormRelu)
+    if mesh is None or bn or norm.num_groups % mesh.tp or norm.num_channels % mesh.tp:
+        x = _full(x, norm.weight.shape[0], mesh)
+        return norm(x, train) if bn else gn_relu(x, norm)
+    return group_norm_relu(_local(x, norm.num_channels, mesh), mesh.split_model(norm.weight, 0),
+                           mesh.split_model(norm.bias, 0), norm.num_groups // mesh.tp,
+                           norm.eps)
 
 
 class UpsampleConv(nn.Module):
@@ -160,12 +219,13 @@ class UpsampleConv(nn.Module):
         self.TorchConv_0 = nn.Conv2d(cin, features, kernel_size,
                                      padding=(kernel_size - 1) // 2, bias=bias)
 
-    def forward(self, x, dtype=None):
+    def forward(self, x, dtype=None, mesh=None):
+        x = _full(x, self.TorchConv_0.in_channels, mesh)
         if self.ref_ps:
-            return _conv(ref_pixel_shuffle_upsample_2x(x), self.TorchConv_0, dtype)
+            return _conv(ref_pixel_shuffle_upsample_2x(x), self.TorchConv_0, dtype, mesh)
         if self.kernel_size == 1:
-            return upsample_nearest_2x(_conv(x, self.TorchConv_0, dtype))
-        return _conv(upsample_nearest_2x(x), self.TorchConv_0, dtype)
+            return upsample_nearest_2x(_conv(x, self.TorchConv_0, dtype, mesh))
+        return _conv(upsample_nearest_2x(x), self.TorchConv_0, dtype, mesh)
 
 
 class ResBlockUp(nn.Module):
@@ -184,12 +244,17 @@ class ResBlockUp(nn.Module):
                                      padding=(kernel_size - 1) // 2)
         self.norms = (f"{norm}_0", f"{norm}_1")
 
-    def forward(self, x, dtype=None, train: bool = True):
-        s = self.UpsampleConv_0(x, dtype)
-        o = norm_relu(x, getattr(self, self.norms[0]), train)
-        o = self.UpsampleConv_1(o, dtype)
-        o = norm_relu(o, getattr(self, self.norms[1]), train)
-        o = _conv(o, self.TorchConv_0, dtype)
+    def forward(self, x, dtype=None, train: bool = True, mesh=None):
+        """The block's output: whole, or under a model axis this rank's
+        channels when both branches end on them."""
+        s = self.UpsampleConv_0(x, dtype, mesh)
+        o = norm_relu(x, getattr(self, self.norms[0]), train, mesh)
+        o = self.UpsampleConv_1(o, dtype, mesh)
+        o = norm_relu(o, getattr(self, self.norms[1]), train, mesh)
+        o = _conv(o, self.TorchConv_0, dtype, mesh)
+        if o.shape[-1] != s.shape[-1]:
+            features = self.TorchConv_0.out_channels
+            return _full(o, features, mesh) + _full(s, features, mesh)
         return o + s
 
 
@@ -222,7 +287,7 @@ class DCResNetGenerator(nn.Module):
         self.TorchConv_0 = nn.Conv2d(self.channels[-1], out_ch, 3, padding=1)
 
     def forward(self, z: torch.Tensor, y: Optional[torch.Tensor] = None,
-                train: bool = True):
+                train: bool = True, mesh=None):
         x = z
         if y is not None and self.n_classes > 0:
             if self.emb_mode == "embed":
@@ -231,11 +296,14 @@ class DCResNetGenerator(nn.Module):
                 x = torch.cat([z, one_hot(y, self.n_classes)], dim=1)
         f = self.first_filter_size
         lin = self.TorchDense_0
-        x = dense(x, lin.weight, lin.bias, self.dtype).view(z.shape[0], f, f, self.channels[0])
+        # Under a model axis the stem's slice is of the flat (h, w, c)
+        # features, not of the channels: gathered before the reshape.
+        x = _dense(x, lin, self.dtype, mesh).view(z.shape[0], f, f, self.channels[0])
         for i in range(self.n_blocks):
-            x = getattr(self, f"ResBlockUp_{i}")(x, self.dtype, train)
-        x = norm_relu(x, getattr(self, self.norm), train)
-        x = _conv(x, self.TorchConv_0, self.dtype)
+            x = getattr(self, f"ResBlockUp_{i}")(x, self.dtype, train, mesh)
+        x = norm_relu(x, getattr(self, self.norm), train, mesh)
+        x = _full(_conv(x, self.TorchConv_0, self.dtype, mesh), self.TorchConv_0.out_channels,
+                  mesh)
         return torch.tanh(x.float())
 
 
@@ -268,7 +336,7 @@ class DCResNetDiscriminator(nn.Module):
         return [getattr(self, f"TorchConv_{i}") for i in range(self.n_convs)]
 
     def forward(self, x: torch.Tensor, y: Optional[torch.Tensor] = None,
-                aux: bool = True):
+                aux: bool = True, mesh=None):
         """(out, aux_out). A WCGAN's head is its critic: computed whatever
         ``aux`` says, with out = aux_out[y]."""
         o = x
@@ -276,11 +344,11 @@ class DCResNetDiscriminator(nn.Module):
             planes = one_hot(y, self.n_classes)[:, None, None, :]
             o = torch.cat([o, planes.expand(x.shape[:3] + (self.n_classes,))], dim=-1)
         for conv in self.convs():
-            o = F.leaky_relu(_conv(o, conv, self.dtype), 0.2)
-        flat = o.reshape(x.shape[0], -1)
+            o = F.leaky_relu(_conv(o, conv, self.dtype, mesh), 0.2)
+        flat = _full(o, self.channels[-1], mesh).reshape(x.shape[0], -1)
         aux_out = None
         if hasattr(self, "linOutAux") and (aux or self.wcgan):
-            aux_out = dense(flat, self.linOutAux.weight, self.linOutAux.bias, self.dtype)
+            aux_out = _dense(flat, self.linOutAux, self.dtype, mesh)
         if self.wcgan:
             return torch.sum(aux_out * one_hot(y, self.n_classes), dim=1, keepdim=True), aux_out
         return dense(flat, self.linOut.weight, None, self.dtype), aux_out

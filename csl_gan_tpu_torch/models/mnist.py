@@ -6,6 +6,11 @@ z (+one-hot y) -> 128 -> 784 -> sigmoid; D flatten(x) (+one-hot y) ->
 conditional arch; only ACGAN has the aux head (CGAN and WCGAN conditioning
 is the concat alone), and an unconditional pair takes no label. Images stay
 NHWC (B, 28, 28, 1) at the public functions, as in the JAX package.
+
+Under a model axis (``--tp``; the forwards' ``mesh``) a layer whose weight
+arrives as this rank's slice of output features is column-parallel
+(``linear``): its input enters through ``mesh.copy_model``, a replicated
+bias is sliced, and its output is gathered over the model group.
 """
 
 from __future__ import annotations
@@ -13,6 +18,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from csl_gan_tpu_torch.models.common import one_hot
@@ -27,6 +33,18 @@ D_LEAVES = ("lin1.bias", "lin1.weight", "lin2.bias", "lin2.weight",
 G_LEAVES = ("lin1.bias", "lin1.weight", "lin2.bias", "lin2.weight")
 
 
+def linear(x: torch.Tensor, lin: nn.Linear, mesh=None) -> torch.Tensor:
+    """``lin(x)``; under a model axis with ``lin.weight`` this rank's slice
+    of the output features, this rank's features gathered over the model
+    group."""
+    w, b = lin.weight, lin.bias
+    if mesh is None or w.shape[0] == lin.out_features:
+        return F.linear(x, w, b)
+    if b is not None and b.shape[0] != w.shape[0]:
+        b = mesh.split_model(b, 0)
+    return mesh.gather_model(F.linear(mesh.copy_model(x), w, b), -1)
+
+
 class MNISTVanillaG(nn.Module):
     family = "vanilla"
 
@@ -37,12 +55,12 @@ class MNISTVanillaG(nn.Module):
         self.lin1 = nn.Linear(z_dim + n_classes, 128)
         self.lin2 = nn.Linear(128, 784 * out_ch)
 
-    def forward(self, z: torch.Tensor, y: Optional[torch.Tensor] = None):
+    def forward(self, z: torch.Tensor, y: Optional[torch.Tensor] = None, mesh=None):
         x = z
         if y is not None:
             x = torch.cat([x, one_hot(y, self.n_classes)], dim=1)
-        x = torch.relu(self.lin1(x))
-        x = torch.sigmoid(self.lin2(x))
+        x = torch.relu(linear(x, self.lin1, mesh))
+        x = torch.sigmoid(linear(x, self.lin2, mesh))
         return x.reshape(z.shape[0], 28, 28, self.out_ch)
 
 
@@ -71,22 +89,22 @@ class MNISTVanillaD(nn.Module):
         if n_classes > 1 and conditional_arch == "ACGAN":
             self.linOutAux = nn.Linear(128, n_classes)
 
-    def _layer(self, idx: int, fn, o, bpc: bool):
+    def _layer(self, idx: int, lin: nn.Linear, o, bpc: bool, mesh=None):
         if bpc and self.bpc_fwd is not None:
             return backprop_clip.cotangent_clip(
-                fn(backprop_clip.l2_clip(o, self.bpc_fwd[idx])), self.bpc_back[idx])
-        return fn(o)
+                lin(backprop_clip.l2_clip(o, self.bpc_fwd[idx])), self.bpc_back[idx])
+        return linear(o, lin, mesh)
 
     def forward(self, x: torch.Tensor, y: Optional[torch.Tensor] = None,
-                aux: bool = True, bpc: bool = False):
+                aux: bool = True, bpc: bool = False, mesh=None):
         o = x.reshape(x.shape[0], -1)
         if y is not None:
             o = torch.cat([o, one_hot(y, self.n_classes)], dim=1)
-        o = torch.relu(self._layer(0, self.lin1, o, bpc))
-        out = self._layer(1, self.lin2, o, bpc)
+        o = torch.relu(self._layer(0, self.lin1, o, bpc, mesh))
+        out = self._layer(1, self.lin2, o, bpc, mesh)
         aux_out = None
         if aux and hasattr(self, "linOutAux"):
-            aux_out = self._layer(2, self.linOutAux, o, bpc)
+            aux_out = self._layer(2, self.linOutAux, o, bpc, mesh)
         return out, aux_out
 
 

@@ -111,7 +111,7 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         LL = ctypes.c_longlong
         lib.clip_noise_scratch.argtypes = [I, LL]
         lib.clip_noise_scratch.restype = LL
-        lib.clip_noise.argtypes = [P, P, P, P, I, LL, P, P, P]
+        lib.clip_noise.argtypes = [P, P, P, P, I, LL, LL, P, P, P]
         lib.clip_noise.restype = I
         lib.cn_error_string.argtypes = [I]
         lib.cn_error_string.restype = ctypes.c_char_p

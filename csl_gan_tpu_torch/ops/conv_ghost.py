@@ -32,6 +32,19 @@ The DP noise is pre-drawn and added by the caller (training/steps.py).
 
 Params are torch state-dict names (models/dcresnet.py); norms and ClipStats
 follow the JAX leaf order (``dcresnet.d_leaves``).
+
+Under a model axis (``mesh``, ``--tp``) the leaves named in ``sharded`` (the
+conv weights, and ``linOutAux.weight`` where the tensor axis divides the
+classes) are this rank's slices of their output channels. Each such layer's
+forward computes this rank's channels, gathered over the model group; its
+input cotangent is this rank's partial product, summed over the model
+group. K2 and the direct order take this rank's cotangent columns and give
+partial squared norms, summed over the model group in one all-reduce; K3
+and the einsum give this rank's [kh, kw, cin, cout / tp] slice of the
+clipped sum. ``_ghost_order`` is decided on the unsplit layer, so a tp run
+clips the same layers the same way as one device. The replicated leaves
+(the conv biases, ``linOut``, the aux bias) take their norms and sums from
+the whole cotangents, which every rank holds.
 """
 
 from __future__ import annotations
@@ -68,7 +81,7 @@ def dcresnet_real_ghost(d_params: Dict[str, torch.Tensor], x: torch.Tensor,
                         per_layer: bool = False, concat_planes: bool = False,
                         stride: int = 2, pad: int = 2, compute_dtype=None,
                         norms_only: bool = False, valid: Optional[torch.Tensor] = None,
-                        stats_gather=None):
+                        stats_gather=None, mesh=None, sharded=()):
     """Clipped summed gradient of the per-sample REAL wgan loss
     loss_i = -out_i [+ ACGAN aux term of sample i], with out_i the WCGAN
     head's column y_i.
@@ -99,15 +112,35 @@ def dcresnet_real_ghost(d_params: Dict[str, torch.Tensor], x: torch.Tensor,
         o = torch.cat([o, planes.expand(x.shape[:3] + (n_classes,))], dim=-1)
     o = o if dt is None else o.to(dt)
     acts = []
+
+    # A sharded weight's layer: ``own`` cuts a tensor of its output channels
+    # to this rank's, ``whole`` gathers this rank's, ``summed`` adds the
+    # model group's partial values; each is the identity on other layers.
+    def own(name, t, dim):
+        if name not in sharded:
+            return t
+        lo, hi = mesh.model_bounds(d_params[name].shape[0] * mesh.tp)
+        return t.narrow(dim, lo, hi - lo)
+
+    def whole(name, t, dim):
+        return mesh.gather_model(t, dim) if name in sharded else t
+
+    def summed(name, t):
+        return mesh.reduce_model(t) if name in sharded else t
+
     for name in conv_names:
-        z = conv_nhwc(o, d_params[f"{name}.weight"], d_params[f"{name}.bias"], stride, pad, dt)
+        wn = f"{name}.weight"
+        z = whole(wn, conv_nhwc(o, d_params[wn], own(wn, d_params[f"{name}.bias"], 0), stride,
+                                pad, dt), 3)
         acts.append((o, z))
         o = torch.where(z >= 0, z, z * 0.2)
     flat = o.reshape(b, -1)
     flat32 = flat.float()
     aux_out = None
+    aw = "linOutAux.weight"
     if has_aux:
-        aux_out = dense(flat, d_params["linOutAux.weight"], d_params["linOutAux.bias"], dt)
+        aux_out = whole(aw, dense(flat, d_params[aw], own(aw, d_params["linOutAux.bias"], 0),
+                                  dt), 1)
     if wcgan:
         out = torch.sum(aux_out * one_hot(y, n_classes), dim=1, keepdim=True)
     else:
@@ -130,9 +163,10 @@ def dcresnet_real_ghost(d_params: Dict[str, torch.Tensor], x: torch.Tensor,
         c_out = c_out * valid[:, None]
         if c_aux is not None:
             c_aux = c_aux * valid[:, None]
-    c_flat = c_aux @ d_params["linOutAux.weight"] if wcgan else c_out @ d_params["linOut.weight"]
+    c_aux_w = None if c_aux is None else own(aw, c_aux, 1)
+    c_flat = summed(aw, c_aux_w @ d_params[aw]) if wcgan else c_out @ d_params["linOut.weight"]
     if c_aux is not None and not wcgan:
-        c_flat = c_flat + c_aux @ d_params["linOutAux.weight"]
+        c_flat = c_flat + summed(aw, c_aux_w @ d_params[aw])
 
     # ---- input cotangents back through the conv stack ----
     c_a = c_flat.reshape(o.shape)
@@ -144,20 +178,21 @@ def dcresnet_real_ghost(d_params: Dict[str, torch.Tensor], x: torch.Tensor,
         c_z = c_a * torch.where(z >= 0, 1.0, 0.2).to(c_a.dtype)
         cots[li] = c_z.contiguous()
         if li > 0:
-            w = d_params[f"{conv_names[li]}.weight"]
-            w = w if dt is None else w.to(dt)
-            c_a = torch.nn.grad.conv2d_input(
-                a_prev.permute(0, 3, 1, 2).shape, w, c_z.permute(0, 3, 1, 2),
-                stride, pad).permute(0, 2, 3, 1)
+            wn = f"{conv_names[li]}.weight"
+            w = d_params[wn] if dt is None else d_params[wn].to(dt)
+            c_a = summed(wn, torch.nn.grad.conv2d_input(
+                a_prev.permute(0, 3, 1, 2).shape, w, own(wn, c_z, 3).permute(0, 3, 1, 2),
+                stride, pad).permute(0, 2, 3, 1))
 
     # ---- per-sample per-leaf squared norms and weighted-sum closures ----
     sq, wsum = {}, {}
     for li, name in enumerate(conv_names):
-        a_prev, c_z = acts[li][0].contiguous(), cots[li]
+        a_prev, c_full = acts[li][0].contiguous(), cots[li]
+        c_z = own(f"{name}.weight", c_full, 3).contiguous()
         cout, cin, kh, kw = d_params[f"{name}.weight"].shape
         kshape = (kh, kw, cin, cout)
         s_sp = c_z.shape[1] * c_z.shape[2]
-        if _ghost_order(s_sp, kh * kw * cin, cout):
+        if _ghost_order(s_sp, kh * kw * cin, c_full.shape[3]):
             sq[f"{name}.weight"] = pcg.ghost_sq_norms(a_prev, c_z, kh, kw, stride, pad)
             kern = lambda f, a=a_prev, c=c_z, ks=kshape: pcg.weighted_kernel_grad(  # noqa: E731
                 a, c, f, ks, stride, pad)
@@ -170,7 +205,7 @@ def dcresnet_real_ghost(d_params: Dict[str, torch.Tensor], x: torch.Tensor,
                 cw = (c_z.float() * f[:, None, None, None]).to(c_z.dtype).float()
                 return torch.einsum("bsk,bso->ko", u, cw.reshape(b, -1, ks[3])).reshape(ks)
         wsum[f"{name}.weight"] = lambda f, kern=kern: kern(f).permute(3, 2, 0, 1).contiguous()
-        g_b = c_z.float().sum(dim=(1, 2))                              # [B, O]
+        g_b = c_full.float().sum(dim=(1, 2))                           # [B, O]
         sq[f"{name}.bias"] = g_b.square().sum(dim=1)
         wsum[f"{name}.bias"] = lambda f, g_b=g_b: (g_b * f[:, None]).sum(dim=0)
 
@@ -183,11 +218,17 @@ def dcresnet_real_ghost(d_params: Dict[str, torch.Tensor], x: torch.Tensor,
     if c_aux is not None:
         sq_ca = c_aux.square().sum(dim=1)
         sq["linOutAux.bias"] = sq_ca
-        sq["linOutAux.weight"] = sq_flat * sq_ca
+        sq["linOutAux.weight"] = sq_flat * c_aux_w.square().sum(dim=1)
         wsum["linOutAux.bias"] = lambda f: (c_aux * f[:, None]).sum(dim=0)
-        wsum["linOutAux.weight"] = lambda f: torch.einsum("bi,bo->oi", flat32 * f[:, None], c_aux)
+        wsum["linOutAux.weight"] = lambda f: torch.einsum("bi,bo->oi", flat32 * f[:, None],
+                                                          c_aux_w)
         leaves += ["linOutAux.bias", "linOutAux.weight"]
 
+    if sharded:
+        # This rank's partial squared norms of its slices, summed over the
+        # model group in one all-reduce.
+        parts = [k for k in leaves if k in sharded]
+        sq.update(zip(parts, mesh.reduce_model(torch.stack([sq[k] for k in parts]))))
     leaf_norms = torch.stack([torch.sqrt(torch.clamp(sq[k], min=0.0)) for k in leaves])
     if norms_only:
         return leaf_norms

@@ -148,9 +148,11 @@ __device__ __forceinline__ float normal_from_bits(uint32_t b1, uint32_t b2) {
   return __fmul_rn(r, cosf(__fmul_rn(6.283185307179586f, u2)));
 }
 
-// out[p] = sum_s partial[s, p] (ascending s) + std * N(0, 1)(seed, p).
+// out[p] = sum_s partial[s, p] (ascending s) + std * N(0, 1)(seed, base + p):
+// base is the flat index of element 0 in its whole leaf (a model slice's
+// offset), so a slice draws the whole leaf's noise at its elements.
 __global__ void __launch_bounds__(kThreads)
-sum_noise(const float* __restrict__ partial, int splits, long long P,
+sum_noise(const float* __restrict__ partial, int splits, long long P, long long base,
           const long long* __restrict__ seed, const float* __restrict__ std_dev,
           float* __restrict__ out) {
   const long long p = (long long)blockIdx.x * kThreads + threadIdx.x;
@@ -158,7 +160,8 @@ sum_noise(const float* __restrict__ partial, int splits, long long P,
   float acc = partial[p];
   for (int s = 1; s < splits; ++s) acc += partial[(size_t)s * P + p];
   const unsigned long long key = (unsigned long long)seed[0];
-  uint32_t c[4] = {(uint32_t)p, (uint32_t)((unsigned long long)p >> 32), 0u, 0u};
+  const unsigned long long q = (unsigned long long)(base + p);
+  uint32_t c[4] = {(uint32_t)q, (uint32_t)(q >> 32), 0u, 0u};
   philox4x32_10(c, (uint32_t)key, (uint32_t)(key >> 32));
   const float z = normal_from_bits(c[0], c[1]);
   // Rounded product, then the sum: the plain version's two steps.
@@ -174,12 +177,12 @@ extern "C" long long clip_noise_scratch(int B, long long P) {
   return (long long)pl.splits * P;
 }
 
-// out[p] = sum_b w[b] g[b, p] + std[0] * N(0, 1)(seed[0], p); every pointer is
-// device memory. Returns 0 or an error code for cn_error_string.
+// out[p] = sum_b w[b] g[b, p] + std[0] * N(0, 1)(seed[0], base + p); every
+// pointer is device memory. Returns 0 or an error code for cn_error_string.
 extern "C" int clip_noise(const float* g, const float* w, const long long* seed,
-                          const float* std_dev, int B, long long P, float* partial,
-                          float* out, void* stream) {
-  if (B < 1 || P < 1) return 1000;
+                          const float* std_dev, int B, long long P, long long base,
+                          float* partial, float* out, void* stream) {
+  if (B < 1 || P < 1 || base < 0) return 1000;
   cudaStream_t st = (cudaStream_t)stream;
   const bool aligned = (reinterpret_cast<uintptr_t>(g) % 16 == 0) &&
                        (reinterpret_cast<uintptr_t>(partial) % 16 == 0);
@@ -192,11 +195,11 @@ extern "C" int clip_noise(const float* g, const float* w, const long long* seed,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   sum_noise<<<(unsigned)((P + kThreads - 1) / kThreads), kThreads, 0, st>>>(
-      partial, pl.splits, P, seed, std_dev, out);
+      partial, pl.splits, P, base, seed, std_dev, out);
   return (int)cudaGetLastError();
 }
 
 extern "C" const char* cn_error_string(int rc) {
-  if (rc == 1000) return "empty batch or leaf";
+  if (rc == 1000) return "empty batch or leaf, or a negative counter base";
   return cudaGetErrorString((cudaError_t)rc);
 }

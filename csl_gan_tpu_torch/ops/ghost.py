@@ -10,6 +10,13 @@ Params are torch state-dict names with torch layouts (weight [out, in]); the
 leaf order of norms and stats is the JAX package's (models/mnist.py
 D_LEAVES). The weighted sums run in full fp32: the caller on a CUDA device
 keeps TF32 off.
+
+Under a model axis (``mesh``, ``--tp``) ``lin1.weight`` may be this rank's
+slice of lin1's output features (``sharded`` names it; the other leaves
+never reach the size floor): lin1 computes this rank's features, gathered
+over the model group, and the slice's per-sample squared norms
+||a||^2 ||c_slice||^2 are summed over the model group, so each leaf's norm
+enters the flat norm once; the weighted sum is this rank's slice.
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ def vanilla_real_ghost(d_params: Dict[str, torch.Tensor], x: torch.Tensor,
                        aux_labels: Optional[torch.Tensor],
                        aux_scalar: float, max_norm: float,
                        per_layer: bool = False, valid: Optional[torch.Tensor] = None,
-                       stats_gather=None):
+                       stats_gather=None, mesh=None, sharded=()):
     """Clipped summed gradient of the per-sample real loss BCE(out_i, 1)
     [+ aux_scalar * CE_i]. The DP noise is pre-drawn and added by the caller
     (training/steps.py), as the epoch kernel consumes it. ``valid`` (the
@@ -43,7 +50,14 @@ def vanilla_real_ghost(d_params: Dict[str, torch.Tensor], x: torch.Tensor,
         a0 = torch.cat([a0, y_onehot], dim=1)
     w1, b1 = d_params["lin1.weight"], d_params["lin1.bias"]
     w2, b2 = d_params["lin2.weight"], d_params["lin2.bias"]
-    z1 = a0 @ w1.T + b1
+    if set(sharded) - {"lin1.weight"}:
+        raise NotImplementedError(f"vanilla ghost clipping with {sorted(sharded)} sharded")
+    tp1 = "lin1.weight" in sharded
+    if tp1:
+        lo, hi = mesh.model_bounds(b1.shape[0])
+        z1 = mesh.gather_model(a0 @ w1.T + b1[lo:hi], 1)
+    else:
+        z1 = a0 @ w1.T + b1
     h = torch.relu(z1)
     out = h @ w2.T + b2
     c_out = torch.sigmoid(out) - 1.0
@@ -66,7 +80,11 @@ def vanilla_real_ghost(d_params: Dict[str, torch.Tensor], x: torch.Tensor,
     sq_h = torch.sum(h ** 2, dim=1)
     sq_cz = torch.sum(c_z1 ** 2, dim=1)
     sq_co = torch.sum(c_out ** 2, dim=1)
-    norms = [torch.sqrt(sq_cz), torch.sqrt(sq_a0 * sq_cz),
+    c_w1 = c_z1[:, lo:hi] if tp1 else c_z1
+    sq_w1 = sq_a0 * torch.sum(c_w1 ** 2, dim=1) if tp1 else sq_a0 * sq_cz
+    if tp1:
+        sq_w1 = mesh.reduce_model(sq_w1)
+    norms = [torch.sqrt(sq_cz), torch.sqrt(sq_w1),
              torch.sqrt(sq_co), torch.sqrt(sq_h * sq_co)]
     if use_aux:
         sq_ca = torch.sum(c_aux ** 2, dim=1)
@@ -82,7 +100,7 @@ def vanilla_real_ghost(d_params: Dict[str, torch.Tensor], x: torch.Tensor,
 
     summed = {
         "lin1.bias": wsum_vec(c_z1, factors[0]),
-        "lin1.weight": wsum_mat(a0, c_z1, factors[1]),
+        "lin1.weight": wsum_mat(a0, c_w1, factors[1]),
         "lin2.bias": wsum_vec(c_out, factors[2]),
         "lin2.weight": wsum_mat(h, c_out, factors[3]),
     }

@@ -27,6 +27,13 @@ the same names with a leading [batch] axis. Per-leaf vectors (norms, factors,
 clip statistics, thresholds, noise stds) follow the order of the params dict
 given, which the callers keep in the JAX package's leaf order
 (``StepBuilder.d_leaves``).
+
+Under a model axis (``--tp``) a leaf may be this rank's slice of its output
+channels: its per-sample gradients are the slice's, and ``sq_reduce`` (the
+step builder's) sums the slices' squared norms over the model group before
+the square root, so every leaf's norm enters the flat norm once; the sums
+are this rank's slices, and K6 draws each slice's noise at the slice's
+counter base (``FusedNoise.bases``), the one-device draw's elements.
 """
 
 from __future__ import annotations
@@ -63,12 +70,18 @@ class FusedNoise(NamedTuple):
     seeds: torch.Tensor                      # [n_leaves] int64
     eps: List[Optional[torch.Tensor]]        # per leaf: leaf-shaped or None
     stds: torch.Tensor                       # [n_leaves] fp32
+    # Per leaf, the flat index in the whole leaf of the first element this
+    # rank holds (its model slice under --tp); None: every leaf whole.
+    bases: Optional[List[int]] = None
 
 
-def leaf_norms(grads_ps: Params) -> torch.Tensor:
-    """Per-sample L2 norm of each leaf: [n_leaves, batch]."""
-    return torch.stack([torch.sqrt(torch.sum(g.reshape(g.shape[0], -1) ** 2, dim=1))
-                        for g in grads_ps.values()])
+def leaf_norms(grads_ps: Params, sq_reduce: Optional[Callable] = None) -> torch.Tensor:
+    """Per-sample L2 norm of each leaf: [n_leaves, batch]. ``sq_reduce``
+    maps the [n_leaves, batch] squared norms first (the model axis's sum of
+    the slices' squares)."""
+    sq = torch.stack([torch.sum(g.reshape(g.shape[0], -1) ** 2, dim=1)
+                      for g in grads_ps.values()])
+    return torch.sqrt(sq if sq_reduce is None else sq_reduce(sq))
 
 
 def clip_factors(leaf_norms: torch.Tensor, max_norm: MaxNorm,
@@ -197,8 +210,9 @@ def weighted_sum_fused_noise(grads_ps: Params, factors: torch.Tensor,
     out = {}
     for i, (k, g) in enumerate(grads_ps.items()):
         if fused.eps[i] is None:
-            out[k] = pallas_clip.leaf_weighted_sum_noise(g, factors[i], fused.seeds[i],
-                                                         fused.stds[i])
+            out[k] = pallas_clip.leaf_weighted_sum_noise(
+                g, factors[i], fused.seeds[i], fused.stds[i],
+                base=0 if fused.bases is None else fused.bases[i])
         else:
             s = (factors[i] @ g.reshape(g.shape[0], -1)).reshape(g.shape[1:])
             out[k] = s + fused.stds[i] * fused.eps[i]
@@ -221,7 +235,8 @@ def mask_loss(loss_fn: Callable, batch: tuple, valid: Optional[torch.Tensor]):
 
 def two_pass_clipped_grad_sum(loss_fn: Callable, params: Params, *batch: torch.Tensor,
                               max_norm: MaxNorm, per_layer: bool = False,
-                              stats_gather: Optional[Callable] = None
+                              stats_gather: Optional[Callable] = None,
+                              sq_reduce: Optional[Callable] = None
                               ) -> Tuple[Params, ClipStats]:
     """Clipped gradient sum without re-reading materialized per-sample grads.
 
@@ -232,18 +247,19 @@ def two_pass_clipped_grad_sum(loss_fn: Callable, params: Params, *batch: torch.T
     across leaves, which one weighted backward cannot express, so per-layer
     clipping takes ``clipped_grad_sum``. The sum is over the rows given (a
     rank's rows under a data axis: the caller reduces it); ``stats_gather``
-    as in ``stats_from_norms``."""
+    and ``sq_reduce`` as in ``stats_from_norms`` and ``leaf_norms``."""
 
-    def norms_of(*example):
+    def sq_norms_of(*example):
         g = grad(loss_fn)(params, *example)
-        return torch.stack([torch.sqrt(torch.sum(leaf.float() ** 2)) for leaf in g.values()])
+        return torch.stack([torch.sum(leaf.float() ** 2) for leaf in g.values()])
 
-    norms = vmap(norms_of)(*batch).T                    # [n_leaves, batch]
+    sq = vmap(sq_norms_of)(*batch).T                    # [n_leaves, batch]
+    norms = torch.sqrt(sq if sq_reduce is None else sq_reduce(sq))
     factors = clip_factors(norms, max_norm, per_layer)
     stats = stats_from_norms(norms, factors, stats_gather)
     if per_layer:
         summed, _ = clipped_grad_sum(loss_fn, params, *batch, max_norm=max_norm,
-                                     per_layer=True)
+                                     per_layer=True, sq_reduce=sq_reduce)
         return summed, stats
     w = factors[0].detach()                             # flat: the same for every leaf
 
@@ -258,7 +274,8 @@ def clipped_grad_sum(loss_fn: Callable, params: Params, *batch: torch.Tensor,
                      max_norm: MaxNorm, per_layer: bool = False,
                      chunk: Optional[int] = None,
                      fused_noise: Optional[FusedNoise] = None,
-                     stats_gather: Optional[Callable] = None
+                     stats_gather: Optional[Callable] = None,
+                     sq_reduce: Optional[Callable] = None
                      ) -> Tuple[Params, ClipStats]:
     """Sum over samples of per-sample-clipped gradients, plus norm statistics
     (the equivalent of Opacus ``clip()`` and the grad-norm logging pass).
@@ -271,12 +288,13 @@ def clipped_grad_sum(loss_fn: Callable, params: Params, *batch: torch.Tensor,
 
     Under a data axis the sum (and its noise, which only one rank adds: the
     others pass zero stds) is over this rank's rows, and the caller reduces
-    it; ``stats_gather`` as in ``stats_from_norms``."""
+    it; ``stats_gather`` as in ``stats_from_norms``, ``sq_reduce`` as in
+    ``leaf_norms``."""
     gfn = vmap(grad(loss_fn), in_dims=(None,) + (0,) * len(batch))
 
     def one_chunk(bc):
         g_ps = gfn(params, *bc)
-        norms = leaf_norms(g_ps)
+        norms = leaf_norms(g_ps, sq_reduce)
         return g_ps, norms, clip_factors(norms, max_norm, per_layer)
 
     if chunk is None:

@@ -33,6 +33,11 @@ every coordinate of every step gets its own N(0, std^2) draw: the Gaussian
 mechanism the accountant assumes. seed and std are read from device memory;
 the step never waits for the host. std = 0 still runs the generator and adds
 0 * z, as the TPU kernel does (exactness tests rely on it).
+
+Under a model axis (``--tp``) a rank holds a dim-0 slice of a leaf, the
+contiguous flat range [base, base + P) of it: its elements take the
+counters base + p (``base``), so the slices' noise is exactly the
+one-device draw's, cut.
 """
 
 from __future__ import annotations
@@ -84,11 +89,12 @@ def normal_from_bits(b1: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     return r * torch.cos(u2 * (2.0 * math.pi))
 
 
-def philox_normal(seed: torch.Tensor, n: int) -> torch.Tensor:
-    """The kernel's noise stream: z[p] for p < n from the 64-bit ``seed``
-    (an int64 scalar tensor), counter (p, 0, 0, 0), words 0 and 1."""
+def philox_normal(seed: torch.Tensor, n: int, base: int = 0) -> torch.Tensor:
+    """The kernel's noise stream: z[p] for base <= p < base + n from the
+    64-bit ``seed`` (an int64 scalar tensor), counter (p, 0, 0, 0), words 0
+    and 1."""
     seed = seed.reshape(()).to(torch.int64)
-    p = torch.arange(n, dtype=torch.int64, device=seed.device)
+    p = torch.arange(base, base + n, dtype=torch.int64, device=seed.device)
     zero = torch.zeros((), dtype=torch.int64, device=seed.device)
     key = (seed & _MASK32, (seed >> 32) & _MASK32)
     w = philox4x32_10((p & _MASK32, p >> 32, zero, zero), key)
@@ -102,26 +108,30 @@ def _as_scalar(v, dtype, device) -> torch.Tensor:
 
 
 def weighted_sum_noise_plain(g2d: torch.Tensor, w: torch.Tensor, seed,
-                             std) -> torch.Tensor:
+                             std, base: int = 0) -> torch.Tensor:
     """Plain version of K6 on g2d [B, P]: the fp32 product w @ g2d (on a CUDA
-    device the caller keeps TF32 off) plus std times the kernel's stream."""
+    device the caller keeps TF32 off) plus std times the kernel's stream at
+    the counters base .. base + P - 1."""
     acc = w.to(torch.float32) @ g2d.to(torch.float32)
-    z = philox_normal(_as_scalar(seed, torch.int64, g2d.device), g2d.shape[1])
+    z = philox_normal(_as_scalar(seed, torch.int64, g2d.device), g2d.shape[1], base)
     return acc + _as_scalar(std, torch.float32, g2d.device) * z
 
 
 def leaf_weighted_sum_noise(g: torch.Tensor, w: torch.Tensor,
                             seed: Union[int, torch.Tensor],
-                            std: Union[float, torch.Tensor]) -> torch.Tensor:
+                            std: Union[float, torch.Tensor], base: int = 0) -> torch.Tensor:
     """One per-sample-grad leaf g [B, ...] -> sum_b w[b] g[b] + std * N(0, 1)
     of shape g.shape[1:]: K6 for CUDA tensors, the plain version for CPU
     tensors. ``seed`` (int64) and ``std`` (fp32) are numbers or scalar tensors;
-    on the card they are read from device memory. Adds one to
+    on the card they are read from device memory. ``base`` is the counter of
+    the first element (a model slice's offset in its leaf). Adds one to
     ``leaf_weighted_sum_noise.launches`` per K6 launch."""
     b, shape = g.shape[0], g.shape[1:]
     p = g[0].numel() if g.dim() > 1 else 1
+    if base < 0:
+        raise ValueError(f"the counter base must be non-negative, got {base}")
     if g.device.type == "cpu":
-        return weighted_sum_noise_plain(g.reshape(b, p), w, seed, std).reshape(shape)
+        return weighted_sum_noise_plain(g.reshape(b, p), w, seed, std, base).reshape(shape)
     if g.device.type != "cuda":
         raise ValueError(f"leaf_weighted_sum_noise takes CPU or CUDA tensors, got {g.device}")
     if g.dtype != torch.float32 or not g.is_contiguous() or b < 1 or p < 1:
@@ -139,7 +149,7 @@ def leaf_weighted_sum_noise(g: torch.Tensor, w: torch.Tensor,
     partial = torch.empty(lib.clip_noise_scratch(b, p), dtype=torch.float32, device=g.device)
     out = torch.empty(shape, dtype=torch.float32, device=g.device)
     rc = lib.clip_noise(g.data_ptr(), w.data_ptr(), seed_t.data_ptr(), std_t.data_ptr(),
-                        b, p, partial.data_ptr(), out.data_ptr(),
+                        b, p, int(base), partial.data_ptr(), out.data_ptr(),
                         torch.cuda.current_stream(g.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"clip_noise failed: {lib.cn_error_string(rc).decode()}")

@@ -19,6 +19,12 @@ without them a ``--multihost`` process takes NCCL and the card ``rank %
 cards`` (one process a card, hosts filled in rank order). Rank 0 prints the
 backend it took; a failed init raises, no other backend is tried. A rank
 that finds no card raises.
+
+``--tp N`` (``tensor_axis``) lays the ranks out as (data, model) = (world /
+N, N), N clamped to the world (JAX ``make_mesh``); an N that does not divide
+the world raises ValueError. ``init_rank`` builds every data group and
+every model group (each rank takes part in each ``new_group`` call) and
+keeps ``--fsdp`` only where the data axis has more than one rank.
 """
 
 from __future__ import annotations
@@ -55,18 +61,29 @@ def world_size(opt, say: bool = True) -> int:
     ``--multihost``, else ``--mesh_shape`` clamped to the visible devices
     (printed when the clamp bites, unless ``say`` is false). The one count
     of ranks: ``spawn`` starts this many, and K1's option-level gate
-    (``options._k1_path``) reads it."""
+    (``options._k1_path``) reads it. ``--tp`` must divide it
+    (``tensor_axis``)."""
     if opt.multihost:
-        return int(_multihost_args(opt)[1])
-    n = int(opt.mesh_shape or 1)
-    if n <= 1:
-        return 1
-    have = visible_devices(opt.platform)
-    if n > have:
-        if say:
-            print(f"--mesh_shape {n}: only {have} devices are visible; training on {have}.")
-        n = have
+        n = int(_multihost_args(opt)[1])
+    else:
+        n = int(opt.mesh_shape or 1)
+        have = visible_devices(opt.platform) if n > 1 else 1
+        if n > have:
+            if say:
+                print(f"--mesh_shape {n}: only {have} devices are visible; training on {have}.")
+            n = have
+        n = max(n, 1)
+    tensor_axis(opt, n)
     return n
+
+
+def tensor_axis(opt, world: int) -> int:
+    """The size of the model axis of ``world`` ranks: ``--tp`` clamped to the
+    world; ValueError unless it divides the world (JAX ``make_mesh``)."""
+    tp = max(1, min(int(getattr(opt, "tp", 1) or 1), world))
+    if world % tp != 0:
+        raise ValueError(f"--tp {tp} must divide the mesh size {world}")
+    return tp
 
 
 def free_port() -> int:
@@ -118,15 +135,30 @@ def init_rank(opt, rank: int, world: int, address: str, local_rank: int,
     else:
         device = torch.device("cuda", index)
         torch.cuda.set_device(device)
+    tp = tensor_axis(opt, world)
     dist.init_process_group(backend, init_method=f"tcp://{address}", world_size=world,
                             rank=rank, timeout=timedelta(seconds=COLLECTIVE_TIMEOUT_S))
+    data_group = model_group = None
+    if tp > 1:
+        dp = world // tp
+        for m in range(tp):
+            g = dist.new_group([d * tp + m for d in range(dp)])
+            if rank % tp == m:
+                data_group = g
+        for d in range(dp):
+            g = dist.new_group([d * tp + m for m in range(tp)])
+            if rank // tp == d:
+                model_group = g
     if rank == 0:
         where = "the CPU" if device.type == "cpu" else (
             f"{cards} card(s) shared by {local_world} processes of this host"
             if backend == "gloo" else "a card a rank")
-        print(f"torch.distributed: {world} rank(s) over {backend} on {where}.", flush=True)
+        axes = f" as (data, model) = ({world // tp}, {tp})" if tp > 1 else ""
+        print(f"torch.distributed: {world} rank(s){axes} over {backend} on {where}.",
+              flush=True)
     return MeshContext(world=world, rank=rank, device=device, backend=backend,
-                       fsdp=bool(opt.fsdp) and world > 1)
+                       fsdp=bool(opt.fsdp) and world // tp > 1, tp=tp,
+                       data_group=data_group, model_group=model_group)
 
 
 def local_layout(rank: int, env=None) -> Tuple[int, Optional[int]]:

@@ -12,7 +12,8 @@ ranks on this host (one card each, or N CPU ranks over gloo under
 ``--coordinator_address``. Ranks other than 0 write into a scratch
 directory of their own (JAX train.py:28-41), removed at the end unless
 ``-p`` left a rank's trace there; ``--fsdp`` shards the model state over the
-ranks.
+ranks; ``--tp N`` lays them out as (data, model) = (ranks / N, N), G and D
+column-parallel over the model axis (parallel/mesh.py).
 """
 
 import os

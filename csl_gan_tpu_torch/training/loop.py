@@ -140,9 +140,9 @@ class Trainer:
         self.opt = opt
         self.device = resolve_device(opt, mesh)
         self.mesh = mesh if mesh is not None else MeshContext(device=self.device)
-        if opt.batch_size < self.mesh.world:
-            raise ValueError(f"-bs {opt.batch_size} gives a rank of the {self.mesh.world} "
-                             "no row; raise -bs or use fewer ranks")
+        if opt.batch_size < self.mesh.dp:
+            raise ValueError(f"-bs {opt.batch_size} gives a rank of the data axis's "
+                             f"{self.mesh.dp} no row; raise -bs or use fewer ranks")
         options_mod.save_opt(opt, os.path.join(opt.output_dir, "opt.txt"))
         fresh = opt.resume_path is None
         if fresh:

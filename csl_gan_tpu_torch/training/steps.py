@@ -76,6 +76,19 @@ per-sample gradients for its sort. Under ``--fsdp`` the state holds shards:
 ``d_core`` / ``g_core`` gather the params whole for the step, Adam updates
 each rank's shard (``_adam_all``), and the moments stay shards. With one
 rank every collective is the identity and the arithmetic is unchanged.
+
+Under a model axis (``--tp``; ``mesh.tp`` > 1) the rows are those of the
+rank's data index and the reductions run over its data group. The state
+holds each rank's slice of the output channels of every leaf that
+``mesh.leaf_layout`` shards (``d_sharded``; Adam's moments follow), G and D
+run column-parallel on them (models/*.py take the forwards' ``mesh``), and
+the gc routes clip on the slices: each slice's per-sample squared norms are
+summed over the model group (``_sq_reduce``, the ghost routes' own sums),
+the sums are the rank's slices, and the ranks of data index 0 add each
+slice's part of the one-device noise draw (``_model_cut``; on the fused
+route K6 at the slice's counter base, ``_local_fused``). A step gathers
+--fsdp's data shards to the rank's slices (``step_params``); a save or a
+grid gathers whole leaves (``full_state`` / ``full_params``).
 """
 
 from __future__ import annotations
@@ -147,16 +160,16 @@ def adam_update(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
 
 
 def _adam_all(params: Params, grads: Params, mu: Params, nu: Params, t: int,
-              lr: float, b1: float, b2: float, wd: float = 0.0,
-              mesh: Optional[MeshContext] = None):
+              lr: float, b1: float, b2: float, wd: float = 0.0, shard=None):
     """Adam over every leaf. Under ``--fsdp`` a leaf whose moments are a
-    shard updates this rank's shard of its whole params and reduced
-    gradient (Adam is elementwise), so the new params are shards too."""
+    shard updates this rank's shard (``shard(name, t)``) of its params and
+    reduced gradient (Adam is elementwise), so the new params are shards
+    too."""
     new_p, new_m, new_v = {}, {}, {}
     for k in params:
         p, g = params[k], grads[k]
-        if mesh is not None and mu[k].shape != p.shape:
-            p, g = mesh.shard_leaf(p), mesh.shard_leaf(g)
+        if shard is not None and mu[k].shape != p.shape:
+            p, g = shard(k, p), shard(k, g)
         new_p[k], new_m[k], new_v[k] = adam_update(p, g, mu[k], nu[k], t, lr, b1, b2, wd=wd)
     return new_p, new_m, new_v
 
@@ -176,8 +189,10 @@ class StepBuilder:
                  mesh: Optional[MeshContext] = None):
         self.opt = opt
         self.G, self.D = G, D
-        # The data axis (parallel/mesh.py); one device without a group.
+        # The data and model axes (parallel/mesh.py); one device without a
+        # group. The forwards take the mesh only under a tensor axis.
         self.mesh = mesh if mesh is not None else MeshContext()
+        self._tp = self.mesh if self.mesh.tp > 1 else None
         for m in G.modules():
             if isinstance(m, BatchNormRelu):
                 m.mesh = self.mesh if self.mesh.grouped else None
@@ -290,6 +305,9 @@ class StepBuilder:
                          if k in self.g_leaves}
         self.d_templates = tuple(torch.empty(self.d_shapes[k], device="meta")
                                  for k in self.d_leaves)
+        # D's leaves that the tensor axis cuts (their torch dim 0).
+        self.d_sharded = tuple(k for k in self.d_leaves
+                               if self.mesh.model_dim(k, self.d_shapes[k]) is not None)
 
     # ---------------- state and randomness ----------------
 
@@ -356,9 +374,48 @@ class StepBuilder:
                      next(parts).reshape((n,) + tuple(t.shape[1:])).to(t.dtype) for t in ts)
 
     def _reduce(self, grads: Params) -> Params:
-        """Per-rank sums of gradients, summed over the ranks in one
-        all-reduce."""
+        """Per-rank sums of gradients, summed over the data group in one
+        all-reduce (a model rank's slices are its own)."""
         return self.mesh.all_sum_dict(grads)
+
+    def _sq_reduce(self, sq: torch.Tensor) -> torch.Tensor:
+        """[n_leaves, rows] per-sample squared norms in leaf order with the
+        sharded leaves' rows summed over the model group (one all-reduce);
+        the replicated leaves' rows, each one full computation, as they
+        are."""
+        mask = torch.tensor([k in self.d_sharded for k in self.d_leaves], device=sq.device)
+        return torch.where(mask[:, None], self.mesh.reduce_model(sq), sq)
+
+    def _model_cut(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's model slice of a whole D-leaf-shaped tensor (a noise
+        draw); the tensor itself where the leaf is replicated."""
+        if self._tp is None:
+            return t
+        return self.mesh.cut(name, self.d_shapes[name], t, data=False)
+
+    def _local_fused(self, fused: Optional[gops.FusedNoise]) -> Optional[gops.FusedNoise]:
+        """The fused route's draws for this rank's slices: the small leaves'
+        normals cut, and per leaf the counter base of the slice's first
+        element in the whole leaf (the tensor axis cuts a D leaf's dim 0, a
+        contiguous range of it)."""
+        if fused is None or self._tp is None:
+            return fused
+        eps, bases = [], []
+        for i, k in enumerate(self.d_leaves):
+            shape = self.d_shapes[k]
+            if self.mesh.model_dim(k, shape) is None:
+                eps.append(fused.eps[i])
+                bases.append(0)
+                continue
+            eps.append(None if fused.eps[i] is None else self._model_cut(k, fused.eps[i]))
+            bases.append(self.mesh.model_index * (math.prod(shape) // self.mesh.tp))
+        return fused._replace(eps=eps, bases=bases)
+
+    def _g_apply(self, params: Params, z, y, **kw):
+        """The G forward on ``params`` (column-parallel under a tensor axis)."""
+        if self._tp is not None:
+            kw["mesh"] = self._tp
+        return functional_call(self.G, params, (z, y), kw)
 
     def _stats_gather(self, n: int):
         """``stats_from_norms``'s gather of [n_leaves, rows] columns."""
@@ -376,40 +433,53 @@ class StepBuilder:
             kw["real_std"] = torch.std(pen_x, correction=0)
         return kw
 
-    def _whole(self, state: TrainState, fields) -> TrainState:
-        """``state`` with the trees ``fields`` whole (one all-reduce); the
-        state itself unless --fsdp shards it."""
-        if not self.mesh.fsdp:
+    def _whole(self, state: TrainState, fields, data_only: bool = False) -> TrainState:
+        """``state`` with the trees ``fields`` whole (one all-reduce), or
+        with ``data_only`` gathered over the data axis to the rank's model
+        slices; the state itself unless --fsdp or --tp cuts it."""
+        if not self.mesh.shards_state or (data_only and not self.mesh.fsdp):
             return state
         shapes = {"d": self.d_shapes, "g": self.g_shapes}
-        tree, shp = {}, {}
+        tree, shp, names = {}, {}, {}
         for f, side in fields:
             for k, v in getattr(state, f).items():
-                tree[(f, k)], shp[(f, k)] = v, shapes[side][k]
-        whole = self.mesh.unshard(tree, shp)
+                tree[(f, k)], shp[(f, k)], names[(f, k)] = v, shapes[side][k], k
+        whole = self.mesh.unshard(tree, shp, names, data_only=data_only)
         return replace(state, **{f: {k: whole[(f, k)] for k in getattr(state, f)}
                                  for f, _ in fields})
 
     def full_params(self, state: TrainState) -> TrainState:
-        """``state`` with D's and G's params whole (--fsdp)."""
+        """``state`` with D's and G's params whole (--fsdp, --tp): a grid's
+        or a tool's single-device G."""
         return self._whole(state, self._TREES[:2])
 
+    def step_params(self, state: TrainState) -> TrainState:
+        """``state`` with D's and G's params as a step takes them: --fsdp's
+        shards gathered, each leaf whole or (--tp) this rank's slice."""
+        return self._whole(state, self._TREES[:2], data_only=True)
+
     def full_state(self, state: TrainState) -> TrainState:
-        """``state`` with params and Adam moments whole (--fsdp): what a
-        save writes, the single-device state."""
+        """``state`` with params and Adam moments whole (--fsdp, --tp): what
+        a save writes, the single-device state."""
         return self._whole(state, self._TREES)
 
     def shard_state(self, state: TrainState) -> TrainState:
-        """``state`` with every whole leaf that --fsdp shards cut to this
-        rank's shard (params and moments); the state itself otherwise."""
-        if not self.mesh.fsdp:
+        """``state`` with every whole leaf that --fsdp or --tp cuts reduced
+        to this rank's block (params and moments); the state itself
+        otherwise."""
+        if not self.mesh.shards_state:
             return state
         shapes = {"d": self.d_shapes, "g": self.g_shapes}
         return replace(state, **{f: self.mesh.shard_tree(getattr(state, f), shapes[side])
                                  for f, side in self._TREES})
 
-    def _adam_mesh(self) -> Optional[MeshContext]:
-        return self.mesh if self.mesh.fsdp else None
+    def _adam_shard(self, side: str):
+        """Under --fsdp, the cut of a D (``side`` "d") or G leaf's step value
+        (whole, or its model slice) to this rank's data shard."""
+        if not self.mesh.fsdp:
+            return None
+        shapes = self.d_shapes if side == "d" else self.g_shapes
+        return lambda k, t: self.mesh.cut(k, shapes[k], t, model=False)
 
     def _per_layer_vector(self, flag: str, cli: str, user_set: str,
                           default_builder) -> List[float]:
@@ -537,7 +607,7 @@ class StepBuilder:
         d_params, d_mu, d_nu = _adam_all(
             state.d_params, grads, state.d_mu, state.d_nu, state.d_count + 1,
             self.opt.d_lr, self.opt.adam_b1, self.opt.adam_b2, wd=self.weight_decay,
-            mesh=self._adam_mesh())
+            shard=self._adam_shard("d"))
         return replace(state, d_params=d_params, d_mu=d_mu, d_nu=d_nu,
                        d_count=state.d_count + 1)
 
@@ -594,7 +664,7 @@ class StepBuilder:
         z, y = self._rows(z, yg)
         p = {k: v.detach().requires_grad_(True) for k, v in state.g_params.items()}
         with torch.enable_grad():
-            img = functional_call(self.G, p, (z, y))
+            img = self._g_apply(p, z, y)
             out, aux_o = self._d_apply(state.d_params, img, y, bpc=self.bpc_g and self.opt.use_dp)
             out, aux_o = self._gather_out(n, out, aux_o)
             adv = losses.g_adv_loss(self.family, out)
@@ -606,7 +676,7 @@ class StepBuilder:
         grads = self._reduce(dict(zip(G_LEAVES, grads)))
         g_params, g_mu, g_nu = _adam_all(
             state.g_params, grads, state.g_mu, state.g_nu, state.g_count + 1,
-            self.opt.g_lr, self.opt.adam_b1, self.opt.adam_b2, mesh=self._adam_mesh())
+            self.opt.g_lr, self.opt.adam_b1, self.opt.adam_b2, shard=self._adam_shard("g"))
         m = {"g_adv_loss": adv.detach()}
         if self.is_acgan:
             m["g_aux_loss"] = torch.as_tensor(aux, device=z.device).detach()
@@ -652,7 +722,7 @@ class StepBuilder:
     def fakes(self, g_params: Params, z, y):
         """Fresh fakes for a D step: a G forward without autograd."""
         with torch.no_grad():
-            return functional_call(self.G, g_params, (z, y))
+            return self._g_apply(g_params, z, y)
 
     def _step_fakes(self, state: TrainState, z, y):
         """(fakes, G batch statistics after them) of a D step: a BatchNorm G
@@ -662,7 +732,7 @@ class StepBuilder:
             return self.fakes(state.g_params, z, y), state.g_batch_stats
         stats = {k: v.clone() for k, v in state.g_batch_stats.items()}
         with torch.no_grad():
-            img = functional_call(self.G, {**state.g_params, **stats}, (z, y), {"train": True})
+            img = self._g_apply({**state.g_params, **stats}, z, y, train=True)
         return img, stats
 
     def _fakes_or(self, state: TrainState, z, y, fake):
@@ -692,7 +762,7 @@ class StepBuilder:
         y_steps = None if y_steps is None else y_steps[:, lo:hi]
         m, bs = z_steps.shape[0], z_steps.shape[1]
         yf = None if y_steps is None else y_steps.reshape(m * bs)
-        fakes = self.fakes(self.full_params(state).g_params, z_steps.reshape(m * bs, -1), yf)
+        fakes = self.fakes(self.step_params(state).g_params, z_steps.reshape(m * bs, -1), yf)
         return fakes.reshape((m, bs) + tuple(fakes.shape[1:]))
 
     def grouped_runner_ok(self, use_dp: bool) -> bool:
@@ -707,12 +777,13 @@ class StepBuilder:
         """Images of G at `state` for z and labels y (JAX ``sample_images``,
         steps.py:1129-1140): the G forward without autograd in eval mode (a
         BatchNorm G normalizes by its running averages), fp32 NHWC. The
-        DCResNet G's GroupNorms run K4 on the card."""
-        if self.g_has_bn:
-            with torch.no_grad():
+        DCResNet G's GroupNorms run K4 on the card. The params are whole
+        (``full_params``): the forward takes no tensor axis."""
+        with torch.no_grad():
+            if self.g_has_bn:
                 return functional_call(self.G, {**state.g_params, **state.g_batch_stats},
                                        (z, y), {"train": False}).float()
-        return self.fakes(state.g_params, z, y).float()
+            return functional_call(self.G, state.g_params, (z, y)).float()
 
     # ---------------- the gc D step ----------------
 
@@ -723,6 +794,8 @@ class StepBuilder:
         kw = {"aux": aux}
         if self.use_bpc:
             kw["bpc"] = bpc
+        if self._tp is not None:
+            kw["mesh"] = self._tp
         return functional_call(self.D, d_params, (x, y if self.conditional else None), kw)
 
     def _aux_single(self, aux_row, yi, wi):
@@ -848,7 +921,8 @@ class StepBuilder:
                 d_params, ax, ay, n_classes=self.n_classes, arch=self.arch,
                 aux_type=self.aux_type, aux_scalar=self.aux_scalar, row_w=row_w,
                 max_norm=1.0, per_layer=self.per_layer, concat_planes=self.concat_planes,
-                compute_dtype=self.compute_dtype, norms_only=True)
+                compute_dtype=self.compute_dtype, norms_only=True, mesh=self._tp,
+                sharded=self.d_sharded)
         else:
             f, args = self.real_ps_args(ax, ay, row_w)
             norms = gops.leaf_norms(gops.per_sample_grads(f, d_params, *args,
@@ -901,8 +975,10 @@ class StepBuilder:
 
         Under a data axis every input is the whole batch's, the same on all
         ranks, but ``fake`` (this rank's rows); the step keeps this rank's
-        rows, reduces the clipped, fake-pass and penalty sums, and only rank
-        0 adds the noise (the others pass K6 a zero std)."""
+        rows, reduces the clipped, fake-pass and penalty sums, and only the
+        ranks of data index 0 add the noise (the others pass K6 a zero std).
+        Under a model axis those ranks add each their slices' part of the
+        one-device draw (``_model_cut``, ``_local_fused``)."""
         if (fused is None) == (noise is None) or (fused is not None) != self.fused_route:
             raise ValueError("d_step_gc takes per-leaf noise, or fused noise exactly "
                              "on the fused route (--pallas true, materialized)")
@@ -917,10 +993,14 @@ class StepBuilder:
             stds = (clipping * self.sigma).expand(len(self.d_leaves))
             if fused is not None:
                 fused = fused._replace(stds=stds.contiguous())
-        if fused is not None and not self.mesh.is_main:
+        if fused is not None and self.mesh.data_index != 0:
             # The noise enters once: the other ranks give K6 a zero std.
             fused = fused._replace(stds=torch.zeros_like(fused.stds))
-        add_noise = noise is not None and self.mesh.is_main
+        fused = self._local_fused(fused)
+        add_noise = noise is not None and self.mesh.data_index == 0
+        if add_noise and self._tp is not None:
+            noise = [self._model_cut(k, e) for k, e in zip(self.d_leaves, noise)]
+        sq_reduce = self._sq_reduce if self.d_sharded else None
         row_w = self.row_weights(y, valid)
         yg, vg = y, valid
         pen_kw = self._pen_kw(pen_x)
@@ -936,30 +1016,33 @@ class StepBuilder:
                 summed, stats, ghost_outs = ghost.vanilla_real_ghost(
                     d_params, x, one_hot(y, self.n_classes) if cond else None,
                     y if cond and self.use_aux else None,
-                    self.aux_scalar, clipping, self.per_layer, valid=valid, stats_gather=sg)
+                    self.aux_scalar, clipping, self.per_layer, valid=valid, stats_gather=sg,
+                    mesh=self._tp, sharded=self.d_sharded)
             elif self.use_conv_ghost and not self.ps_pen:
                 summed, stats, ghost_outs = conv_ghost.dcresnet_real_ghost(
                     d_params, x, y, n_classes=self.n_classes, arch=self.arch,
                     aux_type=self.aux_type, aux_scalar=self.aux_scalar, row_w=row_w,
                     max_norm=clipping, per_layer=self.per_layer,
                     concat_planes=self.concat_planes, compute_dtype=self.compute_dtype,
-                    valid=valid, stats_gather=sg)
+                    valid=valid, stats_gather=sg, mesh=self._tp, sharded=self.d_sharded)
             elif self.use_two_pass and not self.ps_pen:
                 f, args = gops.mask_loss(*self.real_ps_args(x, y, row_w), valid)
                 summed, stats = gops.two_pass_clipped_grad_sum(
-                    f, d_params, *args, max_norm=clipping, per_layer=False, stats_gather=sg)
+                    f, d_params, *args, max_norm=clipping, per_layer=False, stats_gather=sg,
+                    sq_reduce=sq_reduce)
             else:
                 f, args = gops.mask_loss(*self.real_ps_args(x, y, row_w, fake, ps_draws), valid)
                 summed, stats = gops.clipped_grad_sum(
                     f, d_params, *args, max_norm=clipping, per_layer=self.per_layer,
-                    chunk=self.chunk, fused_noise=fused, stats_gather=sg)
+                    chunk=self.chunk, fused_noise=fused, stats_gather=sg,
+                    sq_reduce=sq_reduce)
             fake_grads, f_out = self._fake_sum_grads(d_params, fake, y, vg, bpc=True, n=b,
                                                      yg=yg)
         else:
             f, args = gops.mask_loss(*self.combined_ps_args(x, y, fake, row_w, ps_draws), valid)
             summed, stats = gops.clipped_grad_sum(
                 f, d_params, *args, max_norm=clipping, per_layer=self.per_layer,
-                chunk=self.chunk, fused_noise=fused, stats_gather=sg)
+                chunk=self.chunk, fused_noise=fused, stats_gather=sg, sq_reduce=sq_reduce)
             fake_grads = None
             with torch.no_grad():
                 f_out = self._d_apply(d_params, fake, y, aux=False)[0]
@@ -1193,10 +1276,10 @@ class StepBuilder:
         has a penalty, the DCResNet ``d_step_plain``. ``fake``, when given,
         replaces the step's G forward on z (the JAX ``_d_core``'s
         ``fake_img``: the grouped runner's batched fakes, this rank's rows).
-        Under --fsdp the step runs on the whole params and the new state
-        holds this rank's shards."""
+        Under --fsdp the step runs on the whole params (under --tp on this
+        rank's slices) and the new state holds this rank's blocks."""
         pen = dict(pen_x=pen_x, pen_y=pen_y, alphas=alphas, fake=fake)
-        state = self.full_params(state)
+        state = self.step_params(state)
         if use_dp and self.dp_mode == "gc":
             new, m = self.d_step_gc(state, x, y, z, noise=noise, fused=fused, ax=ax, ay=ay,
                                     valid=valid, ps_draws=alphas if self.ps_pen else None,
@@ -1214,8 +1297,9 @@ class StepBuilder:
     def g_core(self, state: TrainState, z, y):
         """The G update of the model family on z and labels y (None when
         unconditional): ``g_step`` (one-hot labels) or ``g_step_dcresnet``;
-        under --fsdp on the whole params, the state's shards updated."""
-        state = self.full_params(state)
+        under --fsdp on the whole params (under --tp this rank's slices),
+        the state's blocks updated."""
+        state = self.step_params(state)
         if self.family == "vanilla":
             new, m = self.g_step(state, z, None if y is None else one_hot(y, self.n_classes))
         else:
@@ -1234,7 +1318,7 @@ class StepBuilder:
         p = {k: v.detach().requires_grad_(True) for k, v in state.g_params.items()}
         stats = {k: v.clone() for k, v in state.g_batch_stats.items()}
         with torch.enable_grad():
-            img = functional_call(self.G, {**p, **stats}, (z, y))
+            img = self._g_apply({**p, **stats}, z, y)
             out, aux_o = self._d_apply(state.d_params, img, y)
             out, aux_o = self._gather_out(n, out, aux_o)
             adv = losses.g_adv_loss(self.family, out)
@@ -1246,7 +1330,7 @@ class StepBuilder:
         g_params, g_mu, g_nu = _adam_all(
             state.g_params, self._reduce(dict(zip(self.g_leaves, grads))), state.g_mu,
             state.g_nu, state.g_count + 1, self.opt.g_lr, self.opt.adam_b1,
-            self.opt.adam_b2, mesh=self._adam_mesh())
+            self.opt.adam_b2, shard=self._adam_shard("g"))
         m = {"g_adv_loss": adv.detach()}
         if self.is_acgan:
             m["g_aux_loss"] = torch.as_tensor(aux, device=z.device).detach()

@@ -308,17 +308,20 @@ def test_fsdp_ranks_hold_shards(runs):
     """Under --fsdp each rank holds 1 / ranks of every leaf of 2^11 elements
     or more with a divisible dim (params and Adam moments, before and after
     the steps), and the rest whole; the replicated run holds every leaf
-    whole."""
-    from csl_gan_tpu_torch.parallel.mesh import fsdp_spec
+    whole. The dim is the JAX package's choice on the leaf's flax shape (a
+    conv weight [O, I, kh, kw] is flax [kh, kw, I, O], a dense weight [O, I]
+    flax [I, O]), mapped back to the torch dim."""
+    from csl_gan_tpu.parallel.mesh import fsdp_spec
     s1 = runs["fsdp"][2][0]
     for r in runs["fsdp"][3]:
         n_sharded = 0
         for f in ("d_params", "d_mu", "g_params", "g_mu"):
             for k, shape in r["held"][f].items():
                 full = tuple(getattr(s1, f)[k].shape)
-                spec = fsdp_spec(full, 2)
+                axes = {4: (2, 3, 1, 0), 2: (1, 0)}.get(len(full), tuple(range(len(full))))
+                spec = tuple(fsdp_spec(tuple(full[a] for a in axes), 2))
                 if spec:
-                    d = spec.index("data")
+                    d = axes[spec.index("data")]
                     assert shape == full[:d] + (full[d] // 2,) + full[d + 1:], (f, k)
                     n_sharded += 1
                 else:

@@ -163,7 +163,8 @@ def test_unported_flags_raise(tmp_path, extra, flag):
     ``--host_loop``'s. The parallel flags parse: ``--mesh_shape 2`` asks for
     two ranks and leaves K1's gate (the JAX gate's one device), ``--fsdp``
     alone and ``--multihost`` of one process ask for one (K1's gate reads
-    the world ``--multihost``'s arguments give)."""
+    the world ``--multihost``'s arguments give); ``--tp 2`` on one rank is
+    clamped to it (JAX ``make_mesh``) and stays on K1's path."""
     argv = TINY + extra + ["--platform", "cpu", "-o", str(tmp_path)]
     if flag not in LIFTED:
         with pytest.raises(NotImplementedError, match=flag):
@@ -207,7 +208,7 @@ LIFTED = {"--grad_clip_mode": "Adaptive clipping derives its thresholds",
           "--weight_decay": None, "--u8_table": None, "--host_loop": None, "--bf16": None,
           "--group_fakes": None, "--profile_training": None, "--log_every": None,
           "--aux_loss_type": "Cross entropy loss is the only aux loss supported for vanilla",
-          "--fsdp": None, "--mesh_shape": None, "--multihost": None}
+          "--fsdp": None, "--mesh_shape": None, "--multihost": None, "--tp": None}
 # The lifted cases that parse but leave K1's gate.
 OFF_K1 = ("--batch_size", "--poisson", "--backprop_clip", "--weight_decay", "--bf16",
           "--u8_table", "--mesh_shape")
@@ -234,27 +235,33 @@ def test_not_ported_names_only_unported_flags():
     """The flags of STEP_RUNNER_FLAGS and the conditional variants are off
     the refusal list; the options still outside the port are on it."""
     names = [flag for flag, _ in toptions._NOT_PORTED]
+    # The lifted flags run on one device and on the data axis; some are
+    # refused only together with --tp ("--tp with ...", below).
+    one_axis = [n for n in names if not n.startswith("--tp with ")]
     for lifted in ("--pallas", "--per_sample_chunk", "--grad_clip_split", "--conv_ghost",
                    "--clipping_param_per_layer", "--n_d_steps", "--train_d_until_threshold",
                    "--resume_path", "--dp_mode", "DeepConvResNet", "unconditional",
                    "WCGAN", "--conditional_arch", "--g_label_emb_mode"):
-        assert not any(lifted in n for n in names), lifted
+        assert not any(lifted in n for n in one_axis), lifted
     for lifted in ("--public_set_size", "--warmup_iter", "--stop_on_g_freeze",
                    "--batch_size", "--num_mean_samples"):
-        assert not any(lifted in n for n in names), lifted
+        assert not any(lifted in n for n in one_axis), lifted
     for lifted in ("--poisson", "-pupd", "DRAGAN", "--backprop_clip", "--penalty",
                    "--ref_pixel_shuffle"):
-        assert not any(lifted in n for n in names), lifted
+        assert not any(lifted in n for n in one_axis), lifted
     for lifted in ("adaptive", "--weight_decay", "--group_fakes", "--u8_table",
                    "--host_loop", "--bf16", "--profile_training", "--log_every",
                    "--sample_every", "--aux_loss_type", "--n_classes"):
-        assert not any(lifted in n for n in names), lifted
+        assert not any(lifted in n for n in one_axis), lifted
     for lifted in ("--fsdp", "--mesh_shape", "--multihost"):
-        assert not any(lifted in n for n in names), lifted
-    kept = ("--tp", "--download_mnist")
-    for flag in kept:
-        assert any(flag in n for n in names), flag
-    assert len(names) == len(kept)
+        assert not any(lifted in n for n in one_axis), lifted
+    # The tensor axis is ported; the engines that do not run on it are
+    # refused under it by name (tests/test_torch_tensor_axis.py).
+    assert "--tp" not in names
+    kept = ("--tp with -dpm is", "--tp with -dpm tm / sv", "--tp with --poisson",
+            "--tp with adaptive clipping", "--tp with -pupd false",
+            "--tp with --penalty DRAGAN", "--tp with --backprop_clip", "--download_mnist")
+    assert names == list(kept)
 
 
 def test_celeba_raises(tmp_path):

@@ -1,14 +1,15 @@
 """Rank workers of the port's multi-device tests
-(tests/test_torch_{parallel,sharded_steps,multiprocess}.py). This module
-imports torch and the port only: every spawned rank imports it again, and
-it must not pull JAX in.
+(tests/test_torch_{parallel,sharded_steps,multiprocess,tensor_axis}.py).
+This module imports torch and the port only: every spawned rank imports it
+again, and it must not pull JAX in.
 
-    python tests/torch_parallel_cases.py <worker> <ranks> <args...>
+    python tests/torch_parallel_cases.py <worker> <ranks> [--tp=N] <args...>
 
-starts ``<ranks>`` CPU ranks over gloo (``parallel/launch.spawn``), each
-running ``<worker>(opt, mesh, *args)``; ``run_ranks`` does it from a test
-as a subprocess with a timeout, so a rank that hangs in a collective fails
-the test instead of the suite. Each rank uses one intra-op thread.
+starts ``<ranks>`` CPU ranks over gloo (``parallel/launch.spawn``), laid out
+as (data, model) = (ranks / N, N) with ``--tp=N``, each running
+``<worker>(opt, mesh, *args)``; ``run_ranks`` does it from a test as a
+subprocess with a timeout, so a rank that hangs in a collective fails the
+test instead of the suite. Each rank uses one intra-op thread.
 """
 
 from __future__ import annotations
@@ -33,10 +34,12 @@ from csl_gan_tpu_torch.parallel import launch  # noqa: E402
 from csl_gan_tpu_torch.training.steps import StepBuilder  # noqa: E402
 
 
-def run_ranks(worker: str, ranks: int, *args, timeout: float = 120.0):
-    """Run ``worker`` on ``ranks`` CPU ranks in a subprocess; kill its whole
-    process group and fail on a timeout. Returns the subprocess's output."""
-    cmd = [sys.executable, os.path.abspath(__file__), worker, str(ranks), *map(str, args)]
+def run_ranks(worker: str, ranks: int, *args, timeout: float = 120.0, tp: int = 1):
+    """Run ``worker`` on ``ranks`` CPU ranks (``tp`` of them a data index)
+    in a subprocess; kill its whole process group and fail on a timeout.
+    Returns the subprocess's output."""
+    cmd = [sys.executable, os.path.abspath(__file__), worker, str(ranks), f"--tp={tp}",
+           *map(str, args)]
     env = dict(os.environ, OMP_NUM_THREADS="1",
                PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
     p = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
@@ -90,7 +93,8 @@ def steps(opt, mesh, payload: str, out_dir: str) -> None:
     state, d: ``d_core`` keyword arguments, g: (z, y) or None): one D step
     and, with g, one G step on this rank's rows. Rank 0 saves the whole
     state after the steps and the metrics; every rank saves the shapes of
-    the state it held."""
+    the state it held. A case with ``noise_rows`` also saves, from every
+    rank, the fused route's noise of its slices (``_fused_noise``)."""
     torch.set_num_threads(1)
     cases = torch.load(payload, weights_only=False)
     results = {}
@@ -98,9 +102,12 @@ def steps(opt, mesh, payload: str, out_dir: str) -> None:
         with tempfile.TemporaryDirectory() as tmp:
             topt = toptions.parse(case["argv"] + ["--platform", "cpu", "-o", tmp])
             G, D = init_models(topt, torch.device("cpu"))
-        m = dataclasses.replace(mesh, fsdp=bool(case["fsdp"]) and mesh.world > 1)
+        m = dataclasses.replace(mesh, fsdp=bool(case["fsdp"]) and mesh.dp > 1)
         tb = StepBuilder(topt, G, D, mesh=m)
         state = tb.shard_state(case["state"])
+        noise = None
+        if case.get("noise_rows"):
+            noise = _fused_noise(tb, case["d"]["fused"], case["noise_rows"])
         held = {f: {k: tuple(v.shape) for k, v in getattr(state, f).items()}
                 for f in ("d_params", "d_mu", "g_params", "g_mu")}
         d = dict(case["d"])
@@ -118,10 +125,22 @@ def steps(opt, mesh, payload: str, out_dir: str) -> None:
         whole = tb.full_state(state)
         results[case["name"]] = {"state": whole if mesh.is_main else None, "d": dm, "g": gm,
                                  "held": held, "held_after": held_after,
-                                 "fake_gap": fake_gap}
+                                 "fake_gap": fake_gap, "noise": noise}
     torch.save(results, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
 
 
+def _fused_noise(tb, fused, rows: int):
+    """The fused route's noise of this rank's slices alone: the weighted sum
+    (K6's plain version at the slices' counter bases, the small leaves'
+    normals cut) of zero per-sample gradients of ``rows`` rows, by leaf."""
+    from csl_gan_tpu_torch.ops import grads as gops
+    local = tb._local_fused(fused)
+    shapes = {k: tb.mesh.local_shape(k, tb.d_shapes[k], data=False) for k in tb.d_leaves}
+    zeros = {k: torch.zeros((rows,) + shapes[k]) for k in tb.d_leaves}
+    return gops.weighted_sum_fused_noise(zeros, torch.zeros(len(tb.d_leaves), rows), local)
+
+
 if __name__ == "__main__":
-    worker, ranks, *rest = sys.argv[1:]
-    launch.spawn(globals()[worker], int(ranks), Namespace(platform="cpu", fsdp=False), *rest)
+    worker, ranks, tp, *rest = sys.argv[1:]
+    launch.spawn(globals()[worker], int(ranks),
+                 Namespace(platform="cpu", fsdp=False, tp=int(tp[len("--tp="):])), *rest)
