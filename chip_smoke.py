@@ -250,14 +250,15 @@ toolkit, it:
      2 tells each that it shares) and each rank trains its half of every
      batch; each rank is this script again (``--parallel-rank``), counting
      every kernel's launches from 0 around ``csl_gan_tpu_torch.train.main``
-     and recording the shapes it gave K2-K6; every run is 2 epochs and its
-     ms per D step the second's. (a) The CelebA flagship's flags cut to
-     ``-tss 1280`` (10 D steps, 2 G updates an epoch): on each rank the
+     and recording the shapes it gave K2-K6; every run is 1 epoch (no check
+     of the phase resumes a run), its ms per D step that epoch's. (a) The
+     CelebA flagship's flags cut to ``-tss 1280`` (10 D steps, 2 G updates
+     an epoch): on each rank the
      one-rank run's launches (K2/K3 3 times a D step at B 64 on the tensor
      cores, K4 9 times a G forward and K5 9 times a G update, also where
      gn_relu.cu issues them, K1 and K6 never); one full-width D step and G
      step (B 128) from the one-rank run's end state on 2 ranks, replicated
-     and under ``--fsdp``, and the 2-epoch runs (rank 0's saves), held
+     and under ``--fsdp``, and the runs (rank 0's saves), held
      group by group (D's and G's params and Adam moments) to the one-rank
      state within 3x a witness: the same one-rank step or run computing
      every pass in the ranks' halves (``in_halves``; two one-rank runs are
@@ -274,7 +275,22 @@ toolkit, it:
      process on NCCL (K1 once an epoch), whose saves must equal the plain
      run's byte for byte. Prints ms per D step by rank beside the one-rank
      run's, with the card's name and power limit;
- 14. prints one JSON ``kernels`` line (K1-K6: launches on their main path,
+ 14. the tensor axis (outputs under build/chip_smoke/tp/; ``--tp`` ranks
+     sharing the card over gloo as in step 13): (a) a CelebA D + G step at
+     ``--tp 2`` on 2 ranks held to one rank's within 3x the one-rank step
+     computed in channel halves (``in_channel_halves``); (b) the MNIST
+     ghost-route step on 4 ranks as dp 2 x tp 2 within PAR_FP32_BOUND; (c)
+     the CelebA flagship's flags and path 1 for an epoch at ``--tp 2``
+     with launches, ms per D step and state MB by rank; (d) one full-width D
+     + G step of each engine beside gc's routes (``TP_ENGINE_STEPS``: CelebA
+     tm, Poisson, adaptive, ``-pupd false`` on K6, DRAGAN in bf16, each
+     within 3x its channel-halves witness; MNIST is, is ``-ispp``, sv and
+     bpc on K6 in fp32, within PAR_FP32_BOUND), each rank's launches the
+     one-rank step's and its D step timed beside one rank's, and CelebA
+     Poisson and path 1 adaptive for an epoch at ``--tp 2``
+     (``TP_ENGINE_RUNS``); every shape the ranks gave K2-K6 held against
+     its plain version (K4/K5 at 16 groups, K6 at its counter base);
+ 15. prints one JSON ``kernels`` line (K1-K6: launches on their main path,
      max abs gap to the plain version, ms, plain ms, bound, library ms; K4/K5
      also their launches on the CelebA tm path; every kernel its launches on
      each path of step 8, ``cond_arch_launches``, of step 9,
@@ -283,8 +299,9 @@ toolkit, it:
      their times at batch 50, ``b50_ms`` / ``b50_plain_ms``, K2-K5 at the
      219-row Poisson buffer, ``b219_ms`` / ``b219_plain_ms``, and K4 at the
      grouped batch, ``b640_ms`` / ``b640_plain_ms``; every kernel its
-     launches by rank on each run of step 13, ``parallel_launches``);
- 15. ends with ``{"ok": true, "device": {...}}`` as the last line.
+     launches by rank on each run of step 13, ``parallel_launches``, and of
+     step 14, ``tp_launches`` and, for (d), ``tp_engine_launches``);
+ 16. ends with ``{"ok": true, "device": {...}}`` as the last line.
 Any failure raises or exits non-zero, and no result line is printed. It
 needs no network and imports nothing of JAX or of the JAX package.
 """
@@ -3857,12 +3874,14 @@ def surface_phase(dev, out_root, smi):
 # --multihost processes share the card over gloo (which carries the CUDA
 # tensors of all_reduce and broadcast through the host; LOCAL_WORLD_SIZE
 # tells each that it shares), and one --multihost process runs NCCL alone.
-# Each run is 2 epochs: the first of a process holds cuDNN's autotuning and
-# the first calls (~0.9 s a CelebA D step on an H100), so ms per D step are
-# the second epoch's. Each rank is a process of its own
+# Each run is PAR_EPOCHS epochs (one: no check of the phase resumes a run;
+# the 2-rank CelebA state was 0.159 from one rank's after one epoch, 0.733
+# after two, on an H100), its ms per D step the last epoch's: with one epoch
+# they hold the first calls of the process (deterministic cuDNN, no
+# autotuning). Each rank is a process of its own
 # (``--parallel-rank``), which sets every wrapper's count to 0 just before it
 # trains and reads them just after, and records the shapes it gave K2-K6.
-PAR_RANKS, PAR_EPOCHS = 2, 2
+PAR_RANKS, PAR_EPOCHS = 2, 1
 PAR_CELEBA = SURF_CELEBA                    # 10 D steps, 2 G updates an epoch; B 64 a rank
 PAR_PATH1 = PATH1[:PATH1.index("-tss")] + ["-tss", "6000"] + PATH1[PATH1.index("-tss") + 2:]
 PAR_MNIST = ["MNIST", "--conditional", "-dpm", "gc", "--sigma", "10", "-bs", str(BS),
@@ -3984,8 +4003,8 @@ def parallel_step_rank(job) -> None:
     """The step check's job on one rank: the payload's D step and G step
     (the global batch's inputs) on this rank's rows (and, under --tp, its
     channels), replicated and, on the data axis alone, under --fsdp; rank 0
-    saves each whole state after the steps, the launches and the shapes
-    K2-K6 took."""
+    saves each whole state after the steps, the launches, the shapes K2-K6
+    took and the D step's ms (host clock around it, the card synchronized)."""
     import dataclasses
 
     import torch
@@ -4004,12 +4023,16 @@ def parallel_step_rank(job) -> None:
             tb = StepBuilder(opt, G, D, mesh=dataclasses.replace(mesh, fsdp=fsdp))
             counts = {}
             with par_taken(counts, out["shapes"]):
-                st, dm = tb.shard_state(payload["state"]), None
+                st, dm, d_ms = tb.shard_state(payload["state"]), None, None
                 if "d" in payload:      # else the G step alone
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
                     st, dm = tb.d_core(st, **payload["d"])
+                    torch.cuda.synchronize()
+                    d_ms = (time.perf_counter() - t0) * 1e3
                 st, gm = tb.g_core(st, *payload["g"])
             whole = tb.full_state(st)
-            out[fsdp] = {"state": whole, "launches": counts, "d": dm, "g": gm}
+            out[fsdp] = {"state": whole, "launches": counts, "d": dm, "g": gm, "d_ms": d_ms}
         if mesh.is_main:
             torch.save(out, job["report"])
     finally:
@@ -4394,11 +4417,45 @@ def _parallel_phase(dev, out_root, smi, peak_bytes):
 # card: as in phase 13, --multihost ranks share it over gloo and pin
 # deterministic cuDNN. At --tp 2 on 2 ranks (dp 1) each rank holds half the
 # output channels of every leaf that the JAX rule shards and computes only
-# those; 4 ranks make dp 2 x tp 2.
+# those; 4 ranks make dp 2 x tp 2. Every run is PAR_EPOCHS epochs; the
+# CelebA flagship's flags are cut to -tss 640 (5 D steps, one G update an
+# epoch: at --tp 2 a D step takes seconds on the shared card).
 TP = 2
-TP_CELEBA = PAR_CELEBA + ["--tp", str(TP)]
+TP_CELEBA1 = PAR_CELEBA[:PAR_CELEBA.index("-tss")] + ["-tss", "640"] \
+    + PAR_CELEBA[PAR_CELEBA.index("-tss") + 2:]
+TP_CELEBA = TP_CELEBA1 + ["--tp", str(TP)]
 TP_PATH1 = PAR_PATH1 + ["--tp", str(TP)]
 TP_MNIST = PAR_MNIST + ["--pallas_epoch", "false"]     # the fp32 ghost route, off K1
+# (d) The D-step engines beside gc's routes at --tp 2: one full-width D step
+# and G step each, from the one-rank CelebA or MNIST state of (a) / (b), with
+# the launches each kernel must make in it (the one-rank step's and each
+# rank's). The CelebA steps are bf16, each held to 3x its channel-halves
+# witness; the MNIST ones fp32, held to PAR_FP32_BOUND.
+TP_ENGINE_STEPS = (
+    ("CelebA tm", PAR_CELEBA + ["-dpm", "tm"], {"K4": 2 * G_NORMS, "K5": G_NORMS}),
+    ("CelebA Poisson", PAR_CELEBA + ["--poisson", "true"],
+     {"K2": 3, "K3": 3, "K4": 2 * G_NORMS, "K5": G_NORMS}),
+    ("CelebA adaptive", PAR_CELEBA + ["-gcm", "adaptive"],
+     {"K2": 6, "K3": 3, "K4": 2 * G_NORMS, "K5": G_NORMS}),
+    ("CelebA -pupd false", PUBLIC_CELEBA + ["-pupd", "false", "--pallas", "true"],
+     {"K6": 4, "K4": 2 * G_NORMS, "K5": G_NORMS}),
+    ("CelebA DRAGAN", PAR_CELEBA + ["--penalty", "DRAGAN"],
+     {"K2": 3, "K3": 3, "K4": 2 * G_NORMS, "K5": G_NORMS}),
+    ("MNIST is", TP_MNIST + ["-dpm", "is"], {}),
+    ("MNIST is per-param", TP_MNIST + ["-dpm", "is", "-ispp", "true"], {}),
+    ("MNIST sv", TP_MNIST + ["-dpm", "sv"], {}),
+    ("MNIST bpc", TP_MNIST + ["--backprop_clip", "true", "--pallas", "true"], {"K6": 1}),
+)
+# Two engines through the Trainer at --tp 2 beside one rank's: CelebA Poisson (K2/K3 at the 219-row buffer on half the
+# output channels) and path 1 with adaptive clipping (K6 at each slice's
+# counter base with the step's adaptive std), fp32, its end state held to
+# PAR_FP32_BOUND.
+TP_ENGINE_RUNS = (
+    ("CelebA Poisson", PAR_CELEBA + ["--poisson", "true"]),
+    ("path 1 adaptive", PAR_PATH1 + ["-gcm", "adaptive", "-nms", "1", "--mean_sample_size",
+                                     "10"]),
+)
+TP_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6")
 
 
 def _tp_cut(w) -> bool:
@@ -4487,9 +4544,101 @@ def tp_halved(seen):
     return out
 
 
+def _k_counts(counts):
+    """Each wrapper's launches of a ``par_counted`` record (K1-K6)."""
+    return {k: counts[k] for k in TP_KERNELS}
+
+
+def tp_engine_step(name, argv, expect, state, root, dev):
+    """The one-rank side of one engine's step check (phase 14 (d)): a
+    Trainer of ``argv`` for its draws (built, not trained), one full-width
+    batch (a Poisson draw under --poisson) and its draws, then the D and G
+    steps from ``state`` (its clipping and is scaling the engine's own) on
+    one rank: counted and recorded, again (the repeat), the D step timed,
+    and for bf16 in channel halves (the witness). Fails unless the one-rank
+    step launches ``expect`` (every other kernel 0). Returns what the check
+    of the ranks' step needs, the payload written under ``root``."""
+    import dataclasses
+
+    import torch
+    from csl_gan_tpu_torch import options as toptions
+    from csl_gan_tpu_torch.training.loop import Trainer
+
+    tag = name.replace(" ", "_").replace("-", "")
+    tr = Trainer(toptions.parse(argv + ["-ne", "1", "--manual_seed", "1", "-o",
+                                        str(root / tag)]))
+    b, runner = tr.builder, tr.step_runner
+    state = dataclasses.replace(state, clipping=tr.state.clipping,
+                                scaling_vec=tr.state.scaling_vec)
+    gs = torch.Generator(dev).manual_seed(53)
+    bs, valid = b.opt.batch_size, None
+    if b.poisson:
+        idx, valid = b.poisson_draw(gs, runner.n_rows)
+    else:
+        idx = torch.randperm(runner.n_rows, generator=gs, device=dev)[:bs]
+    x, y = runner._batch(idx, gs)
+    d_in = dict(x=x, y=y, use_dp=True, valid=valid,
+                **runner._d_draws(state, x, y, gs, runner.noise_stds(state), True))
+    g_in = (b.gen_z(gs, bs), b.gen_y(gs, bs))
+    payload = root / f"{tag}_payload.pt"
+    torch.save({"state": state, "d": d_in, "g": g_in}, payload)
+
+    def one_step():
+        return b.g_core(b.d_core(state, **d_in)[0], *g_in)[0]
+
+    counts, seen = {}, set()
+    with par_taken(counts, seen):
+        ref1 = one_step()
+    want = dict(dict.fromkeys(TP_KERNELS, 0), **expect)
+    if _k_counts(counts) != want:
+        fail(f"{name} one rank: launches {_k_counts(counts)}, expected {want}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    b.d_core(state, **d_in)
+    torch.cuda.synchronize()
+    ms1 = (time.perf_counter() - t0) * 1e3
+    ref2 = one_step()
+    out = dict(name=name, argv=argv, payload=str(payload), ref=ref1, want=want, seen=seen,
+               ms1=ms1, repeat=_group_gaps(ref2, ref1), bf16=b.compute_dtype is not None,
+               batch=int(x.shape[0]))
+    if out["bf16"]:
+        with in_channel_halves():
+            out["split"] = one_step()
+        out["witness"] = _group_gaps(out["split"], ref1)
+    del tr, ref2
+    return out
+
+
+def tp_engine_held(e, got, smi):
+    """The ranks' step of one engine (rank 0's ``parallel_step_rank``
+    record ``got``) against its one-rank step ``e``: the launches, then the
+    state by group (bf16: 3x the channel-halves witness; fp32:
+    PAR_FP32_BOUND). Returns rank 0's launches."""
+    k = got["launches"]
+    print(f"{e['name']} tp step [{smi}]: one D step and one G step at B {e['batch']} on {TP} "
+          f"ranks at --tp {TP}; rank 0 launched " + (", ".join(
+              f"{n} {v}" for n, v in _k_counts(k).items() if v) or "no kernel")
+          + f"; D step {got['d_ms']:.1f} ms at --tp {TP} against one rank's {e['ms1']:.1f} "
+          f"({got['d_ms'] / e['ms1']:.1f}x; host clock, one step); two one-rank steps "
+          f"{max(e['repeat'].values()):.3e}")
+    if _k_counts(k) != e["want"]:
+        fail(f"{e['name']} tp step: rank 0 launches {_k_counts(k)}, expected {e['want']}")
+    if e["bf16"]:
+        par_groups_held(e["name"] + " tp step", got["state"], e["ref"], e["split"],
+                        e["witness"], e["repeat"])
+    else:
+        gaps = _group_gaps(got["state"], e["ref"])
+        print(f"  {e['name']} tp step against one rank, by group (fp32): "
+              + ", ".join(f"{g} {v:.3e}" for g, v in gaps.items())
+              + f" (bound {PAR_FP32_BOUND:g})")
+        if not all(v <= PAR_FP32_BOUND for v in gaps.values()):
+            fail(f"{e['name']} tp step: the ranks leave the one-rank step beyond the bound")
+    return k
+
+
 def tp_phase(dev, out_root, smi, peak_bytes):
     """Phase 14, with deterministic cuDNN. Returns each run's launches by
-    rank, for the kernels line."""
+    rank and the engines' (d), for the kernels line."""
     with pinned_cudnn():
         return _tp_phase(dev, out_root, smi, peak_bytes)
 
@@ -4514,7 +4663,7 @@ def _tp_phase(dev, out_root, smi, peak_bytes):
         launches[name] = [r["launches"] for r in reports]
         mb = [r["state_bytes"] / 2 ** 20 for r in reports]
         print(f"{name} [{smi}]: {len(reports)} ranks at --tp {TP} over gloo sharing the card, "
-              f"{PAR_EPOCHS} epochs of {reports[0]['n']} D steps; launches by rank "
+              f"{PAR_EPOCHS} epoch(s) of {reports[0]['n']} D steps; launches by rank "
               + "; ".join(f"rank {r['rank']}: " + (", ".join(
                   f"{k} {v}" for k, v in r["launches"].items() if v) or "none")
                           for r in reports)
@@ -4532,7 +4681,7 @@ def _tp_phase(dev, out_root, smi, peak_bytes):
     # (its end state starts the step check), one full-width D step and G
     # step from it at --tp 2 against the same steps on one rank, each group
     # within 3x the same steps computed in channel halves.
-    tr1, want, ms1, seen1 = par_one("CelebA one rank", PAR_CELEBA, root)
+    tr1, want, ms1, seen1 = par_one("CelebA one rank", TP_CELEBA1, root)
     formula = dict(_celeba_expect(tr1.state.d_count, tr1.state.g_count), K1=0, K6=0)
     if {k: want[k] for k in formula} != formula:
         fail(f"CelebA one rank: launches {want}, expected {formula}")
@@ -4554,7 +4703,7 @@ def _tp_phase(dev, out_root, smi, peak_bytes):
     step_repeat, step_witness = _group_gaps(ref2, ref1), _group_gaps(split, ref1)
     mb1 = _state_mb(st)
 
-    # (b) The fp32 runs' one-rank references: path 1 (K6) for 2 epochs, and
+    # (b) The fp32 runs' one-rank references: path 1 (K6) for an epoch, and
     # one D + G step of the MNIST flagship's flags on the ghost route.
     p1, want_p1, ms_p1, seen_p1 = par_one("path 1 one rank", PAR_PATH1, root)
     if want_p1["K6"] != p1.state.d_count or want_p1["K1"]:
@@ -4570,9 +4719,19 @@ def _tp_phase(dev, out_root, smi, peak_bytes):
     torch.save({"state": mst, "d": md_in, "g": mg_in}, mpayload)
     mref = mb_.g_core(mb_.d_core(mst, **md_in)[0], *mg_in)[0]
 
-    (step_path, _), (celeba, celeba_out), (path1, path1_out) = par_launch(
+    # (d) The engines' one-rank steps from the CelebA and MNIST states, and
+    # their one-rank Trainer runs.
+    engines = [tp_engine_step(name, argv, expect, st if argv[0] == "CelebA" else mst,
+                              root, dev) for name, argv, expect in TP_ENGINE_STEPS]
+    engine_ones = [par_one(name + " one rank", argv, root) for name, argv in TP_ENGINE_RUNS]
+
+    (step_path, _), (celeba, celeba_out), (path1, path1_out), *engine_out = par_launch(
         [("CelebA tp step", TP_CELEBA, str(payload)), ("CelebA tp 2 ranks", TP_CELEBA, None),
-         ("path 1 tp 2 ranks", TP_PATH1, None)], TP, root)
+         ("path 1 tp 2 ranks", TP_PATH1, None)]
+        + [(e["name"] + " tp step", e["argv"] + ["--tp", str(TP)], e["payload"])
+           for e in engines]
+        + [(name + " tp 2 ranks", argv + ["--tp", str(TP)], None)
+           for name, argv in TP_ENGINE_RUNS], TP, root)
     [(mstep_path, _)] = par_launch([("MNIST tp step dp2", TP_MNIST + ["--tp", str(TP)],
                                      str(mpayload))], 2 * TP, root)
 
@@ -4600,7 +4759,7 @@ def _tp_phase(dev, out_root, smi, peak_bytes):
     launches["MNIST tp step dp2"] = [mgot[False]["launches"]]
     del ref1, ref2, split, got, mgot
 
-    # (c) Two epochs through train.main on 2 ranks at --tp 2: the CelebA
+    # (c) An epoch through train.main on 2 ranks at --tp 2: the CelebA
     # flagship's flags and path 1's. The ranks' saves load as one rank's.
     cs, mb = held_ranks("CelebA tp 2 ranks", celeba, want, ms1, mb1)
     seen |= cs
@@ -4622,8 +4781,48 @@ def _tp_phase(dev, out_root, smi, peak_bytes):
     torch.cuda.empty_cache()
     par_shapes_held("CelebA tp", seen, tp_halved(seen1), dev, peak_bytes, tp=TP)
     par_shapes_held("path 1 tp", ps, tp_halved(seen_p1), dev, peak_bytes, tp=TP)
+    held = seen | ps
+
+    # (d) Each engine's step on the ranks against its one-rank step, then
+    # the two engine runs; every K2-K6 shape they gave the ranks (each one
+    # rank's with the channels cut) held against plain where (a)-(c) did
+    # not hold it.
+    engine_launches, new_seen, new_want = {}, set(), set()
+    for e, (path, _) in zip(engines, engine_out):
+        got = torch.load(path, map_location=dev, weights_only=False)
+        engine_launches[e["name"] + " tp step"] = [tp_engine_held(e, got[False], smi)]
+        if set(got["shapes"]) != tp_halved(e["seen"]):
+            fail(f"{e['name']} tp step: the ranks gave K2-K6 {sorted(got['shapes'], key=str)}, "
+                 f"expected {sorted(tp_halved(e['seen']), key=str)}")
+        new_seen |= set(got["shapes"])
+        new_want |= tp_halved(e["seen"])
+        del got
+    del engines
+    runs_out = engine_out[len(TP_ENGINE_STEPS):]
+    for (name, _), (tr_e, want_e, ms_e, seen_e), (reports, out) in zip(
+            TP_ENGINE_RUNS, engine_ones, runs_out):
+        run = name + " tp 2 ranks"
+        rs, _ = held_ranks(run, reports, want_e, ms_e, _state_mb(tr_e.state))
+        engine_launches[run] = launches.pop(run)
+        new_seen |= rs
+        new_want |= tp_halved(seen_e)
+        saved_e = saved_state(out, tr_e.state)
+        gap = _state_gap(saved_e, tr_e.state)
+        if tr_e.builder.compute_dtype is None:
+            print(f"  end state (saves) against the one-rank run's (fp32): {gap:.3e} (bound "
+                  f"{PAR_FP32_BOUND:g})")
+            if not gap <= PAR_FP32_BOUND:
+                fail(f"{run}: the ranks leave the one-rank run by {gap:.3e}")
+        else:
+            print(f"  end state (saves) against the one-rank run's (bf16; no bound: the step "
+                  f"check carries the precision): {gap:.3e}")
+        if not _finite(saved_e) or saved_e.d_count != tr_e.state.d_count:
+            fail(f"{run}: the saves are not the run's")
+    del engine_ones
+    torch.cuda.empty_cache()
+    par_shapes_held("tp engines", new_seen - held, new_want - held, dev, peak_bytes, tp=TP)
     print(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
-    return launches
+    return launches, engine_launches
 
 
 def _group_gaps(a, b) -> dict:
@@ -4730,7 +4929,8 @@ def main() -> int:
         parallel_phase(dev, out_root, smi, peak_bytes)
         return 0
     if "--tp" in sys.argv[1:]:
-        tp_phase(dev, out_root, smi, peak_bytes)
+        _, engines = tp_phase(dev, out_root, smi, peak_bytes)
+        print(json.dumps({"tp_engine_launches": engines}))
         return 0
 
     # 3. The MNIST path (K1): kernel vs plain, the Trainer, K1's timing.
@@ -4807,11 +5007,14 @@ def main() -> int:
 
     # 14. The tensor axis: --tp 2 on 2 ranks sharing the card (a CelebA
     # step against its channel-halves witness, the CelebA flagship's flags
-    # and path 1 for 2 epochs), dp 2 x tp 2 on 4 ranks (an MNIST step).
-    tp = tp_phase(dev, out_root, smi, peak_bytes)
+    # and path 1 for an epoch), dp 2 x tp 2 on 4 ranks (an MNIST step); the
+    # engines' steps and two engine runs.
+    tp, tp_engines = tp_phase(dev, out_root, smi, peak_bytes)
     for entry in kernels:
         k = keys[entry["name"]]
         entry["tp_launches"] = {run: [c[k] for c in by_rank] for run, by_rank in tp.items()}
+        entry["tp_engine_launches"] = {run: [c[k] for c in by_rank]
+                                       for run, by_rank in tp_engines.items()}
 
     # 15. The kernels line; 16. the result line.
     print(json.dumps({"kernels": kernels}))

@@ -10,7 +10,9 @@ NHWC (B, 28, 28, 1) at the public functions, as in the JAX package.
 Under a model axis (``--tp``; the forwards' ``mesh``) a layer whose weight
 arrives as this rank's slice of output features is column-parallel
 (``linear``): its input enters through ``mesh.copy_model``, a replicated
-bias is sliced, and its output is gathered over the model group.
+bias is sliced, and its output is gathered over the model group. Under
+``--backprop_clip`` the clips wrap ``linear``: the input clip sees the
+whole input, the cotangent clip the whole (gathered) output's cotangent.
 """
 
 from __future__ import annotations
@@ -91,8 +93,11 @@ class MNISTVanillaD(nn.Module):
 
     def _layer(self, idx: int, lin: nn.Linear, o, bpc: bool, mesh=None):
         if bpc and self.bpc_fwd is not None:
+            # The clips act on the layer's whole input and gathered output,
+            # the same on every model rank: each is the whole layer's.
             return backprop_clip.cotangent_clip(
-                lin(backprop_clip.l2_clip(o, self.bpc_fwd[idx])), self.bpc_back[idx])
+                linear(backprop_clip.l2_clip(o, self.bpc_fwd[idx]), lin, mesh),
+                self.bpc_back[idx])
         return linear(o, lin, mesh)
 
     def forward(self, x: torch.Tensor, y: Optional[torch.Tensor] = None,

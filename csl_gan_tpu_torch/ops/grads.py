@@ -31,7 +31,9 @@ given, which the callers keep in the JAX package's leaf order
 Under a model axis (``--tp``) a leaf may be this rank's slice of its output
 channels: its per-sample gradients are the slice's, and ``sq_reduce`` (the
 step builder's) sums the slices' squared norms over the model group before
-the square root, so every leaf's norm enters the flat norm once; the sums
+the square root, so every leaf's norm enters the flat norm once (also in
+``per_leaf_norms`` / ``global_norm`` of one gradient, differentiably: the
+immediate-sensitivity step differentiates them); the sums
 are this rank's slices, and K6 draws each slice's noise at the slice's
 counter base (``FusedNoise.bases``), the one-device draw's elements.
 """
@@ -354,14 +356,29 @@ def add_scaled_noise(leaves: Sequence[torch.Tensor], eps: Sequence[torch.Tensor]
     return [g + stds[i] * e for i, (g, e) in enumerate(zip(leaves, eps))]
 
 
-def per_leaf_norms(leaves: Sequence[torch.Tensor]) -> torch.Tensor:
-    """L2 norm of each leaf, in fp32: ``[n_leaves]``."""
-    return torch.stack([torch.sqrt(torch.sum(g.float() ** 2)) for g in leaves])
+def _leaf_sq(leaves: Sequence[torch.Tensor], sq_reduce: Callable) -> torch.Tensor:
+    """``[n_leaves]`` squared norms in fp32, mapped by ``sq_reduce`` as one
+    [n_leaves, 1] column (differentiable: the model axis's sum)."""
+    sq = torch.stack([torch.sum(g.float() ** 2) for g in leaves])
+    return sq_reduce(sq[:, None])[:, 0]
 
 
-def global_norm(leaves: Sequence[torch.Tensor]) -> torch.Tensor:
-    """L2 norm of all leaves together, in fp32."""
-    return torch.sqrt(sum(torch.sum(g.float() ** 2) for g in leaves))
+def per_leaf_norms(leaves: Sequence[torch.Tensor],
+                   sq_reduce: Optional[Callable] = None) -> torch.Tensor:
+    """L2 norm of each leaf, in fp32: ``[n_leaves]``; ``sq_reduce`` as in
+    ``leaf_norms`` (each sharded leaf's norm is then the whole leaf's)."""
+    if sq_reduce is None:
+        return torch.stack([torch.sqrt(torch.sum(g.float() ** 2)) for g in leaves])
+    return torch.sqrt(_leaf_sq(leaves, sq_reduce))
+
+
+def global_norm(leaves: Sequence[torch.Tensor],
+                sq_reduce: Optional[Callable] = None) -> torch.Tensor:
+    """L2 norm of all leaves together, in fp32; ``sq_reduce`` as in
+    ``per_leaf_norms``."""
+    if sq_reduce is None:
+        return torch.sqrt(sum(torch.sum(g.float() ** 2) for g in leaves))
+    return torch.sqrt(torch.sum(_leaf_sq(leaves, sq_reduce)))
 
 
 def add_gaussian_noise(gen: torch.Generator, leaves: Sequence[torch.Tensor],

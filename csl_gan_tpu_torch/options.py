@@ -361,19 +361,9 @@ def _k1_path(o) -> bool:
 
 
 # (flag, test on the parsed opt) for every option whose path is not ported:
-# the engines that do not run on the tensor axis (in ROADMAP Queue 1's
-# order), and downloading MNIST, which needs the network. Adaptive clipping
-# outside -dpm gc is accepted and, as in the JAX package, read by no step.
+# downloading MNIST, which needs the network. Adaptive clipping outside -dpm
+# gc is accepted and, as in the JAX package, read by no step.
 _NOT_PORTED = [
-    ("--tp with -dpm is", lambda o: o.tp > 1 and o.dp_mode == "is"),
-    ("--tp with -dpm tm / sv", lambda o: o.tp > 1 and o.dp_mode in ("tm", "sv")),
-    ("--tp with --poisson", lambda o: o.tp > 1 and bool(o.poisson)),
-    ("--tp with adaptive clipping", lambda o: o.tp > 1 and o.dp_mode == "gc" and _adaptive(o)),
-    ("--tp with -pupd false", lambda o: o.tp > 1 and o.dp_mode == "gc" and bool(o.penalty)
-     and not o.penalty_use_public_data),
-    ("--tp with --penalty DRAGAN", lambda o: o.tp > 1 and any(
-        t.startswith("DRAGAN") for t in (o.penalty or []))),
-    ("--tp with --backprop_clip", lambda o: o.tp > 1 and bool(o.backprop_clip)),
     ("--download_mnist", lambda o: o.download_mnist),
 ]
 

@@ -86,9 +86,17 @@ the gc routes clip on the slices: each slice's per-sample squared norms are
 summed over the model group (``_sq_reduce``, the ghost routes' own sums),
 the sums are the rank's slices, and the ranks of data index 0 add each
 slice's part of the one-device noise draw (``_model_cut``; on the fused
-route K6 at the slice's counter base, ``_local_fused``). A step gathers
---fsdp's data shards to the rank's slices (``step_params``); a save or a
-grid gathers whole leaves (``full_state`` / ``full_params``).
+route K6 at the slice's counter base, ``_local_fused``). The other engines
+run on the slices too: the is step's norms of g, differentiated, and its
+moving-avg-pl norms sum the slices' squares over the model group
+(``_sq_reduce``), as adaptive clipping's per-sample norms do; tm sorts and
+sv votes on each coordinate of the rank's slices; every engine's noise is
+the slices' part of the one-device draw. Poisson's mask, DRAGAN's batch
+std and the per-sample penalty's rows are the data axis's, the same on
+every model rank; backprop clipping clips the whole input and the gathered
+output's cotangent of each layer (models/mnist.py). A step gathers --fsdp's
+data shards to the rank's slices (``step_params``); a save or a grid
+gathers whole leaves (``full_state`` / ``full_params``).
 """
 
 from __future__ import annotations
@@ -308,6 +316,9 @@ class StepBuilder:
         # D's leaves that the tensor axis cuts (their torch dim 0).
         self.d_sharded = tuple(k for k in self.d_leaves
                                if self.mesh.model_dim(k, self.d_shapes[k]) is not None)
+        # The map of [n_leaves, rows] squared norms that makes each sharded
+        # leaf's the whole leaf's; None without a sharded leaf.
+        self.sq_reduce = self._sq_reduce if self.d_sharded else None
 
     # ---------------- state and randomness ----------------
 
@@ -925,8 +936,8 @@ class StepBuilder:
                 sharded=self.d_sharded)
         else:
             f, args = self.real_ps_args(ax, ay, row_w)
-            norms = gops.leaf_norms(gops.per_sample_grads(f, d_params, *args,
-                                                          chunk=self.chunk))
+            norms = gops.leaf_norms(gops.per_sample_grads(f, d_params, *args, chunk=self.chunk),
+                                    self.sq_reduce)
         norms = self.mesh.gather_cols(norms, n)
         stat = norms.mean(dim=1) if self.adaptive_stat == "mean" else norms.amax(dim=1)
         if self.per_layer:
@@ -1000,7 +1011,6 @@ class StepBuilder:
         add_noise = noise is not None and self.mesh.data_index == 0
         if add_noise and self._tp is not None:
             noise = [self._model_cut(k, e) for k, e in zip(self.d_leaves, noise)]
-        sq_reduce = self._sq_reduce if self.d_sharded else None
         row_w = self.row_weights(y, valid)
         yg, vg = y, valid
         pen_kw = self._pen_kw(pen_x)
@@ -1029,20 +1039,20 @@ class StepBuilder:
                 f, args = gops.mask_loss(*self.real_ps_args(x, y, row_w), valid)
                 summed, stats = gops.two_pass_clipped_grad_sum(
                     f, d_params, *args, max_norm=clipping, per_layer=False, stats_gather=sg,
-                    sq_reduce=sq_reduce)
+                    sq_reduce=self.sq_reduce)
             else:
                 f, args = gops.mask_loss(*self.real_ps_args(x, y, row_w, fake, ps_draws), valid)
                 summed, stats = gops.clipped_grad_sum(
                     f, d_params, *args, max_norm=clipping, per_layer=self.per_layer,
                     chunk=self.chunk, fused_noise=fused, stats_gather=sg,
-                    sq_reduce=sq_reduce)
+                    sq_reduce=self.sq_reduce)
             fake_grads, f_out = self._fake_sum_grads(d_params, fake, y, vg, bpc=True, n=b,
                                                      yg=yg)
         else:
             f, args = gops.mask_loss(*self.combined_ps_args(x, y, fake, row_w, ps_draws), valid)
             summed, stats = gops.clipped_grad_sum(
                 f, d_params, *args, max_norm=clipping, per_layer=self.per_layer,
-                chunk=self.chunk, fused_noise=fused, stats_gather=sg, sq_reduce=sq_reduce)
+                chunk=self.chunk, fused_noise=fused, stats_gather=sg, sq_reduce=self.sq_reduce)
             fake_grads = None
             with torch.no_grad():
                 f_out = self._d_apply(d_params, fake, y, aux=False)[0]
@@ -1154,17 +1164,28 @@ class StepBuilder:
         and fake cotangents cancel) then has no square root to differentiate
         at 0. Under a data axis x_in is this rank's rows and g the reduced
         gradient (``sum_replicated``): the squares of the input gradient are
-        summed over the ranks."""
+        summed over the ranks. Under a model axis g holds this rank's slices
+        of the sharded leaves, whose squares are summed over the model group
+        inside the differentiated norms (``_sq_reduce``, identity backward);
+        the input gradient is then whole on every model rank (x_in enters D
+        through ``copy_model``, whose backward sums over the model group), so
+        its squares are summed over the data group only."""
         n = len(g)
         if self.is_per_param:
-            gx, = torch.autograd.grad(gops.per_leaf_norms(g), x_in,
-                                      torch.eye(n, device=x_in.device), is_grads_batched=True)
+            norms, eye = gops.per_leaf_norms(g, self.sq_reduce), torch.eye(n, device=x_in.device)
+            if self._tp is None:
+                gx, = torch.autograd.grad(norms, x_in, eye, is_grads_batched=True)
+            else:
+                # is_grads_batched's vmap cannot run the model axis's
+                # collectives; torch.func.vmap takes their vmap rules.
+                gx, = torch.func.vmap(lambda v: torch.autograd.grad(
+                    norms, x_in, v, retain_graph=True))(eye)
             sens = torch.sqrt(self.mesh.all_sum(
                 torch.sum(gx.reshape(n, -1).float() ** 2, dim=1)))
             return sens, self.sigma * sens
         scaled = self.is_scaling_mode != "standard"
-        s = torch.sqrt(torch.sum((gops.per_leaf_norms(g) / scaling_vec) ** 2)) if scaled \
-            else gops.global_norm(g)
+        s = torch.sqrt(torch.sum((gops.per_leaf_norms(g, self.sq_reduce) / scaling_vec) ** 2)) \
+            if scaled else gops.global_norm(g, self.sq_reduce)
         gx, = torch.autograd.grad(s, x_in)
         sens = torch.sqrt(self.mesh.all_sum(torch.sum(gx.float() ** 2)))
         return sens, self.sigma * sens * scaling_vec if scaled else (self.sigma * sens).expand(n)
@@ -1188,7 +1209,9 @@ class StepBuilder:
         gradient g of this rank's rows is reduced by ``sum_replicated`` (every
         rank then differentiates the same ||g||, and the identity backward
         gives each its rows' input gradient); the noise, the same draw on
-        every rank, goes onto the reduced g."""
+        every rank, goes onto the reduced g. Under a model axis g, the noise
+        and the update are this rank's slices (``_model_cut`` of the whole
+        draw), and the norms are the whole leaves' (``sensitivity``)."""
         n, yg = x.shape[0], y
         pen_kw = self._pen_kw(pen_x)
         x, y, z, pen_x, pen_y, alphas = self._rows(x, y, z, pen_x, pen_y, alphas)
@@ -1210,11 +1233,13 @@ class StepBuilder:
             if pen_value is not None:
                 g = [gi + pen_grads[k] for gi, k in zip(g, leaves)]
             sens, stds = self.sensitivity(g, x_in, state.scaling_vec)
+        eps = [self._model_cut(k, e) for k, e in zip(leaves, eps)]
         noised = gops.add_scaled_noise([gi.detach() for gi in g], eps, stds.detach())
         new = self._apply_d(state, dict(zip(leaves, noised)))
         if self.is_scaling_mode == "moving-avg-pl":
+            norms = gops.per_leaf_norms(noised, self.sq_reduce)
             new = replace(new, scaling_vec=state.scaling_vec * self.moving_avg_beta
-                          + gops.per_leaf_norms(noised) * (1 - self.moving_avg_beta))
+                          + norms * (1 - self.moving_avg_beta))
         metrics = self._metrics_of(r_out, r_aux, f_out, yg, pen_value)
         metrics["is_sens"] = sens.detach()
         return new, metrics
@@ -1228,7 +1253,9 @@ class StepBuilder:
         order), plus the penalty's grads, then Adam. The metrics are of the
         D before the update. Under a data axis each rank takes the per-sample
         gradients of its rows: tm gathers them for its sort, sv sums its
-        votes over the ranks. Returns (state, metrics)."""
+        votes over the ranks. Under a model axis those are of this rank's
+        slices (every coordinate's sort and vote are its own), with the
+        slices' part of the whole noise draw. Returns (state, metrics)."""
         n, yg = x.shape[0], y
         pen_kw = self._pen_kw(pen_x)
         row_w = self.row_weights(y)
@@ -1237,6 +1264,7 @@ class StepBuilder:
         state = replace(state, g_batch_stats=g_stats)
         f, args = self.combined_ps_args(x, y, fake, row_w)
         ps = gops.per_sample_grads(f, state.d_params, *args, chunk=self.chunk)
+        noise = [self._model_cut(k, e) for k, e in zip(self.d_leaves, noise)]
         grads = {}
         if self.dp_mode == "tm":
             for i, k in enumerate(self.d_leaves):

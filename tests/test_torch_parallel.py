@@ -137,8 +137,8 @@ def test_differentiable_sums_against_one_device_autograd(collective_runs, world)
 def test_still_refused(tmp_path, monkeypatch, flag, argv):
     """--download_mnist is refused by name. The tensor axis is ported: --tp 2
     parses over 2 ranks, and a tp that does not divide the ranks raises
-    ValueError (JAX ``make_mesh``); only the engines named in
-    ``_NOT_PORTED`` are refused under it (tests/test_torch_tensor_axis.py)."""
+    ValueError (JAX ``make_mesh``); no engine is refused under it
+    (tests/test_torch_tensor_axis_engines.py)."""
     base = ["MNIST", "--platform", "cpu", "-o", str(tmp_path)]
     if flag == "--tp":
         monkeypatch.setattr(launch.os, "cpu_count", lambda: 4)
@@ -149,10 +149,7 @@ def test_still_refused(tmp_path, monkeypatch, flag, argv):
     else:
         with pytest.raises(NotImplementedError, match=flag):
             toptions.parse(base + argv)
-    assert [f for f, _ in toptions._NOT_PORTED] == [
-        "--tp with -dpm is", "--tp with -dpm tm / sv", "--tp with --poisson",
-        "--tp with adaptive clipping", "--tp with -pupd false", "--tp with --penalty DRAGAN",
-        "--tp with --backprop_clip", "--download_mnist"]
+    assert [f for f, _ in toptions._NOT_PORTED] == ["--download_mnist"]
 
 
 @pytest.mark.parametrize("argv,ranks", [([], 1), (["--mesh_shape", "1"], 1),

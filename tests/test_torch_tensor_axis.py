@@ -48,6 +48,7 @@ from csl_gan_tpu_torch.ops import pallas_clip
 from csl_gan_tpu_torch.parallel import launch
 from csl_gan_tpu_torch.parallel.mesh import MeshContext, state_spec
 from csl_gan_tpu_torch.training import checkpoint
+from csl_gan_tpu_torch.training.loop import Trainer
 from csl_gan_tpu_torch.training.steps import StepBuilder
 from test_torch_sharded_steps import _noise_tree, _port_state, _warm, l2rel
 from torch_conditional_cases import STEP_DCRN, STEP_VANILLA, as_j, as_t, as_y
@@ -378,10 +379,18 @@ def test_k6_plain_at_a_base_is_the_whole_leaf_draw():
     ("--tp with -pupd false", ["-dpm", "gc", "--penalty", "WGAN-GP", "-pupd", "false"]),
     ("--tp with --penalty DRAGAN", ["--penalty", "DRAGAN"]),
     ("--tp with --backprop_clip", ["-dpm", "gc", "--backprop_clip", "true"])])
-def test_engines_refused_under_tp(tmp_path, flag, argv):
-    base = ["MNIST", "--conditional", "--platform", "cpu", "-o", str(tmp_path)]
-    with pytest.raises(NotImplementedError, match=flag.replace("/", ".")):
-        toptions.parse(base + argv + ["--tp", "2"])
+def test_engines_refused_under_tp(tmp_path, monkeypatch, flag, argv):
+    """None of the engines that --tp once refused (``flag``, their old
+    refusal) is refused now: each parses under --mesh_shape 2 --tp 2 and
+    builds the last rank's Trainer, whose D state holds that rank's slices
+    (tests/test_torch_tensor_axis_engines.py runs their steps)."""
+    monkeypatch.setattr(launch.os, "cpu_count", lambda: 8)
+    base = ["MNIST", "--conditional", "-tss", "80", "-bs", "8", "--platform", "cpu", "-o",
+            str(tmp_path)]
+    opt = toptions.parse(base + argv + ["--mesh_shape", "2", "--tp", "2"])
+    assert flag not in [f for f, _ in toptions._NOT_PORTED] and opt.tp == 2
+    tr = Trainer(opt, mesh=MeshContext(world=2, rank=1, tp=2))
+    assert tuple(tr.state.d_params["lin1.weight"].shape) == (64, 794)
     toptions.parse(base + argv)           # each runs without the tensor axis
 
 

@@ -235,9 +235,9 @@ def test_not_ported_names_only_unported_flags():
     """The flags of STEP_RUNNER_FLAGS and the conditional variants are off
     the refusal list; the options still outside the port are on it."""
     names = [flag for flag, _ in toptions._NOT_PORTED]
-    # The lifted flags run on one device and on the data axis; some are
-    # refused only together with --tp ("--tp with ...", below).
-    one_axis = [n for n in names if not n.startswith("--tp with ")]
+    # The lifted flags run on one device, on the data axis and (below) on
+    # the tensor axis.
+    one_axis = names
     for lifted in ("--pallas", "--per_sample_chunk", "--grad_clip_split", "--conv_ghost",
                    "--clipping_param_per_layer", "--n_d_steps", "--train_d_until_threshold",
                    "--resume_path", "--dp_mode", "DeepConvResNet", "unconditional",
@@ -255,13 +255,10 @@ def test_not_ported_names_only_unported_flags():
         assert not any(lifted in n for n in one_axis), lifted
     for lifted in ("--fsdp", "--mesh_shape", "--multihost"):
         assert not any(lifted in n for n in one_axis), lifted
-    # The tensor axis is ported; the engines that do not run on it are
-    # refused under it by name (tests/test_torch_tensor_axis.py).
+    # The tensor axis is ported with every engine on it
+    # (tests/test_torch_tensor_axis_engines.py): only the download is left.
     assert "--tp" not in names
-    kept = ("--tp with -dpm is", "--tp with -dpm tm / sv", "--tp with --poisson",
-            "--tp with adaptive clipping", "--tp with -pupd false",
-            "--tp with --penalty DRAGAN", "--tp with --backprop_clip", "--download_mnist")
-    assert names == list(kept)
+    assert names == ["--download_mnist"]
 
 
 def test_celeba_raises(tmp_path):
