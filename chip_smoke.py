@@ -11,6 +11,8 @@
     python3 chip_smoke.py --interop     # steps 1-2, then step 11 alone
     python3 chip_smoke.py --surface     # steps 1-2, then step 12 alone
     python3 chip_smoke.py --parallel    # steps 1-2, then step 13 alone
+    python3 chip_smoke.py --tp          # steps 1-2, then step 14 alone
+    python3 chip_smoke.py --clip        # step 1, K6's build, then step 6's K6 checks
 
 From the root of a checkout, on a machine with one NVIDIA H100 and the CUDA
 toolkit, it:
@@ -92,21 +94,28 @@ toolkit, it:
      on the card's machine; the CPU tests cover it. Prints each save's and
      load's ms and MB and the resumed runs' time to their first epoch,
      each beside the card's name and power limit;
-  6. materialized per-sample-gradient paths (K6). Holds K6 against its
-     plain version (the same Philox stream) at path 1's leaf [600, 101632],
-     at every large leaf of celeba_d64 at B 128, at an odd P and at the leaf
-     gate's P = 16384: the sum at std 0, sum and noise at std 2.5 with one
-     seed, another seed, the same seed twice (bitwise), and the noise's
-     moments; times each beside its plain version, ``w @ g`` +
-     ``std * torch.randn`` and its bytes bound. Holds the MNIST ghost-clipped
-     real sum against the materialized one (bs 600), and one full-width D
+  6. materialized per-sample-gradient paths (K6). Right after the build,
+     while a profiler trace of a short window still reads in full, holds K6
+     against its plain version (the same Philox stream) at path 1's leaf
+     [600, 101632],
+     at every large leaf of celeba_d64 at B 128, at an odd P, at the leaf
+     gate's P = 16384, at [128, 8192] and at batch 50: the sum at std 0, sum
+     and noise at std 2.5 with one seed, another seed, the same seed twice
+     (bitwise), and the noise's moments; then one launch over path 2's four
+     leaves and over the four ``-pupd false`` slices at ``--tp 2`` at their
+     counter bases (each to the same bounds, bitwise on a rerun, each leaf's
+     noise its whole leaf's); times each by CUDA events and on the device
+     beside its plain version, ``w @ g`` + ``std * torch.randn`` (both
+     clocks) and its bytes bound. In its place
+     after step 5, holds the MNIST ghost-clipped real sum against the
+     materialized one (bs 600), and one full-width D
      step of each path through K6 against the same step through K6's plain
      version with the same seeds. Then drives, through the Trainer, path 1
      (``MNIST --conditional -dpm gc --sigma 10 -bs 600 --pallas true
      --grad_clip_split false``) and path 2 (``CelebA --conditional -dpm gc
      -bs 128 -tss 1280 -nms 1 --mean_sample_size 8 --bf16 true
      --train_d_until_threshold 1e18 --conv_ghost false --pallas true``) for 2
-     epochs each, counts K6's launches, and prints ms per D step beside the
+     epochs each, counts K6's launches (one a D step) and leaves, and prints ms per D step beside the
      K1 path's and the conv-ghost path's of the same run, where each step's
      time goes (vmap(grad), norms, K6 and small leaves, the rest) and the
      device time by CUDA kernel of one more epoch;
@@ -303,7 +312,11 @@ toolkit, it:
      step 14, ``tp_launches`` and, for (d), ``tp_engine_launches``);
  16. ends with ``{"ok": true, "device": {...}}`` as the last line.
 Any failure raises or exits non-zero, and no result line is printed. It
-needs no network and imports nothing of JAX or of the JAX package.
+needs no network and imports nothing of JAX or of the JAX package. It
+leaves no process behind, on success or failure: every process it starts
+carries ``CHIP_SMOKE_RUN`` in its environment, orphans of its children
+are re-parented to it (it is their subreaper), and at its end it stops and
+reaps any of them still there and names them on standard error.
 """
 
 from __future__ import annotations
@@ -334,6 +347,104 @@ EPOCHS, CHECK_STEPS, TIME_STEPS = 2, 5, 100
 # for that drift and still fails on any wrong term, which moves a step's
 # update by ~lr / |param| ~ 1e-2 relative.
 REL_BOUND = 1e-4
+
+
+RUN_TAG = "CHIP_SMOKE_RUN"
+PR_SET_CHILD_SUBREAPER = 36
+
+
+def own_run() -> None:
+    """Mark this run: every process started from here on inherits the tag
+    in its environment, and its orphans come back to this process."""
+    import ctypes
+    import os
+    os.environ[RUN_TAG] = f"{os.getpid()}-{time.time_ns()}"
+    if ctypes.CDLL(None, use_errno=True).prctl(PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0) != 0:
+        raise OSError(ctypes.get_errno(), "prctl(PR_SET_CHILD_SUBREAPER)")
+
+
+def run_processes() -> dict:
+    """{pid: (state, command line)} of the processes of this run other
+    than this one: its descendants and any process carrying its tag."""
+    import os
+    me, procs = os.getpid(), {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as fh:
+                state, ppid = fh.read().rsplit(")", 1)[1].split()[:2]
+        except (OSError, ValueError):
+            continue
+        procs[int(d)] = (state, int(ppid))
+    ours, grew = {me}, True
+    while grew:
+        grew = False
+        for pid, (_, ppid) in procs.items():
+            if ppid in ours and pid not in ours:
+                ours.add(pid)
+                grew = True
+    tag = f"{RUN_TAG}={os.environ.get(RUN_TAG)}".encode()
+    for pid in procs:
+        if pid not in ours:
+            try:
+                with open(f"/proc/{pid}/environ", "rb") as fh:
+                    if tag in fh.read().split(b"\0"):
+                        ours.add(pid)
+            except OSError:
+                pass
+    out = {}
+    for pid in ours - {me}:
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as fh:
+                cmd = fh.read().replace(b"\0", b" ").decode(errors="replace").strip()
+        except OSError:
+            cmd = ""
+        out[pid] = (procs[pid][0], cmd[:300])
+    return out
+
+
+def stop_run_processes(grace_s: float = 5.0) -> None:
+    """Stop every process of this run still there (SIGTERM, then SIGKILL
+    after ``grace_s``), reap this process's exited children, and say on
+    standard error what was found."""
+    import os
+    import signal
+
+    def reap():
+        while True:
+            try:
+                if os.waitpid(-1, os.WNOHANG)[0] == 0:
+                    return
+            except ChildProcessError:
+                return
+
+    reap()
+    found = run_processes()
+    for pid, (state, cmd) in sorted(found.items()):
+        print(f"chip_smoke: process {pid} of this run still there at its end (state "
+              f"{state}): {cmd}", file=sys.stderr)
+    deadline = time.time() + grace_s
+    for sig in (signal.SIGTERM, signal.SIGKILL):
+        for pid in found:
+            with contextlib.suppress(OSError):
+                os.kill(pid, sig)
+        while time.time() < deadline:
+            reap()
+            found = {pid: v for pid, v in run_processes().items() if v[0] != "Z"}
+            if not found:
+                break
+            time.sleep(0.1)
+        if not found:
+            break
+        deadline = time.time() + grace_s
+    reap()
+    left = run_processes()
+    if left:
+        print(f"chip_smoke: processes of this run left: {sorted(left.items())}",
+              file=sys.stderr)
+    else:
+        print("chip_smoke: no process of this run is left", file=sys.stderr)
 
 
 def fail(msg: str) -> None:
@@ -747,7 +858,7 @@ GN_KERNELS = ("gn_fwd_cluster", "gn_bwd_cluster", "gn_param_grads", "gn_chunk_st
               "gn_sample_stats", "gn_apply", "gn_bwd_chunk", "gn_bwd_sample", "gn_bwd_dx")
 # CUDA kernel names by group, for the step profiles; the first match wins.
 PROFILE_GROUPS = (
-    ("K6 clip_noise", ("wsum_partial", "sum_noise")),
+    ("K6 clip_noise", ("k6_registers",)),
     ("K2 ghost_sq_norms", ("ghost_norm_tc", "ghost_norm_tiles", "sum_rows")),
     ("K3 weighted_kernel_grad", ("wsum_tc", "scale_cotangent", "wsum_tiles", "sum_splits")),
     ("K4/K5 gn_relu", GN_KERNELS),
@@ -762,11 +873,11 @@ PROFILE_GROUPS = (
 
 def device_ms_by_kernel(prof):
     """[(device ms, launches, name)] of each CUDA kernel in a torch.profiler
-    run, largest first (operator rows, which repeat their kernels' time, are
-    left out)."""
+    run, largest first (operator rows and the profiler's step annotation,
+    which repeat their kernels' time, are left out)."""
     rows = []
     for ev in prof.key_averages():
-        if "CUDA" not in str(ev.device_type):
+        if "CUDA" not in str(ev.device_type) or ev.key.startswith("ProfilerStep"):
             continue
         t_dev = getattr(ev, "self_device_time_total", None)
         if t_dev is None:
@@ -790,20 +901,35 @@ def cuda_ms(fn, reps: int) -> float:
     return s0.elapsed_time(s1) / reps
 
 
+def traced_calls(fn, reps: int):
+    """device_ms_by_kernel of a torch.profiler window of reps calls of fn,
+    after one more call that the profiler traces and discards (a warm-up
+    step): on an H100, a short window opened after a process has run a while
+    has been seen to lose its first kernel's record in every try, and the
+    warm-up step takes that loss."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        prof.step()
+    return device_ms_by_kernel(prof)
+
+
 def device_ms(fn, reps: int):
     """Device time of fn by CUDA kernel over reps calls (torch.profiler /
     CUPTI): (sum of the kernels' ms per call, {kernel name: ms per call},
     {kernel name: launches per call})."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     for _ in range(5):              # a trace now and then comes back empty
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        rows = device_ms_by_kernel(prof)
+        rows = traced_calls(fn, reps)
         if rows and all(cnt % reps == 0 for _, cnt, _ in rows):
             by = {key: t / reps for t, _, key in rows}
             return sum(by.values()), by, {key: cnt // reps for _, cnt, key in rows}
@@ -1249,11 +1375,10 @@ def plain_clip():
     forward of the step goes on through K4 on both sides)."""
     from csl_gan_tpu_torch.ops import pallas_clip as pc
 
-    def clip_plain(g, w, seed, std, base=0):
-        return pc.weighted_sum_noise_plain(g.reshape(g.shape[0], -1), w, seed,
-                                           std, base).reshape(g.shape[1:])
+    def clip_plain(gs, ws, seeds, stds, bases=None, slots=None):
+        return pc.leaves_weighted_sum_noise_plain(gs, ws, seeds, stds, bases, slots)
 
-    return _swapped(((pc, "leaf_weighted_sum_noise", clip_plain),))
+    return _swapped(((pc, "leaves_weighted_sum_noise", clip_plain),))
 
 
 def _share_moved(k, p):
@@ -1604,14 +1729,16 @@ def _step_builder(argv, dev, out_dir):
     return opt, StepBuilder(opt, G, D)
 
 
-def k6_held(g, dev, b, p, tag, peak_bytes, base=0):
+def k6_held(g, dev, b, p, tag, peak_bytes, base=0, on_device=True):
     """K6 against its plain version at [b, p] (the sum at std 0 to
     K6_SUM_BOUND, sum and noise with one seed to K6_NOISE_BOUND * std), run
     twice (bitwise), with another seed (a new draw) and the noise's moments,
     timed beside its plain version and ``w @ g`` + ``randn``. With a counter
     ``base`` (a model slice's, --tp) both run at it, and K6's noise there is
     held to the same columns of K6's noise over the whole [b, base + p]
-    leaf, bit for bit. Returns (times and bytes bound, max abs gap)."""
+    leaf, bit for bit. ``on_device``: also timed on the device (the
+    profiler's trace reads right early in a process; see main). Returns
+    (times and bytes bound, max abs gap)."""
     import torch
     from csl_gan_tpu_torch.ops import pallas_clip as pc
     std = torch.tensor(K6_STD, device=dev)
@@ -1641,16 +1768,13 @@ def k6_held(g, dev, b, p, tag, peak_bytes, base=0):
     err = max(gap, float((k0 - p0).abs().max()))
     z = (k1 - k0) / K6_STD
     mean, sd = float(z.mean()), float(z.std())
-    t = {"ms": cuda_ms(lambda: pc.leaf_weighted_sum_noise(x, w, seed, std, base), 20),
-         "plain_ms": cuda_ms(lambda: pc.weighted_sum_noise_plain(x, w, seed, std, base), 3),
-         "library_ms": cuda_ms(lambda: w @ x + std * torch.randn(p, device=dev), 20),
-         "bytes": 4.0 * (b * p + b + p) + 12}
-    t["bound_ms"] = t["bytes"] / peak_bytes * 1e3
+    t = k6_times(lambda: pc.leaf_weighted_sum_noise(x, w, seed, std, base),
+                 lambda: pc.weighted_sum_noise_plain(x, w, seed, std, base),
+                 lambda: w @ x + std * torch.randn(p, device=dev),
+                 4.0 * (b * p + b + p) + 12, peak_bytes, on_device)
     print(f"K6 [{b}, {p}] ({tag}): std 0 rel l2 {r0:.3e} (bound {K6_SUM_BOUND:g}); std "
           f"{K6_STD} same seed max abs gap {gap:.3e} (bound {K6_NOISE_BOUND * K6_STD:g}); "
-          f"noise mean {mean:+.4f} std {sd:.4f}; K6 {t['ms']:.4f} ms, plain "
-          f"{t['plain_ms']:.4f}, w @ g + randn {t['library_ms']:.4f}, bound "
-          f"{t['bound_ms']:.4f} ({100 * t['bound_ms'] / t['ms']:.1f}% of the memory rate)")
+          f"noise mean {mean:+.4f} std {sd:.4f}; " + k6_times_line(t))
     if not (r0 <= K6_SUM_BOUND and gap <= K6_NOISE_BOUND * K6_STD):
         fail(f"K6 disagrees with its plain version at [{b}, {p}]")
     if not torch.equal(k1, again):
@@ -1662,34 +1786,144 @@ def k6_held(g, dev, b, p, tag, peak_bytes, base=0):
     return t, err
 
 
+def device_ms_a_call(fn, reps: int) -> float:
+    """Device ms of one call of fn from one torch.profiler window of reps
+    calls: each CUDA kernel's mean time a launch times its launches a call
+    (its count over reps, rounded), so an event the trace drops, or a
+    stray kernel of another thread, moves neither."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(5):              # a trace now and then comes back empty
+        total = sum(t / cnt * round(cnt / reps) for t, cnt, _ in traced_calls(fn, reps))
+        if total > 0:
+            return total
+    fail("torch.profiler recorded no device time in 5 tries")
+
+
+def k6_times(kernel, plain, library, nbytes, peak_bytes, on_device=True):
+    """K6's call timed by CUDA events and (``on_device``) on the device
+    (torch.profiler), beside its plain version and ``w @ g + std * randn``
+    (the library call, by the same clocks) and its bytes bound."""
+    t = {"ms": cuda_ms(kernel, 20), "plain_ms": cuda_ms(plain, 3),
+         "library_ms": cuda_ms(library, 20), "bytes": nbytes,
+         "bound_ms": nbytes / peak_bytes * 1e3}
+    if on_device:
+        t["device_ms"] = device_ms_a_call(kernel, 20)
+        t["library_device_ms"] = device_ms_a_call(library, 20)
+    return t
+
+
+def k6_times_line(t):
+    dv = "device_ms" in t
+    return (f"K6 {t['ms']:.4f} ms by CUDA events"
+            + (f", {t['device_ms']:.4f} on the device" if dv else "")
+            + f"; w @ g + randn {t['library_ms']:.4f}"
+            + (f" / {t['library_device_ms']:.4f}" if dv else "")
+            + f"; plain {t['plain_ms']:.4f}; bound {t['bound_ms']:.4f} "
+            f"({100 * t['bound_ms'] / t['ms']:.1f}% of the memory rate by events"
+            + (f", {100 * t['bound_ms'] / t['device_ms']:.1f}% on the device)" if dv else ")"))
+
+
+def k6_group_held(g, dev, b, ps, tag, peak_bytes, bases=None):
+    """One K6 launch over leaves [b, p] (``ps``) at counter ``bases``
+    against its plain version leaf by leaf (the sums at std 0 to
+    K6_SUM_BOUND, sums and noise to K6_NOISE_BOUND * std), run twice
+    (bitwise); each leaf's noise (w = 0) bit for bit its whole leaf's one-leaf
+    draw at the base; timed as ``k6_times``, the library call one
+    ``w @ g + std * randn`` a leaf. Returns (times, max abs gap)."""
+    import torch
+    from csl_gan_tpu_torch.ops import pallas_clip as pc
+    n = len(ps)
+    bases = [0] * n if bases is None else bases
+    xs = [torch.randn(b, p, generator=g, device=dev) for p in ps]
+    ws = [torch.rand(b, generator=g, device=dev) * 0.9 + 0.1 for _ in ps]
+    seeds = torch.randint(0, 2 ** 63 - 1, (n,), generator=g, device=dev)
+    std = torch.full((n,), K6_STD, device=dev)
+    zero = torch.zeros(n, device=dev)
+
+    def grouped(stds, w=ws):
+        return pc.leaves_weighted_sum_noise(xs, w, seeds, stds, bases)
+    k0, p0 = grouped(zero), pc.leaves_weighted_sum_noise_plain(xs, ws, seeds, zero, bases)
+    k1, p1 = grouped(std), pc.leaves_weighted_sum_noise_plain(xs, ws, seeds, std, bases)
+    again = grouped(std)
+    w0 = [torch.zeros_like(w) for w in ws]
+    noise = grouped(std, w=w0)
+    for i, (p, base) in enumerate(zip(ps, bases)):
+        whole = pc.leaf_weighted_sum_noise(torch.zeros(b, base + p, device=dev), w0[i],
+                                           seeds[i], std[i])
+        if not torch.equal(noise[i], whole[base:]):
+            fail(f"K6 group {tag}: leaf {i}'s noise at base {base} is not its whole leaf's")
+        del whole
+    torch.cuda.synchronize()
+    r0 = max(rel_l2(a, c) for a, c in zip(k0, p0))
+    gap = max(float((a - c).abs().max()) for a, c in zip(k1, p1))
+    err = max(gap, max(float((a - c).abs().max()) for a, c in zip(k0, p0)))
+    if not (r0 <= K6_SUM_BOUND and gap <= K6_NOISE_BOUND * K6_STD):
+        fail(f"K6 group {tag} disagrees with its plain version")
+    if not all(torch.equal(a, c) for a, c in zip(k1, again)):
+        fail(f"K6 group {tag} is not bitwise reproducible")
+    nbytes = sum(4.0 * (b * p + b + p) + 12 for p in ps)
+    t = k6_times(lambda: grouped(std), lambda: pc.leaves_weighted_sum_noise_plain(
+        xs, ws, seeds, std, bases), lambda: [w @ x + s * torch.randn(x.shape[1], device=dev)
+                                             for w, x, s in zip(ws, xs, std)],
+        nbytes, peak_bytes)
+    plan = pc.group_plan(b, tuple(ps), (True,) * n, pc._n_sm(torch.device(dev).index))
+    print(f"K6 group {tag}: {n} leaves [{b}, {list(ps)}] at bases {bases} in one launch (tile "
+          f"{plan.tile}, cluster {plan.cluster}, {plan.rows} rows a CTA, "
+          f"{(plan.tile0[-1] + -(-ps[-1] // plan.tile)) * plan.cluster} CTAs): std 0 rel l2 "
+          f"{r0:.3e} (bound {K6_SUM_BOUND:g}); std {K6_STD} max abs gap {gap:.3e} (bound "
+          f"{K6_NOISE_BOUND * K6_STD:g}); bitwise on a rerun; each "
+          f"leaf's noise its whole leaf's at its base; " + k6_times_line(t))
+    return t, err
+
+
+# The -pupd false step's four K6 leaves at --tp 2, a rank's slices:
+# conv2-conv4's weights and linOutAux, at the last model rank's bases.
+K6_PUPD_TP2 = (102400, 409600, 1638400, 8192)
+
+
 def clip_kernel_phase(dev, peak_bytes, large_leaves):
-    """K6 against its plain version and timed: at path 1's leaf, at every
-    large leaf of celeba_d64 (B 128), at an odd P and at the gate's P.
-    Returns the kernels-line entry (without its launch counts)."""
+    """K6 against its plain version and timed: one leaf at path 1's leaf, at
+    every large leaf of celeba_d64 (B 128), at an odd P, at the gate's P, at
+    batch 50 and at [128, 8192]; one launch over path 2's four leaves and
+    over the four -pupd false slices at --tp 2 at their counter bases.
+    Returns the kernels-line
+    entry (without its launch counts)."""
     import torch
     from csl_gan_tpu_torch.ops import pallas_clip as pc
 
     g = torch.Generator(dev).manual_seed(23)
     path2 = sorted({n for _, n in large_leaves})
-    shapes = [(BS, (F + NC) * H, "path 1")] + [(CB, n, "path 2") for n in path2]
-    shapes += [(CB, n, "extra") for n in (33300, pc.MIN_PALLAS_ELEMS) if n not in path2]
+    p1 = (F + NC) * H
+    shapes = [(BS, p1, "path 1")] + [(CB, n, "path 2") for n in path2]
+    shapes += [(CB, n, "extra") for n in (33300, pc.MIN_PALLAS_ELEMS, 8192) if n not in path2]
+    shapes += [(B50, p1, f"B {B50}")]
     rows, err = {}, 0.0
     for b, p, tag in shapes:
         t, e = k6_held(g, dev, b, p, tag, peak_bytes)
         rows[(b, p)] = (tag, t)
         err = max(err, e)
-    one = rows[(BS, (F + NC) * H)][1]
-    two = {key: sum(rows[(CB, n)][1][key] for _, n in large_leaves)
-           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    print("K6 over celeba_d64's large leaves (one D step of path 2): "
-          + ", ".join(f"{k} {v:.4f}" for k, v in two.items()))
-    return {"name": "leaf_weighted_sum_noise", "route": "cuda",
+    one = rows[(BS, p1)][1]
+    two, e = k6_group_held(g, dev, CB, [n for _, n in large_leaves], "path 2 (one D step)",
+                           peak_bytes)
+    err = max(err, e)
+    pupd, e = k6_group_held(g, dev, CB, list(K6_PUPD_TP2), "-pupd false at --tp 2 (rank 1)",
+                            peak_bytes, bases=list(K6_PUPD_TP2))
+    err = max(err, e)
+    keys = ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms", "bound_ms")
+    return {"name": "leaves_weighted_sum_noise", "route": "cuda",
             "source": "csl_gan_tpu_torch/ops/csrc/clip_noise.cu",
             "replaces": "csl_gan_tpu/ops/pallas_clip.py:61",
             "max_abs_err": err, "ms": one["ms"], "plain_ms": one["plain_ms"],
             "bound_ms": one["bound_ms"], "bound_by": "bytes", "library_ms": one["library_ms"],
-            "per": f"launch at path 1's leaf [{BS}, {(F + NC) * H}] (one per D step)",
-            "path2": dict(two, per=f"D step: {len(large_leaves)} launches at B {CB}")}
+            "device_ms": one["device_ms"], "library_device_ms": one["library_device_ms"],
+            "per": f"launch at path 1's leaf [{BS}, {p1}] (one per D step)",
+            "path2": dict({k: two[k] for k in keys},
+                          per=f"D step: one launch over {len(large_leaves)} leaves at B {CB}"),
+            "pupd_tp2": dict({k: pupd[k] for k in keys},
+                             per=f"-pupd false D step at --tp 2: one launch, 4 slices"),
+            "shapes": {f"{b}x{p}": {k: t[k] for k in keys} for (b, p), (_, t) in rows.items()}}
 
 
 def ghost_vs_materialized(dev, out_root):
@@ -1819,9 +2053,10 @@ def clip_step_breakdown(name, b, st0, inputs):
           + f"; beside it, the unfused sum + noise of --pallas false: {unfused:.3f}")
 
 
-def clip_path(name, argv, tss, out_root, expect_per_step, need=()):
-    """A materialized path through the Trainer for K6_EPOCHS epochs.
-    Returns (ms per D step after the first epoch, K6 launches)."""
+def clip_path(name, argv, tss, out_root, leaves_per_step, need=()):
+    """A materialized path through the Trainer for K6_EPOCHS epochs: K6 one
+    launch a D step over ``leaves_per_step`` leaves. Returns (ms per D step
+    after the first epoch, K6 launches)."""
     import torch
     from csl_gan_tpu_torch import options as toptions
     from csl_gan_tpu_torch.ops import pallas_clip as pc
@@ -1834,17 +2069,18 @@ def clip_path(name, argv, tss, out_root, expect_per_step, need=()):
     tr = Trainer(opt)
     if not (isinstance(tr.runner, StepRunner) and tr.builder.fused_route):
         fail(f"{name} does not take the step runner's fused route")
-    pc.leaf_weighted_sum_noise.launches = 0
+    pc.leaves_weighted_sum_noise.launches = pc.leaves_weighted_sum_noise.leaves = 0
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     tr.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = pc.leaf_weighted_sum_noise.launches
+    launches, leaves = pc.leaves_weighted_sum_noise.launches, pc.leaves_weighted_sum_noise.leaves
     n = tr.n_batches
-    if launches != e * n * expect_per_step:
-        fail(f"K6 launched {launches} times on {name}, expected {e * n * expect_per_step}")
+    if launches != e * n or leaves != e * n * leaves_per_step:
+        fail(f"K6 launched {launches} times over {leaves} leaves on {name}, expected {e * n} "
+             f"over {e * n * leaves_per_step}")
     ep_ms = [a.elapsed_time(b) for a, b in tr.runner.epoch_events]
     with open(out_root / name / "privacy_log.csv") as fh:
         eps = [float(r["Epsilon"]) for r in csv.DictReader(fh)]
@@ -1864,7 +2100,8 @@ def clip_path(name, argv, tss, out_root, expect_per_step, need=()):
     rest = ep_ms[1:] or ep_ms
     step_ms = sum(rest) / len(rest) / n
     print(f"{name}: {e} epochs x {n} D steps ({tr.state.g_count} G updates), K6 launches "
-          f"{launches} ({expect_per_step} per D step); ms per D step first epoch "
+          f"{launches} (one a D step over {leaves_per_step} leaves: {leaves}); ms per D step "
+          f"first epoch "
           f"{ep_ms[0] / n:.3f}, after {step_ms:.3f} (epochs "
           f"{', '.join(f'{v:.1f}' for v in ep_ms)} ms); {opt.batch_size * 1e3 / step_ms:.0f} "
           f"samples/s after the first; wall {wall:.2f} s; peak memory "
@@ -1874,11 +2111,9 @@ def clip_path(name, argv, tss, out_root, expect_per_step, need=()):
     return step_ms, launches
 
 
-def clip_phases(dev, out_root, peak_bytes, k1_epoch_ms, celeba_step_ms):
-    """K6's checks and the two materialized paths. Returns K6's kernels-line
-    entry."""
-    import torch
-    from csl_gan_tpu_torch.data.mnist import synthetic_mnist
+def k6_large_leaves():
+    """celeba_d64's leaves that the gate sends to K6, [(name, P)], printed
+    beside the small-leaf branch's."""
     from csl_gan_tpu_torch.models.dcresnet import celeba_d64, d_leaves
     from csl_gan_tpu_torch.ops import pallas_clip as pc
 
@@ -1889,7 +2124,16 @@ def clip_phases(dev, out_root, peak_bytes, k1_epoch_ms, celeba_step_ms):
           f"{pc.MIN_PALLAS_ELEMS} elements) sends to K6: "
           + ", ".join(f"{k} {n}" for k, n in large) + "; small-leaf branch: "
           + ", ".join(f"{k} {sizes[k]}" for k in d_leaves(d) if sizes[k] < pc.MIN_PALLAS_ELEMS))
-    entry = clip_kernel_phase(dev, peak_bytes, large)
+    return large
+
+
+def clip_phases(dev, out_root, entry, large, k1_epoch_ms, celeba_step_ms):
+    """The two materialized paths, K6's launches on them into its
+    kernels-line ``entry`` (from ``clip_kernel_phase``; ``large``: the leaves
+    path 2 gives K6). Returns the entry."""
+    import torch
+    from csl_gan_tpu_torch.data.mnist import synthetic_mnist
+
     ghost_vs_materialized(dev, out_root)
 
     def mnist_batch(g, bs):
@@ -1913,6 +2157,7 @@ def clip_phases(dev, out_root, peak_bytes, k1_epoch_ms, celeba_step_ms):
           f"{celeba_step_ms:.3f} ({ms2 / celeba_step_ms:.2f}x)")
     entry["launches"] = n1
     entry["path2"]["launches"] = n2
+    entry["path2"]["leaves"] = n2 * len(large)
     return entry
 
 
@@ -2620,9 +2865,10 @@ def cond_arch_run(name, argv, out_root, smi, expect, sub="cond_archs"):
         fail(f"{name} does not take the step runner")
     wrappers = {"K1": pe.epoch_kernel, "K2": pcg.ghost_sq_norms, "K3": pcg.weighted_kernel_grad,
                 "K4": gn.gn_relu_forward, "K5": gn.gn_relu_backward,
-                "K6": pc.leaf_weighted_sum_noise}
+                "K6": pc.leaves_weighted_sum_noise}
     for w in wrappers.values():
         w.launches = 0
+    pc.leaves_weighted_sum_noise.leaves = 0
     pcg.ghost_sq_norms.launches_tc = pcg.weighted_kernel_grad.launches_tc = 0
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
@@ -2631,6 +2877,7 @@ def cond_arch_run(name, argv, out_root, smi, expect, sub="cond_archs"):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: w.launches for k, w in wrappers.items()}
+    launches["K6 leaves"] = pc.leaves_weighted_sum_noise.leaves
     launches["K2 tc"], launches["K3 tc"] = (pcg.ghost_sq_norms.launches_tc,
                                             pcg.weighted_kernel_grad.launches_tc)
     n = tr.n_batches
@@ -2692,7 +2939,8 @@ def cond_archs_phase(dev, out_root, smi, k1_step_ms=None, celeba_step_ms=None):
         """K2/K3 three times a D step on the tensor cores, K4 nine times a G
         forward (a D step's fakes, a G update), K5 nine times a G update."""
         return {"K1": 0, "K2": 3 * n_d, "K3": 3 * n_d, "K4": G_NORMS * (n_d + n_g),
-                "K5": G_NORMS * n_g, "K6": 0, "K2 tc": 3 * n_d, "K3 tc": 3 * n_d}
+                "K5": G_NORMS * n_g, "K6": 0, "K6 leaves": 0, "K2 tc": 3 * n_d,
+                "K3 tc": 3 * n_d}
 
     launches_keys = celeba_launches(0, 0)
     t_phase = time.perf_counter()
@@ -2760,7 +3008,7 @@ PUBLIC_RUNS = (
 def public_expect(name, n_dp, n_warm, g_train, g_warm):
     """The launches of each kernel on a phase-9 run: (D steps with DP, warmup
     D steps, G updates after the warmup, warmup G updates) -> {kernel: n}."""
-    out = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6", "K2 tc", "K3 tc"), 0)
+    out = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6", "K6 leaves", "K2 tc", "K3 tc"), 0)
     if name.startswith("MNIST warmup"):
         out["K1"] = PUBLIC_EPOCHS
     elif name.startswith("CelebA"):
@@ -2772,7 +3020,7 @@ def public_expect(name, n_dp, n_warm, g_train, g_warm):
                     "K4": G_NORMS * (n_dp + n_warm + g_train + g_warm),
                     "K5": G_NORMS * (g_train + g_warm)})
     elif name.startswith("path 1"):
-        out["K6"] = n_dp
+        out["K6"] = out["K6 leaves"] = n_dp
     return out
 
 
@@ -2812,9 +3060,10 @@ def public_run(name, argv, out_root, smi, ref_ms):
         fail(f"{name}: K1's runner taken {on_k1}")
     wrappers = {"K1": pe.epoch_kernel, "K2": pcg.ghost_sq_norms, "K3": pcg.weighted_kernel_grad,
                 "K4": gn.gn_relu_forward, "K5": gn.gn_relu_backward,
-                "K6": pc.leaf_weighted_sum_noise}
+                "K6": pc.leaves_weighted_sum_noise}
     for w in wrappers.values():
         w.launches = 0
+    pc.leaves_weighted_sum_noise.leaves = 0
     pcg.ghost_sq_norms.launches_tc = pcg.weighted_kernel_grad.launches_tc = 0
     step_runner_steps = [0]
     train_batch = tr.step_runner._train_batch
@@ -2832,6 +3081,7 @@ def public_run(name, argv, out_root, smi, ref_ms):
     wall = time.perf_counter() - t0
     del tr.step_runner._train_batch
     launches = {k: w.launches for k, w in wrappers.items()}
+    launches["K6 leaves"] = pc.leaves_weighted_sum_noise.leaves
     launches["K2 tc"], launches["K3 tc"] = (pcg.ghost_sq_norms.launches_tc,
                                             pcg.weighted_kernel_grad.launches_tc)
     n, wi = tr.n_batches, int(opt.warmup_iter)
@@ -2931,7 +3181,7 @@ def b50_kernel_checks(dev, peak_bf16, peak_bytes, smi):
         t["K4"][1] += mult * cuda_ms(lambda: gn.gn_relu_plain(x, sc, bi, 32, 1e-5), 5)
         t["K5"][0] += mult * cuda_ms(lambda: gn.gn_relu_backward(x, dy, sc, bi, 32, 1e-5), 20)
         t["K5"][1] += mult * cuda_ms(lambda: gn.gn_relu_bwd_plain(x, dy, sc, bi, 32, 1e-5), 5)
-    k6, _ = k6_held(g, dev, B50, (F + NC) * H, f"B {B50}", peak_bytes)
+    k6, _ = k6_held(g, dev, B50, (F + NC) * H, f"B {B50}", peak_bytes, on_device=False)
     t["K6"] = [k6["ms"], k6["plain_ms"]]
     print(f"kernels at B {B50} [{smi}], ms by CUDA events (kernel, plain): K2 per D step "
           f"{t['K2'][0]:.4f}, {t['K2'][1]:.3f}; K3 per D step {t['K3'][0]:.4f}, {t['K3'][1]:.3f}; "
@@ -2991,7 +3241,8 @@ def _conv_launches(n_d, n_g):
 def _surface_expect(counts):
     """``counts(D steps, G updates)`` over zero launches of every kernel."""
     def expect(n_d, n_g):
-        out = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6", "K2 tc", "K3 tc"), 0)
+        out = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6", "K6 leaves", "K2 tc",
+                             "K3 tc"), 0)
         out.update(counts(n_d, n_g))
         return out
     return expect
@@ -3002,14 +3253,15 @@ SURFACE_RUNS = (
                                         "true"], _conv_launches),
     ("MNIST Poisson", PUBLIC_MNIST + ["--poisson", "true"], lambda n_d, n_g: {}),
     ("CelebA per-sample penalty", PUBLIC_CELEBA + ["-pupd", "false", "--pallas", "true"],
-     lambda n_d, n_g: {"K6": 4 * n_d, "K4": G_NORMS * (n_d + n_g), "K5": G_NORMS * n_g}),
+     lambda n_d, n_g: {"K6": n_d, "K6 leaves": 4 * n_d, "K4": G_NORMS * (n_d + n_g),
+                       "K5": G_NORMS * n_g}),
     ("MNIST per-sample DRAGAN", SURFACE_MNIST + ["--penalty", "DRAGAN1", "-pupd", "false",
                                                  "--pallas", "true"],
-     lambda n_d, n_g: {"K6": n_d}),
+     lambda n_d, n_g: {"K6": n_d, "K6 leaves": n_d}),
     ("CelebA DRAGAN", PUBLIC_CELEBA + ["-nms", "1", "--mean_sample_size", "8", "--penalty",
                                        "DRAGAN"], _conv_launches),
     ("MNIST bpc", SURFACE_MNIST + ["--backprop_clip", "true", "--pallas", "true"],
-     lambda n_d, n_g: {"K6": n_d}),
+     lambda n_d, n_g: {"K6": n_d, "K6 leaves": n_d}),
     ("MNIST is bpc", SURFACE_MNIST + ["-dpm", "is", "--backprop_clip", "true"],
      lambda n_d, n_g: {}),
 )
@@ -3258,15 +3510,18 @@ def shapes_taken(seen, k6=False):
 
     def spy(key, fn):
         def run(*args, **kw):
-            ops = args[:2] if key in ("K2", "K3") else args[:1]
-            seen.add((key, tuple(tuple(t.shape) for t in ops), args[0].dtype))
+            if key == "K6":             # one record a leaf of the group
+                seen.update((key, (tuple(t.shape),), t.dtype) for t in args[0])
+            else:
+                ops = args[:2] if key in ("K2", "K3") else args[:1]
+                seen.add((key, tuple(tuple(t.shape) for t in ops), args[0].dtype))
             return fn(*args, **kw)
-        run.launches = run.launches_tc = 0
+        run.launches = run.launches_tc = run.leaves = 0
         return run
     swaps = tuple((mod, name, spy(key, getattr(mod, name))) for key, mod, name in (
         ("K2", pcg, "ghost_sq_norms"), ("K3", pcg, "weighted_kernel_grad"),
         ("K4", gn, "gn_relu_forward"), ("K5", gn, "gn_relu_backward"))
-        + ((("K6", pc, "leaf_weighted_sum_noise"),) if k6 else ()))
+        + ((("K6", pc, "leaves_weighted_sum_noise"),) if k6 else ()))
     with _swapped(swaps):
         yield [fn for _, _, fn in swaps]
 
@@ -3489,7 +3744,7 @@ def interop_phase(dev, out_root, smi, peak_flops):
 SURF_MNIST = ["MNIST", "--conditional", "-dpm", "gc", "--sigma", "10", "-bs", str(BS),
               "-tss", "60000", "--log_every", "60000"]
 SURF_CELEBA = PUBLIC_CELEBA + ["-nms", "1", "--mean_sample_size", "8", "--log_every", "1280"]
-SURF_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K2 tc", "K3 tc")
+SURF_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K6 leaves", "K2 tc", "K3 tc")
 # The sub-epoch cadence: a log row and a grid every 20 of the 100 steps.
 SURF_CADENCE = 12000
 # The grouped CelebA epoch against the per-batch one. Two per-batch runs of
@@ -3567,9 +3822,10 @@ def surface_run(name, argv, root, smi, expect, capture=False, setup=None):
     with k4_batches(by_batch) as k4:
         wrappers = {"K1": pe.epoch_kernel, "K2": pcg.ghost_sq_norms,
                     "K3": pcg.weighted_kernel_grad, "K4": k4, "K5": gn.gn_relu_backward,
-                    "K6": pc.leaf_weighted_sum_noise}
+                    "K6": pc.leaves_weighted_sum_noise}
         for w in wrappers.values():
             w.launches = 0
+        pc.leaves_weighted_sum_noise.leaves = 0
         pcg.ghost_sq_norms.launches_tc = pcg.weighted_kernel_grad.launches_tc = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3578,6 +3834,7 @@ def surface_run(name, argv, root, smi, expect, capture=False, setup=None):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {k: w.launches for k, w in wrappers.items()}
+        launches["K6 leaves"] = pc.leaves_weighted_sum_noise.leaves
     launches["K2 tc"], launches["K3 tc"] = (pcg.ghost_sq_norms.launches_tc,
                                             pcg.weighted_kernel_grad.launches_tc)
     n = tr.n_batches
@@ -3914,14 +4171,16 @@ def par_counted(counts):
     from csl_gan_tpu_torch.ops import pallas_groupnorm as gn
     wrappers = {"K1": pe.epoch_kernel, "K2": pcg.ghost_sq_norms, "K3": pcg.weighted_kernel_grad,
                 "K4": gn.gn_relu_forward, "K5": gn.gn_relu_backward,
-                "K6": pc.leaf_weighted_sum_noise}
+                "K6": pc.leaves_weighted_sum_noise}
     issued = (gn.cuda_launches(), gn.cuda_launches(True))
     for w in wrappers.values():
         w.launches = 0
+    pc.leaves_weighted_sum_noise.leaves = 0
     pcg.ghost_sq_norms.launches_tc = pcg.weighted_kernel_grad.launches_tc = 0
     yield
     torch.cuda.synchronize()
     counts.update({k: w.launches for k, w in wrappers.items()})
+    counts["K6 leaves"] = pc.leaves_weighted_sum_noise.leaves
     counts["K2 tc"], counts["K3 tc"] = (pcg.ghost_sq_norms.launches_tc,
                                         pcg.weighted_kernel_grad.launches_tc)
     counts["K4 cuda"] = gn.cuda_launches() - issued[0]
@@ -4203,7 +4462,7 @@ def par_shapes_held(name, seen, want, dev, peak_bytes, tp=1):
         # K6 takes the leaf's per-sample gradients [b, *leaf] as [b, P].
         p = math.prod(leaf)
         k6_held(g, dev, b, p, f"{name}, a rank's rows, leaf {leaf}", peak_bytes,
-                base=(tp - 1) * p)
+                base=(tp - 1) * p, on_device=False)
 
 
 def par_groups_held(name, got, ref, halves, witness, repeat):
@@ -4272,7 +4531,7 @@ def _parallel_phase(dev, out_root, smi, peak_bytes):
     t_phase = time.perf_counter()
     tr1, want, ms1, seen1 = par_one("CelebA one rank", PAR_CELEBA, root)
     n_d, n_g = tr1.state.d_count, tr1.state.g_count
-    formula = dict(_celeba_expect(n_d, n_g), K1=0, K6=0)
+    formula = dict(_celeba_expect(n_d, n_g), K1=0, K6=0, **{"K6 leaves": 0})
     if {k: want[k] for k in formula} != formula:
         fail(f"CelebA one rank: launches {want}, expected {formula}")
     again, _, _, _ = par_one("CelebA one rank again", PAR_CELEBA, root)
@@ -4375,6 +4634,7 @@ def _parallel_phase(dev, out_root, smi, peak_bytes):
     for name, argv, argv1 in cases:
         tr1, want, ms1, seen1 = par_one(name + " one rank", argv1, root)
         if type(tr1.runner).__name__ != "StepRunner" or want["K1"] or \
+                want["K6"] != want["K6 leaves"] or \
                 want["K6"] != (tr1.state.d_count if argv is PAR_PATH1 else 0):
             fail(f"{name} one rank: launches {want} on the {type(tr1.runner).__name__}")
         ones.append((tr1, want, ms1, seen1))
@@ -4438,24 +4698,25 @@ TP_ENGINE_STEPS = (
     ("CelebA adaptive", PAR_CELEBA + ["-gcm", "adaptive"],
      {"K2": 6, "K3": 3, "K4": 2 * G_NORMS, "K5": G_NORMS}),
     ("CelebA -pupd false", PUBLIC_CELEBA + ["-pupd", "false", "--pallas", "true"],
-     {"K6": 4, "K4": 2 * G_NORMS, "K5": G_NORMS}),
+     {"K6": 1, "K6 leaves": 4, "K4": 2 * G_NORMS, "K5": G_NORMS}),
     ("CelebA DRAGAN", PAR_CELEBA + ["--penalty", "DRAGAN"],
      {"K2": 3, "K3": 3, "K4": 2 * G_NORMS, "K5": G_NORMS}),
     ("MNIST is", TP_MNIST + ["-dpm", "is"], {}),
     ("MNIST is per-param", TP_MNIST + ["-dpm", "is", "-ispp", "true"], {}),
     ("MNIST sv", TP_MNIST + ["-dpm", "sv"], {}),
-    ("MNIST bpc", TP_MNIST + ["--backprop_clip", "true", "--pallas", "true"], {"K6": 1}),
+    ("MNIST bpc", TP_MNIST + ["--backprop_clip", "true", "--pallas", "true"],
+     {"K6": 1, "K6 leaves": 1}),
 )
 # Two engines through the Trainer at --tp 2 beside one rank's: CelebA Poisson (K2/K3 at the 219-row buffer on half the
-# output channels) and path 1 with adaptive clipping (K6 at each slice's
-# counter base with the step's adaptive std), fp32, its end state held to
-# PAR_FP32_BOUND.
+# output channels; 5 D steps, as TP_CELEBA1: a D step at --tp 2 takes ~4 s)
+# and path 1 with adaptive clipping (K6 at each slice's counter base with
+# the step's adaptive std), fp32, its end state held to PAR_FP32_BOUND.
 TP_ENGINE_RUNS = (
-    ("CelebA Poisson", PAR_CELEBA + ["--poisson", "true"]),
+    ("CelebA Poisson", TP_CELEBA1 + ["--poisson", "true"]),
     ("path 1 adaptive", PAR_PATH1 + ["-gcm", "adaptive", "-nms", "1", "--mean_sample_size",
                                      "10"]),
 )
-TP_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6")
+TP_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K6 leaves")
 
 
 def _tp_cut(w) -> bool:
@@ -4545,7 +4806,8 @@ def tp_halved(seen):
 
 
 def _k_counts(counts):
-    """Each wrapper's launches of a ``par_counted`` record (K1-K6)."""
+    """Each wrapper's launches of a ``par_counted`` record (K1-K6, and K6's
+    leaves)."""
     return {k: counts[k] for k in TP_KERNELS}
 
 
@@ -4682,7 +4944,8 @@ def _tp_phase(dev, out_root, smi, peak_bytes):
     # step from it at --tp 2 against the same steps on one rank, each group
     # within 3x the same steps computed in channel halves.
     tr1, want, ms1, seen1 = par_one("CelebA one rank", TP_CELEBA1, root)
-    formula = dict(_celeba_expect(tr1.state.d_count, tr1.state.g_count), K1=0, K6=0)
+    formula = dict(_celeba_expect(tr1.state.d_count, tr1.state.g_count), K1=0, K6=0,
+                   **{"K6 leaves": 0})
     if {k: want[k] for k in formula} != formula:
         fail(f"CelebA one rank: launches {want}, expected {formula}")
     b, st = tr1.builder, tr1.state
@@ -4706,7 +4969,8 @@ def _tp_phase(dev, out_root, smi, peak_bytes):
     # (b) The fp32 runs' one-rank references: path 1 (K6) for an epoch, and
     # one D + G step of the MNIST flagship's flags on the ghost route.
     p1, want_p1, ms_p1, seen_p1 = par_one("path 1 one rank", PAR_PATH1, root)
-    if want_p1["K6"] != p1.state.d_count or want_p1["K1"]:
+    if want_p1["K6"] != p1.state.d_count or want_p1["K6 leaves"] != want_p1["K6"] or \
+            want_p1["K1"]:
         fail(f"path 1 one rank: launches {want_p1}")
     mn, _, _, _ = par_one("MNIST ghost one rank", TP_MNIST, root)
     mb_, mst = mn.builder, mn.state
@@ -4871,6 +5135,14 @@ def main() -> int:
         _build.build_all(("conv_ghost", "gn_relu"))
         cond_archs_phase(dev, out_root, smi)
         return 0
+    if "--clip" in sys.argv[1:]:
+        t0 = time.perf_counter()
+        _build.build_all(("clip_noise",))
+        print(f"build: {time.perf_counter() - t0:.1f} s for clip_noise.cu")
+        for fn, report in ptxas_by_kernel(_build.build_logs.get("clip_noise", "")).items():
+            print(f"ptxas clip_noise {fn}: {report}")
+        print(json.dumps({"k6": clip_kernel_phase(dev, peak_bytes, k6_large_leaves())}))
+        return 0
 
     # 2. Build.
     t0 = time.perf_counter()
@@ -4933,6 +5205,12 @@ def main() -> int:
         print(json.dumps({"tp_engine_launches": engines}))
         return 0
 
+    # 6a. K6 against its plain version at every shape its paths give it,
+    # timed on the device first: late in a long run a torch.profiler trace
+    # of a short window has come back empty.
+    large = k6_large_leaves()
+    k6_entry = clip_kernel_phase(dev, peak_bytes, large)
+
     # 3. The MNIST path (K1): kernel vs plain, the Trainer, K1's timing.
     max_abs = k1_check_phase(dev, out_root)
     launches, k1_epoch_ms = mnist_path_phase(out_root)
@@ -4946,7 +5224,7 @@ def main() -> int:
     saves_phase(out_root, smi)
 
     # 6. The materialized per-sample-gradient paths (K6).
-    kernels.append(clip_phases(dev, out_root, peak_bytes, k1_epoch_ms, celeba_step_ms))
+    kernels.append(clip_phases(dev, out_root, k6_entry, large, k1_epoch_ms, celeba_step_ms))
 
     # 7. The D-step engines beside gc (is, tm / sv, no DP).
     tm_launches = dp_modes_phase(dev, out_root, smi, celeba_step_ms)
@@ -4957,7 +5235,8 @@ def main() -> int:
     # 8. The conditional variants (CGAN, WCGAN, unconditional, embedded G).
     cond = cond_archs_phase(dev, out_root, smi, k1_epoch_ms / (60000 // BS), celeba_step_ms)
     keys = {"k1_epoch": "K1", "ghost_sq_norms": "K2", "weighted_kernel_grad": "K3",
-            "gn_relu_forward": "K4", "gn_relu_backward": "K5", "leaf_weighted_sum_noise": "K6"}
+            "gn_relu_forward": "K4", "gn_relu_backward": "K5",
+            "leaves_weighted_sum_noise": "K6"}
     for entry in kernels:
         entry["cond_arch_launches"] = {path: counts[keys[entry["name"]]]
                                        for path, counts in cond.items()}
@@ -5026,4 +5305,9 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) > 2 and sys.argv[1] == "--parallel-rank":
         sys.exit(parallel_rank(sys.argv[2]))
-    sys.exit(main())
+    own_run()
+    try:
+        rc = main()
+    finally:
+        stop_run_processes()
+    sys.exit(rc)

@@ -108,11 +108,9 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.gn_error_string.argtypes = [I]
         lib.gn_error_string.restype = ctypes.c_char_p
     elif name == "clip_noise":
-        LL = ctypes.c_longlong
-        lib.clip_noise_scratch.argtypes = [I, LL]
-        lib.clip_noise_scratch.restype = LL
-        lib.clip_noise.argtypes = [P, P, P, P, I, LL, LL, P, P, P]
-        lib.clip_noise.restype = I
+        lib.clip_noise_leaves.argtypes = [ctypes.POINTER(ctypes.c_longlong), I, I, I, I, I,
+                                          P, P, P]
+        lib.clip_noise_leaves.restype = I
         lib.cn_error_string.argtypes = [I]
         lib.cn_error_string.restype = ctypes.c_char_p
     else:

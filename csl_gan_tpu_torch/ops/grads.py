@@ -7,8 +7,8 @@ package's ops/grads.py.
   - ``clipped_grad_sum``: per-sample L2 norms (flat or per leaf), clip factors
     min(1, C / norm) and the weighted sum; the clipped per-sample gradients
     are never formed, only a [batch] weight vector contracts against each
-    leaf. With ``fused_noise`` the sum of every large leaf and its DP noise
-    come from one K6 launch (ops/pallas_clip.py).
+    leaf. With ``fused_noise`` the sums of the large leaves and their DP
+    noise come from one K6 launch (ops/pallas_clip.py).
   - ``two_pass_clipped_grad_sum``: a norms-only pass, then one ordinary
     backward of sum_i w_i * loss_i.
   - ``add_gaussian_noise``: std sigma * C (flat) or sigma * C_l per leaf, which
@@ -205,16 +205,28 @@ def draw_fused_noise(gen: torch.Generator, leaves: Sequence[torch.Tensor],
 
 def weighted_sum_fused_noise(grads_ps: Params, factors: torch.Tensor,
                              fused: FusedNoise) -> Params:
-    """Weighted sum with the DP noise fused in: leaves of at least
-    ``pallas_clip.MIN_PALLAS_ELEMS`` elements go through K6 (one pass over the
-    leaf, noise generated in registers from the leaf's seed); small leaves
-    take the plain product plus their pre-drawn normals."""
+    """Weighted sum with the DP noise fused in: the leaves of at least
+    ``pallas_clip.MIN_PALLAS_ELEMS`` elements go through K6 together (one
+    launch reads each leaf once and generates its noise from the leaf's
+    seed); small leaves take the plain product plus their pre-drawn
+    normals. K6 takes row-major leaves: ``vmap`` gives them so on the card
+    (where K6 raises on any other layout), and on the CPU a per-sample conv
+    weight gradient may come permuted, so there it is laid out first (the
+    copy the plain product's reshape made)."""
+    items = list(grads_ps.items())
+    large = [i for i in range(len(items)) if fused.eps[i] is None]
+    summed = {}
+    if large:
+        bases = [0 if fused.bases is None else fused.bases[i] for i in large]
+        gs = [items[i][1] for i in large]
+        outs = pallas_clip.leaves_weighted_sum_noise(
+            [g if g.is_cuda else g.contiguous() for g in gs], [factors[i] for i in large],
+            fused.seeds, fused.stds, bases, large)
+        summed = dict(zip(large, outs))
     out = {}
-    for i, (k, g) in enumerate(grads_ps.items()):
-        if fused.eps[i] is None:
-            out[k] = pallas_clip.leaf_weighted_sum_noise(
-                g, factors[i], fused.seeds[i], fused.stds[i],
-                base=0 if fused.bases is None else fused.bases[i])
+    for i, (k, g) in enumerate(items):
+        if i in summed:
+            out[k] = summed[i]
         else:
             s = (factors[i] @ g.reshape(g.shape[0], -1)).reshape(g.shape[1:])
             out[k] = s + fused.stds[i] * fused.eps[i]

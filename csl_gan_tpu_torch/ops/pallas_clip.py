@@ -14,9 +14,12 @@ Leaves arrive in torch layout ([B, out, in, kh, kw] for a conv): the sum is
 elementwise in p and the noise i.i.d., so a flat view serves and nothing is
 transposed or padded.
 
-- ``leaf_weighted_sum_noise`` launches the hand-written CUDA kernel of
-  ``csrc/clip_noise.cu`` for CUDA tensors, takes ``weighted_sum_noise_plain``
-  for CPU tensors and raises for anything else.
+- ``leaves_weighted_sum_noise`` takes a step's large leaves (the same B)
+  and, for CUDA tensors, launches the hand-written CUDA kernel of
+  ``csrc/clip_noise.cu`` once over all of them (``group_plan`` gives the
+  launch's tiles, cluster and rows, once a shape); for CPU tensors it loops
+  ``weighted_sum_noise_plain`` over the leaves; anything else raises.
+  ``leaf_weighted_sum_noise`` is its one-leaf call.
 - ``weighted_sum_noise_plain``, ``philox4x32_10`` and ``normal_from_bits`` are
   the same function in plain PyTorch, noise included: the kernel's bits are
   Philox4x32-10 keyed by the seed with the element index as the counter, and
@@ -42,8 +45,10 @@ one-device draw's, cut.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
-from typing import Tuple, Union
+from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -101,10 +106,13 @@ def philox_normal(seed: torch.Tensor, n: int, base: int = 0) -> torch.Tensor:
     return normal_from_bits(w[0], w[1])
 
 
-def _as_scalar(v, dtype, device) -> torch.Tensor:
-    if isinstance(v, torch.Tensor):
-        return v.reshape(()).to(device=device, dtype=dtype)
-    return torch.tensor(v, dtype=dtype, device=device)
+def _on_device(v, dtype, device) -> torch.Tensor:
+    """A seed or std, or a step's seeds or stds, as a contiguous tensor of
+    ``dtype`` on ``device``; a tensor that already is one passes as it is."""
+    if isinstance(v, torch.Tensor) and v.dtype == dtype and v.device == device \
+            and v.is_contiguous():
+        return v
+    return torch.as_tensor(v).to(device=device, dtype=dtype).contiguous()
 
 
 def weighted_sum_noise_plain(g2d: torch.Tensor, w: torch.Tensor, seed,
@@ -113,48 +121,146 @@ def weighted_sum_noise_plain(g2d: torch.Tensor, w: torch.Tensor, seed,
     device the caller keeps TF32 off) plus std times the kernel's stream at
     the counters base .. base + P - 1."""
     acc = w.to(torch.float32) @ g2d.to(torch.float32)
-    z = philox_normal(_as_scalar(seed, torch.int64, g2d.device), g2d.shape[1], base)
-    return acc + _as_scalar(std, torch.float32, g2d.device) * z
+    z = philox_normal(_on_device(seed, torch.int64, g2d.device), g2d.shape[1], base)
+    return acc + _on_device(std, torch.float32, g2d.device).reshape(()) * z
+
+
+MAX_LEAVES = 16        # leaves one launch takes (the kernel's table)
+_TILES = (1024, 512, 256)     # tile widths in columns, four a thread
+_MAX_CLUSTER = 8              # the portable cluster size
+_CTAS_PER_SM = 3              # CTAs a launch wants an SM, at the least
+
+
+class GroupPlan(NamedTuple):
+    """One launch's geometry: ``tile`` columns a work item, a cluster of
+    ``cluster`` CTAs a tile with ``rows`` rows of B each, each leaf's first
+    work item ``tile0`` (a prefix sum of the leaves' tile counts) and load
+    width ``vec`` (4: 16-byte loads; 1: guarded scalar loads)."""
+    tile: int
+    cluster: int
+    rows: int
+    tile0: Tuple[int, ...]
+    vec: Tuple[int, ...]
+
+
+@functools.lru_cache(maxsize=None)
+def group_plan(B: int, Ps: Tuple[int, ...], aligned: Tuple[bool, ...], n_sm: int) -> GroupPlan:
+    """The plan of one launch over leaves [B, P] (``Ps``), computed once a
+    shape. A CTA that streams more rows pays its start and its cluster
+    barrier over more bytes, so: the widest tile whose tiles alone give
+    ``_CTAS_PER_SM`` CTAs an SM, each CTA taking every row; else the
+    narrowest tile, with B cut over the smallest cluster (at most 8) that
+    gives them. A leaf loads 16 bytes at a time where ``P % 4 == 0`` and its
+    pointers are ``aligned``."""
+    target = _CTAS_PER_SM * n_sm
+    for tile in _TILES:
+        tiles = [-(-p // tile) for p in Ps]
+        if sum(tiles) >= target:
+            break
+    c = min(_MAX_CLUSTER, B, -(-target // sum(tiles)))
+    rows = -(-B // c)
+    tile0 = tuple(sum(tiles[:i]) for i in range(len(Ps)))
+    vec = tuple(4 if p % 4 == 0 and a else 1 for p, a in zip(Ps, aligned))
+    return GroupPlan(tile, -(-B // rows), rows, tile0, vec)
+
+
+@functools.lru_cache(maxsize=None)
+def _n_sm(index: int) -> int:
+    """The SMs of CUDA device ``index``, read once."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def leaves_weighted_sum_noise_plain(gs: Sequence[torch.Tensor], ws: Sequence[torch.Tensor],
+                                    seeds, stds, bases: Optional[Sequence[int]] = None,
+                                    slots: Optional[Sequence[int]] = None) -> List[torch.Tensor]:
+    """The plain version of ``leaves_weighted_sum_noise``: leaf by leaf,
+    ``weighted_sum_noise_plain`` at the leaf's seed, std and counter base."""
+    n = len(gs)
+    bases = [0] * n if bases is None else bases
+    slots = range(n) if slots is None else slots
+    seeds = _on_device(seeds, torch.int64, gs[0].device).reshape(-1)
+    stds = _on_device(stds, torch.float32, gs[0].device).reshape(-1)
+    return [weighted_sum_noise_plain(g.reshape(g.shape[0], -1), w, seeds[s], stds[s],
+                                     base).reshape(g.shape[1:])
+            for g, w, base, s in zip(gs, ws, bases, slots)]
+
+
+def leaves_weighted_sum_noise(gs: Sequence[torch.Tensor], ws: Sequence[torch.Tensor],
+                              seeds, stds, bases: Optional[Sequence[int]] = None,
+                              slots: Optional[Sequence[int]] = None) -> List[torch.Tensor]:
+    """K6 over a group of per-sample-grad leaves g_l [B, ...] (the same B)
+    with weights w_l [B]: [sum_b w_l[b] g_l[b] + stds[s_l] * N(0, 1)] of shape
+    g_l.shape[1:], from one CUDA launch for CUDA tensors, the plain version
+    leaf by leaf for CPU tensors. ``seeds`` (int64) and ``stds`` (fp32) are
+    the step's tensors (or numbers); leaf l reads slot ``slots[l]`` (default
+    l) of both, on the card from device memory. ``bases[l]`` is the counter
+    of the leaf's first element (a model slice's offset in its leaf; default
+    0). Adds one to ``leaves_weighted_sum_noise.launches`` per launch and the
+    group's size to ``.leaves``."""
+    n = len(gs)
+    bases = [0] * n if bases is None else [int(v) for v in bases]
+    slots = list(range(n)) if slots is None else [int(v) for v in slots]
+    if not 1 <= n <= MAX_LEAVES:
+        raise ValueError(f"K6 takes 1 to {MAX_LEAVES} leaves a launch, got {n}")
+    if not len(ws) == len(bases) == len(slots) == n:
+        raise ValueError(f"{n} leaves need {n} weights, bases and slots, got {len(ws)}, "
+                         f"{len(bases)}, {len(slots)}")
+    dev = gs[0].device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"leaves_weighted_sum_noise takes CPU or CUDA tensors, got {dev}")
+    b = gs[0].shape[0] if gs[0].dim() else 0
+    for g, w, base, slot in zip(gs, ws, bases, slots):
+        if g.device != dev or w.device != dev:
+            raise ValueError(f"every leaf and weight must be on {dev}, got {g.device} and "
+                             f"{w.device}")
+        if g.dtype != torch.float32 or not g.is_contiguous() or g.dim() < 1 \
+                or g.shape[0] != b or b < 1 or g.numel() == 0:
+            raise ValueError(f"each g must be a contiguous non-empty fp32 [{b}, ...] tensor, "
+                             f"got {g.dtype} {tuple(g.shape)} (contiguous: "
+                             f"{g.is_contiguous()})")
+        if w.dtype != torch.float32 or tuple(w.shape) != (b,) or not w.is_contiguous():
+            raise ValueError(f"each w must be a contiguous fp32 [{b}] tensor, got {w.dtype} "
+                             f"{tuple(w.shape)}")
+        if base < 0 or slot < 0:
+            raise ValueError(f"the counter base and slot must be non-negative, got {base}, "
+                             f"{slot}")
+    if dev.type == "cpu":
+        return leaves_weighted_sum_noise_plain(gs, ws, seeds, stds, bases, slots)
+    from csl_gan_tpu_torch.ops import _build
+
+    seeds, stds = _on_device(seeds, torch.int64, dev), _on_device(stds, torch.float32, dev)
+    if max(slots) >= min(seeds.numel(), stds.numel()):
+        raise ValueError(f"slot {max(slots)} past the {seeds.numel()} seeds / {stds.numel()} "
+                         f"stds")
+    outs = [g.new_empty(g.shape[1:]) for g in gs]
+    ps = tuple(g.numel() // b for g in gs)
+    aligned = tuple(g.data_ptr() % 16 == 0 and o.data_ptr() % 16 == 0 for g, o in zip(gs, outs))
+    plan = group_plan(b, ps, aligned, _n_sm(dev.index))
+    desc = []
+    for i, (g, w, o) in enumerate(zip(gs, ws, outs)):
+        desc += (g.data_ptr(), w.data_ptr(), o.data_ptr(), ps[i], bases[i], slots[i],
+                 plan.tile0[i], plan.vec[i])
+    lib = _build.load("clip_noise")
+    rc = lib.clip_noise_leaves((ctypes.c_longlong * len(desc))(*desc), n, b, plan.tile,
+                               plan.cluster, plan.rows, seeds.data_ptr(), stds.data_ptr(),
+                               torch._C._cuda_getCurrentRawStream(dev.index))
+    if rc != 0:
+        raise RuntimeError(f"clip_noise failed: {lib.cn_error_string(rc).decode()}")
+    leaves_weighted_sum_noise.launches += 1
+    leaves_weighted_sum_noise.leaves += n
+    return outs
+
+
+leaves_weighted_sum_noise.launches = 0
+leaves_weighted_sum_noise.leaves = 0
 
 
 def leaf_weighted_sum_noise(g: torch.Tensor, w: torch.Tensor,
                             seed: Union[int, torch.Tensor],
                             std: Union[float, torch.Tensor], base: int = 0) -> torch.Tensor:
     """One per-sample-grad leaf g [B, ...] -> sum_b w[b] g[b] + std * N(0, 1)
-    of shape g.shape[1:]: K6 for CUDA tensors, the plain version for CPU
-    tensors. ``seed`` (int64) and ``std`` (fp32) are numbers or scalar tensors;
-    on the card they are read from device memory. ``base`` is the counter of
-    the first element (a model slice's offset in its leaf). Adds one to
-    ``leaf_weighted_sum_noise.launches`` per K6 launch."""
-    b, shape = g.shape[0], g.shape[1:]
-    p = g[0].numel() if g.dim() > 1 else 1
-    if base < 0:
-        raise ValueError(f"the counter base must be non-negative, got {base}")
-    if g.device.type == "cpu":
-        return weighted_sum_noise_plain(g.reshape(b, p), w, seed, std, base).reshape(shape)
-    if g.device.type != "cuda":
-        raise ValueError(f"leaf_weighted_sum_noise takes CPU or CUDA tensors, got {g.device}")
-    if g.dtype != torch.float32 or not g.is_contiguous() or b < 1 or p < 1:
-        raise ValueError(f"g must be a contiguous non-empty fp32 tensor, got {g.dtype} "
-                         f"{tuple(g.shape)} (contiguous: {g.is_contiguous()})")
-    if w.device != g.device or w.dtype != torch.float32 or tuple(w.shape) != (b,):
-        raise ValueError(f"w must be an fp32 [{b}] tensor on {g.device}, got {w.dtype} "
-                         f"{tuple(w.shape)} on {w.device}")
-    from csl_gan_tpu_torch.ops import _build
-
-    w = w.contiguous()
-    seed_t = _as_scalar(seed, torch.int64, g.device)
-    std_t = _as_scalar(std, torch.float32, g.device)
-    lib = _build.load("clip_noise")
-    partial = torch.empty(lib.clip_noise_scratch(b, p), dtype=torch.float32, device=g.device)
-    out = torch.empty(shape, dtype=torch.float32, device=g.device)
-    rc = lib.clip_noise(g.data_ptr(), w.data_ptr(), seed_t.data_ptr(), std_t.data_ptr(),
-                        b, p, int(base), partial.data_ptr(), out.data_ptr(),
-                        torch.cuda.current_stream(g.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"clip_noise failed: {lib.cn_error_string(rc).decode()}")
-    leaf_weighted_sum_noise.launches += 1
-    return out
-
-
-leaf_weighted_sum_noise.launches = 0
+    of shape g.shape[1:]: a one-leaf ``leaves_weighted_sum_noise``. ``seed``
+    (int64) and ``std`` (fp32) are numbers or scalar tensors; on the card
+    they are read from device memory. ``base`` is the counter of the first
+    element (a model slice's offset in its leaf)."""
+    return leaves_weighted_sum_noise([g], [w], seed, std, [base])[0]

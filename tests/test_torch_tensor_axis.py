@@ -365,7 +365,8 @@ def test_k6_plain_at_a_base_is_the_whole_leaf_draw():
     assert torch.equal(pallas_clip.philox_normal(seed, 8, base=2 ** 32 - 4),
                        pallas_clip.normal_from_bits(words[0], words[1]))
     leaf = torch.randn(5, 8, 3, 2, generator=g)
-    assert torch.equal(pallas_clip.leaf_weighted_sum_noise(leaf[:, 4:], w, seed, 0.5, base=24),
+    assert torch.equal(pallas_clip.leaf_weighted_sum_noise(leaf[:, 4:].contiguous(), w, seed,
+                                                           0.5, base=24),
                        pallas_clip.leaf_weighted_sum_noise(leaf, w, seed, 0.5)[4:])
 
 

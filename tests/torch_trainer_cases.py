@@ -68,10 +68,10 @@ def check_step_runner_epoch(tmp_path, name):
     assert {"fused": b.fused_route, "materialized": b.materialized and not b.fused_route,
             "ghost": b.use_ghost, "two_pass": b.use_two_pass,
             "conv_ghost": b.use_conv_ghost}[route]
-    launches = pallas_clip.leaf_weighted_sum_noise.launches
+    launches = pallas_clip.leaves_weighted_sum_noise.launches
     assert tr.run() == 0
     # On the CPU the fused route runs K6's plain version: no launch is counted.
-    assert pallas_clip.leaf_weighted_sum_noise.launches == launches
+    assert pallas_clip.leaves_weighted_sum_noise.launches == launches
     assert tr.state.d_count == tr.n_batches
     assert tr.state.g_count == (0 if name == "threshold" else -(-tr.n_batches // opt.n_d_steps))
     with open(out / "log.csv") as f:
