@@ -18,9 +18,12 @@ From the root of a checkout, on a machine with one NVIDIA H100 and the CUDA
 toolkit, it:
   1. prints the card's name and power limit (nvidia-smi);
   2. builds every kernel of the ported paths from the sources (one nvcc per
-     source, in parallel) and prints the build time and ptxas report; checks
-     in the SASS that K2/K3 hold warpgroup MMA instructions and that K1 holds
-     no tensor-core instruction (its products are fp32 FFMA);
+     translation unit, all in parallel: K1 is six, its tile GEMM's five
+     product forms beside the rest) and prints the build time, each unit's
+     seconds and the ptxas report; checks in the SASS (dumped in the
+     background, read after step 4) that K2/K3 hold warpgroup MMA
+     instructions and that K1 holds no tensor-core instruction (its products
+     are fp32 FFMA);
   3. MNIST path (K1). Holds K1 against its plain PyTorch version on the
      card, at the path's full width (bs 600, F 784, nc 10, latent 100,
      H 128), with seeded inputs: 5 steps with DP from the initial state, 5
@@ -63,11 +66,12 @@ toolkit, it:
      the path through its entry point, the port's Trainer on ``CelebA
      --conditional -dpm gc -bs 128 -tss 12800 -nms 1 --mean_sample_size 8
      --bf16 true --train_d_until_threshold 1e18`` (synthetic CelebA, full
-     celeba_g64 / celeba_d64 width) for 2 epochs, checks that K2-K5 each
+     celeba_g64 / celeba_d64 width) for 1 epoch, checks that K2-K5 each
      launched (K2 and K3 three times per D step, each time the tensor-core
      variant), finite losses and epsilon, prints ms per D step and samples/s,
-     and the device time by CUDA kernel of one more epoch (the K4/K5 group
-     must be non-zero, there and on path 2);
+     and the device time by CUDA kernel of the first 5 D steps of one more
+     epoch (``PROFILE_STEPS``; the K4/K5 group must be non-zero, there and
+     on path 2);
   5. saves and resume (outputs under build/chip_smoke/saves/). The MNIST
      flagship through K1 (bs 600, -tss 60000) and the CelebA flagship
      through K2-K5 (deterministic cuDNN): 2 epochs with a save every epoch
@@ -114,14 +118,14 @@ toolkit, it:
      (``MNIST --conditional -dpm gc --sigma 10 -bs 600 --pallas true
      --grad_clip_split false``) and path 2 (``CelebA --conditional -dpm gc
      -bs 128 -tss 1280 -nms 1 --mean_sample_size 8 --bf16 true
-     --train_d_until_threshold 1e18 --conv_ghost false --pallas true``) for 2
-     epochs each, counts K6's launches (one a D step) and leaves, and prints ms per D step beside the
+     --train_d_until_threshold 1e18 --conv_ghost false --pallas true``) for 1
+     epoch each, counts K6's launches (one a D step) and leaves, and prints ms per D step beside the
      K1 path's and the conv-ghost path's of the same run, where each step's
      time goes (vmap(grad), norms, K6 and small leaves, the rest) and the
-     device time by CUDA kernel of one more epoch;
+     device time by CUDA kernel of 5 more D steps;
   7. the D-step engines beside gc (outputs under build/chip_smoke/dp_modes/).
-     Through the Trainer, one epoch each, one more timed by CUDA events
-     and 5 steps under the profiler: MNIST (``MNIST --conditional --sigma 10
+     Through the Trainer, one epoch each, timed by CUDA events, then 5 more
+     steps under the profiler: MNIST (``MNIST --conditional --sigma 10
      -bs 600 -tss 60000``) with ``-dpm is``, ``-dpm is -ispp true``, ``-dpm is
      -issm moving-avg-pl`` (at ``--sigma 0.01``: at 10 its scaling vector
      overflows, in the JAX package too), ``-dpm tm`` and ``-dpm sv``; CelebA (the
@@ -137,8 +141,8 @@ toolkit, it:
      3x a one-ulp witness, and prints where a per-parameter is D step's time
      goes (first-order pass, the batched second-order pass, the rest);
   8. the conditional variants (outputs under build/chip_smoke/cond_archs/).
-     Through the Trainer, 2 epochs each in one group, every kernel's
-     launches counted by its wrapper, then 5 steps under the profiler:
+     Through the Trainer, 1 epoch each, every kernel's launches counted by
+     its wrapper, then 5 steps under the profiler:
      CelebA (the flagship's flags with ``-tss 1280``) as CGAN, WCGAN,
      unconditional and ACGAN with ``--g_label_emb_mode embed``, where K2 and
      K3 must launch 3 times a D step, all on the tensor cores, K4 9 times a
@@ -154,7 +158,7 @@ toolkit, it:
      WCGAN and one CGAN D + G step (bs 8) through K2-K5 against the all-plain
      step, held to 3x the one-ulp witness as the ACGAN step is;
   9. public data, warmup and adaptive clipping (outputs under
-     build/chip_smoke/public/). Through the Trainer, 2 epochs each after its
+     build/chip_smoke/public/). Through the Trainer, 1 epoch each after its
      warmup, every kernel's launches counted by its wrapper: the MNIST
      flagship with ``-nms 2 --mean_sample_size 10 -wi 2`` (the 2 warmup
      steps on the step runner, then K1 once an epoch from the reset Adam
@@ -178,7 +182,7 @@ toolkit, it:
      [50, 101632], all at batch 50, against their plain versions to the
      bounds of steps 4 and 6, timed beside them;
  10. the rest of the DP training surface (outputs under
-     build/chip_smoke/dp_surface/). Through the Trainer, 2 epochs each, every
+     build/chip_smoke/dp_surface/). Through the Trainer, 1 epoch each, every
      kernel's launches counted by its wrapper and held to the count the
      code gives: CelebA (the flagship's flags cut to ``-tss 1280``) with
      ``--poisson true`` (219-row buffers for batch 128: K2/K3 3 times a D
@@ -232,8 +236,8 @@ toolkit, it:
      to the count the code gives, finite logs and parameters, the update
      counts and epsilon: the MNIST flagship (``-tss 60000``, K1 once) and the
      CelebA flagship's flags cut to ``-tss 1280`` (10 D steps, 2 G updates;
-     K2/K3 30 on the tensor cores, K4 108, K5 18), each after a warm-up run,
-     as the phase's references;
+     K2/K3 30 on the tensor cores, K4 108, K5 18), as the phase's
+     references (under ``--surface`` alone each after a warm-up run);
      MNIST with ``-wd 1e-4``, ``--u8_table true`` (the gathered batch on the
      card within one ulp of its stored pixels / 255) and ``--bf16 true``, all
      three off K1 (the step runner); MNIST with ``--log_every 12000
@@ -311,12 +315,24 @@ toolkit, it:
      launches by rank on each run of step 13, ``parallel_launches``, and of
      step 14, ``tp_launches`` and, for (d), ``tp_engine_launches``);
  16. ends with ``{"ok": true, "device": {...}}`` as the last line.
+Before the kernels line it prints ``{"phase_seconds": {...}}``: the seconds
+of the run and of each phase, the card's peak allocation by phase, and the
+items of each phase (each unit's nvcc, each Trainer's set-up and run, each
+rank job, each check). From step 6 on, a full run gives steps 5, 11, 13 and
+14 to a second smoke process on the card (``--beside``), beside 6-10 and 12
+in this one, and folds its output and seconds into this run's; every ms per
+D step after step 4 is then taken on a shared card and host. Step 13's and
+14's rank jobs run on sets of rank processes at once (``RankSets``).
 Any failure raises or exits non-zero, and no result line is printed. It
 needs no network and imports nothing of JAX or of the JAX package. It
-leaves no process behind, on success or failure: every process it starts
+leaves no process behind, however it ends: every process it starts
 carries ``CHIP_SMOKE_RUN`` in its environment, orphans of its children
 are re-parented to it (it is their subreaper), and at its end it stops and
-reaps any of them still there and names them on standard error.
+reaps any of them still there and names them on standard error; SIGTERM,
+SIGINT and SIGHUP, and its own deadline (``DEADLINE_S``, 1,150 s, inside
+the 1,200 s a run is given) end it as a failure does, naming the phase it
+was in and that phase's seconds; each child asks the kernel to SIGKILL it
+if the smoke dies, so a SIGKILL of the smoke takes its children too.
 """
 
 from __future__ import annotations
@@ -340,6 +356,8 @@ PEAKS = (("H100 PCIe", 51.2e12, 756e12, 2.0e12), ("H100 NVL", 60.0e12, 835e12, 3
 
 BS, F, NC, LATENT, H = 600, 784, 10, 100, 128
 EPOCHS, CHECK_STEPS, TIME_STEPS = 2, 5, 100
+MNIST_FLAGSHIP = ["MNIST", "--conditional", "-dpm", "gc", "--sigma", "10", "-bs", str(BS),
+                  "-tss", "60000"]
 # Kernel vs plain: both run the same fp32 arithmetic in another reduction
 # order (tiled FFMA sums against PyTorch's kernels with TF32 off), so single
 # results agree to ~1e-7 relative and, after 5 Adam steps, params and
@@ -406,8 +424,9 @@ def run_processes() -> dict:
 
 def stop_run_processes(grace_s: float = 5.0) -> None:
     """Stop every process of this run still there (SIGTERM, then SIGKILL
-    after ``grace_s``), reap this process's exited children, and say on
-    standard error what was found."""
+    after ``grace_s``), reap them as they end (a process killed a moment ago
+    can still be exiting, so until none is left, zombies included), and say
+    on standard error what was found."""
     import os
     import signal
 
@@ -426,17 +445,14 @@ def stop_run_processes(grace_s: float = 5.0) -> None:
               f"{state}): {cmd}", file=sys.stderr)
     deadline = time.time() + grace_s
     for sig in (signal.SIGTERM, signal.SIGKILL):
-        for pid in found:
-            with contextlib.suppress(OSError):
-                os.kill(pid, sig)
-        while time.time() < deadline:
-            reap()
-            found = {pid: v for pid, v in run_processes().items() if v[0] != "Z"}
-            if not found:
-                break
+        for pid, (state, _) in found.items():
+            if state != "Z":
+                with contextlib.suppress(OSError):
+                    os.kill(pid, sig)
+        while found and time.time() < deadline:
             time.sleep(0.1)
-        if not found:
-            break
+            reap()
+            found = run_processes()
         deadline = time.time() + grace_s
     reap()
     left = run_processes()
@@ -447,9 +463,239 @@ def stop_run_processes(grace_s: float = 5.0) -> None:
         print("chip_smoke: no process of this run is left", file=sys.stderr)
 
 
+def dying_with_us(cmd) -> list:
+    """The argv that runs cmd so that the kernel kills it (SIGKILL) when this
+    process dies, even by SIGKILL (``_build.dying_with_parent``)."""
+    from csl_gan_tpu_torch.ops._build import dying_with_parent
+    return dying_with_parent(cmd)
+
+
+# The smoke's own deadline, inside the 1,200 s that a run is given: past it
+# the smoke fails, naming the phase it is in, and stops its processes.
+DEADLINE_S = 1150.0
+STOP_SIGNALS = ("SIGTERM", "SIGINT", "SIGHUP")
+
+
+def guarded(main_fn, deadline_s: float = DEADLINE_S) -> int:
+    """main_fn() as the smoke runs it: its run tagged (``own_run``), SIGTERM,
+    SIGINT and SIGHUP turned into a failure (SystemExit, code 128 + the
+    signal), a failure past ``deadline_s``, and at its end, however it ends
+    short of SIGKILL, the phase_seconds line and every process of the run
+    stopped (``stop_run_processes``). A SIGKILL takes its children with it:
+    each is started through ``dying_with_us``."""
+    import signal
+
+    def stop(msg, code):
+        for name in STOP_SIGNALS + ("SIGALRM",):      # one stop: the cleanup runs whole
+            signal.signal(getattr(signal, name), signal.SIG_IGN)
+        where = CLOCK.where() if CLOCK is not None else "its run"
+        print(f"chip_smoke: FAIL: {msg} in {where}", file=sys.stderr, flush=True)
+        raise SystemExit(code)
+
+    def on_signal(signum, frame):
+        stop(f"stopped by {signal.Signals(signum).name}", 128 + signum)
+
+    def on_deadline(signum, frame):
+        stop(f"past the smoke's deadline of {deadline_s:g} s", 1)
+
+    own_run()
+    for name in STOP_SIGNALS:
+        signal.signal(getattr(signal, name), on_signal)
+    signal.signal(signal.SIGALRM, on_deadline)
+    signal.setitimer(signal.ITIMER_REAL, deadline_s)
+    try:
+        return main_fn()
+    finally:
+        signal.setitimer(signal.ITIMER_REAL, 0)
+        for name in STOP_SIGNALS:
+            signal.signal(getattr(signal, name), signal.SIG_IGN)
+        print_phase_seconds()
+        stop_run_processes()
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+# The phases of a full run by their keys in the phase_seconds line, in the
+# order main() runs them, each with the step of the docstring it is.
+PHASES = (("card", "1"), ("build", "2"), ("k6_checks", "6 (K6 against plain)"),
+          ("mnist", "3"), ("celeba", "4"), ("saves", "5"), ("k6_paths", "6"),
+          ("engines", "7"), ("variants", "8"), ("public_data", "9"), ("dp_surface", "10"),
+          ("interop", "11"), ("surface", "12"), ("parallel", "13"), ("tp", "14"),
+          ("beside", "5, 11, 13, 14: the wait for the second process"),
+          ("gn_plans", "--gn-plans"))
+
+
+class Clock:
+    """Seconds of this run by phase and by item (a source's nvcc, a
+    Trainer's set-up and run, a rank job, a check), for the phase_seconds
+    line: each item under the phase it ran in."""
+
+    def __init__(self):
+        self.t0 = time.perf_counter()
+        self.phases: dict = {}
+        self.items: dict = {}
+        self.peak_gib: dict = {}            # the card's peak allocation by phase
+        self.second = None                  # the phases run in a second process
+        self.driven: set = set()            # (kind, config_key) of every run driven
+        self.printed = False                # the phase_seconds line printed
+        self.current = None                 # (phase, its start)
+
+    @staticmethod
+    def _cuda():
+        torch = sys.modules.get("torch")
+        return torch.cuda if torch is not None and torch.cuda.is_initialized() else None
+
+    @contextlib.contextmanager
+    def phase(self, name: str):
+        if name not in dict(PHASES):
+            raise ValueError(f"no phase {name!r} in PHASES")
+        if self._cuda():
+            self._cuda().reset_peak_memory_stats()
+        outer, self.current = self.current, (name, time.perf_counter())
+        try:
+            yield
+        finally:
+            self.phases[name] = self.phases.get(name, 0.0) + time.perf_counter() \
+                - self.current[1]
+            if self._cuda():
+                self.peak_gib[name] = round(self._cuda().max_memory_allocated() / 2 ** 30, 2)
+            self.current = outer
+
+    @contextlib.contextmanager
+    def item(self, label: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.add(label, time.perf_counter() - t0)
+
+    def add(self, label: str, seconds: float) -> None:
+        key = f"{self.current[0]}: {label}" if self.current else label
+        n, base = 2, key
+        while key in self.items:
+            key, n = f"{base} #{n}", n + 1
+        self.items[key] = round(seconds, 3)
+
+    def where(self) -> str:
+        """The phase this run is in and its seconds so far."""
+        if self.current is None:
+            return "before its first phase"
+        name, t0 = self.current
+        return f"phase {name}, {time.perf_counter() - t0:.1f} s into it"
+
+    def line(self) -> dict:
+        return {"phase_seconds": {
+            "total": round(time.perf_counter() - self.t0, 3),
+            "phases": {k: round(v, 3) for k, v in self.phases.items()},
+            "peak_gib": self.peak_gib, "second_process": self.second, "items": self.items}}
+
+
+# This run's clock (set by main; None where the module is imported).
+CLOCK = None
+
+# What a configuration is, apart from the run: the options that name a run
+# (its output, seed, length, rank and port) leave it; a path given counts as
+# given; a log or sample cadence of whole epochs counts as per epoch.
+RUN_ONLY = ("output_dir", "manual_seed", "n_epochs", "resume_epochs", "coordinator_address",
+            "process_id")
+GIVEN = ("resume_path", "data_path", "label_path")
+
+
+def config_key(argv) -> tuple:
+    """A configuration of the port's CLI as a sorted tuple of (option,
+    value), from its argv (``options.build_parser``, no side effect)."""
+    from csl_gan_tpu_torch import options as toptions
+    ns = vars(toptions.build_parser().parse_args([str(a) for a in argv]))
+    defaults = toptions.MNIST_DEFAULTS if ns["dataset"] == "MNIST" else toptions.CELEBA_DEFAULTS
+    tss = ns.get("train_set_size") or defaults["train_set_size"]
+    out = {}
+    for k, v in ns.items():
+        if k in RUN_ONLY:
+            continue
+        if k in GIVEN:
+            v = v is not None
+        elif k in ("log_every", "sample_every"):
+            v = defaults[k] if v is None else v
+            v = "whole epochs" if v >= tss else v
+        out[k] = v
+    return tuple(sorted((k, repr(v)) for k, v in out.items()))
+
+
+def timed(fn):
+    """fn, its calls' seconds an item of the run's clock: the function's name
+    and its ``name``, ``tag`` or ``label`` argument, where it has one."""
+    import functools
+    import inspect
+    sig = inspect.signature(fn)
+    key = next((k for k in ("name", "tag", "label") if k in sig.parameters), None)
+
+    @functools.wraps(fn)
+    def run(*args, **kw):
+        if CLOCK is None:
+            return fn(*args, **kw)
+        tag = sig.bind(*args, **kw).arguments.get(key) if key else None
+        with CLOCK.item(fn.__name__ + (f" {tag}" if tag is not None else "")):
+            return fn(*args, **kw)
+    return run
+
+
+def clocked(label: str):
+    """An item of the run's clock over a block (nothing without a clock)."""
+    return CLOCK.item(label) if CLOCK is not None else contextlib.nullcontext()
+
+
+@contextlib.contextmanager
+def mnist_made_once():
+    """The port's MNIST arrays (``data.mnist.load_mnist``: without files on
+    disk, its deterministic synthetic set, 1.3-2 s to make) made once a
+    process over the block; each caller takes its own copy."""
+    import functools
+    from csl_gan_tpu_torch.data import mnist
+    load = functools.lru_cache(maxsize=None)(mnist.load_mnist)
+
+    def copied(data_path, train=True):
+        images, labels = load(data_path, train)
+        return images.copy(), labels.copy()
+    with _swapped(((mnist, "load_mnist", copied),)):
+        yield
+
+
+@contextlib.contextmanager
+def trainers_timed(out_root):
+    """Every Trainer built and run in this process over the block, its
+    set-up (Trainer(...): data, models, mean samples) and its run
+    (Trainer.run) items of the run's clock, named by its output directory,
+    and its configuration (the argv ``options.parse`` took) recorded in
+    ``CLOCK.driven``."""
+    import os
+    from csl_gan_tpu_torch import options as toptions
+    from csl_gan_tpu_torch.training.loop import Trainer
+    init, run, parse = Trainer.__init__, Trainer.run, toptions.parse
+    argvs = {}                               # id(opt) -> the argv parsed into it
+
+    def name(opt):
+        return os.path.relpath(opt.output_dir, out_root)
+
+    def recorded_parse(argv=None):
+        opt = parse(argv)
+        argvs[id(opt)] = (opt, list(argv) if argv is not None else sys.argv[1:])
+        return opt
+
+    def timed_init(self, opt, *a, **kw):
+        if id(opt) in argvs and argvs[id(opt)][0] is opt:
+            CLOCK.driven.add(("Trainer", config_key(argvs.pop(id(opt))[1])))
+        with CLOCK.item(f"Trainer {name(opt)}: set-up"):
+            init(self, opt, *a, **kw)
+
+    def timed_run(self, *a, **kw):
+        with CLOCK.item(f"Trainer {name(self.opt)}: run"):
+            return run(self, *a, **kw)
+    with _swapped(((Trainer, "__init__", timed_init), (Trainer, "run", timed_run),
+                   (toptions, "parse", recorded_parse))):
+        yield
 
 
 def rel_l2(a, b) -> float:
@@ -550,6 +796,7 @@ def mnist_inputs(dev, b, n: int, use_dp: bool, seed: int, warm: bool = False):
     return (rows, z_d, z_g, ohg, noise, st.clipping, t, params, mu, nu)
 
 
+@timed
 def k1_check_phase(dev, out_root) -> float:
     """K1 against its plain version at full width in four cases, the same
     inputs through K1 twice (bitwise equal), and the split plan. Returns the
@@ -640,10 +887,8 @@ def mnist_path_phase(out_root):
     from csl_gan_tpu_torch.training.loop import Trainer
 
     e = EPOCHS
-    opt = toptions.parse(["MNIST", "--conditional", "-dpm", "gc", "--sigma", "10",
-                          "-bs", str(BS), "-tss", "60000", "-ne", str(e),
-                          "--log_every", str(60000 * e), "--manual_seed", "1",
-                          "-o", str(out_root / "train")])
+    opt = toptions.parse(MNIST_FLAGSHIP + ["-ne", str(e), "--log_every", str(60000 * e),
+                                           "--manual_seed", "1", "-o", str(out_root / "train")])
     tr = Trainer(opt)
     pe.epoch_kernel.launches = 0
     torch.cuda.synchronize()
@@ -680,6 +925,7 @@ def mnist_path_phase(out_root):
     return launches, k1_epoch_ms
 
 
+@timed
 def k1_timing_phase(dev, out_root, peak_flops, peak_bytes, launches, max_abs):
     """K1 and its plain version timed on one 100-step epoch at the MNIST
     path's shapes, and K1's device time by kernel and by product group.
@@ -761,7 +1007,8 @@ GN_SHAPES = ((16, 512, 1), (64, 512, 2), (256, 256, 2), (1024, 128, 2), (4096, 6
 FLAGSHIP = ["CelebA", "--conditional", "-dpm", "gc", "-bs", str(CB), "-tss", "12800",
             "-nms", "1", "--mean_sample_size", "8", "--bf16", "true",
             "--train_d_until_threshold", "1e18"]
-CELEBA_EPOCHS = 2
+# One epoch: a second gave only its ms per D step, a time with no limit.
+CELEBA_EPOCHS = 1
 # K2/K3 vs plain: the same bf16 inputs, exact fp32 products, fp32 sums in
 # another order (and K3 rounds w * c to bf16 exactly as the plain version
 # does), so the gap is reduction order: ~1e-7 to 1e-5 relative with FFMA
@@ -833,7 +1080,7 @@ PATH1 = ["MNIST", "--conditional", "-dpm", "gc", "--sigma", "10", "-bs", str(BS)
 PATH2 = ["CelebA", "--conditional", "-dpm", "gc", "-bs", str(CB), "-tss", "1280",
          "-nms", "1", "--mean_sample_size", "8", "--bf16", "true",
          "--train_d_until_threshold", "1e18", "--conv_ghost", "false", "--pallas", "true"]
-K6_EPOCHS = 2
+K6_EPOCHS = 1                  # as CELEBA_EPOCHS
 K6_STD = 2.5
 # K6 vs plain. The sum: the same fp32 products added in another order (K6:
 # ascending rows per split, then the splits; plain: cuBLAS), ~1e-7 relative
@@ -997,6 +1244,7 @@ def conv_held(tag, a, c, w, ks, want):
     return r2, r3, float((nk - npl).abs().max()), float((wk - wp).abs().max())
 
 
+@timed
 def conv_ghost_phase(dev, peak_bf16, peak_bytes):
     """K2 / K3 against their plain versions: the tensor-core variant at
     conv2-conv4 (bf16, B 128) and at a ragged bf16 geometry, the FFMA variant
@@ -1187,6 +1435,7 @@ def gn_held(x, dy, sc, bi, groups=32):
     return p4, p5, e4, e5
 
 
+@timed
 def groupnorm_phase(dev, peak_bytes):
     """K4 / K5 against their plain versions: bf16 at the G's norms (B 128,
     timed), fp32 at the same norms (B 8) and at the flagship's first norm
@@ -1445,6 +1694,7 @@ def gn_ulp_moved(shares, seed: int):
     return _swapped(((gn, "gn_relu_forward", fwd), (gn, "gn_relu_backward", bwd)))
 
 
+@timed
 def celeba_step_check(dev, out_root, bf16=False, arch="ACGAN", adaptive=False):
     """One full-width D step and one G step of the conditional arch `arch`
     (with ``adaptive``, a D step of ``-gcm adaptive`` that takes its
@@ -1606,24 +1856,37 @@ def celeba_step_check(dev, out_root, bf16=False, arch="ACGAN", adaptive=False):
              f"disagree with the plain steps on the card")
 
 
+# A profiled window of the step runner: the first PROFILE_STEPS D steps of
+# one more epoch, its CUDA activity only (the CPU operators' events made the
+# window's tables ~1 s a CelebA D step to build: 104.6 s for the CelebA
+# flagship's epoch of 100, NVIDIA H100 80GB HBM3).
+PROFILE_STEPS = 5
+
+
+@timed
 def profile_step_runner(tr, label: str, need=()) -> None:
-    """Device time by CUDA kernel and by group over one more epoch of a
-    Trainer on the step runner (torch.profiler / CUPTI), of ``tr.runner.n``
-    D steps. Fails if a group in `need` took no device time. Returns (device
-    busy ms, the epoch's ms, [(ms, launches, kernel)])."""
+    """Device time by CUDA kernel and by group over the first PROFILE_STEPS
+    D steps of one more epoch of a Trainer on the step runner
+    (torch.profiler / CUPTI). Fails if a group in `need` took no device
+    time. Returns (device busy ms, the window's ms, [(ms, launches,
+    kernel)])."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    n = tr.runner.n
+    n_epoch = tr.runner.n
+    n = tr.runner.n = min(n_epoch, PROFILE_STEPS)
     s0, s1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        s0.record()
-        tr.state, *_ = tr.runner.run(tr.state, tr.gen_perm, tr.gen, 1)
-        s1.record()
-        torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            s0.record()
+            tr.state, *_ = tr.runner.run(tr.state, tr.gen_perm, tr.gen, 1)
+            s1.record()
+            torch.cuda.synchronize()
+    finally:
+        tr.runner.n = n_epoch
     span = s0.elapsed_time(s1)
     by_kernel = device_ms_by_kernel(prof)
     busy = sum(r[0] for r in by_kernel)
-    print(f"{label} profile: device busy {busy:.3f} ms of a {span:.3f} ms epoch "
+    print(f"{label} profile: device busy {busy:.3f} ms of {span:.3f} ms over {n} D steps "
           f"({100 * busy / span:.1f}%), by kernel (ms, launches, name):")
     for t_ms, cnt, key in by_kernel[:25]:
         print(f"  {t_ms:9.3f} {cnt:6d}  {key}")
@@ -1704,10 +1967,11 @@ def celeba_phases(dev, out_root, peak_bf16, peak_bytes):
         fail(f"bad generator output {tuple(img.shape)}")
     rest = ep_ms[1:] or ep_ms
     step_ms = sum(rest) / len(rest) / n
-    print(f"CelebA path: {e} epochs x {n} D steps ({tr.state.g_count} G updates), K2-K5 "
-          f"launches {launches} (K2 / K3 on the tensor cores {launches_tc}); ms per D step first epoch {ep_ms[0] / n:.3f}, after "
-          f"{step_ms:.3f} (epochs {', '.join(f'{x:.1f}' for x in ep_ms)} ms); "
-          f"{CB * 1e3 / step_ms:.0f} samples/s after the first; wall {wall:.2f} s; "
+    print(f"CelebA path: {e} epoch(s) x {n} D steps ({tr.state.g_count} G updates), K2-K5 "
+          f"launches {launches} (K2 / K3 on the tensor cores {launches_tc}); ms per D step "
+          f"{step_ms:.3f} ({'the first epoch, warm process' if e == 1 else 'after the first'}; "
+          f"epochs {', '.join(f'{x:.1f}' for x in ep_ms)} ms); "
+          f"{CB * 1e3 / step_ms:.0f} samples/s; wall {wall:.2f} s; "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; epsilon "
           f"{eps[-1]:.6f} (mean samples {tr.mean_sample_privacy_cost:.6f}); losses "
           + ", ".join(f"{x:.4f}" for x in losses))
@@ -1729,6 +1993,7 @@ def _step_builder(argv, dev, out_dir):
     return opt, StepBuilder(opt, G, D)
 
 
+@timed
 def k6_held(g, dev, b, p, tag, peak_bytes, base=0, on_device=True):
     """K6 against its plain version at [b, p] (the sum at std 0 to
     K6_SUM_BOUND, sum and noise with one seed to K6_NOISE_BOUND * std), run
@@ -1825,6 +2090,7 @@ def k6_times_line(t):
             + (f", {100 * t['bound_ms'] / t['device_ms']:.1f}% on the device)" if dv else ")"))
 
 
+@timed
 def k6_group_held(g, dev, b, ps, tag, peak_bytes, bases=None):
     """One K6 launch over leaves [b, p] (``ps``) at counter ``bases``
     against its plain version leaf by leaf (the sums at std 0 to
@@ -1926,6 +2192,7 @@ def clip_kernel_phase(dev, peak_bytes, large_leaves):
             "shapes": {f"{b}x{p}": {k: t[k] for k in keys} for (b, p), (_, t) in rows.items()}}
 
 
+@timed
 def ghost_vs_materialized(dev, out_root):
     """The MNIST ghost-clipped real sum (analytic norms, matrix products)
     against the materialized one (vmap(grad), norms, weighted sum), bs 600."""
@@ -1954,6 +2221,7 @@ def ghost_vs_materialized(dev, out_root):
         fail("the ghost and the materialized clipped sums disagree")
 
 
+@timed
 def clip_step_check(dev, out_root, name, argv, batch):
     """One full-width D step through K6 against the same step through K6's
     plain version: same state, inputs and seeds, both on the card. Under
@@ -2020,6 +2288,7 @@ def clip_step_check(dev, out_root, name, argv, batch):
     return b, st0, (x, y, z, fused, pen)
 
 
+@timed
 def clip_step_breakdown(name, b, st0, inputs):
     """Where one full-width D step's device time goes: vmap(grad), the norms
     and clip factors, the fused sum (K6 and the small leaves), the rest."""
@@ -2099,12 +2368,11 @@ def clip_path(name, argv, tss, out_root, leaves_per_step, need=()):
         fail(f"D / G update counts {tr.state.d_count} / {tr.state.g_count} on {name}")
     rest = ep_ms[1:] or ep_ms
     step_ms = sum(rest) / len(rest) / n
-    print(f"{name}: {e} epochs x {n} D steps ({tr.state.g_count} G updates), K6 launches "
+    print(f"{name}: {e} epoch(s) x {n} D steps ({tr.state.g_count} G updates), K6 launches "
           f"{launches} (one a D step over {leaves_per_step} leaves: {leaves}); ms per D step "
-          f"first epoch "
-          f"{ep_ms[0] / n:.3f}, after {step_ms:.3f} (epochs "
-          f"{', '.join(f'{v:.1f}' for v in ep_ms)} ms); {opt.batch_size * 1e3 / step_ms:.0f} "
-          f"samples/s after the first; wall {wall:.2f} s; peak memory "
+          f"{step_ms:.3f} ({'the first epoch, warm process' if e == 1 else 'after the first'}; "
+          f"epochs {', '.join(f'{v:.1f}' for v in ep_ms)} ms); {opt.batch_size * 1e3 / step_ms:.0f} "
+          f"samples/s; wall {wall:.2f} s; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; epsilon {eps[-1]:.6f}; losses "
           + ", ".join(f"{k} {v:.4f}" for k, v in losses.items()))
     profile_step_runner(tr, name, need)
@@ -2235,6 +2503,7 @@ def train_run(argv, launches=()):
     return tr, t_init, first[0].elapsed_time(first[1]) if first else math.nan, counts
 
 
+@timed
 def resume_pair(name, argv, dataset, root, launches, smi, runs_a=1):
     """Run A (2 epochs, saves every epoch) `runs_a` times and run B (1 epoch,
     then 1 more resumed from its saves/*-1); returns (the gap of B to A, the
@@ -2270,6 +2539,7 @@ def resume_pair(name, argv, dataset, root, launches, smi, runs_a=1):
     return gap, self_gap, tr_a
 
 
+@timed
 def checkpoint_io(name, tr, root, smi) -> None:
     """ms of one save_pair of a trainer's state and of load_g + load_d back,
     and the files' sizes."""
@@ -2298,6 +2568,7 @@ def checkpoint_io(name, tr, root, smi) -> None:
           f"D {mb['D']:.2f} MB), load_g + load_d {load_ms:.1f} ms")
 
 
+@timed
 def k4_launches(fn):
     """K4's CUDA launches in one call of fn (after a warm-up call): counted by
     gn_relu.cu where each is issued, and read in a profiler trace of the same
@@ -2321,6 +2592,7 @@ def k4_launches(fn):
     return counted, traced
 
 
+@timed
 def sample_check(tr, smi) -> None:
     """sample_images through K4 at the CelebA grid (B 24) and at gensamples'
     batch (B 50): each K4 call against its plain version on the same inputs
@@ -2337,6 +2609,7 @@ def sample_check(tr, smi) -> None:
         held_samples(b, tr.state, z, y, tag, smi)
 
 
+@timed
 def held_samples(b, state, z, y, tag, smi, bf16=True):
     """sample_images of a CelebA 64 G through K4 held as ``sample_check``
     says; ``bf16``: the G computes in bf16 (its norms after the first take
@@ -2396,6 +2669,7 @@ def png_shape(path):
     return read_png(str(path)).shape
 
 
+@timed
 def sigterm_check(root, smi) -> None:
     """SIGTERM to the port's CLI on the MNIST flagship: exit 0, the preempt
     message and a save; a resume of 1 epoch continues epsilon."""
@@ -2407,11 +2681,13 @@ def sigterm_check(root, smi) -> None:
     d = root / "sigterm"
     argv = [sys.executable, "-m", "csl_gan_tpu_torch.train"] + SAVES_MNIST + [
         "-ne", "100000", "-o", str(d)]
+    if CLOCK is not None:
+        CLOCK.driven.add(("CLI", config_key(argv[3:])))
     env = dict(os.environ)
     env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
     t0 = time.perf_counter()
-    proc = subprocess.Popen(argv, cwd=str(REPO), env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
+    proc = subprocess.Popen(dying_with_us(argv), cwd=str(REPO), env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     try:
         while True:
             if proc.poll() is not None:
@@ -2451,6 +2727,7 @@ def sigterm_check(root, smi) -> None:
         fail("the resumed run's epsilon does not continue the preempted run's")
 
 
+@timed
 def tools_check(root, smi) -> None:
     """gensamples, temp_file, budget_analysis and mem_inf_attack on the
     phase's saves, each timed."""
@@ -2558,15 +2835,14 @@ DP_MNIST_MODES = (("is", ["-dpm", "is"]), ("is per-param", ["-dpm", "is", "-ispp
 DP_CELEBA = ["CelebA", "--conditional", "-bs", str(CB), "-tss", "1280", "-nms", "1",
              "--mean_sample_size", "8", "--bf16", "true", "--train_d_until_threshold", "1e18"]
 DP_CELEBA_MODES = (("is", ["-dpm", "is"]), ("tm", ["-dpm", "tm"]), ("no DP", []))
-DP_PROFILE_STEPS = 5
 K5_BWD_KERNELS = tuple(k for k in GN_KERNELS if k not in K4_FWD_KERNELS)
 
 
 def dp_mode_run(name, argv, tss, out_root, smi):
-    """One Trainer epoch of a D-step engine, then one more epoch timed by CUDA
-    events and DP_PROFILE_STEPS more steps under the profiler. Returns (ms per D step after the
-    first epoch, K4 and K5 launches in the Trainer's epoch, K4 and K5 CUDA
-    launches in the profiled one)."""
+    """One Trainer epoch of a D-step engine, timed by CUDA events, then
+    PROFILE_STEPS more steps under the profiler. Returns (ms per D step of
+    the epoch, K4 and K5 launches in it, K4 and K5 CUDA launches in the
+    profiled steps, the Trainer)."""
     import torch
     from csl_gan_tpu_torch import options as toptions
     from csl_gan_tpu_torch.ops import pallas_groupnorm as gn
@@ -2620,27 +2896,18 @@ def dp_mode_run(name, argv, tss, out_root, smi):
     if tr.state.d_count != n or tr.state.g_count != -(-n // opt.n_d_steps):
         fail(f"D / G update counts {tr.state.d_count} / {tr.state.g_count} on {name}")
     peak = torch.cuda.max_memory_allocated() / 2**30
-    s0, s1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    s0.record()
-    tr.state, *_ = tr.runner.run(tr.state, tr.gen_perm, tr.gen, 1)
-    s1.record()
-    torch.cuda.synchronize()
-    step_ms = s0.elapsed_time(s1) / n
-    # The profile is of the first DP_PROFILE_STEPS steps of an epoch: the
-    # tables of a whole MNIST epoch take ~35-60 s to build.
+    step_ms = first_ms
     t_prof = time.perf_counter()
-    tr.runner.n = min(n, DP_PROFILE_STEPS)
     busy, span, by_kernel = profile_step_runner(tr, name)
-    tr.runner.n = n
     t_prof = time.perf_counter() - t_prof
     traced = [sum(cnt for _, cnt, key in by_kernel if any(k in key for k in ks))
               for ks in (K4_FWD_KERNELS, K5_BWD_KERNELS)]
     norm = "BatchNorm" if tr.builder.g_has_bn else ("GroupNorm" if opt.model != "Vanilla"
                                                     else "no norm")
     print(f"{name} [{smi}]: {n} D steps an epoch ({tr.state.g_count} G updates so far), "
-          f"G {norm}; ms per D step first epoch {first_ms:.3f}, next epoch {step_ms:.3f} "
-          f"({opt.batch_size * 1e3 / step_ms:.0f} samples/s); device busy {busy:.3f} ms of "
-          f"{span:.3f} ms over {min(n, DP_PROFILE_STEPS)} profiled D steps "
+          f"G {norm}; ms per D step {step_ms:.3f} (the first epoch, warm process; "
+          f"{opt.batch_size * 1e3 / step_ms:.0f} samples/s); device busy {busy:.3f} ms of "
+          f"{span:.3f} ms over {min(n, PROFILE_STEPS)} profiled D steps "
           f"({100 * busy / span:.1f}%); wall of the Trainer "
           f"epoch {wall:.2f} s (Trainer built in {t_init:.2f} s; profile and its tables "
           f"{t_prof:.2f} s; the run {time.perf_counter() - t_start:.2f} s); peak memory {peak:.2f} GiB; K4 / K5 launches {launches} "
@@ -2649,6 +2916,7 @@ def dp_mode_run(name, argv, tss, out_root, smi):
     return step_ms, launches, traced, tr
 
 
+@timed
 def is_step_breakdown(tr, gc_step_ms):
     """Where one full-width CelebA is D step's device time goes (CUDA events
     around each part): the first-order pass with its graph, the second-order
@@ -2696,6 +2964,7 @@ def is_step_breakdown(tr, gc_step_ms):
              f"({whole / gc_step_ms:.2f}x)" if gc_step_ms else ""))
 
 
+@timed
 def tm_step_check(dev, out_root):
     """One full-width CelebA tm D step and G step (bs 8, bf16 compute,
     deterministic cuDNN) through K4/K5 against the same steps with K4/K5's
@@ -2829,7 +3098,7 @@ COND_ARCHS = (("CGAN", ["--conditional", "--conditional_arch", "CGAN"]),
               ("WCGAN", ["--conditional", "--conditional_arch", "WCGAN"]),
               ("unconditional", []),
               ("ACGAN embed", ["--conditional", "--g_label_emb_mode", "embed"]))
-COND_EPOCHS = 2
+COND_EPOCHS = 1                # as CELEBA_EPOCHS
 # The G's norm layers, each one K4 launch a forward and one K5 launch a
 # backward (celeba_g64: two a residual block, one before the output conv).
 G_NORMS = 9
@@ -2839,10 +3108,10 @@ def cond_arch_run(name, argv, out_root, smi, expect, sub="cond_archs"):
     """COND_EPOCHS Trainer epochs of one variant (phase 8; phase 10's runs,
     outputs under ``sub``) in one group, every kernel's
     launches counted by its wrapper and held to ``expect(D steps, G
-    updates)``, then DP_PROFILE_STEPS more steps under the profiler. Checks
+    updates)``, then PROFILE_STEPS more steps under the profiler. Checks
     finite logs and parameters, the update counts and epsilon against the
     port's accountant recomputed for the same steps plus the mean samples'
-    cost. Returns (launches by kernel, ms per D step of the second epoch, the
+    cost. Returns (launches by kernel, ms per D step of the last epoch, the
     Trainer)."""
     import torch
     from csl_gan_tpu_torch import options as toptions
@@ -2908,12 +3177,12 @@ def cond_arch_run(name, argv, out_root, smi, expect, sub="cond_archs"):
         fail(f"{name}: kernel launches {launches}, expected {want}")
     peak = torch.cuda.max_memory_allocated() / 2**30
     step_ms = ep_ms[-1] / n
-    prof_n = tr.runner.n = min(n, DP_PROFILE_STEPS)
+    prof_n = min(n, PROFILE_STEPS)
     busy, span, _ = profile_step_runner(tr, name)
-    tr.runner.n = n
     print(f"{name} [{smi}]: {e} epochs x {n} D steps ({g_updates} G updates), "
-          f"launches {launches}; ms per D step first epoch {ep_ms[0] / n:.3f}, second "
-          f"{step_ms:.3f} ({opt.batch_size * 1e3 / step_ms:.0f} samples/s); device busy "
+          f"launches {launches}; ms per D step by epoch "
+          f"{', '.join(f'{v / n:.3f}' for v in ep_ms)} (warm process; "
+          f"{opt.batch_size * 1e3 / step_ms:.0f} samples/s in the last); device busy "
           f"{busy:.3f} ms of {span:.3f} ms over {prof_n} profiled D steps "
           f"({100 * busy / span:.1f}%); wall of the Trainer epochs {wall:.2f} s "
           f"(the run {time.perf_counter() - t_start:.2f} s); peak memory {peak:.2f} GiB; "
@@ -2984,7 +3253,7 @@ def cond_archs_phase(dev, out_root, smi, k1_step_ms=None, celeba_step_ms=None):
 # public split of 1280 rows and adaptive clipping, and with per-layer
 # adaptive clipping on mean samples; path 1 with adaptive clipping, cut to
 # -tss 6000 (10 D steps an epoch); and a batch of 50, which K1 does not take.
-PUBLIC_EPOCHS = 2
+PUBLIC_EPOCHS = 1              # as CELEBA_EPOCHS
 PUBLIC_MNIST = ["MNIST", "--conditional", "-dpm", "gc", "--sigma", "10", "-bs", str(BS),
                 "-tss", "60000"]
 PUBLIC_CELEBA = ["CelebA", "--conditional", "-dpm", "gc", "-bs", str(CB), "-tss", "1280",
@@ -3034,7 +3303,7 @@ def public_run(name, argv, out_root, smi, ref_ms):
     and, under adaptive clipping, the saved thresholds (finite, positive,
     not the initial ones). Prints ms per D step beside ``ref_ms``, the
     device-busy share of one more epoch (torch.profiler; on the step runner
-    cut to DP_PROFILE_STEPS D steps), peak memory and
+    cut to PROFILE_STEPS D steps), peak memory and
     the card. Returns (launches by kernel, ms per D step)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -3125,10 +3394,11 @@ def public_run(name, argv, out_root, smi, ref_ms):
     peak = torch.cuda.max_memory_allocated() / 2**30
     ep_ms = [a.elapsed_time(b) for a, b in tr.runner.epoch_events]
     step_ms = ep_ms[-1] / n
-    # The step runner's profiled epoch is cut to DP_PROFILE_STEPS D steps.
-    prof_n = tr.runner.n = tr.runner.n if on_k1 else min(n, DP_PROFILE_STEPS)
+    # The step runner's profiled epoch is cut to PROFILE_STEPS D steps.
+    prof_n = tr.runner.n = tr.runner.n if on_k1 else min(n, PROFILE_STEPS)
     s0, s1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with clocked(f"profile {name}"), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         s0.record()
         tr._run_group(e, 1)
         s1.record()
@@ -3141,7 +3411,7 @@ def public_run(name, argv, out_root, smi, ref_ms):
            if ref_ms else "")
     print(f"{name} [{smi}]: {wi} warmup + {e} x {n} D steps ({g_warm} + {g_train} G updates), "
           f"launches {launches}; step runner D steps {step_runner_steps[0]}; ms per D step "
-          f"first epoch {ep_ms[0] / n:.3f}, second {step_ms:.3f}{ref} "
+          f"by epoch {', '.join(f'{v / n:.3f}' for v in ep_ms)}{ref} (warm process) "
           f"({opt.batch_size * 1e3 / step_ms:.0f} samples/s); device busy {busy:.3f} ms of "
           f"{span:.3f} ms over {prof_n} more D steps ({100 * busy / span:.1f}%); wall of the "
           f"Trainer "
@@ -3151,6 +3421,7 @@ def public_run(name, argv, out_root, smi, ref_ms):
     return launches, step_ms
 
 
+@timed
 def b50_kernel_checks(dev, peak_bf16, peak_bytes, smi):
     """K2/K3 at conv2-conv4 (bf16, tensor cores), K4/K5 at the G's five norm
     shapes (bf16) and K6 at path 1's leaf, all at batch 50, against their
@@ -3223,8 +3494,8 @@ def public_data_phase(dev, out_root, smi, peak_bf16, peak_bytes, k1_step_ms=None
     return by_run, b50
 
 
-# Phase 10, the rest of the DP training surface: each run 2 epochs through
-# the Trainer. CelebA cut as path 2 is (-tss 1280, 10 D steps an epoch); the
+# Phase 10, the rest of the DP training surface: each run COND_EPOCHS
+# epochs through the Trainer. CelebA cut as path 2 is (-tss 1280, 10 D steps an epoch); the
 # MNIST Poisson run at the flagship's size (100 D steps an epoch, 796-row
 # buffers); the other MNIST runs cut to -tss 6000 (10 D steps an epoch).
 SURFACE_MNIST = PUBLIC_MNIST[:PUBLIC_MNIST.index("-tss")] + ["-tss", "6000"]
@@ -3267,6 +3538,7 @@ SURFACE_RUNS = (
 )
 
 
+@timed
 def cap_kernel_checks(dev, smi):
     """K2/K3 at conv2-conv4 (bf16, tensor cores) and K4/K5 at the G's five
     norm shapes (bf16), at the Poisson buffer of batch 128 (CAP rows): each
@@ -3320,6 +3592,7 @@ def cap_kernel_checks(dev, smi):
     return t
 
 
+@timed
 def surface_bound_checks(dev, out_root, smi):
     """On the card, at sigma 0: the per-sample-penalty clipped sum (through
     K6 at std 0) has norm at most B * C (1 + 1e-5) at C 0.05, where the
@@ -3449,6 +3722,7 @@ INTEROP_FID_SAMPLES = 2048
 INCEPTION_BOUND = 1e-4
 
 
+@timed
 def write_reference_run(root):
     """A reference-format run directory under root/ref: the opt.txt of
     INTEROP_ARGV without the JAX package's extension flags (the reference has
@@ -3610,7 +3884,7 @@ def interop_phase(dev, out_root, smi, peak_flops):
     os.environ["FID_INCEPTION_WEIGHTS"] = str(wpath)
     gn.gn_relu_forward.launches = 0
     try:
-        with _swapped(((StepBuilder, "sample_images",
+        with clocked("mem_inf_attack --compute_fid"), _swapped(((StepBuilder, "sample_images",
                         _timed(acc, "sample", StepBuilder.sample_images)),
                        (fid_mod, "features_from_images",
                         _timed(acc, "features", fid_mod.features_from_images)))):
@@ -3655,10 +3929,11 @@ def interop_phase(dev, out_root, smi, peak_flops):
     for label, p in (("random_params(0)", params),
                      ("scaled_random_params(7), fan-in scaled",
                       inception.scaled_random_params(7))):
-        on_card = inception.features(inception.build(p, dev), imgs)
-        t0 = time.perf_counter()
-        on_cpu = inception.features(inception.build(p, torch.device("cpu")), imgs)
-        cpu_s = time.perf_counter() - t0
+        with clocked(f"Inception card against CPU, {label}"):
+            on_card = inception.features(inception.build(p, dev), imgs)
+            t0 = time.perf_counter()
+            on_cpu = inception.features(inception.build(p, torch.device("cpu")), imgs)
+            cpu_s = time.perf_counter() - t0
         gap = rel_l2(torch.from_numpy(on_card), torch.from_numpy(on_cpu))
         print(f"Inception features of 100 images on {label} [{smi}]: card against CPU "
               f"{gap:.3e} relative l2 (bound {INCEPTION_BOUND:g}), max abs gap "
@@ -3723,7 +3998,7 @@ def interop_phase(dev, out_root, smi, peak_flops):
     if issued != want_issued:
         fail(f"the resume issued K4 / K5 CUDA launches {issued}, expected {want_issued}")
     gk = torch.Generator(dev).manual_seed(24)
-    for h, cin, cout in CONV_LAYERS:
+    for h, cin, cout in CONV_LAYERS:                 # (timed with the resume's shapes)
         r2, r3, _, _ = conv_held(f"fp32 conv {h}x{h}x{cin}->{cout} (B {CB})",
                                  *conv_operands(gk, dev, CB, h, cin, cout, f32), "ffma")
         print(f"conv {h}x{h}x{cin}->{cout} fp32 (B {CB}, the resume's shape), FFMA: K2 rel l2 "
@@ -3913,6 +4188,7 @@ def write_celeba_jpegs(root):
     return img, attr_file
 
 
+@timed
 def surface_decode(root, smi):
     """The real-format files decoded into the cache twice, cold (the native
     decoder, which must run) and memory-mapped, and once by PIL alone (into
@@ -3958,16 +4234,38 @@ def surface_decode(root, smi):
     return img, attr, nat_ips, pil_ips
 
 
-def surface_phase(dev, out_root, smi):
+@timed
+def b640_kernel_checks(dev, smi):
+    """K4/K5 at the G's five norm shapes at the grouped batch (B 640, bf16)
+    against their plain versions, K4 timed beside its plain version.
+    Returns (K4 ms, plain ms) per G forward."""
+    import torch
+    from csl_gan_tpu_torch.ops import pallas_groupnorm as gn
+    g = torch.Generator(dev).manual_seed(41)
+    t = [0.0, 0.0]
+    b640 = 5 * CB
+    for hw, c, mult in GN_SHAPES:
+        x, dy, sc, bi = gn_operands(g, dev, b640, hw, c, torch.bfloat16)
+        gn_held(x, dy, sc, bi)
+        t[0] += mult * cuda_ms(lambda: gn.gn_relu_forward(x, sc, bi, 32, 1e-5), 10)
+        t[1] += mult * cuda_ms(lambda: gn.gn_relu_plain(x, sc, bi, 32, 1e-5), 3)
+        del x, dy
+    print(f"K4 at B {b640} [{smi}], ms per G forward by CUDA events: {t[0]:.4f}, plain "
+          f"{t[1]:.3f}")
+    return t
+
+
+def surface_phase(dev, out_root, smi, warm_up=False):
     """Phase 12 (outputs under build/chip_smoke/surface/): the single-device
     flags through the Trainer, K4 at the grouped batch against its plain
-    version, the decode-once cache on real-format files. Returns ({run:
-    launches by kernel}, {"K4": (ms, plain ms) at B 640}, decode images/s)."""
+    version, the decode-once cache on real-format files. ``warm_up``: each
+    flagship runs once first to warm a fresh process (``--surface`` alone;
+    in the full run phases 3-4 have warmed it). Returns ({run: launches by
+    kernel}, {"K4": (ms, plain ms) at B 640}, decode images/s)."""
     import shutil
 
     import numpy as np
     import torch
-    from csl_gan_tpu_torch.ops import pallas_groupnorm as gn
 
     t_phase = time.perf_counter()
     root = out_root / "surface"
@@ -3980,11 +4278,13 @@ def surface_phase(dev, out_root, smi):
         runs[name] = r["launches"]
         return r
 
-    # Each flagship once to warm the process (cuDNN, the kernels' first
-    # calls), then the measured reference.
-    surface_run("MNIST warm-up", SURF_MNIST, root, smi, _mnist_expect(1))
+    # The flagships, the phase's references (each run once before to warm a
+    # fresh process: cuDNN, the kernels' first calls).
+    if warm_up:
+        surface_run("MNIST warm-up", SURF_MNIST, root, smi, _mnist_expect(1))
     mnist = run("MNIST flagship", SURF_MNIST, _mnist_expect(1))
-    surface_run("CelebA warm-up", SURF_CELEBA, root, smi, _celeba_expect)
+    if warm_up:
+        surface_run("CelebA warm-up", SURF_CELEBA, root, smi, _celeba_expect)
     celeba = run("CelebA flagship", SURF_CELEBA, _celeba_expect)
     ref = {"MNIST": mnist["ms"], "CelebA": celeba["ms"]}
 
@@ -4081,17 +4381,7 @@ def surface_phase(dev, out_root, smi):
     del grouped, again, moved_run
     torch.cuda.empty_cache()
     # K4 (and K5) at the grouped batch against the plain versions, timed.
-    g = torch.Generator(dev).manual_seed(41)
-    t = [0.0, 0.0]
-    b640 = 5 * CB
-    for hw, c, mult in GN_SHAPES:
-        x, dy, sc, bi = gn_operands(g, dev, b640, hw, c, torch.bfloat16)
-        gn_held(x, dy, sc, bi)
-        t[0] += mult * cuda_ms(lambda: gn.gn_relu_forward(x, sc, bi, 32, 1e-5), 10)
-        t[1] += mult * cuda_ms(lambda: gn.gn_relu_plain(x, sc, bi, 32, 1e-5), 3)
-        del x, dy
-    print(f"K4 at B {b640} [{smi}], ms per G forward by CUDA events: {t[0]:.4f}, plain "
-          f"{t[1]:.3f}")
+    t = b640_kernel_checks(dev, smi)
 
     # Real-format CelebA: the cache, then the flagship from it and the host loop.
     img, attr, nat_ips, pil_ips = surface_decode(root / "celeba_files", smi)
@@ -4340,65 +4630,120 @@ def parallel_rank(spec_json: str) -> int:
     # bf16 G step's weight gradients then take the same algorithms in the
     # ranks and in the one-rank witness.
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
-    for job in spec["jobs"]:
-        (parallel_step_rank if job.get("payload") else parallel_train_rank)(job)
+    print("job_seconds " + json.dumps({"start-up": time.time() - spec["t0"]}), flush=True)
+    with mnist_made_once():
+        run_jobs(spec["jobs"])
     return 0
 
 
-def par_launch(jobs, ranks, root):
-    """``jobs`` [(name, argv, step payload or None)] as ``ranks``
-    --multihost processes on the card (``LOCAL_WORLD_SIZE`` ``ranks``: they
-    share it), which run them in turn, each for PAR_EPOCHS epochs over a
-    port of its own. Returns for each job (its reports by rank, or with a
-    payload rank 0's saved results; rank 0's output directory)."""
-    import os
-    import signal
+def run_jobs(jobs) -> None:
+    """A rank process's jobs in turn, each timed, with its peak memory."""
+    import torch
+    for job in jobs:
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        (parallel_step_rank if job.get("payload") else parallel_train_rank)(job)
+        print("job_seconds " + json.dumps({job["name"]: time.perf_counter() - t0}), flush=True)
+        print("job_peak_gib " + json.dumps(
+            {job["name"]: torch.cuda.max_memory_allocated() / 2 ** 30}), flush=True)
 
-    from csl_gan_tpu_torch.parallel.launch import free_port
 
-    dirs = []
-    for name, _, payload in jobs:
-        tag = name.replace(" ", "_").replace("-", "")
-        (root / (tag + "_reports")).mkdir(parents=True, exist_ok=True)
-        dirs.append((root / tag, root / (tag + "_reports"), ".pt" if payload else ".json",
-                     free_port()))
-    procs = []
-    for r in range(ranks):
-        spec = {"jobs": [
-            {"argv": argv + ["-ne", str(PAR_EPOCHS), "--manual_seed", "1", "-o", str(out),
-                             "--multihost", "true", "--coordinator_address",
-                             f"localhost:{port}", "--num_processes", str(ranks),
-                             "--process_id", str(r)],
-             "report": str(rep / f"rank{r}{ext}"), "payload": payload}
-            for (_, argv, payload), (out, rep, ext, port) in zip(jobs, dirs)]}
-        env = dict(os.environ, LOCAL_WORLD_SIZE=str(ranks), LOCAL_RANK=str(r))
-        procs.append(subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
-                                       "--parallel-rank", json.dumps(spec)], cwd=REPO,
-                                      env=env, stdout=subprocess.PIPE,
-                                      stderr=subprocess.STDOUT, start_new_session=True))
-    texts = []
-    deadline = time.time() + PAR_TIMEOUT * len(jobs)
-    try:
-        for p in procs:
-            texts.append(p.communicate(timeout=max(1.0, deadline - time.time()))[0]
-                         .decode(errors="replace"))
-    except subprocess.TimeoutExpired:
-        fail(f"{[j[0] for j in jobs]}: a rank did not finish in time")
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                os.killpg(p.pid, signal.SIGKILL)
-                p.wait()
-    for r, (p, text) in enumerate(zip(procs, texts)):
-        if p.returncode != 0:
-            print(text[-4000:])
-            fail(f"{[j[0] for j in jobs]}: rank {r} exited with code {p.returncode}")
-    for line in texts[0].splitlines():
-        if line.startswith("torch.distributed:"):
-            print(f"  rank 0: {line}")
-    return [(rep / f"rank0{ext}" if payload else
-             [json.loads((rep / f"rank{r}{ext}").read_text()) for r in range(ranks)], out)
-            for (_, _, payload), (out, rep, ext, _) in zip(jobs, dirs)]
+class RankSets:
+    """Rank jobs on the card, on sets of ``--multihost`` processes that all
+    start at once: each set (ranks, [(name, argv, step payload or None)])
+    is ``ranks`` processes (``LOCAL_WORLD_SIZE`` ``ranks``: they share the
+    card) that run its jobs in turn, each for PAR_EPOCHS epochs over a port
+    and an output directory of its own. ``wait()`` returns {job name: (its
+    reports by rank, or with a payload rank 0's saved results; rank 0's
+    output directory)}. Each process writes its output to a log beside the
+    jobs' reports."""
+
+    def __init__(self, sets, root):
+        import os
+
+        from csl_gan_tpu_torch.parallel.launch import free_port
+
+        self.sets, self.procs, self.jobs, ports = sets, [], {}, set()
+        self.t0 = time.perf_counter()
+        for k, (ranks, jobs) in enumerate(sets):
+            dirs = []
+            for name, argv, payload in jobs:
+                tag = name.replace(" ", "_").replace("-", "")
+                (root / (tag + "_reports")).mkdir(parents=True, exist_ok=True)
+                port = free_port()
+                while port in ports:            # each job's port its own
+                    port = free_port()
+                ports.add(port)
+                dirs.append((root / tag, root / (tag + "_reports"),
+                             ".pt" if payload else ".json", port))
+                self.jobs[name] = (ranks, payload, dirs[-1])
+                if CLOCK is not None:
+                    CLOCK.driven.add(("rank step" if payload else "rank run", config_key(
+                        argv + ["--multihost", "true", "--num_processes", str(ranks)])))
+            logs = root / f"{dirs[0][1].name}_set"
+            for r in range(ranks):
+                spec = {"t0": time.time(), "jobs": [
+                    {"name": name,
+                     "argv": argv + ["-ne", str(PAR_EPOCHS), "--manual_seed", "1", "-o",
+                                     str(out), "--multihost", "true", "--coordinator_address",
+                                     f"localhost:{port}", "--num_processes", str(ranks),
+                                     "--process_id", str(r)],
+                     "report": str(rep / f"rank{r}{ext}"), "payload": payload}
+                    for (name, argv, payload), (out, rep, ext, port) in zip(jobs, dirs)]}
+                env = dict(os.environ, LOCAL_WORLD_SIZE=str(ranks), LOCAL_RANK=str(r))
+                cmd = [sys.executable, str(Path(__file__).resolve()), "--parallel-rank",
+                       json.dumps(spec)]
+                log = Path(f"{logs}_rank{r}.log")
+                with open(log, "wb") as fh:
+                    self.procs.append((k, r, log, subprocess.Popen(
+                        dying_with_us(cmd), cwd=REPO, env=env, stdout=fh,
+                        stderr=subprocess.STDOUT, start_new_session=True)))
+
+    def wait(self) -> dict:
+        import os
+        import signal
+
+        names = [[j[0] for j in jobs] for _, jobs in self.sets]
+        deadline = time.time() + PAR_TIMEOUT * max(len(jobs) for _, jobs in self.sets)
+        try:
+            # Until every process has ended, or one has failed (the rest are
+            # then killed below).
+            while any(p.poll() is None for *_, p in self.procs) and \
+                    not any(p.poll() for *_, p in self.procs):
+                if time.time() > deadline:
+                    k, r = next((k, r) for k, r, _, p in self.procs if p.poll() is None)
+                    fail(f"{names[k]}: rank {r} did not finish in time")
+                time.sleep(0.2)
+        finally:
+            for _, _, _, p in self.procs:
+                if p.poll() is None:
+                    os.killpg(p.pid, signal.SIGKILL)
+                    p.wait()
+        texts = [log.read_text(errors="replace") for _, _, log, _ in self.procs]
+        # The first rank that failed by itself (the others were then killed).
+        failed = sorted(((p.returncode == -signal.SIGKILL, i) for i, (*_, p)
+                         in enumerate(self.procs) if p.returncode != 0))
+        if failed:
+            k, r, log, p = self.procs[failed[0][1]]
+            print(texts[failed[0][1]][-4000:])
+            fail(f"{names[k]}: rank {r} exited with code {p.returncode} (log {log})")
+        for (k, r, _, _), text in zip(self.procs, texts):
+            for line in text.splitlines():
+                if line.startswith("job_peak_gib "):
+                    print(f"  rank {r}: {line}")
+                elif r == 0 and line.startswith("torch.distributed:"):
+                    print(f"  rank 0: {line}")
+                elif r == 0 and line.startswith("job_seconds ") and CLOCK is not None:
+                    for job, sec in json.loads(line.split(" ", 1)[1]).items():
+                        CLOCK.add(f"rank job {job} (set {k}: {len(names[k])} job(s) on "
+                                  f"{self.sets[k][0]} rank(s))", sec)
+        if CLOCK is not None:
+            CLOCK.add(f"rank sets {' | '.join(', '.join(n) for n in names)}",
+                      time.perf_counter() - self.t0)
+        return {name: (rep / f"rank0{ext}" if payload else
+                       [json.loads((rep / f"rank{r}{ext}").read_text()) for r in range(ranks)],
+                       out)
+                for name, (ranks, payload, (out, rep, ext, _)) in self.jobs.items()}
 
 
 def par_one(name, argv, root, within=None):
@@ -4433,6 +4778,7 @@ def halved(seen):
             for k, shapes, dt in seen}
 
 
+@timed
 def par_shapes_held(name, seen, want, dev, peak_bytes, tp=1):
     """The shapes the ranks gave K2-K6 (``seen``) must be ``want`` (the
     one-rank run's, each batch cut to a rank's rows, or under ``tp`` each
@@ -4495,7 +4841,8 @@ def pinned_cudnn():
 
 def parallel_phase(dev, out_root, smi, peak_bytes):
     """Phase 13, with deterministic cuDNN. Returns each run's launches by
-    rank, for the kernels line."""
+    rank, for the kernels line, and the one-rank references of path 1 and
+    the MNIST ghost route (``par_one``'s records), which phase 14 takes."""
     with pinned_cudnn():
         return _parallel_phase(dev, out_root, smi, peak_bytes)
 
@@ -4525,10 +4872,24 @@ def _parallel_phase(dev, out_root, smi, peak_bytes):
               + ", ".join(f"{r['wall_s']:.2f}" for r in reports))
         return set().union(*(shapes_of(r["shapes"]) for r in reports))
 
-    # (a) The CelebA flagship's flags cut to 10 D steps an epoch: one rank in
-    # this process (twice, and in halves: the witness), then one pair of
-    # rank processes for the step check and the runs, replicated and --fsdp.
+    # The rank runs need nothing of this process: they start first, on sets
+    # of their own (the CelebA flagship's flags replicated and --fsdp with
+    # the MNIST ghost route; path 1; the MNIST flagship as one NCCL rank),
+    # while this process makes their one-rank references and the step
+    # checks' payloads.
     t_phase = time.perf_counter()
+    fsdp_argv = PAR_CELEBA + ["--fsdp", "true"]
+    cases = (("path 1", PAR_PATH1, PAR_PATH1),
+             ("MNIST ghost", PAR_MNIST, PAR_MNIST + ["--pallas_epoch", "false"]))
+    runs = RankSets([
+        (PAR_RANKS, [("CelebA 2 ranks", PAR_CELEBA, None), ("CelebA 2 ranks fsdp", fsdp_argv, None),
+                     ("MNIST ghost 2 ranks", PAR_MNIST, None)]),
+        (PAR_RANKS, [("path 1 2 ranks", PAR_PATH1, None)]),
+        (1, [("MNIST NCCL", SURF_MNIST, None)])], root)
+
+    # (a) The CelebA flagship's flags cut to 10 D steps an epoch: one rank in
+    # this process (twice, and in halves: the witness), then the ranks' step
+    # check and runs, replicated and --fsdp.
     tr1, want, ms1, seen1 = par_one("CelebA one rank", PAR_CELEBA, root)
     n_d, n_g = tr1.state.d_count, tr1.state.g_count
     formula = dict(_celeba_expect(n_d, n_g), K1=0, K6=0, **{"K6 leaves": 0})
@@ -4556,6 +4917,14 @@ def _parallel_phase(dev, out_root, smi, peak_bytes):
     g_in = (b.gen_z(gs, CB), b.gen_y(gs, CB))
     payload = root / "step_payload.pt"
     torch.save({"state": st, "d": d_in, "g": g_in}, payload)
+    # The G step alone from the one-rank D step's state, on the ranks and in
+    # halves: bitwise equal (the whole step's gap to the step in halves in
+    # G's groups is D's ~1e-8 carried through the bf16 G step, not G's own).
+    st_d = b.d_core(st, **d_in)[0]
+    g_payload = root / "g_step_payload.pt"
+    torch.save({"state": st_d, "g": g_in}, g_payload)
+    steps = RankSets([(PAR_RANKS, [("CelebA step", PAR_CELEBA, str(payload)),
+                                   ("CelebA G step", PAR_CELEBA, str(g_payload))])], root)
 
     def one_step():
         return b.g_core(b.d_core(st, **d_in)[0], *g_in)[0]
@@ -4564,21 +4933,25 @@ def _parallel_phase(dev, out_root, smi, peak_bytes):
     with in_halves(b):
         split = one_step()
     step_repeat, step_witness = _group_gaps(ref2, ref1), _group_gaps(split, ref1)
-    # The G step alone from the one-rank D step's state, on the ranks and in
-    # halves: bitwise equal (the whole step's gap to the step in halves in
-    # G's groups is D's ~1e-8 carried through the bf16 G step, not G's own).
-    st_d = b.d_core(st, **d_in)[0]
-    g_payload = root / "g_step_payload.pt"
-    torch.save({"state": st_d, "g": g_in}, g_payload)
     g_ref = b.g_core(st_d, *g_in)[0]
     with in_halves(b):
         g_split = b.g_core(st_d, *g_in)[0]
-    fsdp_argv = PAR_CELEBA + ["--fsdp", "true"]
-    (step_path, _), (g_step_path, _), *celeba = par_launch(
-        [("CelebA step", PAR_CELEBA, str(payload)), ("CelebA G step", PAR_CELEBA, str(g_payload)),
-         ("CelebA 2 ranks", PAR_CELEBA, None), ("CelebA 2 ranks fsdp", fsdp_argv, None)],
-        PAR_RANKS, root)
-    g_got = torch.load(g_step_path, map_location=dev, weights_only=False)[False]["state"]
+
+    # (b)'s and (c)'s one-rank references: path 1 (K6 at [600, 101632]) and
+    # the MNIST flagship's flags on the ghost route (K1 is the one-device
+    # path) on the step runner, and the plain MNIST flagship on K1.
+    ones = {}
+    for name, argv, argv1 in cases:
+        tr_1, want_1, ms_1, seen_1 = ones[name] = par_one(name + " one rank", argv1, root)
+        if type(tr_1.runner).__name__ != "StepRunner" or want_1["K1"] or \
+                want_1["K6"] != want_1["K6 leaves"] or \
+                want_1["K6"] != (tr_1.state.d_count if argv is PAR_PATH1 else 0):
+            fail(f"{name} one rank: launches {want_1} on the {type(tr_1.runner).__name__}")
+    plain, want_plain, ms_plain, _ = par_one("MNIST plain", SURF_MNIST, root)
+
+    got_steps = steps.wait()
+    g_got = torch.load(got_steps["CelebA G step"][0], map_location=dev,
+                       weights_only=False)[False]["state"]
     g_gaps, g_beside = _group_gaps(g_got, g_ref), _group_gaps(g_got, g_split)
     by_leaf = sorted(((rel_l2(g_got.g_mu[k].float(), g_split.g_mu[k].float()), k)
                       for k in g_split.g_mu), reverse=True)
@@ -4592,7 +4965,7 @@ def _parallel_phase(dev, out_root, smi, peak_bytes):
     if any(g_beside[g] != 0.0 for g in ("g_params", "g_mu", "g_nu")):
         fail("CelebA G step alone: the ranks' G step is not the G step in halves, bit for bit")
     del g_got, g_ref, g_split, st_d
-    got = torch.load(step_path, map_location=dev, weights_only=False)
+    got = torch.load(got_steps["CelebA step"][0], map_location=dev, weights_only=False)
     celeba_seen = set(got["shapes"])
     for fsdp in (False, True):
         k = got[fsdp]["launches"]
@@ -4604,10 +4977,13 @@ def _parallel_phase(dev, out_root, smi, peak_bytes):
         if (k["K2"], k["K3"], k["K4"], k["K5"]) != (3, 3, 2 * G_NORMS, G_NORMS):
             fail(f"{name}: launches {k}")
     del ref1, ref2, split, got
+
+    got_runs = runs.wait()
     whole_mb = _state_mb(tr1.state)
     state_mb = {}
-    for fsdp, (reports, out) in zip((False, True), celeba):
+    for fsdp in (False, True):
         name = "CelebA 2 ranks" + (" fsdp" if fsdp else "")
+        reports, out = got_runs[name]
         celeba_seen |= held_ranks(name, reports, want, ms1)
         if any(r["fsdp"] != fsdp or r["counts"] != [n_d, n_g] for r in reports):
             fail(f"{name}: --fsdp / update counts {[(r['fsdp'], r['counts']) for r in reports]}")
@@ -4626,51 +5002,40 @@ def _parallel_phase(dev, out_root, smi, peak_bytes):
     par_shapes_held("CelebA 2 ranks", celeba_seen, halved(seen1), dev, peak_bytes)
 
     # (b) MNIST path 1 (K6 at [300, 101632] a rank, the noise from rank 0)
-    # and the MNIST flagship's flags on the ghost route (K1 is the
-    # one-device path), each against its one-rank run on the step runner.
-    cases = (("path 1", PAR_PATH1, PAR_PATH1),
-             ("MNIST ghost", PAR_MNIST, PAR_MNIST + ["--pallas_epoch", "false"]))
-    ones = []
-    for name, argv, argv1 in cases:
-        tr1, want, ms1, seen1 = par_one(name + " one rank", argv1, root)
-        if type(tr1.runner).__name__ != "StepRunner" or want["K1"] or \
-                want["K6"] != want["K6 leaves"] or \
-                want["K6"] != (tr1.state.d_count if argv is PAR_PATH1 else 0):
-            fail(f"{name} one rank: launches {want} on the {type(tr1.runner).__name__}")
-        ones.append((tr1, want, ms1, seen1))
-    runs = par_launch([(name + " 2 ranks", argv, None) for name, argv, _ in cases],
-                      PAR_RANKS, root)
-    for (name, _, _), (tr1, want, ms1, seen1), (reports, out) in zip(cases, ones, runs):
-        seen = held_ranks(name + " 2 ranks", reports, want, ms1)
-        gap = _state_gap(saved_state(out, tr1.state), tr1.state)
+    # and the MNIST flagship's flags on the ghost route, each against its
+    # one-rank run on the step runner.
+    for name, _, _ in cases:
+        tr_1, want_1, ms_1, seen_1 = ones[name]
+        reports, out = got_runs[name + " 2 ranks"]
+        seen = held_ranks(name + " 2 ranks", reports, want_1, ms_1)
+        gap = _state_gap(saved_state(out, tr_1.state), tr_1.state)
         print(f"  end state against the one-rank run's (fp32): {gap:.3e} (bound "
               f"{PAR_FP32_BOUND:g})")
         if not gap <= PAR_FP32_BOUND:
             fail(f"{name}: 2 ranks leave the one-rank run by {gap:.3e}")
-        par_shapes_held(name + " 2 ranks", seen, halved(seen1), dev, peak_bytes)
-    del ones, runs
+        par_shapes_held(name + " 2 ranks", seen, halved(seen_1), dev, peak_bytes)
 
     # (c) One rank on NCCL: the MNIST flagship's K1 path through --multihost
     # against the plain run, byte for byte.
-    plain, want, ms1, _ = par_one("MNIST plain", SURF_MNIST, root)
-    [(reports, out)] = par_launch([("MNIST NCCL", SURF_MNIST, None)], 1, root)
-    r = reports[0]
+    [r], out = got_runs["MNIST NCCL"]
     launches["MNIST NCCL"] = [r["launches"]]
-    if r["backend"] != "nccl" or r["launches"] != want or want["K1"] != PAR_EPOCHS or \
-            r["runner"] != "EpochsRunner":
-        fail(f"MNIST NCCL: backend {r['backend']}, launches {r['launches']} (plain {want}), "
-             f"runner {r['runner']}")
+    if r["backend"] != "nccl" or r["launches"] != want_plain or want_plain["K1"] != PAR_EPOCHS \
+            or r["runner"] != "EpochsRunner":
+        fail(f"MNIST NCCL: backend {r['backend']}, launches {r['launches']} (plain "
+             f"{want_plain}), runner {r['runner']}")
     plain_saves = root / "MNIST_plain" / "saves"
     names = sorted(p.name for p in plain_saves.iterdir())
     same = names == sorted(p.name for p in (out / "saves").iterdir()) and all(
         (out / "saves" / f).read_bytes() == (plain_saves / f).read_bytes() for f in names)
     print(f"MNIST NCCL [{smi}]: one --multihost rank over nccl, K1 {r['launches']['K1']} "
           f"launch(es) on the {r['runner']}; saves {names} byte for byte the plain run's: "
-          f"{same}; {r['ms']:.3f} ms per D step (last epoch) against the plain run's {ms1:.3f}")
+          f"{same}; {r['ms']:.3f} ms per D step (last epoch) against the plain run's "
+          f"{ms_plain:.3f}")
     if not same:
         fail("MNIST NCCL: the saves differ from the plain run's")
+    del plain
     print(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
-    return launches
+    return launches, ones
 
 
 # Phase 14: the tensor axis (--tp) on the card's machine, which shows one
@@ -4717,6 +5082,14 @@ TP_ENGINE_RUNS = (
                                      "10"]),
 )
 TP_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K6 leaves")
+# The ranks' step checks of phase 14 on three sets of 2 ranks at once, each
+# set's jobs in turn, about even (rank 0's seconds a job on an NVIDIA H100
+# 80GB HBM3 with the jobs in turn: CelebA tp step 26, Poisson 17, tm 14,
+# adaptive 11, -pupd false 10, DRAGAN 10; each MNIST one 2-3).
+TP_STEP_SETS = (("CelebA tp step", "CelebA DRAGAN tp step", "MNIST is tp step"),
+                ("CelebA Poisson tp step", "CelebA tm tp step", "MNIST is per-param tp step"),
+                ("CelebA adaptive tp step", "CelebA -pupd false tp step", "MNIST sv tp step",
+                 "MNIST bpc tp step"))
 
 
 def _tp_cut(w) -> bool:
@@ -4811,6 +5184,7 @@ def _k_counts(counts):
     return {k: counts[k] for k in TP_KERNELS}
 
 
+@timed
 def tp_engine_step(name, argv, expect, state, root, dev):
     """The one-rank side of one engine's step check (phase 14 (d)): a
     Trainer of ``argv`` for its draws (built, not trained), one full-width
@@ -4898,14 +5272,27 @@ def tp_engine_held(e, got, smi):
     return k
 
 
-def tp_phase(dev, out_root, smi, peak_bytes):
-    """Phase 14, with deterministic cuDNN. Returns each run's launches by
-    rank and the engines' (d), for the kernels line."""
+def tp_runs(out_root) -> RankSets:
+    """Phase 14's rank runs at --tp 2, which need nothing of the process
+    that starts them, on two sets at once ((c): the CelebA flagship's flags
+    and path 1; (d): the engine runs)."""
+    return RankSets([
+        (TP, [("CelebA tp 2 ranks", TP_CELEBA, None), ("path 1 tp 2 ranks", TP_PATH1, None)]),
+        (TP, [(name + " tp 2 ranks", argv + ["--tp", str(TP)], None)
+              for name, argv in TP_ENGINE_RUNS])], out_root / "tp")
+
+
+def tp_phase(dev, out_root, smi, peak_bytes, ones=None, runs=None):
+    """Phase 14, with deterministic cuDNN. ``ones``: phase 13's one-rank
+    references of path 1 and the MNIST ghost route, the same runs (made here
+    when phase 14 runs alone); ``runs``: its rank runs (``tp_runs``), started
+    before it (here when it runs alone). Returns each run's launches by rank
+    and the engines' (d), for the kernels line."""
     with pinned_cudnn():
-        return _tp_phase(dev, out_root, smi, peak_bytes)
+        return _tp_phase(dev, out_root, smi, peak_bytes, ones, runs or tp_runs(out_root))
 
 
-def _tp_phase(dev, out_root, smi, peak_bytes):
+def _tp_phase(dev, out_root, smi, peak_bytes, ones, runs):
     import torch
 
     root = out_root / "tp"
@@ -4939,6 +5326,8 @@ def _tp_phase(dev, out_root, smi, peak_bytes):
             fail(f"{name}: update counts {[r['counts'] for r in reports]}")
         return set().union(*(shapes_of(r["shapes"]) for r in reports)), mb
 
+    # The rank runs at --tp 2 (``runs``) went first; this process makes the
+    # one-rank side meanwhile.
     # (a) The CelebA flagship's flags cut to 10 D steps an epoch on one rank
     # (its end state starts the step check), one full-width D step and G
     # step from it at --tp 2 against the same steps on one rank, each group
@@ -4966,13 +5355,17 @@ def _tp_phase(dev, out_root, smi, peak_bytes):
     step_repeat, step_witness = _group_gaps(ref2, ref1), _group_gaps(split, ref1)
     mb1 = _state_mb(st)
 
-    # (b) The fp32 runs' one-rank references: path 1 (K6) for an epoch, and
-    # one D + G step of the MNIST flagship's flags on the ghost route.
-    p1, want_p1, ms_p1, seen_p1 = par_one("path 1 one rank", PAR_PATH1, root)
+    # (b) The fp32 runs' one-rank references, phase 13's where it ran in this
+    # process: path 1 (K6) for an epoch, and the MNIST flagship's flags on the
+    # ghost route, whose end state starts one D + G step.
+    if ones is None:
+        ones = {"path 1": par_one("path 1 one rank", PAR_PATH1, root),
+                "MNIST ghost": par_one("MNIST ghost one rank", TP_MNIST, root)}
+    p1, want_p1, ms_p1, seen_p1 = ones["path 1"]
     if want_p1["K6"] != p1.state.d_count or want_p1["K6 leaves"] != want_p1["K6"] or \
             want_p1["K1"]:
         fail(f"path 1 one rank: launches {want_p1}")
-    mn, _, _, _ = par_one("MNIST ghost one rank", TP_MNIST, root)
+    mn = ones["MNIST ghost"][0]
     mb_, mst = mn.builder, mn.state
     mrun, gm = mn.step_runner, torch.Generator(dev).manual_seed(49)
     mx, my = mrun._batch(torch.randperm(mrun.n_rows, generator=gm, device=dev)[:BS], gm)
@@ -4985,21 +5378,20 @@ def _tp_phase(dev, out_root, smi, peak_bytes):
 
     # (d) The engines' one-rank steps from the CelebA and MNIST states, and
     # their one-rank Trainer runs.
-    engines = [tp_engine_step(name, argv, expect, st if argv[0] == "CelebA" else mst,
-                              root, dev) for name, argv, expect in TP_ENGINE_STEPS]
+    engines = {name: tp_engine_step(name, argv, expect, st if argv[0] == "CelebA" else mst,
+                                    root, dev) for name, argv, expect in TP_ENGINE_STEPS}
+    # The ranks' step checks on three sets and the dp 2 x tp 2 step on four
+    # ranks, at once (TP_STEP_SETS); the engine runs' references meanwhile.
+    step = {"CelebA tp step": (TP_CELEBA, str(payload))}
+    step.update({e["name"] + " tp step": (e["argv"] + ["--tp", str(TP)], e["payload"])
+                 for e in engines.values()})
+    steps = RankSets([(TP, [(n, *step[n]) for n in names]) for names in TP_STEP_SETS]
+                     + [(2 * TP, [("MNIST tp step dp2", TP_MNIST + ["--tp", str(TP)],
+                                   str(mpayload))])], root)
     engine_ones = [par_one(name + " one rank", argv, root) for name, argv in TP_ENGINE_RUNS]
+    got_steps = steps.wait()
 
-    (step_path, _), (celeba, celeba_out), (path1, path1_out), *engine_out = par_launch(
-        [("CelebA tp step", TP_CELEBA, str(payload)), ("CelebA tp 2 ranks", TP_CELEBA, None),
-         ("path 1 tp 2 ranks", TP_PATH1, None)]
-        + [(e["name"] + " tp step", e["argv"] + ["--tp", str(TP)], e["payload"])
-           for e in engines]
-        + [(name + " tp 2 ranks", argv + ["--tp", str(TP)], None)
-           for name, argv in TP_ENGINE_RUNS], TP, root)
-    [(mstep_path, _)] = par_launch([("MNIST tp step dp2", TP_MNIST + ["--tp", str(TP)],
-                                     str(mpayload))], 2 * TP, root)
-
-    got = torch.load(step_path, map_location=dev, weights_only=False)
+    got = torch.load(got_steps["CelebA tp step"][0], map_location=dev, weights_only=False)
     k = got[False]["launches"]
     print(f"CelebA tp step [{smi}]: one D step and one G step at B {CB} on {TP} ranks at --tp "
           f"{TP} (every row, half the channels a rank); rank 0 launched K2 {k['K2']}, K3 "
@@ -5011,7 +5403,7 @@ def _tp_phase(dev, out_root, smi, peak_bytes):
         fail(f"CelebA tp step: launches {k}")
     launches["CelebA tp step"] = [k]
     seen = set(got["shapes"])
-    mgot = torch.load(mstep_path, map_location=dev, weights_only=False)
+    mgot = torch.load(got_steps["MNIST tp step dp2"][0], map_location=dev, weights_only=False)
     mgaps = _group_gaps(mgot[False]["state"], mref)
     print(f"MNIST tp step dp2 [{smi}]: one D step (ghost route, fp32) and one G step at B {BS} "
           f"on {2 * TP} ranks as (data, model) = (2, {TP}) against one rank, by group: "
@@ -5025,6 +5417,8 @@ def _tp_phase(dev, out_root, smi, peak_bytes):
 
     # (c) An epoch through train.main on 2 ranks at --tp 2: the CelebA
     # flagship's flags and path 1's. The ranks' saves load as one rank's.
+    got_runs = runs.wait()
+    celeba, celeba_out = got_runs["CelebA tp 2 ranks"]
     cs, mb = held_ranks("CelebA tp 2 ranks", celeba, want, ms1, mb1)
     seen |= cs
     if not all(x < 0.6 * mb1 for x in mb):
@@ -5036,6 +5430,7 @@ def _tp_phase(dev, out_root, smi, peak_bytes):
     if not _finite(saved) or saved.d_count != tr1.state.d_count:
         fail("CelebA tp 2 ranks: the saves are not the run's")
     del tr1
+    path1, path1_out = got_runs["path 1 tp 2 ranks"]
     ps, _ = held_ranks("path 1 tp 2 ranks", path1, want_p1, ms_p1, _state_mb(p1.state))
     gap = _state_gap(saved_state(path1_out, p1.state), p1.state)
     print(f"  end state (saves) against the one-rank run's (fp32, K6's noise at each slice's "
@@ -5052,20 +5447,19 @@ def _tp_phase(dev, out_root, smi, peak_bytes):
     # rank's with the channels cut) held against plain where (a)-(c) did
     # not hold it.
     engine_launches, new_seen, new_want = {}, set(), set()
-    for e, (path, _) in zip(engines, engine_out):
-        got = torch.load(path, map_location=dev, weights_only=False)
-        engine_launches[e["name"] + " tp step"] = [tp_engine_held(e, got[False], smi)]
+    for name, _, _ in TP_ENGINE_STEPS:
+        e = engines.pop(name)
+        got = torch.load(got_steps[name + " tp step"][0], map_location=dev, weights_only=False)
+        engine_launches[name + " tp step"] = [tp_engine_held(e, got[False], smi)]
         if set(got["shapes"]) != tp_halved(e["seen"]):
-            fail(f"{e['name']} tp step: the ranks gave K2-K6 {sorted(got['shapes'], key=str)}, "
+            fail(f"{name} tp step: the ranks gave K2-K6 {sorted(got['shapes'], key=str)}, "
                  f"expected {sorted(tp_halved(e['seen']), key=str)}")
         new_seen |= set(got["shapes"])
         new_want |= tp_halved(e["seen"])
-        del got
-    del engines
-    runs_out = engine_out[len(TP_ENGINE_STEPS):]
-    for (name, _), (tr_e, want_e, ms_e, seen_e), (reports, out) in zip(
-            TP_ENGINE_RUNS, engine_ones, runs_out):
+        del got, e
+    for (name, _), (tr_e, want_e, ms_e, seen_e) in zip(TP_ENGINE_RUNS, engine_ones):
         run = name + " tp 2 ranks"
+        reports, out = got_runs[run]
         rs, _ = held_ranks(run, reports, want_e, ms_e, _state_mb(tr_e.state))
         engine_launches[run] = launches.pop(run)
         new_seen |= rs
@@ -5103,137 +5497,364 @@ def _state_mb(st) -> float:
                for t in getattr(st, f).values()) / 2 ** 20
 
 
+def plan() -> list:
+    """[(kind, label, argv)]: every configuration that a full run drives
+    through a Trainer of its own processes ("Trainer"), a rank process
+    ("rank run", "rank step") or the CLI, read from the tables its phases
+    read. A full run fails unless it drove each one (``CLOCK.driven``), and
+    tests/test_torch_smoke_plan.py holds the plan to the configurations the
+    smoke drove before (``config_key`` says what counts)."""
+    runs = []
+
+    def add(kind, label, argv):
+        runs.append((kind, label, list(argv)))
+
+    add("Trainer", "MNIST flagship", MNIST_FLAGSHIP)
+    add("Trainer", "CelebA flagship", FLAGSHIP)
+    # 5: each flagship 2 epochs with a save every epoch, 1 epoch, then resumed.
+    for label, argv in (("MNIST", SAVES_MNIST + ["--sample_every", "60000"]),
+                        ("CelebA", SAVES_CELEBA)):
+        add("Trainer", f"saves {label}, 2 epochs", argv + ["--save_every", "1"])
+        add("Trainer", f"saves {label}, 1 epoch", argv)
+        add("Trainer", f"{label} resumed", [label, "-rp", "DIR", "-re", "1", "-ka", "n_epochs"])
+    add("CLI", "SIGTERM", SAVES_MNIST)
+    add("Trainer", "path 1", PATH1)
+    add("Trainer", "path 2", PATH2)
+    for name, mode in DP_MNIST_MODES:
+        add("Trainer", f"MNIST {name}", DP_MNIST + mode)
+    for name, mode in DP_CELEBA_MODES:
+        add("Trainer", f"CelebA {name}", DP_CELEBA + mode)
+    for name, variant in COND_ARCHS:
+        add("Trainer", f"CelebA {name}", COND_CELEBA + variant)
+    for name, variant in COND_ARCHS[:3]:
+        add("Trainer", f"MNIST {name}", COND_MNIST + variant)
+    for name, argv in PUBLIC_RUNS:
+        add("Trainer", name, argv)
+    for name, argv, _ in SURFACE_RUNS:
+        add("Trainer", name, argv)
+    add("Trainer", "MNIST bpc bounds", SURFACE_RUNS[5][1] + ["--sigma", "0"])
+    # 12
+    for name, extra in (("flagship", []), ("-wd", ["-wd", "1e-4"]),
+                        ("u8 table", ["--u8_table", "true"]), ("bf16", ["--bf16", "true"]),
+                        ("sub-epoch cadence", ["--log_every", str(SURF_CADENCE),
+                                               "--sample_every", str(SURF_CADENCE)])):
+        add("Trainer", f"MNIST {name}", SURF_MNIST + extra)
+    files = ["-d", "IMG", "-lp", "ATTR"]
+    for name, extra in (("flagship", []), ("group_fakes", ["--group_fakes", "true"]),
+                        ("cache", files), ("host loop", files + ["--host_loop", "true"]),
+                        ("profile", ["-p"])):
+        add("Trainer", f"CelebA {name}", SURF_CELEBA + extra)
+    # 13 and 14: one rank in a smoke process, then the ranks.
+    for name, argv in (("CelebA one rank", PAR_CELEBA), ("path 1 one rank", PAR_PATH1),
+                       ("MNIST ghost one rank", TP_MNIST), ("MNIST plain", SURF_MNIST),
+                       ("tp CelebA one rank", TP_CELEBA1)):
+        add("Trainer", name, argv)
+    for name, argv, _ in TP_ENGINE_STEPS:
+        add("Trainer", f"{name} (its one-rank step's draws)", argv)
+    for name, argv in TP_ENGINE_RUNS:
+        add("Trainer", f"{name} one rank", argv)
+
+    def ranks(kind, name, argv, n):
+        add(kind, name, argv + ["--multihost", "true", "--num_processes", str(n)])
+
+    for name, argv in (("CelebA step", PAR_CELEBA), ("CelebA tp step", TP_CELEBA),
+                       *((f"{n} tp step", a + ["--tp", str(TP)]) for n, a, _ in TP_ENGINE_STEPS)):
+        ranks("rank step", name, argv, PAR_RANKS)
+    ranks("rank step", "MNIST tp step dp2", TP_MNIST + ["--tp", str(TP)], 2 * TP)
+    for name, argv in (("CelebA 2 ranks", PAR_CELEBA),
+                       ("CelebA 2 ranks fsdp", PAR_CELEBA + ["--fsdp", "true"]),
+                       ("path 1 2 ranks", PAR_PATH1), ("MNIST ghost 2 ranks", PAR_MNIST),
+                       ("CelebA tp 2 ranks", TP_CELEBA), ("path 1 tp 2 ranks", TP_PATH1),
+                       *((f"{n} tp 2 ranks", a + ["--tp", str(TP)]) for n, a in TP_ENGINE_RUNS)):
+        ranks("rank run", name, argv, PAR_RANKS)
+    ranks("rank run", "MNIST NCCL", SURF_MNIST, 1)
+    return runs
+
+
+class SassDumps:
+    """``cuobjdump -sass`` of K2/K3's and K1's libraries, started at once in
+    the background; ``check()`` waits for them and fails unless K2/K3's
+    holds warpgroup MMA (HGMMA) instructions and K1's no tensor-core
+    instruction (its products are fp32 FFMA)."""
+
+    LIBS = (("conv_ghost", True), ("k1_epoch", False))
+
+    def __init__(self, build, out_root):
+        out_root.mkdir(parents=True, exist_ok=True)
+        self.tool = Path(build._nvcc()).with_name("cuobjdump")
+        self.procs = {}
+        if self.tool.exists():
+            for lib, _ in self.LIBS:
+                out = out_root / f"{lib}.sass"
+                with open(out, "wb") as fh:
+                    self.procs[lib] = (out, subprocess.Popen(
+                        dying_with_us([self.tool, "-sass", build._target(lib)]), stdout=fh,
+                        stderr=subprocess.PIPE))
+
+    def check(self) -> None:
+        for lib, want_mma in self.LIBS:
+            if lib not in self.procs:
+                print(f"cuobjdump -sass {lib}: not run (no {self.tool})")
+                continue
+            out, proc = self.procs[lib]
+            err = proc.communicate()[1].decode(errors="replace")
+            if proc.returncode != 0:
+                print(f"cuobjdump -sass {lib}: not run ({err.strip()[:200]})")
+                continue
+            text = out.read_text(errors="replace")
+            n_hgmma, n_hmma = text.count("HGMMA"), text.count("HMMA")
+            print(f"cuobjdump -sass {lib}: {n_hgmma} HGMMA (wgmma), {n_hmma} HMMA (mma), "
+                  f"{text.count('FFMA')} FFMA instructions")
+            if want_mma and n_hgmma == 0:
+                fail(f"no HGMMA instruction in the {lib} library")
+            if not want_mma and n_hgmma + n_hmma > 0:
+                fail(f"tensor-core instructions in the {lib} library")
+
+
+# The standalone flags after the build, each with the one phase it runs
+# (--dp-modes, --cond-archs and --clip build only what their phase needs).
+ALONE = {"--gn-plans": "gn_plans", "--saves": "saves", "--public-data": "public_data",
+         "--dp-surface": "dp_surface", "--interop": "interop", "--surface": "surface",
+         "--parallel": "parallel", "--tp": "tp"}
+
+
+# The phases that a full run gives a second smoke process on the same card
+# (``--beside``), beside phases 6-10 and 12 in the first: 5 (saves), 11
+# (interop), 13 and 14 (the ranks). Each needs nothing of the phases beside
+# it and gives the kernels line only its launches.
+BESIDE = ("saves", "interop", "parallel", "tp")
+
+
+def beside_phases(dev, out_root, smi, peak_flops, peak_bytes) -> dict:
+    """Phases 5, 11, 13 and 14 in turn (``--beside``): their launches for
+    the kernels line."""
+    # 5. Saves, resume, sample grids, SIGTERM and the evaluation tools.
+    with CLOCK.phase("saves"):
+        saves_phase(out_root, smi)
+    # 11. Interop: a reference run converted, sampled, scored with Inception
+    # FID and resumed.
+    with CLOCK.phase("interop"):
+        interop = interop_phase(dev, out_root, smi, peak_flops)
+    # 13. Multi-device training: 2 ranks sharing the card over gloo (CelebA,
+    # replicated and --fsdp; path 1; the MNIST ghost route), 1 rank on NCCL.
+    # Phase 14's rank runs need nothing of this process: they start with
+    # phase 13.
+    with CLOCK.phase("parallel"):
+        runs = tp_runs(out_root)
+        par, ones = parallel_phase(dev, out_root, smi, peak_bytes)
+    # 14. The tensor axis: --tp 2 on 2 ranks sharing the card (a CelebA
+    # step against its channel-halves witness, the CelebA flagship's flags
+    # and path 1 for an epoch), dp 2 x tp 2 on 4 ranks (an MNIST step); the
+    # engines' steps and two engine runs.
+    with CLOCK.phase("tp"):
+        tp, tp_engines = tp_phase(dev, out_root, smi, peak_bytes, ones, runs)
+    return {"interop": interop, "parallel": par, "tp": tp, "tp_engines": tp_engines}
+
+
+class Beside:
+    """BESIDE's phases in a second smoke process (``chip_smoke.py --beside
+    RESULTS``), started at once; ``wait()`` prints its output, fails if it
+    failed, folds its phase_seconds into this run's and returns its
+    results."""
+
+    def __init__(self, out_root):
+        out_root.mkdir(parents=True, exist_ok=True)
+        self.results, self.log = out_root / "beside.json", out_root / "beside.log"
+        self.results.unlink(missing_ok=True)
+        cmd = [sys.executable, "-u", str(Path(__file__).resolve()), "--beside",
+               str(self.results)]
+        with open(self.log, "wb") as fh:
+            self.proc = subprocess.Popen(dying_with_us(cmd), cwd=REPO, stdout=fh,
+                                         stderr=subprocess.STDOUT)
+
+    def wait(self) -> dict:
+        rc = self.proc.wait()
+        print(f"--- phases {', '.join(BESIDE)}, run in a second process beside this one "
+              f"(exit {rc}): its output ---")
+        print(self.log.read_text(errors="replace").rstrip())
+        print("--- the end of the second process's output ---", flush=True)
+        if rc != 0:
+            fail(f"the second process (phases {', '.join(BESIDE)}) exited with code {rc}")
+        res = json.loads(self.results.read_text())
+        ps = res.pop("phase_seconds")
+        for name in BESIDE:
+            CLOCK.phases[name] = ps["phases"][name]
+            if name in ps["peak_gib"]:
+                CLOCK.peak_gib[name] = ps["peak_gib"][name]
+        CLOCK.items.update({k: v for k, v in ps["items"].items()
+                            if k.split(":")[0] in BESIDE})
+        CLOCK.second = {"phases": list(BESIDE), "total": ps["total"]}
+        CLOCK.driven |= {(kind, tuple(map(tuple, key))) for kind, key in res.pop("driven")}
+        return res
+
+
 def main() -> int:
+    global CLOCK
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
     if not (REPO / "csl_gan_tpu_torch" / "ops" / "csrc").is_dir():
         fail(f"no csl_gan_tpu_torch sources beside {__file__}")
     sys.path.insert(0, str(REPO))
+    CLOCK = CLOCK or Clock()
+    out_root = REPO / "build" / "chip_smoke"
+    with trainers_timed(out_root), mnist_made_once():
+        return run_phases(torch, out_root)
 
+
+def print_phase_seconds() -> None:
+    """The phase_seconds line, once a run (after its phases, or where it
+    fails or is stopped)."""
+    if CLOCK is not None and CLOCK.phases and not CLOCK.printed:
+        CLOCK.printed = True
+        print(json.dumps(CLOCK.line()), flush=True)
+
+
+def run_phases(torch, out_root) -> int:
     # 1. The card.
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()[0]
-    print(smi)
-    kind = torch.cuda.get_device_name(0)
-    peak_flops, peak_bf16, peak_bytes = next(
-        ((f, h, b) for key, f, h, b in PEAKS if key in kind), PEAKS[-1][1:])
-    # The plain versions are the fp32 reference: no TF32 in any product.
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda", 0)
+    with CLOCK.phase("card"):
+        smi = subprocess.run(dying_with_us(["nvidia-smi", "--query-gpu=name,power.limit",
+                                            "--format=csv,noheader"]), capture_output=True,
+                             text=True, check=True).stdout.strip().splitlines()[0]
+        print(smi)
+        kind = torch.cuda.get_device_name(0)
+        peak_flops, peak_bf16, peak_bytes = next(
+            ((f, h, b) for key, f, h, b in PEAKS if key in kind), PEAKS[-1][1:])
+        # The plain versions are the fp32 reference: no TF32 in any product.
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dev = torch.device("cuda", 0)
 
     from csl_gan_tpu_torch.ops import _build
 
-    out_root = REPO / "build" / "chip_smoke"
+    def build(names=_build.KERNELS):
+        t0 = time.perf_counter()
+        _build.build_all(names)
+        for unit, sec in _build.build_seconds.items():
+            CLOCK.add(f"nvcc {unit}", sec)
+        print(f"build: {time.perf_counter() - t0:.1f} s for {len(names)} libraries, "
+              f"{sum(len(_build.units(n)) for n in names)} translation units; nvcc by unit: "
+              + (", ".join(f"{u} {sec:.1f} s" for u, sec in _build.build_seconds.items())
+                 or "none (built before)"))
+
     if "--dp-modes" in sys.argv[1:]:
-        _build.build_all(("gn_relu",))
-        dp_modes_phase(dev, out_root, smi)
+        with CLOCK.phase("build"):
+            build(("gn_relu",))
+        with CLOCK.phase("engines"):
+            dp_modes_phase(dev, out_root, smi)
+        print_phase_seconds()
         return 0
     if "--cond-archs" in sys.argv[1:]:
-        _build.build_all(("conv_ghost", "gn_relu"))
-        cond_archs_phase(dev, out_root, smi)
+        with CLOCK.phase("build"):
+            build(("conv_ghost", "gn_relu"))
+        with CLOCK.phase("variants"):
+            cond_archs_phase(dev, out_root, smi)
+        print_phase_seconds()
         return 0
     if "--clip" in sys.argv[1:]:
-        t0 = time.perf_counter()
-        _build.build_all(("clip_noise",))
-        print(f"build: {time.perf_counter() - t0:.1f} s for clip_noise.cu")
-        for fn, report in ptxas_by_kernel(_build.build_logs.get("clip_noise", "")).items():
-            print(f"ptxas clip_noise {fn}: {report}")
-        print(json.dumps({"k6": clip_kernel_phase(dev, peak_bytes, k6_large_leaves())}))
+        with CLOCK.phase("build"):
+            build(("clip_noise",))
+            for fn, report in ptxas_by_kernel(_build.build_logs.get("clip_noise", "")).items():
+                print(f"ptxas clip_noise {fn}: {report}")
+        with CLOCK.phase("k6_checks"):
+            k6 = clip_kernel_phase(dev, peak_bytes, k6_large_leaves())
+        print_phase_seconds()
+        print(json.dumps({"k6": k6}))
+        return 0
+
+    if "--beside" in sys.argv[1:]:
+        # The second process of a full run: the first one built every library.
+        results = Path(sys.argv[sys.argv.index("--beside") + 1])
+        with CLOCK.phase("build"):
+            build()
+        out = beside_phases(dev, out_root, smi, peak_flops, peak_bytes)
+        results.write_text(json.dumps(dict(out, driven=sorted(CLOCK.driven), **CLOCK.line())))
+        CLOCK.printed = True                # the first process prints it, merged
         return 0
 
     # 2. Build.
-    t0 = time.perf_counter()
-    _build.build_all()
-    print(f"build: {time.perf_counter() - t0:.1f} s for {len(_build.KERNELS)} source(s)")
-    for name, log in _build.build_logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"ptxas {name}: {line.strip()}")
-    # The tensor-core kernels of K2 / K3 by name, and any ptxas advisory
-    # (C75xx: e.g. wgmma serialised) of their source.
-    for fn, report in ptxas_by_kernel(_build.build_logs.get("conv_ghost", "")).items():
-        if any(k in fn for k in ("wsum_tc", "ghost_norm_tc", "scale_cotangent")):
-            print(f"ptxas conv_ghost {fn}: {report}")
-    for line in _build.build_logs.get("conv_ghost", "").splitlines():
-        if "(C75" in line or "warning" in line:
-            print(f"ptxas conv_ghost: {line.strip()}")
-    # K2 / K3's tensor-core variants must hold warpgroup MMA instructions;
-    # K1's products are fp32 FFMA and must hold no tensor-core instruction.
-    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
-    for lib, want_mma in (("conv_ghost", True), ("k1_epoch", False)):
-        sass = subprocess.run([str(cuobjdump), "-sass", str(_build._target(lib))],
-                              capture_output=True, text=True) if cuobjdump.exists() else None
-        if sass is None:
-            print(f"cuobjdump -sass {lib}: not run (no {cuobjdump})")
-        elif sass.returncode == 0:
-            n_hgmma, n_hmma = sass.stdout.count("HGMMA"), sass.stdout.count("HMMA")
-            print(f"cuobjdump -sass {lib}: {n_hgmma} HGMMA (wgmma), {n_hmma} HMMA (mma), "
-                  f"{sass.stdout.count('FFMA')} FFMA instructions")
-            if want_mma and n_hgmma == 0:
-                fail(f"no HGMMA instruction in the {lib} library")
-            if not want_mma and n_hgmma + n_hmma > 0:
-                fail(f"tensor-core instructions in the {lib} library")
-        else:
-            print(f"cuobjdump -sass {lib}: not run ({sass.stderr.strip()[:200]})")
+    with CLOCK.phase("build"):
+        build()
+        for name, log in _build.build_logs.items():
+            for line in log.splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"ptxas {name}: {line.strip()}")
+        # The tensor-core kernels of K2 / K3 by name, and any ptxas advisory
+        # (C75xx: e.g. wgmma serialised) of their source.
+        for fn, report in ptxas_by_kernel(_build.build_logs.get("conv_ghost", "")).items():
+            if any(k in fn for k in ("wsum_tc", "ghost_norm_tc", "scale_cotangent")):
+                print(f"ptxas conv_ghost {fn}: {report}")
+        for line in _build.build_logs.get("conv_ghost", "").splitlines():
+            if "(C75" in line or "warning" in line:
+                print(f"ptxas conv_ghost: {line.strip()}")
+        # K2 / K3's tensor-core variants must hold warpgroup MMA instructions;
+        # K1's products are fp32 FFMA and must hold no tensor-core instruction:
+        # the SASS, dumped in the background (K1's took 17.7 s) and read
+        # before the second process starts.
+        sass = SassDumps(_build, out_root)
 
-    if "--gn-plans" in sys.argv[1:]:
-        gn_plans_phase(dev)
-        return 0
-    if "--saves" in sys.argv[1:]:
-        saves_phase(out_root, smi)
-        return 0
-    if "--public-data" in sys.argv[1:]:
-        public_data_phase(dev, out_root, smi, peak_bf16, peak_bytes)
-        return 0
-    if "--dp-surface" in sys.argv[1:]:
-        dp_surface_phase(dev, out_root, smi)
-        return 0
-    if "--interop" in sys.argv[1:]:
-        interop_phase(dev, out_root, smi, peak_flops)
-        return 0
-    if "--surface" in sys.argv[1:]:
-        surface_phase(dev, out_root, smi)
-        return 0
-    if "--parallel" in sys.argv[1:]:
-        parallel_phase(dev, out_root, smi, peak_bytes)
-        return 0
-    if "--tp" in sys.argv[1:]:
-        _, engines = tp_phase(dev, out_root, smi, peak_bytes)
-        print(json.dumps({"tp_engine_launches": engines}))
-        return 0
+    alone = {"gn_plans": lambda: gn_plans_phase(dev),
+             "saves": lambda: saves_phase(out_root, smi),
+             "public_data": lambda: public_data_phase(dev, out_root, smi, peak_bf16,
+                                                      peak_bytes),
+             "dp_surface": lambda: dp_surface_phase(dev, out_root, smi),
+             "interop": lambda: interop_phase(dev, out_root, smi, peak_flops),
+             "surface": lambda: surface_phase(dev, out_root, smi, warm_up=True),
+             "parallel": lambda: parallel_phase(dev, out_root, smi, peak_bytes),
+             "tp": lambda: tp_phase(dev, out_root, smi, peak_bytes)}
+    for flag, phase in ALONE.items():
+        if flag in sys.argv[1:]:
+            with CLOCK.phase("build"):
+                sass.check()
+            with CLOCK.phase(phase):
+                out = alone[phase]()
+            print_phase_seconds()
+            if flag == "--tp":
+                print(json.dumps({"tp_engine_launches": out[1]}))
+            return 0
 
     # 6a. K6 against its plain version at every shape its paths give it,
     # timed on the device first: late in a long run a torch.profiler trace
     # of a short window has come back empty.
-    large = k6_large_leaves()
-    k6_entry = clip_kernel_phase(dev, peak_bytes, large)
+    with CLOCK.phase("k6_checks"):
+        large = k6_large_leaves()
+        k6_entry = clip_kernel_phase(dev, peak_bytes, large)
 
     # 3. The MNIST path (K1): kernel vs plain, the Trainer, K1's timing.
-    max_abs = k1_check_phase(dev, out_root)
-    launches, k1_epoch_ms = mnist_path_phase(out_root)
-    kernels = [k1_timing_phase(dev, out_root, peak_flops, peak_bytes, launches, max_abs)]
+    with CLOCK.phase("mnist"):
+        max_abs = k1_check_phase(dev, out_root)
+        launches, k1_epoch_ms = mnist_path_phase(out_root)
+        kernels = [k1_timing_phase(dev, out_root, peak_flops, peak_bytes, launches, max_abs)]
 
     # 4. The CelebA path (K2-K5).
-    celeba_entries, celeba_step_ms = celeba_phases(dev, out_root, peak_bf16, peak_bytes)
-    kernels += celeba_entries
+    with CLOCK.phase("celeba"):
+        celeba_entries, celeba_step_ms = celeba_phases(dev, out_root, peak_bf16, peak_bytes)
+        kernels += celeba_entries
 
-    # 5. Saves, resume, sample grids, SIGTERM and the evaluation tools.
-    saves_phase(out_root, smi)
+    with CLOCK.phase("build"):
+        sass.check()
+
+    # 5, 11, 13 and 14 in a second smoke process on the card, from here on,
+    # beside 6-10 and 12 in this one (the kernels' times above are taken
+    # with the card to themselves).
+    beside = Beside(out_root)
 
     # 6. The materialized per-sample-gradient paths (K6).
-    kernels.append(clip_phases(dev, out_root, k6_entry, large, k1_epoch_ms, celeba_step_ms))
+    with CLOCK.phase("k6_paths"):
+        kernels.append(clip_phases(dev, out_root, k6_entry, large, k1_epoch_ms,
+                                   celeba_step_ms))
 
     # 7. The D-step engines beside gc (is, tm / sv, no DP).
-    tm_launches = dp_modes_phase(dev, out_root, smi, celeba_step_ms)
+    with CLOCK.phase("engines"):
+        tm_launches = dp_modes_phase(dev, out_root, smi, celeba_step_ms)
     for entry in kernels:
         if entry["name"] in ("gn_relu_forward", "gn_relu_backward"):
             entry["celeba_tm_launches"] = tm_launches[entry["name"] == "gn_relu_backward"]
 
     # 8. The conditional variants (CGAN, WCGAN, unconditional, embedded G).
-    cond = cond_archs_phase(dev, out_root, smi, k1_epoch_ms / (60000 // BS), celeba_step_ms)
+    with CLOCK.phase("variants"):
+        cond = cond_archs_phase(dev, out_root, smi, k1_epoch_ms / (60000 // BS),
+                                celeba_step_ms)
     keys = {"k1_epoch": "K1", "ghost_sq_norms": "K2", "weighted_kernel_grad": "K3",
             "gn_relu_forward": "K4", "gn_relu_backward": "K5",
             "leaves_weighted_sum_noise": "K6"}
@@ -5242,8 +5863,9 @@ def main() -> int:
                                        for path, counts in cond.items()}
 
     # 9. Public data, warmup and adaptive clipping; every kernel at batch 50.
-    public, b50 = public_data_phase(dev, out_root, smi, peak_bf16, peak_bytes,
-                                    k1_epoch_ms / (60000 // BS), celeba_step_ms)
+    with CLOCK.phase("public_data"):
+        public, b50 = public_data_phase(dev, out_root, smi, peak_bf16, peak_bytes,
+                                        k1_epoch_ms / (60000 // BS), celeba_step_ms)
     for entry in kernels:
         k = keys[entry["name"]]
         entry["public_data_launches"] = {run: counts[k] for run, counts in public.items()}
@@ -5252,50 +5874,50 @@ def main() -> int:
 
     # 10. The rest of the DP surface: Poisson, the per-sample and DRAGAN
     # penalties, backprop clipping; K2-K5 at the Poisson buffer.
-    surface, cap_ms = dp_surface_phase(dev, out_root, smi, k1_epoch_ms / (60000 // BS),
-                                       celeba_step_ms)
+    with CLOCK.phase("dp_surface"):
+        surface, cap_ms = dp_surface_phase(dev, out_root, smi, k1_epoch_ms / (60000 // BS),
+                                           celeba_step_ms)
     for entry in kernels:
         k = keys[entry["name"]]
         entry["dp_surface_launches"] = {run: counts[k] for run, counts in surface.items()}
         if k in cap_ms:
             entry[f"b{CAP}_ms"], entry[f"b{CAP}_plain_ms"] = cap_ms[k]
 
-    # 11. Interop: a reference run converted, sampled, scored with Inception
-    # FID and resumed.
-    interop = interop_phase(dev, out_root, smi, peak_flops)
-    for entry in kernels:
-        k = keys[entry["name"]]
-        entry["interop_launches"] = {run: counts.get(k, 0) for run, counts in interop.items()}
-
     # 12. The rest of the single-device surface: -wd, --u8_table, --bf16 and
     # a sub-epoch cadence on MNIST; --group_fakes, the decode-once cache, the
     # host loop and -p on CelebA; K4 at the grouped batch.
-    surface, b640, _ = surface_phase(dev, out_root, smi)
+    with CLOCK.phase("surface"):
+        surface, b640, _ = surface_phase(dev, out_root, smi)
     for entry in kernels:
         k = keys[entry["name"]]
         entry["surface_launches"] = {run: counts[k] for run, counts in surface.items()}
         if k in b640:
             entry[f"b{5 * CB}_ms"], entry[f"b{5 * CB}_plain_ms"] = b640[k]
 
-    # 13. Multi-device training: 2 ranks sharing the card over gloo (CelebA,
-    # replicated and --fsdp; path 1; the MNIST ghost route), 1 rank on NCCL.
-    par = parallel_phase(dev, out_root, smi, peak_bytes)
+    # 5, 11, 13 and 14: the second process's results.
+    with CLOCK.phase("beside"):
+        res = beside.wait()
     for entry in kernels:
         k = keys[entry["name"]]
-        entry["parallel_launches"] = {run: [c[k] for c in by_rank] for run, by_rank in par.items()}
-
-    # 14. The tensor axis: --tp 2 on 2 ranks sharing the card (a CelebA
-    # step against its channel-halves witness, the CelebA flagship's flags
-    # and path 1 for an epoch), dp 2 x tp 2 on 4 ranks (an MNIST step); the
-    # engines' steps and two engine runs.
-    tp, tp_engines = tp_phase(dev, out_root, smi, peak_bytes)
-    for entry in kernels:
-        k = keys[entry["name"]]
-        entry["tp_launches"] = {run: [c[k] for c in by_rank] for run, by_rank in tp.items()}
+        entry["interop_launches"] = {run: counts.get(k, 0)
+                                     for run, counts in res["interop"].items()}
+        entry["parallel_launches"] = {run: [c[k] for c in by_rank]
+                                      for run, by_rank in res["parallel"].items()}
+        entry["tp_launches"] = {run: [c[k] for c in by_rank]
+                                for run, by_rank in res["tp"].items()}
         entry["tp_engine_launches"] = {run: [c[k] for c in by_rank]
-                                       for run, by_rank in tp_engines.items()}
+                                       for run, by_rank in res["tp_engines"].items()}
 
-    # 15. The kernels line; 16. the result line.
+    # Every configuration of the plan was driven (see ``plan``).
+    missing = [(kind, label) for kind, label, argv in plan()
+               if (kind, config_key(argv)) not in CLOCK.driven]
+    print(f"configurations driven: {len(CLOCK.driven)}; the plan's {len(plan())}, "
+          f"{len(missing)} of them not driven")
+    if missing:
+        fail(f"the plan's configurations {missing} were not driven")
+
+    # 15. Where the time went; the kernels line; 16. the result line.
+    print_phase_seconds()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
@@ -5305,9 +5927,5 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) > 2 and sys.argv[1] == "--parallel-rank":
         sys.exit(parallel_rank(sys.argv[2]))
-    own_run()
-    try:
-        rc = main()
-    finally:
-        stop_run_processes()
-    sys.exit(rc)
+    CLOCK = Clock()
+    sys.exit(guarded(main))
