@@ -4652,8 +4652,12 @@ class RankSets:
     """Rank jobs on the card, on sets of ``--multihost`` processes that all
     start at once: each set (ranks, [(name, argv, step payload or None)])
     is ``ranks`` processes (``LOCAL_WORLD_SIZE`` ``ranks``: they share the
-    card) that run its jobs in turn, each for PAR_EPOCHS epochs over a port
-    and an output directory of its own. ``wait()`` returns {job name: (its
+    card) that run its jobs in turn, each for PAR_EPOCHS epochs on a store
+    and in an output directory of its own. Each job's store listens here
+    before any rank exists (``launch.held_store``) and serves until
+    ``wait()`` has reaped every rank; the ranks join it as clients
+    (torchrun's agent store, ``launch.AGENT_STORE_ENV``) at
+    ``--coordinator_address``. ``wait()`` returns {job name: (its
     reports by rank, or with a payload rank 0's saved results; rank 0's
     output directory)}. Each process writes its output to a log beside the
     jobs' reports."""
@@ -4661,21 +4665,18 @@ class RankSets:
     def __init__(self, sets, root):
         import os
 
-        from csl_gan_tpu_torch.parallel.launch import free_port
+        from csl_gan_tpu_torch.parallel import launch
 
-        self.sets, self.procs, self.jobs, ports = sets, [], {}, set()
+        self.sets, self.procs, self.jobs, self.stores = sets, [], {}, []
         self.t0 = time.perf_counter()
         for k, (ranks, jobs) in enumerate(sets):
             dirs = []
             for name, argv, payload in jobs:
                 tag = name.replace(" ", "_").replace("-", "")
                 (root / (tag + "_reports")).mkdir(parents=True, exist_ok=True)
-                port = free_port()
-                while port in ports:            # each job's port its own
-                    port = free_port()
-                ports.add(port)
+                self.stores.append(launch.held_store(ranks))
                 dirs.append((root / tag, root / (tag + "_reports"),
-                             ".pt" if payload else ".json", port))
+                             ".pt" if payload else ".json", self.stores[-1].port))
                 self.jobs[name] = (ranks, payload, dirs[-1])
                 if CLOCK is not None:
                     CLOCK.driven.add(("rank step" if payload else "rank run", config_key(
@@ -4690,7 +4691,8 @@ class RankSets:
                                      "--process_id", str(r)],
                      "report": str(rep / f"rank{r}{ext}"), "payload": payload}
                     for (name, argv, payload), (out, rep, ext, port) in zip(jobs, dirs)]}
-                env = dict(os.environ, LOCAL_WORLD_SIZE=str(ranks), LOCAL_RANK=str(r))
+                env = dict(os.environ, LOCAL_WORLD_SIZE=str(ranks), LOCAL_RANK=str(r),
+                           **launch.AGENT_STORE_ENV)
                 cmd = [sys.executable, str(Path(__file__).resolve()), "--parallel-rank",
                        json.dumps(spec)]
                 log = Path(f"{logs}_rank{r}.log")
@@ -4719,6 +4721,7 @@ class RankSets:
                 if p.poll() is None:
                     os.killpg(p.pid, signal.SIGKILL)
                     p.wait()
+            self.stores.clear()         # every rank has ended
         texts = [log.read_text(errors="replace") for _, _, log, _ in self.procs]
         # The first rank that failed by itself (the others were then killed).
         failed = sorted(((p.returncode == -signal.SIGKILL, i) for i, (*_, p)

@@ -4,11 +4,17 @@
 - ``--mesh_shape N`` on one host: ``world_size`` clamps N to the visible
   devices (JAX ``make_mesh``: ``min(n, len(devices))``; the CPU counts its
   cores), and ``spawn`` starts that many processes, rank r on ``cuda:r`` or,
-  under ``--platform cpu``, on the CPU.
+  under ``--platform cpu``, on the CPU. The ranks meet on a store that the
+  parent holds (``held_store``): it listens before any rank exists, and
+  every rank joins it as a client.
 - ``--multihost``: this process is one rank of ``--num_processes``,
   ``--process_id``, meeting at ``tcp://<--coordinator_address>`` (torchrun's
   ``MASTER_ADDR:MASTER_PORT``, ``WORLD_SIZE`` and ``RANK`` when the flags are
-  absent).
+  absent), where rank 0 hosts the store, as JAX's coordinator does. Under
+  torchrun's agent store (``AGENT_STORE_ENV`` in the environment) the
+  launcher hosts it there instead and rank 0 is a client like the others
+  (``torch.distributed.rendezvous``); a harness that starts ``--multihost``
+  processes holds one so (``held_store``).
 
 The backend (``placement``): NCCL when each rank has a card of its own;
 gloo when the ranks run on the CPU, or when more processes than cards share
@@ -32,10 +38,9 @@ from __future__ import annotations
 import multiprocessing.connection
 import os
 import signal
-import socket
 import threading
 from datetime import timedelta
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -86,12 +91,20 @@ def tensor_axis(opt, world: int) -> int:
     return tp
 
 
-def free_port() -> int:
-    s = socket.socket()
-    s.bind(("localhost", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
+# torchrun's agent-store contract: a --multihost process started with these
+# joins the store at --coordinator_address as a client, rank 0 included.
+AGENT_STORE_ENV = {"TORCHELASTIC_USE_AGENT_STORE": "True", "TORCHELASTIC_RESTART_COUNT": "0"}
+
+
+def held_store(world: int) -> dist.TCPStore:
+    """A store for ``world`` ranks that this process hosts: it listens, on a
+    port the system picks, from the moment it exists, so no other socket
+    can take that port before the ranks join. Its ``port`` goes to the
+    ranks; it serves them while the object lives, so hold it until every
+    rank has ended."""
+    return dist.TCPStore("localhost", 0, world_size=world, is_master=True,
+                         wait_for_workers=False,
+                         timeout=timedelta(seconds=COLLECTIVE_TIMEOUT_S))
 
 
 def _multihost_args(opt):
@@ -124,10 +137,12 @@ def placement(platform, cards: int, local_rank: int,
     return local_rank % cards, "gloo" if shared else "nccl"
 
 
-def init_rank(opt, rank: int, world: int, address: str, local_rank: int,
+def init_rank(opt, rank: int, world: int, meet: Union[str, dist.Store], local_rank: int,
               local_world: Optional[int]) -> MeshContext:
     """Join the process group as ``rank`` of ``world`` and return this
-    rank's MeshContext, on the card and backend ``placement`` gives."""
+    rank's MeshContext, on the card and backend ``placement`` gives.
+    ``meet``: the ``host:port`` of the group's store (``--multihost``), or a
+    client of a store that the launcher already holds (``spawn``)."""
     cards = 0 if opt.platform == "cpu" else visible_devices(opt.platform)
     index, backend = placement(opt.platform, cards, local_rank, local_world)
     if index is None:
@@ -136,8 +151,9 @@ def init_rank(opt, rank: int, world: int, address: str, local_rank: int,
         device = torch.device("cuda", index)
         torch.cuda.set_device(device)
     tp = tensor_axis(opt, world)
-    dist.init_process_group(backend, init_method=f"tcp://{address}", world_size=world,
-                            rank=rank, timeout=timedelta(seconds=COLLECTIVE_TIMEOUT_S))
+    join = {"init_method": f"tcp://{meet}"} if isinstance(meet, str) else {"store": meet}
+    dist.init_process_group(backend, world_size=world, rank=rank,
+                            timeout=timedelta(seconds=COLLECTIVE_TIMEOUT_S), **join)
     data_group = model_group = None
     if tp > 1:
         dp = world // tp
@@ -178,7 +194,9 @@ def init_multihost(opt) -> MeshContext:
 
 
 def _rank_entry(rank: int, world: int, port: int, opt, fn, args) -> None:
-    mesh = init_rank(opt, rank, world, f"localhost:{port}", rank, world)
+    store = dist.TCPStore("localhost", port, world, is_master=False,
+                          timeout=timedelta(seconds=COLLECTIVE_TIMEOUT_S))
+    mesh = init_rank(opt, rank, world, store, rank, world)
     try:
         fn(opt, mesh, *args)
     finally:
@@ -187,11 +205,12 @@ def _rank_entry(rank: int, world: int, port: int, opt, fn, args) -> None:
 
 def spawn(fn, world: int, opt, *args) -> None:
     """Run ``fn(opt, mesh, *args)`` in ``world`` new processes, one rank each,
-    over a localhost port. SIGTERM to this process goes on to every rank. A
-    rank that fails stops the others, and this raises."""
+    meeting on a store that this process holds until every rank has ended.
+    SIGTERM to this process goes on to every rank. A rank that fails stops
+    the others, and this raises."""
     ctx = mp.get_context("spawn")
-    port = free_port()
-    procs = [ctx.Process(target=_rank_entry, args=(r, world, port, opt, fn, args))
+    store = held_store(world)   # the object, not only its port: it serves while it lives
+    procs = [ctx.Process(target=_rank_entry, args=(r, world, store.port, opt, fn, args))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -223,3 +242,4 @@ def spawn(fn, world: int, opt, *args) -> None:
         for p in procs:
             if p.is_alive():
                 p.kill()
+            p.join()

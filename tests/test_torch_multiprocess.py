@@ -3,7 +3,8 @@ csl_gan_tpu_torch.train ... --platform cpu``), the counterpart of the JAX
 package's tests/test_multihost.py, over gloo on the CPU:
 
   - ``--mesh_shape 2`` (two ranks spawned by the CLI) and ``--multihost``
-    over two OS processes meeting at a localhost port: rank 0's saves are
+    over two OS processes meeting on a store that the test holds (torchrun's
+    agent store, ``launch.AGENT_STORE_ENV``): rank 0's saves are
     held to the one-process run's at rtol 1e-3, atol 1e-4 (JAX
     test_multihost.py's bound). The one-process run takes the step runner
     (``--pallas_epoch false``): K1 is the one-device path and draws its
@@ -28,7 +29,7 @@ import time
 import numpy as np
 import pytest
 
-from csl_gan_tpu_torch.parallel.launch import free_port
+from csl_gan_tpu_torch.parallel import launch
 from csl_gan_tpu_torch.training import checkpoint
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -40,9 +41,9 @@ ENV = dict(os.environ, OMP_NUM_THREADS="1",
            PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
 
 
-def _start(argv):
+def _start(argv, env=ENV):
     return subprocess.Popen([sys.executable, "-m", "csl_gan_tpu_torch.train", *argv], cwd=REPO,
-                            env=ENV, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             start_new_session=True)
 
 
@@ -67,10 +68,13 @@ def _run(argv, timeout=120):
 
 
 def _multihost(argv, n=2):
-    port = free_port()
-    return [_start(argv + ["--multihost", "true", "--coordinator_address", f"localhost:{port}",
-                           "--num_processes", str(n), "--process_id", str(i)])
-            for i in range(n)]
+    """(the store the ranks meet on, the ``n`` ``--multihost`` processes).
+    Hold the store until every process has ended."""
+    store = launch.held_store(n)
+    env = dict(ENV, **launch.AGENT_STORE_ENV)
+    return store, [_start(argv + ["--multihost", "true", "--coordinator_address",
+                                  f"localhost:{store.port}", "--num_processes", str(n),
+                                  "--process_id", str(i)], env) for i in range(n)]
 
 
 def _flat(tree, pre=""):
@@ -116,7 +120,8 @@ def test_mesh_shape_matches_one_process(tmp_path, one_process):
 
 def test_multihost_matches_one_process(tmp_path, one_process):
     out = str(tmp_path / "mh")
-    outs = _wait(_multihost(BASE + ["-o", out]))
+    store, procs = _multihost(BASE + ["-o", out])
+    outs = _wait(procs)
     assert "over gloo on the CPU" in outs[0] and "Finished training." not in outs[1]
     _assert_saves_close(_saves(out), _saves(one_process))
 
@@ -143,7 +148,7 @@ def test_fsdp_saves_are_single_device_saves(tmp_path, one_process):
 def test_sigterm_to_one_rank_stops_both_after_the_same_epoch(tmp_path):
     out = str(tmp_path / "term")
     argv = BASE + ["-ne", "400", "--log_every", "96", "--save_every", "1000", "-o", out]
-    procs = _multihost(argv)
+    store, procs = _multihost(argv)
     seen = threading.Event()
     lines = []
 

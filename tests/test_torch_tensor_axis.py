@@ -488,32 +488,24 @@ def _term_run(out):
 def test_sigterm_under_tp_stops_the_ranks_after_one_epoch_and_saves(tmp_path):
     """SIGTERM to a --tp 2 run on 2 spawned ranks: the ranks finish the
     same epoch (the stop flag is all-reduced over the world), rank 0 saves
-    whole leaves and the run exits 0.
-
-    launch.spawn picks its rendezvous port in the parent, and rank 0 binds
-    it only once the ranks have started, seconds later: under the suite's
-    other multi-process tests a connection can take that port meanwhile, and
-    the run then fails at start-up (EADDRINUSE) before any epoch. Such a run
-    is started again (at most twice more); nothing else is."""
-    for attempt in range(3):
-        out = str(tmp_path / f"term{attempt}")
-        p, lines, seen, t = _term_run(out)
-        try:
-            # Epoch 2 within 120 s, or the run's end (it failed at start-up).
-            t_end = time.monotonic() + 120
-            while not seen.wait(0.2) and p.poll() is None and time.monotonic() < t_end:
-                pass
-            if not seen.is_set() and p.poll() is not None:
-                t.join(10)
-                if "EADDRINUSE" in "".join(lines) and attempt < 2:
-                    continue
-            assert seen.is_set(), "".join(lines[-20:])
-            p.send_signal(signal.SIGTERM)
-            p.wait(120)
-        finally:
-            if p.poll() is None:
-                os.killpg(p.pid, signal.SIGKILL)
-        break
+    whole leaves and the run exits 0. The run is started once: its ranks
+    meet on a store that the parent holds before they start
+    (tests/test_torch_rendezvous.py), so no other socket can take its port."""
+    out = str(tmp_path / "term")
+    p, lines, seen, t = _term_run(out)
+    try:
+        # Epoch 2 within 120 s, or the run's end (it failed before it).
+        t_end = time.monotonic() + 120
+        while not seen.wait(0.2) and p.poll() is None and time.monotonic() < t_end:
+            pass
+        if not seen.is_set():
+            t.join(10)          # the whole output of a run that ended before it
+        assert seen.is_set(), "".join(lines[-20:])
+        p.send_signal(signal.SIGTERM)
+        p.wait(120)
+    finally:
+        if p.poll() is None:
+            os.killpg(p.pid, signal.SIGKILL)
     t.join(10)
     text = "".join(lines)
     assert p.returncode == 0, text[-3000:]
