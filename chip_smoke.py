@@ -656,8 +656,8 @@ def mnist_made_once():
     from csl_gan_tpu_torch.data import mnist
     load = functools.lru_cache(maxsize=None)(mnist.load_mnist)
 
-    def copied(data_path, train=True):
-        images, labels = load(data_path, train)
+    def copied(data_path, train=True, download=False):
+        images, labels = load(data_path, train, download)
         return images.copy(), labels.copy()
     with _swapped(((mnist, "load_mnist", copied),)):
         yield
@@ -900,20 +900,7 @@ def mnist_path_phase(out_root):
     if launches != e:
         fail(f"K1 launched {launches} times on the main path, expected {e}")
     ep_ms = [a.elapsed_time(b) for a, b in tr.runner.epoch_events]
-    with open(out_root / "train" / "privacy_log.csv") as fh:
-        eps = [float(r["Epsilon"]) for r in csv.DictReader(fh)]
-    with open(out_root / "train" / "log.csv") as fh:
-        rows = list(csv.DictReader(fh))
-    losses = [float(rows[-1][k]) for k in ("G Adv Loss", "D Adv Loss", "D Real Loss",
-                                           "D Fake Loss", "D Real Aux Loss")]
-    if len(eps) != e or not all(math.isfinite(x) and x > 0 for x in eps):
-        fail(f"bad epsilon column {eps}")
-    if not all(math.isfinite(x) for x in losses):
-        fail(f"non-finite losses {losses}")
-    state_ok = all(torch.isfinite(t).all() for t in tr.state.d_params.values()) and \
-        all(torch.isfinite(t).all() for t in tr.state.g_params.values())
-    if not state_ok:
-        fail("non-finite params after training")
+    eps, losses = mnist_run_checked(tr, e)
     samples = tr.n_batches * BS
     rest = ep_ms[1:] or ep_ms
     k1_epoch_ms = sum(rest) / len(rest)
@@ -923,6 +910,139 @@ def mnist_path_phase(out_root):
           f"{samples * len(rest) / (sum(rest) / 1e3):.0f} samples/s after the first; "
           f"wall {wall:.2f} s; epsilon {eps[-1]:.6f}; losses G {losses[0]:.4f} D {losses[1]:.4f}")
     return launches, k1_epoch_ms
+
+
+def mnist_run_checked(tr, epochs):
+    """(epsilon by epoch, the last logged losses) of an MNIST Trainer's
+    run; fails unless each is finite (epsilon > 0, one an epoch) and so is
+    every param."""
+    import torch
+    out = Path(tr.opt.output_dir)
+    with open(out / "privacy_log.csv") as fh:
+        eps = [float(r["Epsilon"]) for r in csv.DictReader(fh)]
+    with open(out / "log.csv") as fh:
+        rows = list(csv.DictReader(fh))
+    losses = [float(rows[-1][k]) for k in ("G Adv Loss", "D Adv Loss", "D Real Loss",
+                                           "D Fake Loss", "D Real Aux Loss")]
+    if len(eps) != epochs or not all(math.isfinite(x) and x > 0 for x in eps):
+        fail(f"bad epsilon column {eps}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"non-finite losses {losses}")
+    state_ok = all(torch.isfinite(t).all() for t in tr.state.d_params.values()) and \
+        all(torch.isfinite(t).all() for t in tr.state.g_params.values())
+    if not state_ok:
+        fail("non-finite params after training")
+    return eps, losses
+
+
+def write_idx_gz(path, arr) -> None:
+    """``arr`` (uint8) as an IDX file (magic 0x08, ndim), gzipped at level
+    0: stored blocks, which any gzip reader takes, written and read several
+    times faster than at level 1."""
+    import gzip
+    import struct
+    head = struct.pack(">I", 0x0800 | arr.ndim) + struct.pack(f">{arr.ndim}I", *arr.shape)
+    with gzip.open(path, "wb", compresslevel=0) as fh:
+        fh.write(head + arr.astype("uint8").tobytes())
+
+
+def write_mnist_mirror(root: Path, arrays: dict) -> str:
+    """A local MNIST mirror: ``arrays`` ({file name: uint8 array}) as IDX
+    .gz files in a new ``root``. Returns its ``file://`` URL, with the
+    trailing slash that a mirror's URL has."""
+    import shutil
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    for name, arr in arrays.items():
+        write_idx_gz(root / (name + ".gz"), arr)
+    return root.as_uri() + "/"
+
+
+def quantized_mnist() -> dict:
+    """{IDX file name: uint8 array} of the arrays that the MNIST flagship
+    loads (the port's synthetic set where its data path holds no MNIST;
+    under ``mnist_made_once`` the train split comes from its cache), the
+    pixels quantized to uint8 (round(x * 255))."""
+    import numpy as np
+    from csl_gan_tpu_torch import options as toptions
+    from csl_gan_tpu_torch.data import mnist
+    arrays = {}
+    for train, (img, lbl) in mnist._RAW_NAMES.items():
+        x, y = mnist.load_mnist(toptions.MNIST_DEFAULTS["data_path"], train=train)
+        arrays[img] = np.rint(x[..., 0] * 255.0).astype(np.uint8)
+        arrays[lbl] = y.astype(np.uint8)
+    return arrays
+
+
+@timed
+def mnist_download_phase(out_root, smi):
+    """The MNIST flagship (one epoch) under ``--download_mnist`` into an
+    empty data directory, the port's mirrors swapped for two ``file://``
+    URLs: a directory that does not exist, then a mirror written here
+    (``write_mnist_mirror``) from ``quantized_mnist``. Fails unless the four
+    files land in ``<data>/MNIST/raw`` byte for byte, after the missing mirror was tried
+    for each, the Trainer's dataset and device table are the mirror's bytes
+    / 255, K1 launches once and epsilon and the losses are finite."""
+    import shutil
+    import urllib.request
+    import numpy as np
+    import torch
+    from csl_gan_tpu_torch import options as toptions
+    from csl_gan_tpu_torch.data import mnist
+    from csl_gan_tpu_torch.ops import pallas_epoch as pe
+    from csl_gan_tpu_torch.training.loop import Trainer
+
+    t0 = time.perf_counter()
+    root = out_root / "download"
+    names = [n for pair in mnist._RAW_NAMES.values() for n in pair]
+    arrays = quantized_mnist()
+    mirrors = ((root / "no_such_mirror").as_uri() + "/",
+               write_mnist_mirror(root / "mirror", arrays))
+    data = root / "data"
+    shutil.rmtree(data, ignore_errors=True)
+    tried, retrieve = [], urllib.request.urlretrieve
+
+    def recorded(url, *a, **kw):
+        tried.append(url)
+        return retrieve(url, *a, **kw)
+    t_mirror = time.perf_counter() - t0
+    with _swapped(((mnist, "_MIRRORS", mirrors), (urllib.request, "urlretrieve", recorded))):
+        opt = toptions.parse(MNIST_FLAGSHIP + ["-ne", "1", "--log_every", "60000",
+                                               "--manual_seed", "1", "--download_mnist",
+                                               "-d", str(data), "-o", str(root / "train")])
+        tr = Trainer(opt)
+    raw = data / "MNIST" / "raw"
+    want = [m + n + ".gz" for n in names for m in mirrors]
+    if tried != want:
+        fail(f"--download_mnist fetched {tried}, expected {want}")
+    landed = sorted(p.name for p in raw.iterdir()) if raw.is_dir() else []
+    if landed != sorted(n + ".gz" for n in names) or any(
+            (raw / (n + ".gz")).read_bytes() != (root / "mirror" / (n + ".gz")).read_bytes()
+            for n in names):
+        fail(f"--download_mnist left {landed} in {raw}, not the mirror's four files")
+    want_x, want_y = mnist.stratified_subset(
+        arrays[names[0]][..., None].astype(np.float32) / 255.0,
+        arrays[names[1]].astype(np.int64), opt.train_set_size)
+    table = torch.from_numpy(want_x.reshape(len(want_x), -1)).to(tr.table.device)
+    if not (np.array_equal(tr.dataset.images, want_x)
+            and np.array_equal(tr.dataset.labels, want_y)
+            and torch.equal(tr.table[:, :F], table.to(tr.table.dtype))):
+        fail("the Trainer's MNIST rows are not the downloaded files' bytes / 255")
+    pe.epoch_kernel.launches = 0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    tr.run()
+    torch.cuda.synchronize()
+    launches = pe.epoch_kernel.launches
+    if launches != 1:
+        fail(f"K1 launched {launches} times on the downloaded MNIST's epoch, expected 1")
+    eps, losses = mnist_run_checked(tr, 1)
+    print(f"MNIST --download_mnist ({smi}): 4 files from the second of 2 file:// mirrors "
+          f"into {raw.relative_to(out_root)}, {len(tr.dataset)} rows = the mirror's bytes / 255; "
+          f"K1 launches {launches}; epsilon {eps[-1]:.6f}; losses G {losses[0]:.4f} D "
+          f"{losses[1]:.4f}; wall {time.perf_counter() - t0:.2f} s (mirror written "
+          f"{t_mirror:.2f} s, set-up with the download {t1 - t0 - t_mirror:.2f} s, epoch "
+          f"{time.perf_counter() - t1:.2f} s)")
 
 
 @timed
@@ -5513,6 +5633,7 @@ def plan() -> list:
         runs.append((kind, label, list(argv)))
 
     add("Trainer", "MNIST flagship", MNIST_FLAGSHIP)
+    add("Trainer", "MNIST --download_mnist", MNIST_FLAGSHIP + ["--download_mnist", "-d", "DIR"])
     add("Trainer", "CelebA flagship", FLAGSHIP)
     # 5: each flagship 2 epochs with a save every epoch, 1 epoch, then resumed.
     for label, argv in (("MNIST", SAVES_MNIST + ["--sample_every", "60000"]),
@@ -5823,10 +5944,12 @@ def run_phases(torch, out_root) -> int:
         large = k6_large_leaves()
         k6_entry = clip_kernel_phase(dev, peak_bytes, large)
 
-    # 3. The MNIST path (K1): kernel vs plain, the Trainer, K1's timing.
+    # 3. The MNIST path (K1): kernel vs plain, the Trainer, the flagship on
+    # downloaded files, K1's timing.
     with CLOCK.phase("mnist"):
         max_abs = k1_check_phase(dev, out_root)
         launches, k1_epoch_ms = mnist_path_phase(out_root)
+        mnist_download_phase(out_root, smi)
         kernels = [k1_timing_phase(dev, out_root, peak_flops, peak_bytes, launches, max_abs)]
 
     # 4. The CelebA path (K2-K5).

@@ -104,7 +104,8 @@ def n_batches(dataset, batch_size: int) -> int:
 def init_data(opt) -> Tuple[object, Optional[ArrayDataset]]:
     """(training set, public split or None), as the JAX package's init_data
     (data/loader.py:140-174) splits them. The training set: MNIST stratified
-    to train_set_size (reference init_util.py:13-42), or CelebA read from its
+    to train_set_size (reference init_util.py:13-42; both splits fetched
+    first under ``--download_mnist`` when no files are found), or CelebA read from its
     decode-once uint8 cache (``-nw`` decoder threads) with its host
     transform (the JAX Trainer's decode-once path, training/loop.py:87-110);
     under ``--host_loop`` the CelebA dataset itself, which decodes each image
@@ -142,9 +143,11 @@ def init_data(opt) -> Tuple[object, Optional[ArrayDataset]]:
         return decoded(opt.train_set_size, 0, opt.manual_seed + 13), public
     from csl_gan_tpu_torch.data import mnist
 
-    images, labels = mnist.load_mnist(opt.data_path, train=True)
+    download = bool(getattr(opt, "download_mnist", False))
+    images, labels = mnist.load_mnist(opt.data_path, train=True, download=download)
     images, labels = mnist.stratified_subset(images, labels, opt.train_set_size)
     public = None
     if opt.public_set_size > 0:
-        public = ArrayDataset(*mnist.load_mnist(opt.data_path, train=False))
+        public = ArrayDataset(*mnist.load_mnist(opt.data_path, train=False,
+                                                download=download))
     return ArrayDataset(images, labels), public

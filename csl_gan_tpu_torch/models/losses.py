@@ -38,7 +38,7 @@ def softmax_cross_entropy(logits, labels, reduction="mean"):
 
 def _family(family: str):
     if family not in ("vanilla", "wgan"):
-        raise NotImplementedError(f"loss family {family!r} is not ported yet")
+        raise ValueError(family)
     return family == "vanilla"
 
 

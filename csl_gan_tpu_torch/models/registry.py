@@ -38,7 +38,8 @@ def init_models(opt, device: torch.device):
     flag has no effect on the vanilla model, as in the JAX package). Under
     ``--backprop_clip`` the vanilla D gets its per-layer clip levels
     (``bpc_config_for``, which refuses any other model with the JAX
-    package's message)."""
+    package's message). CelebA has no vanilla pair: the JAX package's
+    error."""
     n_classes = opt.n_classes if opt.conditional else 0
     if opt.model == "Vanilla" and opt.dataset == "MNIST":
         G = mnist.MNISTVanillaG(z_dim=opt.g_latent_dim, n_classes=n_classes)
@@ -60,8 +61,10 @@ def init_models(opt, device: torch.device):
                    ref_ps=bool(opt.ref_pixel_shuffle))
         D = d_ctor(n_classes=n_classes, conditional_arch=opt.conditional_arch,
                    dtype=dtype)
+    elif opt.model == "Vanilla":
+        raise Exception("No vanilla architecture for CelebA.")
     else:
-        raise NotImplementedError(f"{opt.dataset}/{opt.model} is not ported yet")
+        raise Exception(f"Unknown dataset/model: {opt.dataset}/{opt.model}")
     gen = torch.Generator().manual_seed(int(opt.weights_seed))
     for m in (G, D):
         for layer in m.modules():

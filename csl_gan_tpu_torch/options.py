@@ -6,9 +6,8 @@ package reads the same. Differences:
 
   - ``--platform {cpu,gpu}`` picks the torch device (default: gpu). There is
     no platform hook: the device is passed explicitly to every entry point.
-  - Every flag whose code path is not ported yet raises
-    ``NotImplementedError`` naming the flag (``check_ported``); the port never
-    ignores a flag silently.
+  - Every flag of the JAX package's options runs its own code path; the
+    port ignores no flag silently.
   - ``--resume_path`` reads the run's ``opt.txt``, written by either package,
     and keeps only the always-kept arguments and those named by ``-ka``
     from the command line (JAX options.py:596-640). ``--platform`` is
@@ -360,21 +359,11 @@ def _k1_path(o) -> bool:
                                            and not _adaptive(o))))
 
 
-# (flag, test on the parsed opt) for every option whose path is not ported:
-# downloading MNIST, which needs the network. Adaptive clipping outside -dpm
-# gc is accepted and, as in the JAX package, read by no step.
-_NOT_PORTED = [
-    ("--download_mnist", lambda o: o.download_mnist),
-]
-
-
-def check_ported(opt) -> None:
-    """Raise NotImplementedError naming the first flag outside the slice,
-    and ValueError when ``--tp`` does not divide the run's ranks
-    (``parallel/launch.tensor_axis``)."""
-    for flag, bad in _NOT_PORTED:
-        if bad(opt):
-            raise NotImplementedError(f"{flag} is not ported yet")
+def check_tensor_axis(opt) -> None:
+    """Raise ValueError when ``--tp`` does not divide the run's ranks
+    (``parallel/launch.tensor_axis``). Every flag of the JAX package's
+    options is ported; adaptive clipping outside -dpm gc is accepted and, as
+    in the JAX package, read by no step."""
     if int(opt.tp or 1) > 1:
         from csl_gan_tpu_torch.parallel.launch import world_size
         world_size(opt, say=False)
@@ -395,7 +384,7 @@ def parse(argv=None) -> Namespace:
             if hasattr(opt, arg):
                 setattr(loaded, arg, getattr(opt, arg))
         loaded.output_dir = opt.resume_path
-        check_ported(loaded)
+        check_tensor_axis(loaded)
         for path in ["samples/", "saves/"]:
             os.makedirs(loaded.output_dir + path, exist_ok=True)
         return loaded
@@ -403,7 +392,7 @@ def parse(argv=None) -> Namespace:
     opt.issv_user_set = opt.imm_sens_scaling_vec is not None
     fill_defaults(opt, MNIST_DEFAULTS if opt.dataset == "MNIST" else CELEBA_DEFAULTS)
     derive_and_validate(opt)
-    check_ported(opt)
+    check_tensor_axis(opt)
     validate_public_data(opt)
 
     if not opt.output_dir:

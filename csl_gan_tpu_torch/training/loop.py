@@ -29,7 +29,6 @@ whole epochs run through a runner, chosen by config:
     derived bounds become the clipping vector; under ``--group_fakes`` a
     segment that starts on a cadence point runs by cadence groups, one G
     forward for each group's fakes.
-Options outside the ported slice are refused by ``options.check_ported``.
 With ``-pss`` the public split lives on the device beside the dataset.
 ``-wi`` runs that many non-private D steps (with their G steps) on public
 rows or mean samples before the first epoch, on the step runner whatever

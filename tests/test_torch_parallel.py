@@ -135,10 +135,13 @@ def test_differentiable_sums_against_one_device_autograd(collective_runs, world)
 @pytest.mark.parametrize("flag,argv", [("--tp", ["--tp", "2"]),
                                        ("--download_mnist", ["--download_mnist"])])
 def test_still_refused(tmp_path, monkeypatch, flag, argv):
-    """--download_mnist is refused by name. The tensor axis is ported: --tp 2
-    parses over 2 ranks, and a tp that does not divide the ranks raises
-    ValueError (JAX ``make_mesh``); no engine is refused under it
-    (tests/test_torch_tensor_axis_engines.py)."""
+    """Both flags that were once refused are ported, and nothing is refused
+    any more (the refusal list is gone). The tensor axis: --tp 2 parses over
+    2 ranks, and a tp that does not divide the ranks raises ValueError (JAX
+    ``make_mesh``); no engine is refused under it
+    (tests/test_torch_tensor_axis_engines.py). --download_mnist parses on a
+    data path and, over 2 ranks, stays off K1's gate as every 2-rank run
+    does (tests/test_torch_download.py fetches with it)."""
     base = ["MNIST", "--platform", "cpu", "-o", str(tmp_path)]
     if flag == "--tp":
         monkeypatch.setattr(launch.os, "cpu_count", lambda: 4)
@@ -147,9 +150,13 @@ def test_still_refused(tmp_path, monkeypatch, flag, argv):
         with pytest.raises(ValueError, match="--tp 2 must divide the mesh size 3"):
             toptions.parse(base + ["--mesh_shape", "3"] + argv)
     else:
-        with pytest.raises(NotImplementedError, match=flag):
-            toptions.parse(base + argv)
-    assert [f for f, _ in toptions._NOT_PORTED] == ["--download_mnist"]
+        monkeypatch.setattr(launch.os, "cpu_count", lambda: 4)
+        opt = toptions.parse(base + ["-d", str(tmp_path / "data")] + argv)
+        assert opt.download_mnist and opt.data_path == str(tmp_path / "data") + "/"
+        opt = toptions.parse(base + ["--mesh_shape", "2"] + argv)
+        assert opt.download_mnist and launch.world_size(opt) == 2
+        assert not toptions._k1_path(opt)
+    assert not hasattr(toptions, "_NOT_PORTED")
 
 
 @pytest.mark.parametrize("argv,ranks", [([], 1), (["--mesh_shape", "1"], 1),

@@ -381,3 +381,42 @@ def test_every_engine_step_of_phase_14_has_a_rank_set():
     sets = [name for names in cs.TP_STEP_SETS for name in names]
     assert sorted(sets) == sorted(["CelebA tp step"] + [f"{n} tp step"
                                                         for n, _, _ in cs.TP_ENGINE_STEPS])
+
+
+def test_the_download_configuration_is_planned():
+    """The download configuration: the MNIST flagship under
+    --download_mnist on a data directory of its own, once in the plan."""
+    planned = [(kind, cs.config_key(argv)) for kind, _, argv in cs.plan()]
+    want = ("Trainer", cs.config_key(cs.MNIST_FLAGSHIP + ["--download_mnist", "-d", "x", "-ne",
+                                                          "1", "--log_every", "60000"]))
+    assert planned.count(want) == 1
+    assert [k for k in planned if ("download_mnist", "True") in k[1]] == [want]
+
+
+def test_the_smoke_mirror_is_what_the_loader_downloads(tmp_path, monkeypatch):
+    """``write_mnist_mirror`` of ``quantized_mnist`` (the synthetic set cut
+    to a thousandth here) writes IDX files that the port's loader fetches,
+    behind a missing mirror, and reads as the quantized pixels / 255 and
+    the labels."""
+    import numpy as np
+    from csl_gan_tpu_torch import options as toptions
+    from csl_gan_tpu_torch.data import mnist
+
+    names = ("train-images-idx3-ubyte", "train-labels-idx1-ubyte",
+             "t10k-images-idx3-ubyte", "t10k-labels-idx1-ubyte")
+    synthetic = mnist.synthetic_mnist
+    monkeypatch.setattr(mnist, "synthetic_mnist", lambda n, seed: synthetic(n // 1000, seed))
+    monkeypatch.setitem(toptions.MNIST_DEFAULTS, "data_path", str(tmp_path / "none") + "/")
+    arrays = cs.quantized_mnist()
+    assert sorted(arrays) == sorted(names)
+    url = cs.write_mnist_mirror(tmp_path / "mirror", arrays)
+    assert url == (tmp_path / "mirror").as_uri() + "/"
+    monkeypatch.setattr(mnist, "_MIRRORS", ((tmp_path / "none").as_uri() + "/", url))
+    for train, seed, (img, lbl) in ((True, 0, names[:2]), (False, 1, names[2:])):
+        x, y = mnist.load_mnist(str(tmp_path / "data"), train=train, download=True)
+        sx, sy = synthetic(len(x), seed)
+        assert np.array_equal(x, np.rint(sx * 255.0).astype(np.uint8) / np.float32(255.0))
+        assert np.array_equal(y, sy) and np.array_equal(y, arrays[lbl])
+        assert x.shape == (60 if train else 10, 28, 28, 1) and arrays[img].dtype == np.uint8
+    assert sorted(p.name for p in (tmp_path / "data" / "MNIST" / "raw").iterdir()) == \
+        sorted(n + ".gz" for n in names)

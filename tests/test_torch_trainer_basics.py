@@ -146,7 +146,7 @@ def test_no_platform_without_cuda_raises(tmp_path, monkeypatch):
     (["--aux_loss_type", "wasserstein"], "--aux_loss_type"),
     (["-bs", "20"], "--batch_size"),
 ])
-def test_unported_flags_raise(tmp_path, extra, flag):
+def test_unported_flags_raise(tmp_path, monkeypatch, extra, flag):
     """Each unported flag raises naming itself. The flags that a later slice
     ported keep their cases, which now hold the lifted behaviour: on this
     config adaptive clipping (no public data, no mean samples) and mean
@@ -164,7 +164,10 @@ def test_unported_flags_raise(tmp_path, extra, flag):
     two ranks and leaves K1's gate (the JAX gate's one device), ``--fsdp``
     alone and ``--multihost`` of one process ask for one (K1's gate reads
     the world ``--multihost``'s arguments give); ``--tp 2`` on one rank is
-    clamped to it (JAX ``make_mesh``) and stays on K1's path."""
+    clamped to it (JAX ``make_mesh``) and stays on K1's path.
+    ``--download_mnist`` stays on K1's path, and its Trainer fetches: with no
+    mirror answering it raises the JAX package's RuntimeError and never
+    trains on the synthetic set (tests/test_torch_download.py fetches)."""
     argv = TINY + extra + ["--platform", "cpu", "-o", str(tmp_path)]
     if flag not in LIFTED:
         with pytest.raises(NotImplementedError, match=flag):
@@ -185,6 +188,14 @@ def test_unported_flags_raise(tmp_path, extra, flag):
     if flag in SURFACE:
         tr = Trainer(opt)
         assert isinstance(tr.runner, EpochsRunner) == (flag not in OFF_K1 + ("--host_loop",))
+    if flag == "--download_mnist":
+        from csl_gan_tpu_torch.data import mnist
+        monkeypatch.setattr(mnist, "_MIRRORS", ((tmp_path / "no_mirror").as_uri() + "/",))
+        data = tmp_path / "data"
+        with pytest.raises(RuntimeError, match="--download_mnist") as err:
+            Trainer(toptions.parse(argv + ["-d", str(data)]))
+        assert "no_mirror/train-images-idx3-ubyte.gz" in str(err.value)
+        assert os.listdir(data / "MNIST" / "raw") == []
     if flag == "--ref_pixel_shuffle":
         states = []
         for tag, args in (("with", argv), ("without", TINY + ["--platform", "cpu"])):
@@ -208,7 +219,8 @@ LIFTED = {"--grad_clip_mode": "Adaptive clipping derives its thresholds",
           "--weight_decay": None, "--u8_table": None, "--host_loop": None, "--bf16": None,
           "--group_fakes": None, "--profile_training": None, "--log_every": None,
           "--aux_loss_type": "Cross entropy loss is the only aux loss supported for vanilla",
-          "--fsdp": None, "--mesh_shape": None, "--multihost": None, "--tp": None}
+          "--fsdp": None, "--mesh_shape": None, "--multihost": None, "--tp": None,
+          "--download_mnist": None}
 # The lifted cases that parse but leave K1's gate.
 OFF_K1 = ("--batch_size", "--poisson", "--backprop_clip", "--weight_decay", "--bf16",
           "--u8_table", "--mesh_shape")
@@ -232,33 +244,56 @@ def test_pallas_true_on_the_cpu_is_reproducible(tmp_path):
 
 
 def test_not_ported_names_only_unported_flags():
-    """The flags of STEP_RUNNER_FLAGS and the conditional variants are off
-    the refusal list; the options still outside the port are on it."""
-    names = [flag for flag, _ in toptions._NOT_PORTED]
-    # The lifted flags run on one device, on the data axis and (below) on
-    # the tensor axis.
-    one_axis = names
+    """Nothing is left outside the port: the refusal list is gone, the
+    port's parser takes every option of the JAX package's, and no module of
+    the port refuses anything as not ported (``NotImplementedError`` with
+    "not ported" in its message) or by a flag's name. The flags of
+    STEP_RUNNER_FLAGS, the conditional variants and every later slice run
+    on one device, on the data axis and on the tensor axis."""
+    import ast
+    import pathlib
+
+    from csl_gan_tpu import options as joptions
+
+    assert not hasattr(toptions, "_NOT_PORTED")
+
+    def options_of(parser):
+        return {o for a in parser._actions for o in a.option_strings}
+    port = options_of(toptions.build_parser())
+    assert options_of(joptions.build_parser()) <= port
     for lifted in ("--pallas", "--per_sample_chunk", "--grad_clip_split", "--conv_ghost",
                    "--clipping_param_per_layer", "--n_d_steps", "--train_d_until_threshold",
-                   "--resume_path", "--dp_mode", "DeepConvResNet", "unconditional",
-                   "WCGAN", "--conditional_arch", "--g_label_emb_mode"):
-        assert not any(lifted in n for n in one_axis), lifted
-    for lifted in ("--public_set_size", "--warmup_iter", "--stop_on_g_freeze",
-                   "--batch_size", "--num_mean_samples"):
-        assert not any(lifted in n for n in one_axis), lifted
-    for lifted in ("--poisson", "-pupd", "DRAGAN", "--backprop_clip", "--penalty",
-                   "--ref_pixel_shuffle"):
-        assert not any(lifted in n for n in one_axis), lifted
-    for lifted in ("adaptive", "--weight_decay", "--group_fakes", "--u8_table",
+                   "--resume_path", "--dp_mode", "--conditional_arch", "--g_label_emb_mode",
+                   "--public_set_size", "--warmup_iter", "--stop_on_g_freeze", "--batch_size",
+                   "--num_mean_samples", "--poisson", "--backprop_clip", "--penalty",
+                   "--ref_pixel_shuffle", "--weight_decay", "--group_fakes", "--u8_table",
                    "--host_loop", "--bf16", "--profile_training", "--log_every",
-                   "--sample_every", "--aux_loss_type", "--n_classes"):
-        assert not any(lifted in n for n in one_axis), lifted
-    for lifted in ("--fsdp", "--mesh_shape", "--multihost"):
-        assert not any(lifted in n for n in one_axis), lifted
-    # The tensor axis is ported with every engine on it
-    # (tests/test_torch_tensor_axis_engines.py): only the download is left.
-    assert "--tp" not in names
-    assert names == ["--download_mnist"]
+                   "--sample_every", "--aux_loss_type", "--fsdp",
+                   "--mesh_shape", "--multihost", "--tp", "--download_mnist"):
+        assert lifted in port, lifted
+    root = pathlib.Path(toptions.__file__).parent
+    refusals = []
+    for path in sorted(root.rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Raise) and node.exc is not None:
+                text = ast.unparse(node.exc)
+                if "NotImplementedError" in text and ("not ported" in text or "--" in text):
+                    refusals.append(f"{path.relative_to(root)}:{node.lineno}")
+    assert refusals == []
+
+
+def test_celeba_vanilla_is_the_jax_error(tmp_path):
+    """``CelebA --model Vanilla`` parses in both packages, and building its
+    models raises the JAX package's config error, not a refusal."""
+    from csl_gan_tpu import options as joptions
+    from csl_gan_tpu.models.registry import init_models as jax_init_models
+    args = ["CelebA", "--model", "Vanilla", "-tss", "128", "-o", str(tmp_path)]
+    for build in (lambda: jax_init_models(joptions.parse(args)),
+                  lambda: init_models(toptions.parse(args + ["--platform", "cpu"]),
+                                      torch.device("cpu"))):
+        with pytest.raises(Exception, match="No vanilla architecture for CelebA") as err:
+            build()
+        assert not isinstance(err.value, NotImplementedError)
 
 
 def test_celeba_raises(tmp_path):
