@@ -1,0 +1,7 @@
+"""K4's share of its roofline in the profiled stretch (%)."""
+
+from harness import readers
+
+
+def read(run):
+    return readers.roofline_pct(run, "k4")
